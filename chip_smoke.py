@@ -1,33 +1,65 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (`concrete_ntt_tpu_torch`) on one GPU.
 
-Drives the port's main path, `native64.Plan32(2^14).negacyclic_polymul` on
-planar (lo, hi) uint32 limbs at batch 8, through the hand-written kernels
-K1a (`fwd_wide_multi`) and K1b (`inv_multi`) of `csrc/mxu32_multi.cu`.
+Drives the port's paths through their hand-written CUDA kernels:
+  * native64: `native64.Plan32(2^14).negacyclic_polymul` on planar (lo, hi)
+    uint32 limbs at batch 8, through K1a (`fwd_wide_multi`) and K1b
+    (`inv_multi`) of `csrc/mxu32_multi.cu`;
+  * prime32: `prime32.Plan(n, p).negacyclic_polymul` in the three prime
+    regimes (lt30, lt31, generic), through K2 (four-step `fwd` / `inv`,
+    2048 <= n <= 2^15, p >= 2^26) of `csrc/mxu32_pass.cu` and K4 (butterfly
+    `fwd` / `inv`, n < 2048 or p < 2^26) of `csrc/butterfly32.cu`;
+  * rank-local passes: K3 (`pass_matmod`, `csrc/mxu32_pass.cu`) as the
+    sharded four-step's local sections call it (the JAX package's
+    `parallel/fourstep_mxu.py`: a column pass with the rank's diagonal
+    rows, the all-to-all, a row pass), with R = 4 ranks held on one card
+    and the all-to-all done as slices and concatenations.
 
-Phases, one line each, stopping with a non-zero exit at the first failure:
+Phases, one line each (or a few), stopping with a non-zero exit at the first
+failure:
   1. device  — needs torch.cuda.is_available(); prints nvidia-smi's name and
                power limit.
-  2. build   — compiles the kernels from the checkout's sources with nvcc.
+  2. build   — compiles every kernel source from the checkout with nvcc, one
+               process per source, all started together; prints ptxas's
+               lines.
   3. parity  — each kernel against its plain torch version on the card,
-               exact equality, at (n, B) = (2^14, 8), (2^14, 5), (2^11, 3),
-               (2^15, 2); K1a with 1 and 2 limbs, K1b unscaled and scaled.
-  4. main    — three polymuls with fresh operands on the card; each equals
-               the CPU plain path bit for bit, row 0 equals the numpy
-               wrapping oracle, and the launch counters rise by exactly 2
-               (K1a) and 1 (K1b) per call.
-  5. times   — CUDA events, warm-up then the median of reps, at n = 2^14,
-               B = 8: K1a, K1b, their plain versions, the whole polymul.
-Then one JSON line per kernel summary, the nvidia-smi line, and last
+               exact equality: K1a/K1b at (n, B) = (2^14, 8), (2^14, 5),
+               (2^11, 3), (2^15, 2); K2 fwd, fwd_wide, inv (unscaled and
+               scaled) at (2^14, 16), (2^14, 3), (2^15, 2) and at n in
+               {2048, 4096, 8192}, B in {16, 3}; K3 pass_matmod (A scaled
+               with 1 and 2 limbs, F, G scaled, Ainv plain and scaled, a
+               row slice with rank-local diagonals) at the same mid sizes;
+               all of K2/K3 for the three bench primes; K4 fwd / inv at n in
+               {2, 32, 256, 1024, 2^14, 2^15}, B in {16, 9}, in each regime,
+               and with p = 67043329 at 2^14 and 2^15.
+  4. main    — native64: three polymuls on the card == CPU plain path ==
+               numpy wrapping oracle (row 0); K1a +2, K1b +1 per call.
+               prime32: Plan(2^14, p) polymul at B = 16 for each bench prime
+               == CPU plain path, and inv(fwd(x)) == n·x mod p (K2 +2 fwd
+               +1 inv per polymul, also at n = 4096); Plan(1024,
+               1073479681) polymul, row 0 == the schoolbook oracle (K4 +2
+               fwd +1 inv); the README vector N = 32, p = 1062862849, round
+               trip. Rank-local passes: fwd and inv at n = 4096, B = 16 for
+               each bench prime == CPU plain path, and inv(fwd(x)) == n·x
+               (K3 +2R passes a transform). Each path's launch counters
+               are set to 0 just before it and read just after.
+  5. times   — CUDA events, warm-up then the median of reps, each kernel
+               beside its plain version, and the polymuls in products/s.
+Then one JSON line of kernel summaries, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
+`--profile` adds, before the JSON lines, a torch.profiler breakdown of the
+prime32 polymul at B = 16 (n = 2^14 per regime, 4096, 1024): host-clock ms,
+device busy ms and share, matmod_pass / butterfly device ms, and device
+kernels and aten ops per polymul.
 Inputs come from numpy's default_rng(--seed); the script imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import statistics
@@ -39,12 +71,27 @@ import numpy as np
 import torch
 
 N_MAIN, B_MAIN = 1 << 14, 8
+N32, B32 = 1 << 14, 16
 REPS = 20
 PARITY_SHAPES = ((1 << 14, 8), (1 << 14, 5), (1 << 11, 3), (1 << 15, 2))
-SOURCE = "concrete_ntt_tpu_torch/csrc/mxu32_multi.cu"
-REPLACES = {
-    "fwd_wide_multi": "concrete_ntt_tpu/ops/mxu32_pallas.py:367",
-    "inv_multi": "concrete_ntt_tpu/ops/mxu32_pallas.py:398",
+K3_SIZES, K3_BATCHES = (2048, 4096, 8192), (16, 3)
+K2_SHAPES = ((1 << 14, 16), (1 << 14, 3), (1 << 15, 2)) + tuple(
+    (n, b) for n in K3_SIZES for b in K3_BATCHES)
+RANKS = 4  # ranks of the rank-local pass path, held on one card
+K4_SIZES, K4_BATCHES = (2, 32, 256, 1024, 1 << 14, 1 << 15), (16, 9)
+BENCH_PRIMES = {"lt30": 1073479681, "lt31": 2147352577, "generic": 4293918721}
+SMALL_P = 67043329  # < 2^26: the butterfly kernel at every n
+MULTI_SRC = "concrete_ntt_tpu_torch/csrc/mxu32_multi.cu"
+PASS_SRC = "concrete_ntt_tpu_torch/csrc/mxu32_pass.cu"
+BFLY_SRC = "concrete_ntt_tpu_torch/csrc/butterfly32.cu"
+KERNELS = {  # JSON name -> (source, TPU kernel replaced)
+    "fwd_wide_multi": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:367"),
+    "inv_multi": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:398"),
+    "fwd": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:35"),
+    "inv": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:35"),
+    "pass_matmod": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:687"),
+    "butterfly32_fwd": (BFLY_SRC, "concrete_ntt_tpu/ops/pallas32.py:115"),
+    "butterfly32_inv": (BFLY_SRC, "concrete_ntt_tpu/ops/pallas32.py:115"),
 }
 
 
@@ -74,9 +121,82 @@ def median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def profile_polymul(fn, reps: int = 10) -> dict:
+    """Per-call breakdown of fn(): host-clock ms (perf_counter around reps
+    synchronized calls, no profiler), then under torch.profiler the device
+    busy ms (device events: kernels and copies), the device ms of the GEMM
+    pass (matmod_pass) and butterfly (ntt_radix2) kernels, and the counts
+    of device events and aten ops (nested ones included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = kern = 0.0
+    n_dev = n_aten = 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = ev.time_range.elapsed_us()
+            busy += us
+            n_dev += 1
+            if "matmod_pass" in ev.name or "ntt_radix2" in ev.name:
+                kern += us
+        elif ev.name.startswith("aten::"):
+            n_aten += 1
+    busy_ms = busy / 1e3 / reps
+    return {"host_ms": host_ms, "busy_ms": busy_ms, "busy_share": busy_ms / host_ms,
+            "kernel_ms": kern / 1e3 / reps, "device_events": n_dev / reps,
+            "aten_ops": n_aten / reps}
+
+
+def rank_local_fwd(pass_matmod, x, diag, *, n, n1, n2, p):
+    """Forward NTT [B, n] -> [B, n] (bit-reversed) as the sharded
+    four-step's ranks compute it: rank r holds columns r*c.. of [B, n1, n2]
+    and runs the column pass A with its rows of the diagonal d; the
+    all-to-all gives rank q outputs q*c1.. of every rank; each runs the row
+    pass F on its rows."""
+    b = x.shape[0]
+    c, c1 = n2 // RANKS, n1 // RANKS
+    xv = x.reshape(b, n1, n2)
+    ys = [pass_matmod(xv[:, :, r * c:(r + 1) * c].transpose(1, 2).contiguous(), n=n, p=p,
+                      which="A", diag_slices=tuple(t[r * c:(r + 1) * c] for t in diag))
+          for r in range(RANKS)]  # [B, c, n1] each
+    outs = [pass_matmod(torch.cat([y[:, :, q * c1:(q + 1) * c1] for y in ys], dim=1)
+                        .transpose(1, 2).contiguous(), n=n, p=p, which="F")
+            for q in range(RANKS)]  # [B, c1, n2] each
+    return torch.cat(outs, dim=1).reshape(b, n)
+
+
+def rank_local_inv(pass_matmod, x, diag, *, n, n1, n2, p):
+    """The mirror: rank q holds rows q*c1.. of the NTT domain, runs the row
+    pass G with its rows of the diagonal e, the all-to-all regroups by
+    columns, and each rank runs the column pass Ainv (unnormalized)."""
+    b = x.shape[0]
+    c, c1 = n2 // RANKS, n1 // RANKS
+    xv = x.reshape(b, n1, n2)
+    ys = [pass_matmod(xv[:, q * c1:(q + 1) * c1].contiguous(), n=n, p=p, which="G",
+                      diag_slices=tuple(t[q * c1:(q + 1) * c1] for t in diag))
+          for q in range(RANKS)]  # [B, c1, n2] each
+    outs = [pass_matmod(torch.cat([y[:, :, r * c:(r + 1) * c] for y in ys], dim=1)
+                        .transpose(1, 2).contiguous(), n=n, p=p, which="Ainv").transpose(1, 2)
+            for r in range(RANKS)]  # [B, n1, c] each
+    return torch.cat(outs, dim=2).reshape(b, n)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=2024)
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile the prime32 polymul (torch.profiler)")
     args = ap.parse_args()
 
     # -- 1. device ------------------------------------------------------------
@@ -85,9 +205,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from concrete_ntt_tpu_torch import native64
-    from concrete_ntt_tpu_torch.golden.polymul import negacyclic_convolution_wrapping_np
-    from concrete_ntt_tpu_torch.ops import cuda_build, mxu32_cuda
+    from concrete_ntt_tpu_torch import native64, prime32
+    from concrete_ntt_tpu_torch.golden.polymul import (
+        negacyclic_convolution_mod,
+        negacyclic_convolution_wrapping_np,
+    )
+    from concrete_ntt_tpu_torch.ops import butterfly32_cuda as bcu
+    from concrete_ntt_tpu_torch.ops import cuda_build, mxu32, mxu32_cuda
     from concrete_ntt_tpu_torch.ops.u32 import limbs_to_np_u64, to_i64
     from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
 
@@ -102,46 +226,116 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    so = cuda_build.build("mxu32_multi")
-    mxu32_cuda._lib()
-    with open(so[:-3] + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "Compiling entry" in ln]
-    print(f"build: {os.path.relpath(so)} in {time.perf_counter() - t0:.1f} s; "
-          + " | ".join(ptxas), flush=True)
+    with concurrent.futures.ThreadPoolExecutor(len(cuda_build.SOURCES)) as pool:
+        sos = list(pool.map(cuda_build.build, cuda_build.SOURCES))
+    mxu32_cuda._lib(), mxu32_cuda._pass_lib(), bcu._lib()
+    print(f"build: {len(sos)} sources in {time.perf_counter() - t0:.1f} s", flush=True)
+    for so in sos:
+        with open(so[:-3] + ".log") as f:
+            ptxas = [ln.strip() for ln in f
+                     if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
+        print(f"build: {os.path.relpath(so)}: " + " | ".join(ptxas), flush=True)
+
+    def counts() -> dict:
+        return {**mxu32_cuda.LAUNCHES, **{f"butterfly32_{k}": v for k, v in bcu.LAUNCHES.items()}}
+
+    def reset_counts() -> None:
+        mxu32_cuda.reset_launch_counts()
+        bcu.reset_launch_counts()
 
     # -- 3. parity --------------------------------------------------------------
     rng = np.random.default_rng(args.seed)
-    u32 = lambda shape: torch.from_numpy(
-        rng.integers(0, 1 << 32, shape, dtype=np.uint32)).to(dev)
-    max_err = {"fwd_wide_multi": 0, "inv_multi": 0}
+    u32 = lambda shape, hi=1 << 32: torch.from_numpy(
+        rng.integers(0, hi, shape, dtype=np.uint32)).to(dev)
+    max_err = {k: 0 for k in KERNELS}
+    checks = {k: 0 for k in KERNELS}
 
     def compare(name: str, got, want, what: str) -> None:
         torch.cuda.synchronize()
-        err = int((to_i64(got) - to_i64(want)).abs().max().item())
+        require(got.shape == want.shape,
+                f"parity: {name} {what} shape {tuple(got.shape)} != {tuple(want.shape)}")
+        err = int((to_i64(got) - to_i64(want)).abs().max().item()) if got.numel() else 0
         max_err[name] = max(max_err[name], err)
-        require(got.shape == want.shape and err == 0,
-                f"parity: {name} {what} differs from its plain version (max |err| {err})")
+        checks[name] += 1
+        require(err == 0, f"parity: {name} {what} differs from its plain version "
+                          f"(max |err| {err})")
 
     t0 = time.perf_counter()
-    checks = 0
     for n, b in PARITY_SHAPES:
         limbs = (u32((b, n)), u32((b, n)))
         for nl in (1, 2):
             compare("fwd_wide_multi", mxu32_cuda.fwd_wide_multi(limbs[:nl], PRIMES),
                     mxu32_cuda.fwd_wide_multi_plain(limbs[:nl], PRIMES),
                     f"n={n} B={b} limbs={nl}")
-            checks += 1
         x = u32((len(PRIMES), b, n))
         scaled = tuple(pow(n, p - 2, p) * pow(2, 32, p) % p for p in PRIMES)
         for scales in ((1,) * len(PRIMES), scaled):
             compare("inv_multi", mxu32_cuda.inv_multi(x, PRIMES, scales),
                     mxu32_cuda.inv_multi_plain(x, PRIMES, scales),
                     f"n={n} B={b} scaled={scales != (1,) * len(PRIMES)}")
-            checks += 1
-    print(f"parity: {checks} kernel-vs-plain checks exact at (n, B) in {PARITY_SHAPES} "
-          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"parity: K1a/K1b {checks['fwd_wide_multi'] + checks['inv_multi']} checks exact "
+          f"at (n, B) in {PARITY_SHAPES} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # -- 4. main path -----------------------------------------------------------
+    t0 = time.perf_counter()
+    for p in BENCH_PRIMES.values():
+        for n, b in K2_SHAPES:
+            limbs = (u32((b, n)), u32((b, n)))
+            compare("fwd", mxu32_cuda.fwd(limbs[0], n=n, p=p),
+                    mxu32_cuda.fwd_plain(limbs[0], n=n, p=p), f"p={p} n={n} B={b}")
+            compare("fwd", mxu32_cuda.fwd_wide(limbs, n=n, p=p),
+                    mxu32_cuda.fwd_wide_plain(limbs, n=n, p=p), f"p={p} n={n} B={b} 2 limbs")
+            x = u32((b, n))
+            for s in (1, pow(n, p - 2, p) * pow(2, 32, p) % p):
+                compare("inv", mxu32_cuda.inv(x, n=n, p=p, scale=s),
+                        mxu32_cuda.inv_plain(x, n=n, p=p, scale=s),
+                        f"p={p} n={n} B={b} scale={s}")
+    print(f"parity: K2 fwd {checks['fwd']}, inv {checks['inv']} checks exact at (n, B) in "
+          f"{K2_SHAPES} x p in {tuple(BENCH_PRIMES.values())} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    for p in BENCH_PRIMES.values():
+        for n in K3_SIZES:
+            tbl = mxu32._mxu_tables(n, p)
+            n1, n2 = tbl["n1"], tbl["n2"]
+            d = tuple(torch.from_numpy(a).to(dev) for a in tbl["d"])  # [n2, n1]
+            e = tuple(torch.from_numpy(a).to(dev) for a in tbl["e"])  # [n1, n2]
+            sc = pow(n, p - 2, p) * pow(2, 32, p) % p
+            for b in K3_BATCHES:
+                xa = (u32((b, n2, n1)), u32((b, n2, n1)))
+                cases = [
+                    ("A", xa[0], d, 1, 1), ("A", xa, d, 2, 1),
+                    ("F", u32((b, n1, n2)), (), 1, 1), ("G", u32((b, n1, n2)), e, 1, 1),
+                    ("Ainv", u32((b, n2, n1)), (), 1, 1), ("Ainv", u32((b, n2, n1)), (), 1, sc),
+                    ("A", u32((b, n2 // 2, n1)), tuple(t[n2 // 4: n2 // 4 + n2 // 2] for t in d),
+                     1, 1),  # a rank-local row slice
+                ]
+                for which, x, dg, nl, s in cases:
+                    kw = dict(n=n, p=p, which=which, diag_slices=dg, n_limbs=nl, scale=s)
+                    compare("pass_matmod", mxu32_cuda.pass_matmod(x, **kw),
+                            mxu32_cuda.pass_matmod_plain(x, **kw),
+                            f"p={p} n={n} B={b} {which} limbs={nl} scale={s} rows={x[0].shape[1] if nl > 1 else x.shape[1]}")
+    print(f"parity: K3 {checks['pass_matmod']} checks exact at n in {K3_SIZES}, B in "
+          f"{K3_BATCHES}, p in {tuple(BENCH_PRIMES.values())} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    k4_cases = [(p, n) for p in BENCH_PRIMES.values() for n in K4_SIZES]
+    k4_cases += [(SMALL_P, 1 << 14), (SMALL_P, 1 << 15)]
+    for p, n in k4_cases:
+        plan = prime32.Plan.new(n, p)
+        kw = dict(p=p, variant=plan.variant, p_neginv=plan.p_neginv)
+        for b in K4_BATCHES:
+            x = u32((b, n), p)
+            compare("butterfly32_fwd", bcu.try_fwd(x, plan._tbl, **kw),
+                    bcu.fwd_plain(x, plan._tbl, **kw), f"p={p} n={n} B={b}")
+            compare("butterfly32_inv", bcu.try_inv(x, plan._tbl, **kw),
+                    bcu.inv_plain(x, plan._tbl, **kw), f"p={p} n={n} B={b}")
+    print(f"parity: K4 fwd {checks['butterfly32_fwd']}, inv {checks['butterfly32_inv']} checks "
+          f"exact at n in {K4_SIZES}, B in {K4_BATCHES}, three regimes, and p={SMALL_P} at "
+          f"2^14, 2^15 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 4. main paths ------------------------------------------------------------
     plan = native64.Plan32.try_new(N_MAIN)
     operands = [
         tuple(rng.integers(0, 1 << 64, (B_MAIN, N_MAIN), dtype=np.uint64) for _ in range(2))
@@ -153,16 +347,17 @@ def main() -> int:
     )
     on_card = [tuple(tuple(t.to(dev) for t in planar(a)) for a in pair) for pair in operands]
     torch.cuda.synchronize()
-    mxu32_cuda.reset_launch_counts()
+    reset_counts()
     outs = []
     for lhs, rhs in on_card:
-        before = dict(mxu32_cuda.LAUNCHES)
+        before = counts()
         outs.append(plan.negacyclic_polymul(lhs, rhs))
-        require(mxu32_cuda.LAUNCHES["fwd_wide_multi"] - before["fwd_wide_multi"] == 2
-                and mxu32_cuda.LAUNCHES["inv_multi"] - before["inv_multi"] == 1,
-                f"main: launch counts moved {before} -> {mxu32_cuda.LAUNCHES}")
+        after = counts()
+        require(after["fwd_wide_multi"] - before["fwd_wide_multi"] == 2
+                and after["inv_multi"] - before["inv_multi"] == 1,
+                f"main: launch counts moved {before} -> {after}")
     torch.cuda.synchronize()
-    launches = dict(mxu32_cuda.LAUNCHES)
+    launches = counts()
     for i, ((a, b), out) in enumerate(zip(operands, outs)):
         got = limbs_to_np_u64(torch.stack([o.cpu() for o in out], dim=-1).numpy())
         cpu = plan.negacyclic_polymul(planar(a), planar(b))
@@ -174,32 +369,183 @@ def main() -> int:
     print(f"main: 3 x Plan32({N_MAIN}).negacyclic_polymul B={B_MAIN} on {kind} == CPU plain "
           f"path == numpy oracle (row 0); launches {launches}", flush=True)
 
+    def expect_delta(before: dict, want: dict, what: str) -> None:
+        after = counts()
+        delta = {k: after[k] - before[k] for k in after}
+        require(all(delta[k] == want.get(k, 0) for k in delta),
+                f"main: {what} moved the launch counters by {delta}, expected {want}")
+
+    host = lambda a: torch.from_numpy(a)
+    p32_cases = []
+    for name, p in BENCH_PRIMES.items():
+        pl = prime32.Plan.new(N32, p)
+        lhs, rhs = (rng.integers(0, p, (B32, N32), dtype=np.uint32) for _ in range(2))
+        p32_cases.append((name, pl, lhs, rhs))
+    mid = prime32.Plan.new(4096, BENCH_PRIMES["lt30"])
+    mid_ops = tuple(rng.integers(0, mid.p, (B32, 4096), dtype=np.uint32) for _ in range(2))
+    small = prime32.Plan.new(1024, 1073479681)
+    small_ops = tuple(rng.integers(0, small.p, (B32, 1024), dtype=np.uint32) for _ in range(2))
+    readme = prime32.Plan.new(32, 1062862849)
+    readme_x = np.arange(32, dtype=np.uint32)[None]
+    torch.cuda.synchronize()
+    reset_counts()
+    p32_out = []
+    for name, pl, lhs, rhs in p32_cases:
+        before = counts()
+        got = pl.negacyclic_polymul(host(lhs).to(dev), host(rhs).to(dev))
+        expect_delta(before, {"fwd": 2, "inv": 1}, f"Plan({N32}, {pl.p}) polymul")
+        before = counts()
+        rt = pl.inv(pl.fwd(host(lhs).to(dev)))
+        expect_delta(before, {"fwd": 1, "inv": 1}, f"Plan({N32}, {pl.p}) round trip")
+        p32_out.append((got, rt))
+    before = counts()
+    mid_got = mid.negacyclic_polymul(*(host(a).to(dev) for a in mid_ops))
+    expect_delta(before, {"fwd": 2, "inv": 1}, f"Plan(4096, {mid.p}) polymul")
+    before = counts()
+    small_got = small.negacyclic_polymul(*(host(a).to(dev) for a in small_ops))
+    expect_delta(before, {"butterfly32_fwd": 2, "butterfly32_inv": 1},
+                 f"Plan(1024, {small.p}) polymul")
+    before = counts()
+    readme_rt = readme.inv(readme.fwd(host(readme_x).to(dev)))
+    expect_delta(before, {"butterfly32_fwd": 1, "butterfly32_inv": 1}, "README vector")
+    torch.cuda.synchronize()
+    launches32 = counts()
+    for (name, pl, lhs, rhs), (got, rt) in zip(p32_cases, p32_out):
+        want = pl.negacyclic_polymul(host(lhs), host(rhs))
+        require(got.device.type == "cuda" and got.shape == (B32, N32)
+                and torch.equal(got.cpu(), want),
+                f"main: Plan({N32}, {pl.p}) polymul differs from the CPU plain path")
+        nx = (lhs.astype(np.uint64) * N32 % pl.p).astype(np.uint32)
+        require(np.array_equal(rt.cpu().numpy(), nx),
+                f"main: Plan({N32}, {pl.p}) inv(fwd(x)) != n·x mod p")
+    require(torch.equal(mid_got.cpu(), mid.negacyclic_polymul(*map(host, mid_ops))),
+            "main: Plan(4096) polymul differs from the CPU plain path")
+    small_cpu = small.negacyclic_polymul(*map(host, small_ops))
+    require(torch.equal(small_got.cpu(), small_cpu),
+            "main: Plan(1024) polymul differs from the CPU plain path")
+    require(small_got[0].cpu().tolist() == negacyclic_convolution_mod(
+        small_ops[0][0].tolist(), small_ops[1][0].tolist(), small.p),
+        "main: Plan(1024) polymul row 0 differs from the schoolbook oracle")
+    require(np.array_equal(readme_rt.cpu().numpy(),
+                           (readme_x.astype(np.uint64) * 32 % readme.p).astype(np.uint32)),
+            "main: README vector (N=32, p=1062862849) round trip != N·x")
+    for k in ("fwd", "inv", "butterfly32_fwd", "butterfly32_inv"):
+        launches[k] = launches32[k]
+    print(f"main: prime32 polymuls on {kind}: Plan({N32}, p) B={B32} for p in "
+          f"{tuple(BENCH_PRIMES.values())} == CPU plain path, inv(fwd(x)) == n·x; "
+          f"Plan(4096) == CPU; Plan(1024) == CPU == schoolbook oracle (row 0); README "
+          f"vector round trip; launches {launches32}", flush=True)
+
+    n_sh = 4096
+    sharded = []
+    for p in BENCH_PRIMES.values():
+        tbl = mxu32._mxu_tables(n_sh, p)
+        geo = dict(n=n_sh, n1=tbl["n1"], n2=tbl["n2"], p=p)
+        d, e = (tuple(torch.from_numpy(a).to(dev) for a in tbl[k]) for k in ("d", "e"))
+        sharded.append((geo, d, e, rng.integers(0, p, (B32, n_sh), dtype=np.uint32)))
+    torch.cuda.synchronize()
+    reset_counts()
+    sh_out = []
+    for geo, d, e, x in sharded:
+        before = counts()
+        f = rank_local_fwd(mxu32_cuda.pass_matmod, host(x).to(dev), d, **geo)
+        sh_out.append((f, rank_local_inv(mxu32_cuda.pass_matmod, f, e, **geo)))
+        expect_delta(before, {"pass_matmod": 4 * RANKS},
+                     f"rank-local passes n={n_sh} p={geo['p']}")
+    torch.cuda.synchronize()
+    launches_k3 = counts()
+    for (geo, d, e, x), (f, back) in zip(sharded, sh_out):
+        p = geo["p"]
+        require(f.device.type == "cuda" and torch.equal(
+            f.cpu(), mxu32_cuda.fwd_plain(host(x), n=n_sh, p=p)),
+            f"main: rank-local fwd n={n_sh} p={p} differs from the CPU plain path")
+        require(np.array_equal(back.cpu().numpy(),
+                               (x.astype(np.uint64) * n_sh % p).astype(np.uint32)),
+                f"main: rank-local inv(fwd(x)) != n·x mod p at n={n_sh} p={p}")
+    launches["pass_matmod"] = launches_k3["pass_matmod"]
+    print(f"main: rank-local passes on {kind}: fwd and inv at n={n_sh} B={B32}, R={RANKS} "
+          f"ranks, for p in {tuple(BENCH_PRIMES.values())} == CPU plain path, "
+          f"inv(fwd(x)) == n·x; launches {launches_k3}", flush=True)
+
     # -- 5. times -----------------------------------------------------------------
+    ms, plain_ms = {}, {}
     limbs = (u32((B_MAIN, N_MAIN)), u32((B_MAIN, N_MAIN)))
     x = u32((len(PRIMES), B_MAIN, N_MAIN))
     scaled = tuple(pow(N_MAIN, p - 2, p) * pow(2, 32, p) % p for p in PRIMES)
-    ms = {
-        "fwd_wide_multi": median_ms(lambda: mxu32_cuda.fwd_wide_multi(limbs, PRIMES)),
-        "inv_multi": median_ms(lambda: mxu32_cuda.inv_multi(x, PRIMES, scaled)),
-    }
-    plain_ms = {
-        "fwd_wide_multi": median_ms(lambda: mxu32_cuda.fwd_wide_multi_plain(limbs, PRIMES)),
-        "inv_multi": median_ms(lambda: mxu32_cuda.inv_multi_plain(x, PRIMES, scaled)),
-    }
+    ms["fwd_wide_multi"] = median_ms(lambda: mxu32_cuda.fwd_wide_multi(limbs, PRIMES))
+    ms["inv_multi"] = median_ms(lambda: mxu32_cuda.inv_multi(x, PRIMES, scaled))
+    plain_ms["fwd_wide_multi"] = median_ms(
+        lambda: mxu32_cuda.fwd_wide_multi_plain(limbs, PRIMES))
+    plain_ms["inv_multi"] = median_ms(lambda: mxu32_cuda.inv_multi_plain(x, PRIMES, scaled))
     lhs, rhs = on_card[0]
     poly_ms = median_ms(lambda: plan.negacyclic_polymul(lhs, rhs))
     shape = {"fwd_wide_multi": "2 limbs", "inv_multi": "scaled"}
-    for k in ms:
+    for k in ("fwd_wide_multi", "inv_multi"):
         print(f"times: {k} n={N_MAIN} B={B_MAIN} {shape[k]}: kernel {ms[k]:.4f} ms, "
               f"plain {plain_ms[k]:.4f} ms (median of {REPS}) | {smi}", flush=True)
-    print(f"times: polymul n={N_MAIN} B={B_MAIN} planar: {poly_ms:.4f} ms (median of {REPS}) = "
-          f"{B_MAIN / poly_ms * 1e3:.1f} products/s | {smi}", flush=True)
+    print(f"times: native64 polymul n={N_MAIN} B={B_MAIN} planar: {poly_ms:.4f} ms (median of "
+          f"{REPS}) = {B_MAIN / poly_ms * 1e3:.1f} products/s | {smi}", flush=True)
+
+    def timed(name, label, kernel, plain, key=None):
+        t, tp = median_ms(kernel), median_ms(plain)
+        if key:
+            ms[key], plain_ms[key] = t, tp
+        print(f"times: {name} {label}: kernel {t:.4f} ms, plain {tp:.4f} ms "
+              f"(median of {REPS}) | {smi}", flush=True)
+
+    for rname, p in BENCH_PRIMES.items():
+        x = u32((B32, N32), p)
+        headline = rname == "lt30"
+        timed("K2 fwd", f"n={N32} B={B32} p={p} ({rname})",
+              lambda: mxu32_cuda.fwd(x, n=N32, p=p), lambda: mxu32_cuda.fwd_plain(x, n=N32, p=p),
+              "fwd" if headline else None)
+        timed("K2 inv", f"n={N32} B={B32} p={p} ({rname})",
+              lambda: mxu32_cuda.inv(x, n=N32, p=p), lambda: mxu32_cuda.inv_plain(x, n=N32, p=p),
+              "inv" if headline else None)
+    p = BENCH_PRIMES["lt30"]
+    tbl = mxu32._mxu_tables(4096, p)
+    dg = tuple(torch.from_numpy(a).to(dev) for a in tbl["d"])
+    xa = u32((B32, tbl["n2"], tbl["n1"]))
+    kw = dict(n=4096, p=p, which="A", diag_slices=dg)
+    timed("K3 pass_matmod", f"A scaled n=4096 B={B32} p={p}",
+          lambda: mxu32_cuda.pass_matmod(xa, **kw), lambda: mxu32_cuda.pass_matmod_plain(xa, **kw),
+          "pass_matmod")
+    x = u32((B32, 4096), p)
+    timed("K2 fwd (passes_engine)", f"n=4096 B={B32} p={p}",
+          lambda: mxu32_cuda.passes_engine.fwd(x, n=4096, p=p),
+          lambda: mxu32_cuda.fwd_plain(x, n=4096, p=p))
+    for n, p in ((1024, BENCH_PRIMES["lt30"]), (N32, SMALL_P)):
+        pl = prime32.Plan.new(n, p)
+        kw = dict(p=p, variant=pl.variant, p_neginv=pl.p_neginv)
+        x = u32((B32, n), p)
+        headline = n == 1024
+        timed("K4 fwd", f"n={n} B={B32} p={p}", lambda: bcu.try_fwd(x, pl._tbl, **kw),
+              lambda: bcu.fwd_plain(x, pl._tbl, **kw), "butterfly32_fwd" if headline else None)
+        timed("K4 inv", f"n={n} B={B32} p={p}", lambda: bcu.try_inv(x, pl._tbl, **kw),
+              lambda: bcu.inv_plain(x, pl._tbl, **kw), "butterfly32_inv" if headline else None)
+    for name, pl, lhs, rhs in p32_cases:
+        a, b = host(lhs).to(dev), host(rhs).to(dev)
+        t = median_ms(lambda: pl.negacyclic_polymul(a, b))
+        print(f"times: prime32 polymul n={N32} B={B32} p={pl.p} ({name}): {t:.4f} ms (median "
+              f"of {REPS}) = {B32 / t * 1e3:.1f} products/s | {smi}", flush=True)
+
+    if args.profile:
+        prof_cases = [(f"n={N32} ({name})", pl, lhs, rhs) for name, pl, lhs, rhs in p32_cases]
+        prof_cases += [("n=4096 (lt30)", mid, *mid_ops), ("n=1024 (lt30)", small, *small_ops)]
+        for label, pl, lhs, rhs in prof_cases:
+            a, b = host(lhs).to(dev), host(rhs).to(dev)
+            r = profile_polymul(lambda: pl.negacyclic_polymul(a, b))
+            print(f"profile: prime32 polymul {label} B={B32} p={pl.p}: host clock "
+                  f"{r['host_ms']:.4f} ms, device busy {r['busy_ms']:.4f} ms "
+                  f"({100 * r['busy_share']:.1f} %), matmod_pass/ntt_radix2 "
+                  f"{r['kernel_ms']:.4f} ms, {r['device_events']:.0f} device events and "
+                  f"{r['aten_ops']:.0f} aten ops a polymul (10 polymuls) | {smi}", flush=True)
 
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
+        {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": max_err[k], "ms": ms[k],
          "plain_ms": plain_ms[k]}
-        for k in ("fwd_wide_multi", "inv_multi")
+        for k, (src, rep) in KERNELS.items()
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,18 @@ from __future__ import annotations
 import numpy as np
 
 
+def negacyclic_convolution_mod(lhs, rhs, p: int) -> list[int]:
+    """Exact schoolbook negacyclic convolution mod p (p > 0) with bigints."""
+    n = len(lhs)
+    assert len(rhs) == n
+    full = [0] * (2 * n)
+    for i, a in enumerate(lhs):
+        ai = int(a)
+        for j, b in enumerate(rhs):
+            full[i + j] += ai * int(b)
+    return [(full[i] - full[i + n]) % p for i in range(n)]
+
+
 def negacyclic_convolution_wrapping_np(lhs: np.ndarray, rhs: np.ndarray) -> np.ndarray:
     """Vectorized wrapping oracle for u32/u64 NumPy inputs (faster, same result).
 

@@ -1,8 +1,8 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
-Each `csrc/<name>.cu` has a plain C interface and is compiled on first use
-into `_build/kernels/<name>_<hash>.so` (ignored by git), keyed on a hash of
-the sources and flags:
+Each `csrc/<name>.cu` (`SOURCES`) has a plain C interface and is compiled on
+first use into `_build/kernels/<name>_<hash>.so` (ignored by git), keyed on
+a hash of all the sources (headers included) and the flags:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o <name>_<hash>.so csrc/<name>.cu
@@ -31,6 +31,8 @@ FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+SOURCES = ("mxu32_multi", "mxu32_pass", "butterfly32")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -62,7 +64,8 @@ def library_path(name: str) -> str:
 
 
 def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless its library exists; returns its path."""
+    """Compile csrc/<name>.cu unless its library exists; returns its path.
+    Safe to call for several sources at once from threads."""
     so = library_path(name)
     if os.path.exists(so):
         return so

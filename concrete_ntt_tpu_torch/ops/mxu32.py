@@ -11,8 +11,9 @@ Counterpart of `concrete_ntt_tpu/ops/mxu32.py`, in two halves:
     The port's tests assert every array equals the JAX package's.
   * **Device half, plain torch.** `_digit_cat`, `_dot_planes`
     (`torch._int_mm`), `_combine`, the two epilogues and the single-channel
-    transforms `fwd`, `fwd_wide`, `inv(scale)`. This is the plain reference
-    the channel-grid kernels of `ops/mxu32_cuda.py` are held against.
+    transforms `fwd`, `fwd_wide`, `inv(scale)`, and `applicable`, the
+    range of the four-step engine. This is the plain reference the kernels
+    of `ops/mxu32_cuda.py` (K1a/K1b, K2, K3) are held against.
 
 The algebra (why it is exact):
 
@@ -55,6 +56,8 @@ from .u32 import (
     to_i64,
     to_u32,
 )
+
+_MIN_P = 1 << 26  # below this the cond-sub reduction chains get long; use the stage engine
 
 # ---------------------------------------------------------------------------
 # Host-side exact stage engine (numpy uint64) for building the matrices
@@ -424,16 +427,20 @@ def _scaled_ainv_planes(n: int, p: int, scale: int):
 _DEV_TABLES: dict = {}
 
 
-def _dev(arr: np.ndarray, device) -> torch.Tensor:
+def _dev(arr: np.ndarray, device, keep_dtype: bool = False) -> torch.Tensor:
     """A host table as a tensor on `device`, memoized per (array, device).
 
-    uint32 tables become int64 carriers (ops/u32.py); int8 planes and int32
-    cvec keep their dtype. The host array is kept alive beside its copy, so
-    its id cannot be reused while the entry exists."""
-    key = (id(arr), str(device))
+    uint32 tables become int64 carriers (ops/u32.py) unless `keep_dtype`
+    (a kernel's operand); int8 planes and int32 cvec keep their dtype. The
+    host array is kept alive beside its copy, so its id cannot be reused
+    while the entry exists. A uint32 tensor (a caller's diagonal slice) is
+    converted, not memoized."""
+    if isinstance(arr, torch.Tensor):
+        return to_i64(arr).to(device)
+    key = (id(arr), str(device), keep_dtype)
     hit = _DEV_TABLES.get(key)
     if hit is None or hit[0] is not arr:
-        host = arr.astype(np.int64) if arr.dtype == np.uint32 else arr
+        host = arr.astype(np.int64) if arr.dtype == np.uint32 and not keep_dtype else arr
         hit = (arr, torch.from_numpy(np.ascontiguousarray(host)).to(device))
         _DEV_TABLES[key] = hit
     return hit[1]
@@ -591,4 +598,19 @@ def inv(x, *, n: int, p: int, scale: int = 1):
     tbl = _mxu_tables(n, p)
     mat = tbl["Ainv"] if scale == 1 else _scaled_ainv_planes(n, p, scale % p)
     return to_u32(_inv_core(to_i64(x), tbl, mat, p=p))
+
+
+def applicable(n: int, p: int, variant: str) -> bool:
+    """Whether the four-step engine serves (n, p): every prime32 regime with
+    odd p >= 2^26, n a power of two in [2048, 2^17]. The upper bound keeps
+    the int8 accumulators provably exact (E*K <= 4096 for the widest
+    operand, assert_accumulator_exact): n1 <= 256 and n2 <= 1024."""
+    if variant not in ("lt30", "lt31", "generic") or p < _MIN_P:
+        return False
+    if p % 2 == 0:  # Montgomery epilogues need odd p
+        return False
+    if n < 2048 or (n & (n - 1)) != 0:
+        return False
+    n1, n2 = four_step_factors(n)
+    return n1 <= 256 and n2 <= 1024
 

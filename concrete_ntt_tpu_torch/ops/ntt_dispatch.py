@@ -1,19 +1,35 @@
-"""Routing of the prime32 CRT-channel transforms.
+"""Routing of the prime32 transforms.
 
-Counterpart of the channel-grid routes of `concrete_ntt_tpu/ops/ntt_dispatch.py`
-(`try_fwd32_wide_all` :125, `try_inv32_all` :219, `try_polymul32_stacked`
-:248-305). The JAX package routes on the backend and environment knobs;
-here the route is the device of the operand, inside ops/mxu32_cuda.py: a
-CUDA tensor launches K1a / K1b, a CPU tensor runs their plain torch twins.
-There is no knob and no hybrid or presplit branch (both are off in the
-reference's 'auto'). Where the JAX functions return None for "not
-applicable", these raise NotImplementedError naming the ROADMAP item, and
-they return the stacked [C, B, n] tensor rather than a list of channels.
+Counterpart of `concrete_ntt_tpu/ops/ntt_dispatch.py`, two parts of it:
+
+  * the single-prime tiers `fwd32` / `inv32` (:502-549) that
+    `prime32.Plan.fwd/inv` call: `tier32` picks the four-step kernel K2
+    where `mxu32.applicable` holds (odd p >= 2^26, n >= 2048), else the
+    butterfly kernel K4. The TPU's third tier, two `pass_matmod` passes
+    for 2048 <= n < 2^14 (`passes_engine`, :60-77), is cut there by VMEM
+    (`mxu32_pallas.fused_applicable`); K2 serves those sizes whole on the
+    card, so they take K2 here;
+  * the channel-grid routes of the native plans (`try_fwd32_wide_all`
+    :125, `try_inv32_all` :219, `try_polymul32_stacked` :248-305) through
+    K1a / K1b.
+
+The JAX package routes on the backend and environment knobs; here the route
+is the device of the operand, inside the kernel modules: a CUDA tensor
+launches the kernel or raises, a CPU tensor runs its plain torch twin, so
+the CPU takes the same tier as the card. The one exception is n > 2^15 on
+the CPU, which runs the stage engine (as the JAX package off the TPU); on
+the card such sizes raise. There is no knob and no hybrid or presplit
+branch (both are off in the reference's 'auto'). Where the JAX functions
+return None for "not applicable", these raise NotImplementedError naming
+the ROADMAP item, and they return the stacked [C, B, n] tensor rather than
+a list of channels.
 """
 
 from __future__ import annotations
 
-from . import mxu32_cuda
+import torch
+
+from . import butterfly32_cuda, mxu32, mxu32_cuda
 from .u32 import MASK32, mulhi_u32, mullo_u32, mulwide_u32, to_i64, to_u32
 
 
@@ -63,3 +79,29 @@ def try_polymul32_stacked(parts_l, parts_r, plans, rhs_binary=False):
         pow(n, pl.p - 2, pl.p) * pow(2, 32, pl.p) % pl.p for pl in plans
     )
     return mxu32_cuda.inv_multi(to_u32(t), primes, scales)
+
+
+def tier32(n: int, p: int, variant: str, device: torch.device) -> str:
+    """The prime32 tier for (n, p) on `device`: "K2" or "K4"."""
+    if mxu32.applicable(n, p, variant) and (
+        n <= mxu32_cuda.MAX_N or torch.device(device).type != "cpu"
+    ):
+        return "K2"
+    return "K4"
+
+
+def fwd32(x, tbl, *, p, variant, p_neginv):
+    """Forward NTT of one prime: [B, n] uint32 -> bit-reversed [0, p)."""
+    n = x.shape[-1]
+    if tier32(n, p, variant, x.device) == "K2":
+        return mxu32_cuda.fwd(x, n=n, p=p)
+    return butterfly32_cuda.try_fwd(x, tbl, p=p, variant=variant, p_neginv=p_neginv)
+
+
+def inv32(x, tbl, *, p, variant, p_neginv):
+    """Unnormalized inverse NTT of one prime: [B, n] uint32 bit-reversed ->
+    standard order [0, p)."""
+    n = x.shape[-1]
+    if tier32(n, p, variant, x.device) == "K2":
+        return mxu32_cuda.inv(x, n=n, p=p)
+    return butterfly32_cuda.try_inv(x, tbl, p=p, variant=variant, p_neginv=p_neginv)

@@ -1,5 +1,6 @@
-"""Card tests of the port: K1a / K1b against their plain torch twins, and
-the native64 Plan32 polymul through the kernels against the CPU plain path.
+"""Card tests of the port: each kernel (K1a / K1b, K2, K3, K4) against its
+plain torch twin, and the native64 Plan32 and prime32 polymuls through the
+kernels against the CPU plain path.
 
 Every test here is marked `cuda` and skips without a CUDA GPU. The file
 imports only the port (no JAX), so it runs on a GPU machine without JAX:
@@ -14,11 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from concrete_ntt_tpu_torch import native64
-from concrete_ntt_tpu_torch.ops import mxu32_cuda
+from concrete_ntt_tpu_torch import native64, prime32
+from concrete_ntt_tpu_torch.ops import butterfly32_cuda, mxu32, mxu32_cuda
 from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
 
 pytestmark = pytest.mark.cuda
+
+BENCH = {"lt30": 1073479681, "lt31": 2147352577, "generic": 4293918721}
 
 
 @pytest.fixture
@@ -33,8 +36,13 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _u32(gen, shape, device):
-    return torch.from_numpy(gen.integers(0, 1 << 32, shape, dtype=np.uint32)).to(device)
+def _u32(gen, shape, device, hi=1 << 32):
+    return torch.from_numpy(gen.integers(0, hi, shape, dtype=np.uint32)).to(device)
+
+
+def _same(got, want):
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
 @pytest.mark.parametrize("n,b", [(1 << 11, 3), (1 << 14, 5)])
@@ -59,8 +67,59 @@ def test_polymul_on_card_matches_cpu(gen, cuda_device):
     mxu32_cuda.reset_launch_counts()
     got = plan.negacyclic_polymul(tuple(t.to(cuda_device) for t in lhs),
                                   tuple(t.to(cuda_device) for t in rhs))
-    assert mxu32_cuda.LAUNCHES == {"fwd_wide_multi": 2, "inv_multi": 1}
+    assert mxu32_cuda.LAUNCHES == {"fwd_wide_multi": 2, "inv_multi": 1, "fwd": 0, "inv": 0,
+                                   "pass_matmod": 0}
     want = plan.negacyclic_polymul(lhs, rhs)
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("regime", list(BENCH))
+def test_k2_matches_plain_on_card(gen, cuda_device, regime):
+    p, n, b = BENCH[regime], 1 << 14, 3
+    xs = (_u32(gen, (b, n), cuda_device), _u32(gen, (b, n), cuda_device))
+    _same(mxu32_cuda.fwd(xs[0], n=n, p=p), mxu32_cuda.fwd_plain(xs[0], n=n, p=p))
+    _same(mxu32_cuda.fwd_wide(xs, n=n, p=p), mxu32_cuda.fwd_wide_plain(xs, n=n, p=p))
+    s = pow(n, p - 2, p) * pow(2, 32, p) % p
+    _same(mxu32_cuda.inv(xs[0], n=n, p=p, scale=s),
+          mxu32_cuda.inv_plain(xs[0], n=n, p=p, scale=s))
+
+
+@pytest.mark.parametrize("regime", list(BENCH))
+def test_k3_matches_plain_on_card(gen, cuda_device, regime):
+    p, n, b = BENCH[regime], 4096, 3
+    tbl = mxu32._mxu_tables(n, p)
+    n1, n2 = tbl["n1"], tbl["n2"]
+    d = tuple(torch.from_numpy(a[: n2 // 2]).to(cuda_device) for a in tbl["d"])
+    x = _u32(gen, (b, n2 // 2, n1), cuda_device)
+    kw = dict(n=n, p=p, which="A", diag_slices=d)
+    _same(mxu32_cuda.pass_matmod(x, **kw), mxu32_cuda.pass_matmod_plain(x, **kw))
+    y = _u32(gen, (b, n1 // 4, n2), cuda_device)
+    kw = dict(n=n, p=p, which="F")
+    _same(mxu32_cuda.pass_matmod(y, **kw), mxu32_cuda.pass_matmod_plain(y, **kw))
+    z = _u32(gen, (b, n), cuda_device)  # the mid sizes' engine is K2
+    _same(mxu32_cuda.passes_engine.fwd(z, n=n, p=p), mxu32_cuda.fwd_plain(z, n=n, p=p))
+    _same(mxu32_cuda.passes_engine.inv(z, n=n, p=p), mxu32_cuda.inv_plain(z, n=n, p=p))
+
+
+@pytest.mark.parametrize("n,p", [(32, BENCH["lt30"]), (1024, BENCH["lt31"]),
+                                 (1 << 15, BENCH["generic"]), (1 << 14, 67043329)])
+def test_k4_matches_plain_on_card(gen, cuda_device, n, p):
+    plan = prime32.Plan.new(n, p)
+    kw = dict(p=p, variant=plan.variant, p_neginv=plan.p_neginv)
+    x = _u32(gen, (9, n), cuda_device, p)
+    _same(butterfly32_cuda.try_fwd(x, plan._tbl, **kw),
+          butterfly32_cuda.fwd_plain(x, plan._tbl, **kw))
+    _same(butterfly32_cuda.try_inv(x, plan._tbl, **kw),
+          butterfly32_cuda.inv_plain(x, plan._tbl, **kw))
+
+
+@pytest.mark.parametrize("n", [1024, 4096, 1 << 14])
+def test_prime32_polymul_on_card_matches_cpu(gen, cuda_device, n):
+    p = BENCH["generic"]
+    plan = prime32.Plan.new(n, p)
+    lhs, rhs = (gen.integers(0, p, (4, n), dtype=np.uint32) for _ in range(2))
+    got = plan.negacyclic_polymul(torch.from_numpy(lhs).to(cuda_device),
+                                  torch.from_numpy(rhs).to(cuda_device))
+    _same(got, plan.negacyclic_polymul(lhs, rhs))

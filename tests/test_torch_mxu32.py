@@ -1,11 +1,16 @@
-"""K1a / K1b of the port (ops/mxu32_cuda.py, ops/mxu32.py) vs the JAX package.
+"""K1a / K1b, K2 and K3 of the port (ops/mxu32_cuda.py, ops/mxu32.py) vs the
+JAX package.
 
 On the CPU the wrappers run their plain torch twins. These are held against
-the JAX channel-grid Pallas kernels run in interpret mode (the fixture of
-tests/test_pallas_interpret.py) and against the single-channel XLA engine;
-the packed-plane layout the CUDA kernel reads is checked by a numpy dp4a
-emulation; the kernels themselves run in tests/test_torch_cuda.py.
-Tolerance: exact equality everywhere.
+the JAX Pallas kernels run in interpret mode (the fixture of
+tests/test_pallas_interpret.py): the channel-grid kernels (K1), the
+whole-transform kernel `mxu32_pallas.fwd/fwd_wide/inv` (K2, whose entries
+`passes_engine` also names at mid sizes) and the pass kernel `pass_matmod`
+(K3); and against the
+single-channel XLA engine. The packed-plane layout the CUDA kernel reads is
+checked by a numpy dp4a emulation, with four and five matrix digit planes;
+the kernels themselves run in tests/test_torch_cuda.py. Tolerance: exact
+equality everywhere.
 """
 
 import jax.numpy as jnp
@@ -22,6 +27,7 @@ from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
 from concrete_ntt_tpu_torch.utils.prime import largest_prime_in_arithmetic_progression64
 
 N_BIG = 1 << 14
+BENCH = {"lt30": 1073479681, "lt31": 2147352577, "generic": 4293918721}
 
 
 @pytest.fixture
@@ -135,4 +141,113 @@ def test_wrappers_route_by_device_and_range(rng):
         tcu.fwd_wide_multi((x,), (4293918721,))
     before = dict(tcu.LAUNCHES)
     tcu.fwd_wide_multi((x,), PRIMES)
+    assert tcu.LAUNCHES == before  # the CPU route launches nothing
+
+
+@pytest.mark.parametrize("n", [2048, 4096])
+@pytest.mark.parametrize("regime", list(BENCH))
+def test_pass_matmod_plain_matches_pallas_interpret(rng, interpret, regime, n):
+    """K3's plain twin: every `which`, scaled and canonical, 2 limbs, a
+    row slice with rank-local diagonal rows."""
+    p, b = BENCH[regime], 3
+    tbl = jmx._mxu_tables(n, p)
+    n1, n2 = tbl["n1"], tbl["n2"]
+    d, e = tbl["d"], tbl["e"]
+    sc = _scale(n, p)
+    cases = [
+        ("A", (b, n2, n1), 1, d, 1), ("A", (b, n2, n1), 2, d, 1),
+        ("F", (b, n1, n2), 1, (), 1), ("G", (b, n1, n2), 1, e, 1),
+        ("Ainv", (b, n2, n1), 1, (), 1), ("Ainv", (b, n2, n1), 1, (), sc),
+        ("A", (b, n2 // 4, n1), 1, tuple(a[n2 // 2: n2 // 2 + n2 // 4] for a in d), 1),
+    ]
+    for which, shape, nl, dg, s in cases:
+        xs = tuple(_u32(rng, shape) for _ in range(nl))
+        kw = dict(n=n, p=p, which=which, n_limbs=nl, scale=s)
+        got = tcu.pass_matmod(tuple(map(torch.from_numpy, xs)) if nl > 1 else torch.from_numpy(xs[0]),
+                              diag_slices=dg, **kw)
+        want = jpal.pass_matmod(tuple(map(jnp.asarray, xs)) if nl > 1 else jnp.asarray(xs[0]),
+                                diag_slices=tuple(map(jnp.asarray, dg)), **kw)
+        assert got.dtype == torch.uint32 and got.shape == shape, which
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=f"{which} {nl} {s}")
+        assert len(dg) in (0, 2 if regime == "generic" else 4)
+
+
+@pytest.mark.parametrize("n", [2048, 4096])
+@pytest.mark.parametrize("regime", list(BENCH))
+def test_passes_engine_plain_matches_pallas_interpret(rng, interpret, regime, n):
+    p, b = BENCH[regime], 3
+    x, x2 = _u32(rng, (b, n)), _u32(rng, (b, n))
+    eng, jeng = tcu.passes_engine, jpal.passes_engine
+    t = torch.from_numpy
+    pairs = [
+        (eng.fwd(t(x), n=n, p=p), jeng.fwd(jnp.asarray(x), n=n, p=p)),
+        (eng.fwd_wide((t(x), t(x2)), n=n, p=p),
+         jeng.fwd_wide((jnp.asarray(x), jnp.asarray(x2)), n=n, p=p)),
+        (eng.inv(t(x), n=n, p=p), jeng.inv(jnp.asarray(x), n=n, p=p)),
+        (eng.inv(t(x), n=n, p=p, scale=_scale(n, p)),
+         jeng.inv(jnp.asarray(x), n=n, p=p, scale=_scale(n, p))),
+    ]
+    for i, (got, want) in enumerate(pairs):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=f"case {i}")
+
+
+@pytest.mark.parametrize("regime", list(BENCH))
+@pytest.mark.parametrize("case", ["fwd", "fwd_wide", "inv_scaled"])
+def test_k2_plain_matches_pallas_interpret(rng, interpret, case, regime):
+    """K2's plain twin against the JAX whole-transform kernel in interpret
+    mode, at n = 2^14, B = 2, in the three regimes."""
+    p, b = BENCH[regime], 2
+    xs = tuple(_u32(rng, (b, N_BIG)) for _ in range(2))
+    t = torch.from_numpy
+    if case == "fwd":
+        got = tcu.fwd(t(xs[0]), n=N_BIG, p=p)
+        want = jpal.fwd(jnp.asarray(xs[0]), n=N_BIG, p=p)
+    elif case == "fwd_wide":
+        got = tcu.fwd_wide(tuple(map(t, xs)), n=N_BIG, p=p)
+        want = jpal.fwd_wide(tuple(map(jnp.asarray, xs)), n=N_BIG, p=p)
+    else:
+        s = _scale(N_BIG, p)
+        got = tcu.inv(t(xs[0]), n=N_BIG, p=p, scale=s)
+        want = jpal.inv(jnp.asarray(xs[0]), n=N_BIG, p=p, scale=s)
+    assert got.dtype == torch.uint32 and got.shape == (b, N_BIG)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("regime", ["lt31", "generic"])
+def test_packed_planes_dp4a_emulation_single(rng, regime):
+    """The K2/K3 plane words (five digit planes for 4293918721) contracted
+    by a numpy dp4a equal the int8 digit-plane product."""
+    p, n = BENCH[regime], 2048
+    tabs = tcu._pass_tables(n, p, "F", 1, 1, "cpu")
+    planes, _ = tmx._mxu_tables(n, p)["F"]
+    k, o, n_d = tabs["k"], tabs["o"], tabs["n_d"]
+    assert n_d == (5 if regime == "generic" else 4)
+    words = tabs["planes"].numpy()
+    assert words.shape == (1, k, n_d * o) and words.dtype == np.int32
+    x = _u32(rng, (5, k))
+    xb = (x ^ np.uint32(0x80808080)).view(np.int8).reshape(5, k, 4)
+    wb = words.view(np.int8).reshape(k, n_d * o, 4)
+    dp4a = np.einsum("rke,koe->ro", xb.astype(np.int64), wb.astype(np.int64))
+    ref = torch._int_mm(tmx._digit_cat(torch.from_numpy(x.astype(np.int64))),
+                        torch.from_numpy(planes)).numpy()
+    np.testing.assert_array_equal(dp4a, ref)
+
+
+def test_single_wrappers_check_shapes(rng):
+    p, n = BENCH["lt31"], 2048
+    x = torch.from_numpy(_u32(rng, (2, n)))
+    with pytest.raises(ValueError, match="n=4096"):
+        tcu.fwd(x, n=4096, p=p)
+    with pytest.raises(ValueError, match="no route"):
+        tcu.inv(x.to("meta"), n=n, p=p)
+    with pytest.raises(ValueError, match="which"):
+        tcu.pass_matmod(x.reshape(2, 32, 64), n=n, p=p, which="B")
+    with pytest.raises(ValueError, match="n_limbs"):
+        tcu.pass_matmod(x.reshape(2, 32, 64), n=n, p=p, which="A", n_limbs=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcu.fwd(torch.from_numpy(_u32(rng, (2, 1024))), n=1024, p=p)
+    eng = tcu.passes_engine
+    assert (eng.fwd, eng.fwd_wide, eng.inv) == (tcu.fwd, tcu.fwd_wide, tcu.inv)
+    before = dict(tcu.LAUNCHES)
+    tcu.passes_engine.fwd(x, n=n, p=p)
     assert tcu.LAUNCHES == before  # the CPU route launches nothing
