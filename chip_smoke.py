@@ -13,7 +13,14 @@ Drives the port's paths through their hand-written CUDA kernels:
     sharded four-step's local sections call it (the JAX package's
     `parallel/fourstep_mxu.py`: a column pass with the rank's diagonal
     rows, the all-to-all, a row pass), with R = 4 ranks held on one card
-    and the all-to-all done as slices and concatenations.
+    and the all-to-all done as slices and concatenations;
+  * product: `product.Plan(2^14, f1·f2, (f1, f2))` over two 30-bit primes
+    (the reference grid's product-2xu32-16384 shape) at batch 16, the
+    tfhe-rs hot path: `negacyclic_polymul` in Replace, Accumulate and
+    Bounded through K1a, K1c (`fwd_multi_perchannel`, the Bounded fwd) and
+    K1d (`pointwise_inv_multi`, the fused pointwise product + inverse) of
+    `csrc/mxu32_multi.cu`, and K1b for `inv`; a PBS-shaped loop; a pair of
+    primes above 2^31 through K2 once per channel.
 
 Phases, one line each (or a few), stopping with a non-zero exit at the first
 failure:
@@ -31,7 +38,9 @@ failure:
                row slice with rank-local diagonals) at the same mid sizes;
                all of K2/K3 for the three bench primes; K4 fwd / inv at n in
                {2, 32, 256, 1024, 2^14, 2^15}, B in {16, 9}, in each regime,
-               and with p = 67043329 at 2^14 and 2^15.
+               and with p = 67043329 at 2^14 and 2^15; K1c (1 and 2 limbs)
+               and K1d (full-range u32 operands) with two 30-bit primes at
+               (n, B) = (2^14, 16), (2^14, 5), (2^11, 3), (2^15, 2).
   4. main    — native64: three polymuls on the card == CPU plain path ==
                numpy wrapping oracle (row 0); K1a +2, K1b +1 per call.
                prime32: Plan(2^14, p) polymul at B = 16 for each bench prime
@@ -41,18 +50,30 @@ failure:
                fwd +1 inv); the README vector N = 32, p = 1062862849, round
                trip. Rank-local passes: fwd and inv at n = 4096, B = 16 for
                each bench prime == CPU plain path, and inv(fwd(x)) == n·x
-               (K3 +2R passes a transform). Each path's launch counters
-               are set to 0 just before it and read just after.
+               (K3 +2R passes a transform). product: Plan(2^14, f1·f2)
+               polymul at B = 16 in Replace, Accumulate (K1a +2, K1d +1)
+               and Bounded b = 2^20 (K1c +1, K1a +1, K1d +1), fwd(bounded)
+               (K1c +1) and inv (K1b +1), each == CPU plain path; at
+               n = 2048 one Replace polymul, row 0 == the schoolbook
+               oracle; a PBS loop (a Bounded fwd and a mul_accumulate
+               against a preloaded NTT-domain operand per term, 16 terms,
+               one inv(ACCUMULATE)) == CPU plain path; primes (2147352577,
+               4293918721) at 2^14: K2 fwd +4, inv +2 a polymul, == CPU.
+               Each path's launch counters are set to 0 just before it and
+               read just after.
   5. times   — CUDA events, warm-up then the median of reps, each kernel
-               beside its plain version, and the polymuls in products/s.
+               beside its plain version (K1d also beside plain mont_mul +
+               K1b), the polymuls in products/s (product in its three
+               modes) and the PBS loop's ms per term.
 Then one JSON line of kernel summaries, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 `--profile` adds, before the JSON lines, a torch.profiler breakdown of the
-prime32 polymul at B = 16 (n = 2^14 per regime, 4096, 1024): host-clock ms,
-device busy ms and share, matmod_pass / butterfly device ms, and device
-kernels and aten ops per polymul.
+prime32 polymul at B = 16 (n = 2^14 per regime, 4096, 1024) and of the
+product polymul at (2^14, 16) in Replace and Bounded: host-clock ms, device
+busy ms and share, matmod_pass / butterfly device ms, and device kernels
+and aten ops per polymul.
 Inputs come from numpy's default_rng(--seed); the script imports no JAX.
 """
 
@@ -74,12 +95,17 @@ N_MAIN, B_MAIN = 1 << 14, 8
 N32, B32 = 1 << 14, 16
 REPS = 20
 PARITY_SHAPES = ((1 << 14, 8), (1 << 14, 5), (1 << 11, 3), (1 << 15, 2))
+K1CD_SHAPES = ((1 << 14, 16), (1 << 14, 5), (1 << 11, 3), (1 << 15, 2))
 K3_SIZES, K3_BATCHES = (2048, 4096, 8192), (16, 3)
 K2_SHAPES = ((1 << 14, 16), (1 << 14, 3), (1 << 15, 2)) + tuple(
     (n, b) for n in K3_SIZES for b in K3_BATCHES)
 RANKS = 4  # ranks of the rank-local pass path, held on one card
 K4_SIZES, K4_BATCHES = (2, 32, 256, 1024, 1 << 14, 1 << 15), (16, 9)
 BENCH_PRIMES = {"lt30": 1073479681, "lt31": 2147352577, "generic": 4293918721}
+N_PROD, B_PROD, N_PROD_SMALL = 1 << 14, 16, 2048
+BOUND = 1 << 20  # Bounded fwd: |value| < 2^19, a PBS decomposition digit's size
+PBS_TERMS = 16
+K2_PAIR = (BENCH_PRIMES["lt31"], BENCH_PRIMES["generic"])  # product < 2^64
 SMALL_P = 67043329  # < 2^26: the butterfly kernel at every n
 MULTI_SRC = "concrete_ntt_tpu_torch/csrc/mxu32_multi.cu"
 PASS_SRC = "concrete_ntt_tpu_torch/csrc/mxu32_pass.cu"
@@ -87,6 +113,8 @@ BFLY_SRC = "concrete_ntt_tpu_torch/csrc/butterfly32.cu"
 KERNELS = {  # JSON name -> (source, TPU kernel replaced)
     "fwd_wide_multi": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:367"),
     "inv_multi": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:398"),
+    "fwd_multi_perchannel": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:544"),
+    "pointwise_inv_multi": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:637"),
     "fwd": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:35"),
     "inv": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:35"),
     "pass_matmod": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:687"),
@@ -192,6 +220,22 @@ def rank_local_inv(pass_matmod, x, diag, *, n, n1, n2, p):
     return torch.cat(outs, dim=2).reshape(b, n)
 
 
+def u64_limbs(v: np.ndarray) -> torch.Tensor:
+    """numpy uint64 [..., n] -> uint32 [..., n, 2] little-endian limbs."""
+    return torch.from_numpy(np.stack([(v & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                                      (v >> np.uint64(32)).astype(np.uint32)], axis=-1))
+
+
+def rand_mod(rng, m: int, shape) -> np.ndarray:
+    return rng.integers(0, 1 << 64, shape, dtype=np.uint64) % np.uint64(m)
+
+
+def centred(rng, m: int, shape) -> np.ndarray:
+    """Signed values |v| < BOUND / 2 mod m: what a Bounded fwd takes."""
+    v = rng.integers(-(BOUND // 2), BOUND // 2, shape)
+    return np.where(v < 0, np.uint64(m) - np.abs(v).astype(np.uint64), v.astype(np.uint64))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=2024)
@@ -205,14 +249,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from concrete_ntt_tpu_torch import native64, prime32
+    from concrete_ntt_tpu_torch import native64, prime32, product
     from concrete_ntt_tpu_torch.golden.polymul import (
         negacyclic_convolution_mod,
         negacyclic_convolution_wrapping_np,
     )
     from concrete_ntt_tpu_torch.ops import butterfly32_cuda as bcu
     from concrete_ntt_tpu_torch.ops import cuda_build, mxu32, mxu32_cuda
-    from concrete_ntt_tpu_torch.ops.u32 import limbs_to_np_u64, to_i64
+    from concrete_ntt_tpu_torch.ops.u32 import limbs_to_np_u64, mont_mul, mont_neginv, to_i64, to_u32
     from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
 
     dev = torch.device("cuda", 0)
@@ -275,6 +319,21 @@ def main() -> int:
                     f"n={n} B={b} scaled={scales != (1,) * len(PRIMES)}")
     print(f"parity: K1a/K1b {checks['fwd_wide_multi'] + checks['inv_multi']} checks exact "
           f"at (n, B) in {PARITY_SHAPES} in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    p2 = PRIMES[:2]
+    for n, b in K1CD_SHAPES:
+        xs = (u32((2, b, n)), u32((2, b, n)))  # full-range u32
+        compare("fwd_multi_perchannel", mxu32_cuda.fwd_multi_perchannel(xs[0], p2),
+                mxu32_cuda.fwd_multi_perchannel_plain(xs[:1], p2), f"n={n} B={b} limbs=1")
+        compare("fwd_multi_perchannel", mxu32_cuda.fwd_wide_multi_perchannel(*xs, p2),
+                mxu32_cuda.fwd_multi_perchannel_plain(xs, p2), f"n={n} B={b} limbs=2")
+        scales = tuple(pow(n, p - 2, p) * pow(2, 32, p) % p for p in p2)
+        compare("pointwise_inv_multi", mxu32_cuda.pointwise_inv_multi(*xs, p2, scales),
+                mxu32_cuda.pointwise_inv_multi_plain(*xs, p2, scales), f"n={n} B={b}")
+    print(f"parity: K1c {checks['fwd_multi_perchannel']}, K1d {checks['pointwise_inv_multi']} "
+          f"checks exact at (n, B) in {K1CD_SHAPES}, primes {p2}, full-range u32 operands in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     for p in BENCH_PRIMES.values():
@@ -467,6 +526,93 @@ def main() -> int:
           f"ranks, for p in {tuple(BENCH_PRIMES.values())} == CPU plain path, "
           f"inv(fwd(x)) == n·x; launches {launches_k3}", flush=True)
 
+    f1, f2 = PRIMES[0], PRIMES[1]
+    pplan = product.Plan.new(N_PROD, f1 * f2, (f1, f2))
+    m = pplan.modulus
+    pa, pb, pacc = (rand_mod(rng, m, (B_PROD, N_PROD)) for _ in range(3))
+    px = centred(rng, m, (B_PROD, N_PROD))
+    sm_plan = product.Plan.new(N_PROD_SMALL, m, (f1, f2))
+    sa, sb = (rand_mod(rng, m, (2, N_PROD_SMALL)) for _ in range(2))
+    keys = [rand_mod(rng, m, (B_PROD, N_PROD)) for _ in range(PBS_TERMS)]
+    digits = [centred(rng, m, (B_PROD, N_PROD)) for _ in range(PBS_TERMS)]
+    k2plan = product.Plan.new(N_PROD, K2_PAIR[0] * K2_PAIR[1], K2_PAIR)
+    ka, kb = (rand_mod(rng, k2plan.modulus, (B_PROD, N_PROD)) for _ in range(2))
+    card = lambda v: u64_limbs(v).to(dev)
+    pre = [pplan.normalize(pplan.fwd(card(k))) for k in keys]  # preloaded NTT-domain operands
+    d_pa, d_pb, d_pacc, d_px = map(card, (pa, pb, pacc, px))
+    d_digits = [card(d) for d in digits]
+    bnd = product.bounded(BOUND)
+    acc = product.ACCUMULATE
+
+    def pbs_loop(plan_, digits_, pre_, standard):
+        """One Bounded fwd and one mul_accumulate a term, one inv(ACCUMULATE)."""
+        dom = product.NttDomain(torch.zeros((2, *digits_[0].shape[:-1]), dtype=torch.uint32,
+                                            device=digits_[0].device))
+        for d, key in zip(digits_, pre_):
+            dom = plan_.mul_accumulate(dom, plan_.fwd(d, bnd), key)
+        return plan_.inv(dom, mode=acc, standard=standard)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    fused = {"fwd_wide_multi": 2, "pointwise_inv_multi": 1}
+    before = counts()
+    p_rep = pplan.negacyclic_polymul(d_pa, d_pb)
+    expect_delta(before, fused, "product Replace polymul")
+    before = counts()
+    p_acc = pplan.negacyclic_polymul(d_pa, d_pb, mode=acc, standard=d_pacc)
+    expect_delta(before, fused, "product Accumulate polymul")
+    before = counts()
+    p_bnd = pplan.negacyclic_polymul(d_px, d_pb, mode=acc, standard=d_pacc, lhs_fwd_mode=bnd)
+    expect_delta(before, {"fwd_multi_perchannel": 1, "fwd_wide_multi": 1,
+                          "pointwise_inv_multi": 1}, "product Bounded polymul")
+    before = counts()
+    p_dom = pplan.fwd(d_px, bnd)
+    expect_delta(before, {"fwd_multi_perchannel": 1}, "product fwd(bounded)")
+    before = counts()
+    p_back = pplan.inv(p_dom, out_format="limbs")
+    expect_delta(before, {"inv_multi": 1}, "product inv")
+    before = counts()
+    p_small = sm_plan.negacyclic_polymul(card(sa), card(sb))
+    expect_delta(before, fused, f"product n={N_PROD_SMALL} polymul")
+    before = counts()
+    p_pbs = pbs_loop(pplan, d_digits, pre, d_pacc)
+    expect_delta(before, {"fwd_multi_perchannel": PBS_TERMS, "inv_multi": 1}, "PBS loop")
+    before = counts()
+    p_k2 = k2plan.negacyclic_polymul(card(ka), card(kb))
+    expect_delta(before, {"fwd": 4, "inv": 2}, f"product {K2_PAIR} polymul")
+    torch.cuda.synchronize()
+    launches_prod = counts()
+    wants = [
+        ("Replace", p_rep, pplan.negacyclic_polymul(u64_limbs(pa), u64_limbs(pb))),
+        ("Accumulate", p_acc, pplan.negacyclic_polymul(u64_limbs(pa), u64_limbs(pb), mode=acc,
+                                                       standard=u64_limbs(pacc))),
+        ("Bounded", p_bnd, pplan.negacyclic_polymul(u64_limbs(px), u64_limbs(pb), mode=acc,
+                                                    standard=u64_limbs(pacc), lhs_fwd_mode=bnd)),
+        ("fwd(bounded)", p_dom.res32, pplan.fwd(u64_limbs(px), bnd).res32),
+        ("inv", p_back, pplan.inv(pplan.fwd(u64_limbs(px), bnd), out_format="limbs")),
+        (f"n={N_PROD_SMALL}", p_small, sm_plan.negacyclic_polymul(u64_limbs(sa), u64_limbs(sb))),
+        ("PBS loop", p_pbs, pbs_loop(pplan, [u64_limbs(d) for d in digits],
+                                     [product.NttDomain(k.res32.cpu()) for k in pre], u64_limbs(pacc))),
+        (f"{K2_PAIR}", p_k2, k2plan.negacyclic_polymul(u64_limbs(ka), u64_limbs(kb))),
+    ]
+    for what, got, want in wants:
+        require(got.device.type == "cuda" and got.shape == want.shape
+                and torch.equal(got.cpu(), want),
+                f"main: product {what} differs from the CPU plain path")
+    row0 = limbs_to_np_u64(p_small[0].cpu().numpy()).tolist()
+    require(row0 == negacyclic_convolution_mod(sa[0].tolist(), sb[0].tolist(), m),
+            f"main: product n={N_PROD_SMALL} polymul row 0 differs from the schoolbook oracle")
+    nx = [int(v) * N_PROD % m for v in px[0]]
+    require(limbs_to_np_u64(p_back[0].cpu().numpy()).tolist() == nx,
+            "main: product inv(fwd(x, bounded)) != n·x mod m (row 0)")
+    for k in ("fwd_multi_perchannel", "pointwise_inv_multi"):
+        launches[k] = launches_prod[k]
+    print(f"main: product on {kind}: Plan({N_PROD}, {f1}·{f2}) B={B_PROD} polymul Replace, "
+          f"Accumulate, Bounded b={BOUND}, fwd(bounded), inv == CPU plain path; Plan("
+          f"{N_PROD_SMALL}) polymul == CPU == schoolbook oracle (row 0); PBS loop of "
+          f"{PBS_TERMS} terms == CPU; Plan({N_PROD}, {K2_PAIR}) polymul via K2 == CPU; "
+          f"launches {launches_prod}", flush=True)
+
     # -- 5. times -----------------------------------------------------------------
     ms, plain_ms = {}, {}
     limbs = (u32((B_MAIN, N_MAIN)), u32((B_MAIN, N_MAIN)))
@@ -529,6 +675,38 @@ def main() -> int:
         print(f"times: prime32 polymul n={N32} B={B32} p={pl.p} ({name}): {t:.4f} ms (median "
               f"of {REPS}) = {B32 / t * 1e3:.1f} products/s | {smi}", flush=True)
 
+    xs = (u32((2, B_PROD, N_PROD)), u32((2, B_PROD, N_PROD)))
+    sc2 = tuple(pow(N_PROD, p - 2, p) * pow(2, 32, p) % p for p in p2)
+    timed("K1c fwd_multi_perchannel", f"n={N_PROD} B={B_PROD} C=2 1 limb",
+          lambda: mxu32_cuda.fwd_multi_perchannel(xs[0], p2),
+          lambda: mxu32_cuda.fwd_multi_perchannel_plain(xs[:1], p2), "fwd_multi_perchannel")
+    timed("K1d pointwise_inv_multi", f"n={N_PROD} B={B_PROD} C=2 scaled",
+          lambda: mxu32_cuda.pointwise_inv_multi(*xs, p2, sc2),
+          lambda: mxu32_cuda.pointwise_inv_multi_plain(*xs, p2, sc2), "pointwise_inv_multi")
+
+    def mont_then_k1b():
+        a, b = to_i64(xs[0]), to_i64(xs[1])
+        prod = torch.stack([mont_mul(a[c], b[c], p, mont_neginv(p)) for c, p in enumerate(p2)])
+        return mxu32_cuda.inv_multi(to_u32(prod), p2, sc2)
+
+    t_fused, t_split = median_ms(lambda: mxu32_cuda.pointwise_inv_multi(*xs, p2, sc2)), \
+        median_ms(mont_then_k1b)
+    print(f"times: K1d vs plain mont_mul + K1b n={N_PROD} B={B_PROD} C=2: K1d {t_fused:.4f} ms, "
+          f"mont_mul + K1b {t_split:.4f} ms (median of {REPS}) | {smi}", flush=True)
+    prod_calls = {
+        "Replace": lambda: pplan.negacyclic_polymul(d_pa, d_pb),
+        "Accumulate": lambda: pplan.negacyclic_polymul(d_pa, d_pb, mode=acc, standard=d_pacc),
+        "Bounded": lambda: pplan.negacyclic_polymul(d_px, d_pb, mode=acc, standard=d_pacc,
+                                                    lhs_fwd_mode=bnd),
+    }
+    for what, fn in prod_calls.items():
+        t = median_ms(fn)
+        print(f"times: product polymul {what} n={N_PROD} B={B_PROD} ({f1}·{f2}): {t:.4f} ms "
+              f"(median of {REPS}) = {B_PROD / t * 1e3:.1f} products/s | {smi}", flush=True)
+    t = median_ms(lambda: pbs_loop(pplan, d_digits, pre, d_pacc), reps=5, warmup=1)
+    print(f"times: PBS loop n={N_PROD} B={B_PROD} {PBS_TERMS} terms: {t:.4f} ms (median of 5) "
+          f"= {t / PBS_TERMS:.4f} ms a term | {smi}", flush=True)
+
     if args.profile:
         prof_cases = [(f"n={N32} ({name})", pl, lhs, rhs) for name, pl, lhs, rhs in p32_cases]
         prof_cases += [("n=4096 (lt30)", mid, *mid_ops), ("n=1024 (lt30)", small, *small_ops)]
@@ -540,6 +718,13 @@ def main() -> int:
                   f"({100 * r['busy_share']:.1f} %), matmod_pass/ntt_radix2 "
                   f"{r['kernel_ms']:.4f} ms, {r['device_events']:.0f} device events and "
                   f"{r['aten_ops']:.0f} aten ops a polymul (10 polymuls) | {smi}", flush=True)
+        for what in ("Replace", "Bounded"):
+            r = profile_polymul(prod_calls[what])
+            print(f"profile: product polymul {what} n={N_PROD} B={B_PROD}: host clock "
+                  f"{r['host_ms']:.4f} ms, device busy {r['busy_ms']:.4f} ms "
+                  f"({100 * r['busy_share']:.1f} %), matmod_pass {r['kernel_ms']:.4f} ms, "
+                  f"{r['device_events']:.0f} device events and {r['aten_ops']:.0f} aten ops "
+                  f"a polymul (10 polymuls) | {smi}", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

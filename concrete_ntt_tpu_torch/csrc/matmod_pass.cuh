@@ -1,5 +1,5 @@
 // One exact modular GEMM pass of the four-step prime32 NTT, for every
-// prime32 regime: the building block of kernels K1a/K1b (mxu32_multi.cu)
+// prime32 regime: the building block of kernels K1a-K1d (mxu32_multi.cu)
 // and K2/K3 (mxu32_pass.cu).
 //
 // The pass computes the JAX package's ops/mxu32.py math for a [rows, K] x
@@ -83,8 +83,10 @@ __device__ __forceinline__ uint32_t shoup_lazy(uint32_t z, uint32_t w, uint32_t 
   return z * w - __umulhi(z, w_sh) * p;
 }
 
-// REDC a*b*2^-32 mod p with the (lo != 0) carry (ops/u32.py mont_mul); the
-// 64-bit sum and one conditional subtract give the JAX wrapping result.
+// REDC a*b*2^-32 mod p with the (lo != 0) carry (ops/u32.py mont_mul), for
+// any u32 a, b: the 64-bit sum keeps the u32 overflow of hi + mulhi(m, p) +
+// carry (true value < 2^32 + p), which the JAX package's mont_mul and
+// _sc_mont_mul track, and one conditional subtract gives their bit pattern.
 __device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b, uint32_t p,
                                              uint32_t p_neginv) {
   const uint64_t ab = (uint64_t)a * b;
@@ -100,7 +102,10 @@ __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) 
   return (uint32_t)(s >= p ? s - p : s);
 }
 
-template <int kD, int kRegime, bool kScaled>
+// kPointwise (K1d's first pass): the operand value is the Montgomery product
+// mont_mul(x[0][i], x[1][i]) of two operands read at the same index (both
+// any u32, one limb each), taken in the load before the digit split.
+template <int kD, int kRegime, bool kScaled, bool kPointwise = false>
 __global__ void __launch_bounds__(kThreads) matmod_pass(Pass a) {
   __shared__ uint32_t xs[kKC][kTM + 1];  // operand digit words, [k][row]
   __shared__ int32_t ps[kKC][kD * kTO];  // plane words, [k][digit * kTO + out]
@@ -112,6 +117,11 @@ __global__ void __launch_bounds__(kThreads) matmod_pass(Pass a) {
   const int kw = a.n_limbs * a.k1;
   const int od = kD * a.o;
   const int32_t* planes = a.planes + (size_t)c * kw * od;
+  uint32_t pw_p = 0, pw_neginv = 0;  // p and -p^-1 of the channel (kPointwise)
+  if constexpr (kPointwise) {
+    pw_p = a.scal[kScalWords * c];
+    pw_neginv = a.scal[kScalWords * c + 3];
+  }
 
   int acc[kRowsPerThread][kD];
 #pragma unroll
@@ -137,7 +147,12 @@ __global__ void __launch_bounds__(kThreads) matmod_pass(Pass a) {
       if (m < a.total_rows) {
         const int b = m / a.rows_per_poly;
         const int j = m - b * a.rows_per_poly;
-        v = xl[(long long)b * a.x_b + (long long)(i0 + kk) * a.s_k + (long long)j * a.s_r];
+        const long long at =
+            (long long)b * a.x_b + (long long)(i0 + kk) * a.s_k + (long long)j * a.s_r;
+        v = xl[at];
+        if constexpr (kPointwise) {
+          v = mont_mul(v, a.x[1][(long long)c * a.x_chan + at], pw_p, pw_neginv);
+        }
       }
       xs[kk][r] = v ^ 0x80808080u;  // byte e = int8 digit e of v, minus 128
     }
@@ -215,10 +230,10 @@ __global__ void __launch_bounds__(kThreads) matmod_pass(Pass a) {
   }
 }
 
-template <int kD, int kRegime, bool kScaled>
+template <int kD, int kRegime, bool kScaled, bool kPointwise = false>
 cudaError_t launch(const Pass& a, int channels, cudaStream_t stream) {
   const dim3 grid((a.total_rows + kTM - 1) / kTM, a.o / kTO, channels);
-  matmod_pass<kD, kRegime, kScaled><<<grid, kThreads, 0, stream>>>(a);
+  matmod_pass<kD, kRegime, kScaled, kPointwise><<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Four-step prime32 NTT kernels: K1a / K1b (channel grid), K2, K3.
+"""Four-step prime32 NTT kernels: K1a-K1d (channel grid), K2, K3.
 
 Counterpart of `concrete_ntt_tpu/ops/mxu32_pallas.py`:
 
@@ -8,6 +8,15 @@ Counterpart of `concrete_ntt_tpu/ops/mxu32_pallas.py`:
   * K1b `inv_multi`: [C, B, n] u32 (any representative) -> [C, B, n]
     canonical, standard order, times a per-channel scale folded into A_inv.
     Replaces the inv branch of the same builder (kernel body :398-412).
+  * K1c `fwd_multi_perchannel` / `fwd_wide_multi_perchannel`: K1a with a
+    different operand per channel, [C, B, n] u32 per limb (any values).
+    Replaces the builder's `perch_in=True` fwd (:544, :564); the product
+    plan's Bounded forward. No `hyb` argument: the stage-split hybrid is
+    not ported.
+  * K1d `pointwise_inv_multi`: fl, fr [C, B, n] u32 (any representatives)
+    -> K1b of their Montgomery product fl*fr*2^-32 (the u32 overflow of the
+    REDC sum kept, as `_sc_mont_mul` :505). Replaces the builder's
+    `pointwise=True` inv (:637); the product plan's fused polymul.
   * K2 `fwd` / `fwd_wide` / `inv(scale)`: the whole four-step transform of
     one prime, [B, n] -> [B, n]. Replaces `_build_call` (kernel :72-107).
     `passes_engine` (fwd / fwd_wide / inv) names the same functions: the
@@ -37,7 +46,9 @@ or raises, a CPU tensor runs the plain torch version (`*_plain`, built on
 `LAUNCHES[name]`; nothing else does. K2's `fwd_wide` is its `fwd` kernel
 with a second limb and counts under "fwd".
 
-Range: K1 takes channel primes 2^29 < p < 2^30 (as `mxu32_pallas.py:254`);
+Range: K1 takes channel primes 2^29 < p < 2^30 (as `mxu32_pallas.py:254`)
+and 2^11 <= n <= 2^15 (the TPU serves K1c/K1d only at n >= 2^14, a VMEM
+and lane limit; the results are the same bits at every n);
 K2/K3 take every prime32 regime with odd 2^26 <= p < 2^32 (lt30, lt31,
 generic with its Montgomery epilogues and, near 2^32, a fifth matrix digit
 plane); all take powers of two 2^11 <= n <= 2^15 and 1 or 2 operand limbs.
@@ -55,9 +66,10 @@ import numpy as np
 import torch
 
 from . import cuda_build, mxu32
-from .u32 import MASK32, mont_neginv, to_i64, to_u32
+from .u32 import MASK32, mont_mul, mont_neginv, to_i64, to_u32
 
-LAUNCHES = {"fwd_wide_multi": 0, "inv_multi": 0, "fwd": 0, "inv": 0, "pass_matmod": 0}
+LAUNCHES = {"fwd_wide_multi": 0, "inv_multi": 0, "fwd_multi_perchannel": 0,
+            "pointwise_inv_multi": 0, "fwd": 0, "inv": 0, "pass_matmod": 0}
 
 MIN_N, MAX_N = 1 << 11, 1 << 15
 _SCAL_WORDS = 16  # the scalar record of csrc/matmod_pass.cuh
@@ -246,18 +258,31 @@ def _diag_tables(n: int, p: int, name: str, device: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def fwd_wide_multi_plain(limbs: tuple, primes: tuple) -> torch.Tensor:
-    """Plain twin of K1a on the device of `limbs`: per channel, the
-    single-channel four-step of ops/mxu32.py."""
-    n = limbs[0].shape[-1]
-    check_range(n, primes, len(limbs))
-    xs = tuple(to_i64(a) for a in limbs)
+def _fwd_channels_plain(chan_limbs: list, primes: tuple) -> torch.Tensor:
+    """Per channel, the single-channel four-step of ops/mxu32.py on that
+    channel's u32-carrier limb tuple [B, n]."""
     outs = []
-    for p in primes:
+    for xs, p in zip(chan_limbs, primes):
+        n = xs[0].shape[-1]
         tbl = mxu32._mxu_tables(n, p)
         mat1 = mxu32._wide_col_planes(n, p, len(xs)) if len(xs) > 1 else tbl["A"]
         outs.append(mxu32._fwd_core(xs, tbl, mat1, p=p))
     return to_u32(torch.stack(outs))
+
+
+def fwd_wide_multi_plain(limbs: tuple, primes: tuple) -> torch.Tensor:
+    """Plain twin of K1a on the device of `limbs` (one operand, all channels)."""
+    check_range(limbs[0].shape[-1], primes, len(limbs))
+    xs = tuple(to_i64(a) for a in limbs)
+    return _fwd_channels_plain([xs] * len(primes), primes)
+
+
+def fwd_multi_perchannel_plain(limbs: tuple, primes: tuple) -> torch.Tensor:
+    """Plain twin of K1c on the device of `limbs`: [C, B, n] per limb, channel
+    c transforms its own operand limbs[...][c]."""
+    check_range(limbs[0].shape[-1], primes, len(limbs))
+    xs = tuple(to_i64(a) for a in limbs)
+    return _fwd_channels_plain([tuple(x[ch] for x in xs) for ch in range(len(primes))], primes)
 
 
 def inv_multi_plain(x: torch.Tensor, primes: tuple, scales: tuple) -> torch.Tensor:
@@ -274,6 +299,17 @@ def inv_multi_plain(x: torch.Tensor, primes: tuple, scales: tuple) -> torch.Tens
             mat2 = mxu32._scaled_ainv_planes(n, p, scales[ch] % p)
         outs.append(mxu32._inv_core(xi[ch], tbl, mat2, p=p))
     return to_u32(torch.stack(outs))
+
+
+def pointwise_inv_multi_plain(fl: torch.Tensor, fr: torch.Tensor, primes: tuple,
+                              scales: tuple) -> torch.Tensor:
+    """Plain twin of K1d: per channel the Montgomery product of ops/u32.py
+    (any u32 operands; the u32 overflow of the REDC sum is kept), then K1b's
+    plain twin."""
+    check_range(fl.shape[-1], primes)
+    a, b = to_i64(fl), to_i64(fr)
+    prod = torch.stack([mont_mul(a[ch], b[ch], p, mont_neginv(p)) for ch, p in enumerate(primes)])
+    return inv_multi_plain(to_u32(prod), primes, scales)
 
 
 def fwd_plain(x: torch.Tensor, *, n: int, p: int) -> torch.Tensor:
@@ -327,6 +363,10 @@ def _lib() -> ctypes.CDLL:
         lib.k1a_fwd_wide_multi.restype = ctypes.c_int
         lib.k1b_inv_multi.argtypes = [_P, _I, _I, _I, _I, *[_P] * 9]
         lib.k1b_inv_multi.restype = ctypes.c_int
+        lib.k1c_fwd_multi_perchannel.argtypes = [_P, _P, _I, _I, _I, _I, _I, *[_P] * 9]
+        lib.k1c_fwd_multi_perchannel.restype = ctypes.c_int
+        lib.k1d_pointwise_inv_multi.argtypes = [_P, _P, _I, _I, _I, _I, *[_P] * 9]
+        lib.k1d_pointwise_inv_multi.restype = ctypes.c_int
     return lib
 
 
@@ -428,6 +468,75 @@ def _call(dev: torch.device, fn, *args) -> int:
     """fn(*args, stream) with `dev` current, on its current stream."""
     with torch.cuda.device(dev):
         return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _check_channels(x: torch.Tensor, primes: tuple) -> None:
+    if x.shape[0] != len(primes):
+        raise ValueError(f"expected {len(primes)} channels, got {tuple(x.shape)}")
+
+
+def fwd_multi_perchannel(x: torch.Tensor, primes: tuple) -> torch.Tensor:
+    """K1c: all channels' forward NTTs of per-channel operands. x [C, B, n]
+    uint32 (any values) -> [C, B, n] canonical, bit-reversed order."""
+    return _fwd_perchannel((x,), tuple(primes))
+
+
+def fwd_wide_multi_perchannel(x_lo: torch.Tensor, x_hi: torch.Tensor,
+                              primes: tuple) -> torch.Tensor:
+    """K1c with two limbs: (lo, hi) [C, B, n] u64 values per channel ->
+    [C, B, n] canonical NTT-domain residues (value mod p folded into the
+    column matmul, as K1a's)."""
+    return _fwd_perchannel((x_lo, x_hi), tuple(primes))
+
+
+def _fwd_perchannel(limbs: tuple, primes: tuple) -> torch.Tensor:
+    dev = _check_operands(limbs, 3)
+    _check_channels(limbs[0], primes)
+    if dev.type == "cpu":
+        return fwd_multi_perchannel_plain(limbs, primes)
+    c, b, n = limbs[0].shape
+    check_range(n, primes, len(limbs))
+    tabs = _kernel_tables(n, primes, len(limbs), (1,) * c, "fwd", str(dev))
+    n1, n2 = mxu32.four_step_factors(n)
+    out = torch.empty((c, b, n), dtype=torch.uint32, device=dev)
+    scratch = torch.empty_like(out)
+    x1 = limbs[1] if len(limbs) > 1 else limbs[0]
+    ptrs = _ptrs(limbs[0], x1, tabs["planes1"], tabs["cvec1"], tabs["planes2"],
+                 tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
+    err = _call(dev, _lib().k1c_fwd_multi_perchannel, ptrs[0], ptrs[1], len(limbs), b, n1, n2,
+                c, *ptrs[2:])
+    LAUNCHES["fwd_multi_perchannel"] += 1
+    if err != 0:
+        raise RuntimeError(f"K1c fwd_multi_perchannel launch failed: CUDA error {err}")
+    return out
+
+
+def pointwise_inv_multi(fl: torch.Tensor, fr: torch.Tensor, primes: tuple,
+                        scales: tuple) -> torch.Tensor:
+    """K1d: all channels' Montgomery product fl*fr*2^-32 mod p (fl, fr
+    [C, B, n] uint32, any representatives) and scaled inverse NTT in one
+    kernel -> [C, B, n] canonical, standard order. With scale n^-1 * 2^32
+    mod p the result is the normalized inverse of the product."""
+    dev = _check_operands((fl, fr), 3)
+    primes, scales = tuple(primes), tuple(scales)
+    _check_channels(fl, primes)
+    if len(scales) != len(primes):
+        raise ValueError(f"expected {len(primes)} scales, got {len(scales)}")
+    if dev.type == "cpu":
+        return pointwise_inv_multi_plain(fl, fr, primes, scales)
+    c, b, n = fl.shape
+    check_range(n, primes)
+    tabs = _kernel_tables(n, primes, 1, scales, "inv", str(dev))
+    n1, n2 = mxu32.four_step_factors(n)
+    out = torch.empty_like(fl)
+    scratch = torch.empty_like(fl)
+    ptrs = _ptrs(fl, fr, tabs["planes1"], tabs["cvec1"], tabs["planes2"], tabs["cvec2"],
+                 tabs["diag"], tabs["scal"], scratch, out)
+    err = _call(dev, _lib().k1d_pointwise_inv_multi, ptrs[0], ptrs[1], b, n1, n2, c, *ptrs[2:])
+    LAUNCHES["pointwise_inv_multi"] += 1
+    if err != 0:
+        raise RuntimeError(f"K1d pointwise_inv_multi launch failed: CUDA error {err}")
+    return out
 
 
 @lru_cache(maxsize=64)

@@ -9,9 +9,10 @@ Counterpart of `concrete_ntt_tpu/ops/ntt_dispatch.py`, two parts of it:
     for 2048 <= n < 2^14 (`passes_engine`, :60-77), is cut there by VMEM
     (`mxu32_pallas.fused_applicable`); K2 serves those sizes whole on the
     card, so they take K2 here;
-  * the channel-grid routes of the native plans (`try_fwd32_wide_all`
-    :125, `try_inv32_all` :219, `try_polymul32_stacked` :248-305) through
-    K1a / K1b.
+  * the channel routes of the CRT plans (`try_fwd32_wide_all` :125,
+    `try_fwd32_perchannel_all` :156, `try_pointwise_inv32_all` :180,
+    `try_inv32_all` :219, `try_polymul32_stacked` :248-305): `route32`
+    picks the channel grid (K1a-K1d) or K2 once per channel.
 
 The JAX package routes on the backend and environment knobs; here the route
 is the device of the operand, inside the kernel modules: a CUDA tensor
@@ -21,8 +22,9 @@ the CPU, which runs the stage engine (as the JAX package off the TPU); on
 the card such sizes raise. There is no knob and no hybrid or presplit
 branch (both are off in the reference's 'auto'). Where the JAX functions
 return None for "not applicable", these raise NotImplementedError naming
-the ROADMAP item, and they return the stacked [C, B, n] tensor rather than
-a list of channels.
+the ROADMAP item (a caller that has another path asks `route32` first),
+and they return the stacked [C, B, n] tensor rather than a list of
+channels.
 """
 
 from __future__ import annotations
@@ -30,27 +32,100 @@ from __future__ import annotations
 import torch
 
 from . import butterfly32_cuda, mxu32, mxu32_cuda
-from .u32 import MASK32, mulhi_u32, mullo_u32, mulwide_u32, to_i64, to_u32
+from .u32 import MASK32, mont_mul, mont_neginv, mulhi_u32, mullo_u32, mulwide_u32, to_i64, to_u32
 
 
 def _primes(plans) -> tuple:
     return tuple(pl.p for pl in plans)
 
 
+def route32(n: int, primes: tuple) -> str | None:
+    """The channel route of a CRT plan's prime32 channels, decided before
+    any launch and the same on the CPU as on the card: "K1" (the channel
+    grid: every prime 2^29 < p < 2^30, 2^11 <= n <= 2^15), "K2" (the
+    four-step once per channel, where `mxu32.applicable` holds for every
+    prime and n <= 2^15), or None (no channel route: a caller with another
+    path takes it, as `product.py` its prime32 plans)."""
+    if not primes or n & (n - 1) or not mxu32_cuda.MIN_N <= n <= mxu32_cuda.MAX_N:
+        return None
+    if all((1 << 29) < p < (1 << 30) for p in primes):
+        return "K1"
+    variants = ("lt30", "lt31", "generic")
+    if all(mxu32.applicable(n, p, variants[mxu32_cuda.regime(p)]) for p in primes):
+        return "K2"
+    return None
+
+
+def _route(n: int, primes: tuple) -> str:
+    route = route32(n, primes)
+    if route is None:
+        raise NotImplementedError(
+            f"n = {n}, primes {primes}: no channel route (the channel grid takes "
+            "30-bit primes, the per-channel four-step odd p >= 2^26, both at "
+            "2^11 <= n <= 2^15); native plans below 2^11 wait for their "
+            "per-channel route and larger sizes for the native128 2^16 work "
+            "(ROADMAP.md Queue 1 item 5)"
+        )
+    return route
+
+
 def try_fwd32_wide_all(parts, plans):
     """Fused residue split + forward NTT for a CRT plan's prime32 channels:
     little-endian uint32 limb tuple of [B, n] → [C, B, n] NTT-domain
     residues. The per-coefficient `% p` split (native64.rs:980-993) is folded
-    into K1a's column matmul as extra operand digit planes."""
-    return mxu32_cuda.fwd_wide_multi(tuple(parts), _primes(plans))
+    into the column matmul as extra operand digit planes (K1a, or K2's
+    `fwd_wide` once per channel)."""
+    n, primes = parts[0].shape[-1], _primes(plans)
+    if _route(n, primes) == "K1":
+        return mxu32_cuda.fwd_wide_multi(tuple(parts), primes)
+    return torch.stack([mxu32_cuda.fwd_wide(tuple(parts), n=n, p=p) for p in primes])
+
+
+def try_fwd32_perchannel_all(stacked, plans):
+    """Forward NTTs of per-channel operands ([C, B, n], any u32
+    representatives) → [C, B, n] NTT-domain residues: K1c, or K2 once per
+    channel. Serves the product plan's Bounded forward, whose centred
+    residues differ per channel."""
+    n, primes = stacked.shape[-1], _primes(plans)
+    if _route(n, primes) == "K1":
+        return mxu32_cuda.fwd_multi_perchannel(stacked, primes)
+    return torch.stack([mxu32_cuda.fwd(stacked[i], n=n, p=p) for i, p in enumerate(primes)])
+
+
+def _pointwise_scales(n: int, primes: tuple) -> tuple:
+    """n^-1 * 2^32 mod p: the normalization and the compensation of the
+    bare Montgomery product's 2^-32, folded into the inverse."""
+    return tuple(pow(n, p - 2, p) * pow(2, 32, p) % p for p in primes)
+
+
+def try_pointwise_inv32_all(fl, fr, plans):
+    """Pointwise product + normalize + inverse NTT of all channels: fl, fr
+    [C, B, n] (any u32 representatives) → standard-order canonical residues
+    [C, B, n]. The product is a bare Montgomery multiply (a*b*2^-32); 2^32
+    and n^-1 fold into the inverse column matrix — the reference's fused
+    mul_assign_normalize + inv (native64.rs:1062-1069). K1d does both in
+    one kernel; on the K2 route the product is plain torch per channel."""
+    n, primes = fl.shape[-1], _primes(plans)
+    scales = _pointwise_scales(n, primes)
+    if _route(n, primes) == "K1":
+        return mxu32_cuda.pointwise_inv_multi(fl, fr, primes, scales)
+    a, b = to_i64(fl), to_i64(fr)
+    return torch.stack([
+        mxu32_cuda.inv(to_u32(mont_mul(a[i], b[i], p, mont_neginv(p))), n=n, p=p, scale=s)
+        for i, (p, s) in enumerate(zip(primes, scales))
+    ])
 
 
 def try_inv32_all(stacked, plans, scales=None):
     """Unnormalized (unless scaled) inverse NTTs of all channels:
-    [C, B, n] uint32, any u32 representatives → standard-order canonical."""
-    if scales is None:
-        scales = (1,) * len(plans)
-    return mxu32_cuda.inv_multi(stacked, _primes(plans), tuple(scales))
+    [C, B, n] uint32, any u32 representatives → standard-order canonical
+    (K1b, or K2 once per channel)."""
+    n, primes = stacked.shape[-1], _primes(plans)
+    scales = tuple(scales) if scales is not None else (1,) * len(primes)
+    if _route(n, primes) == "K1":
+        return mxu32_cuda.inv_multi(stacked, primes, scales)
+    return torch.stack([mxu32_cuda.inv(stacked[i], n=n, p=p, scale=s)
+                        for i, (p, s) in enumerate(zip(primes, scales))])
 
 
 def try_polymul32_stacked(parts_l, parts_r, plans, rhs_binary=False):
@@ -72,13 +147,14 @@ def try_polymul32_stacked(parts_l, parts_r, plans, rhs_binary=False):
     # Montgomery product a*b*2^-32 mod p (any-u32 representative out).
     lo, hi = mulwide_u32(a, b)
     m = mullo_u32(lo, nv)
-    # REDC carry: lo(a·b) + lo(m·p) is 0 or exactly 2^32 (m·p ≡ -lo mod 2^32),
-    # so the carry is just (lo != 0). Its premise: canonical fwd outputs.
+    # REDC carry: lo(a·b) + lo(m·p) is 0 or exactly 2^32 (m·p ≡ -lo mod
+    # 2^32), so (lo != 0) is the exact carry for any operands. The `& MASK32`
+    # drops the u32 overflow of the sum, which needs canonical operands (the
+    # fwd outputs here: a, b < p < 2^30 give a sum < 2p); K1d, whose
+    # operands are any u32, keeps it (its full-range parity test in
+    # tests/test_torch_mxu32.py).
     t = (hi + mulhi_u32(m, pv) + (lo != 0).to(lo.dtype)) & MASK32
-    scales = tuple(
-        pow(n, pl.p - 2, pl.p) * pow(2, 32, pl.p) % pl.p for pl in plans
-    )
-    return mxu32_cuda.inv_multi(to_u32(t), primes, scales)
+    return mxu32_cuda.inv_multi(to_u32(t), primes, _pointwise_scales(n, primes))
 
 
 def tier32(n: int, p: int, variant: str, device: torch.device) -> str:

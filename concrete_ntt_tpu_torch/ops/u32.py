@@ -1,8 +1,11 @@
 """u32-limb modular arithmetic primitives, in plain torch.
 
-Counterpart of `concrete_ntt_tpu/ops/u32.py`. Only the helpers the native64
-Plan32 path reaches come across: the 32-bit half, the 64-bit limb helpers of
-`rec_u64_from5`, and the numpy limb converters.
+Counterpart of `concrete_ntt_tpu/ops/u32.py`. Only the helpers the ported
+paths reach come across: the 32-bit half, the 64-bit limb helpers of
+`rec_u64_from5` and of the product plan's u32-channel path (`mul64_u32`,
+`add64c`, `sub64b`, `add_mod64`, `sub_mod64`), and the numpy limb
+converters. `mont_mul64` and the rest of the 64-bit half wait for the
+prime64 slice.
 
 Carrier convention: torch has no `+`, `>>` or `<` for `uint32` on the CPU,
 so every function here takes and returns u32 values held in `int64`
@@ -212,6 +215,38 @@ def shoup_mul_lazy64(z, w, w_shoup, p: int):
     """t ≡ z·w (mod p), t in [0, 2p), for z < 2^64, w < p < 2^63 (limb pairs)."""
     q = mulhi64(z, w_shoup)
     return sub64(mullo64(z, w), mullo64(q, const64_like(p)))
+
+
+def mul64_u32(a, b32):
+    """Low 64 bits of (u64 limb pair a) * (u32 b32)."""
+    lo, hi = mulwide_u32(a[0], b32)
+    return lo, (hi + mullo_u32(a[1], b32)) & MASK32
+
+
+def add64c(a, b):
+    """Wrapping 64-bit add returning (sum pair, carry out as 0/1)."""
+    lo = a[0] + b[0]
+    hi = a[1] + b[1] + (lo >> 32)  # exact in int64: < 2^33
+    return (lo & MASK32, hi & MASK32), hi >> 32
+
+
+def sub64b(a, b):
+    """Wrapping 64-bit subtract returning (difference pair, borrow out as bool)."""
+    return sub64(a, b), ~geq64(a, b)
+
+
+def add_mod64(a, b, p: int):
+    """(a + b) mod p for limb pairs in [0, p), any p < 2^64."""
+    s, carry = add64c(a, b)
+    # on a carry the true sum s + 2^64 lies in [2^64, 2p): subtract p once
+    # as the wrapping add of 2^64 - p; otherwise one conditional subtract
+    return select64(carry != 0, add64(s, const64_like((1 << 64) - p)), cond_sub64(s, p))
+
+
+def sub_mod64(a, b, p: int):
+    """(a - b) mod p for limb pairs in [0, p)."""
+    d, borrow = sub64b(a, b)
+    return select64(borrow, add64(d, const64_like(p)), d)
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,10 @@ generic (Montgomery twiddles).
 
 Transforms take a uint32 tensor (or numpy array) [..., n] and return a
 uint32 tensor on the input's device (numpy input computes on the CPU).
-`ops/ntt_dispatch.fwd32/inv32` choose the tier: the four-step kernels K2
-(n >= 2^14) and K3 (2048 <= n < 2^14) for p >= 2^26, else the butterfly
-kernel K4. A CUDA tensor launches the kernel; a CPU tensor runs its plain
+`ops/ntt_dispatch.fwd32/inv32` choose the tier: the four-step kernel K2
+for 2^11 <= n <= 2^15 where `mxu32.applicable` holds (odd p >= 2^26), else
+the butterfly kernel K4 (K3 is only the sharded four-step's per-rank
+pass). A CUDA tensor launches the kernel; a CPU tensor runs its plain
 torch twin. Outputs are canonical and equal the JAX package's bit for bit:
 fwd = standard order -> bit-reversed NTT values in [0, p); inv =
 bit-reversed -> standard order, unnormalized (inv(fwd(x)) == n·x mod p).

@@ -1,6 +1,6 @@
-"""Card tests of the port: each kernel (K1a / K1b, K2, K3, K4) against its
-plain torch twin, and the native64 Plan32 and prime32 polymuls through the
-kernels against the CPU plain path.
+"""Card tests of the port: each kernel (K1a-K1d, K2, K3, K4) against its
+plain torch twin, and the native64 Plan32, prime32 and product polymuls
+through the kernels against the CPU plain path.
 
 Every test here is marked `cuda` and skips without a CUDA GPU. The file
 imports only the port (no JAX), so it runs on a GPU machine without JAX:
@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from concrete_ntt_tpu_torch import native64, prime32
+from concrete_ntt_tpu_torch import native64, prime32, product
 from concrete_ntt_tpu_torch.ops import butterfly32_cuda, mxu32, mxu32_cuda
 from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
 
@@ -67,7 +67,8 @@ def test_polymul_on_card_matches_cpu(gen, cuda_device):
     mxu32_cuda.reset_launch_counts()
     got = plan.negacyclic_polymul(tuple(t.to(cuda_device) for t in lhs),
                                   tuple(t.to(cuda_device) for t in rhs))
-    assert mxu32_cuda.LAUNCHES == {"fwd_wide_multi": 2, "inv_multi": 1, "fwd": 0, "inv": 0,
+    assert mxu32_cuda.LAUNCHES == {"fwd_wide_multi": 2, "inv_multi": 1, "fwd_multi_perchannel": 0,
+                                   "pointwise_inv_multi": 0, "fwd": 0, "inv": 0,
                                    "pass_matmod": 0}
     want = plan.negacyclic_polymul(lhs, rhs)
     for g, w in zip(got, want):
@@ -123,3 +124,37 @@ def test_prime32_polymul_on_card_matches_cpu(gen, cuda_device, n):
     got = plan.negacyclic_polymul(torch.from_numpy(lhs).to(cuda_device),
                                   torch.from_numpy(rhs).to(cuda_device))
     _same(got, plan.negacyclic_polymul(lhs, rhs))
+
+
+@pytest.mark.parametrize("n,b", [(1 << 11, 3), (1 << 14, 5)])
+def test_k1c_k1d_match_plain_on_card(gen, cuda_device, n, b):
+    primes = PRIMES[:2]
+    xs = (_u32(gen, (2, b, n), cuda_device), _u32(gen, (2, b, n), cuda_device))
+    _same(mxu32_cuda.fwd_multi_perchannel(xs[0], primes),
+          mxu32_cuda.fwd_multi_perchannel_plain(xs[:1], primes))
+    _same(mxu32_cuda.fwd_wide_multi_perchannel(*xs, primes),
+          mxu32_cuda.fwd_multi_perchannel_plain(xs, primes))
+    scales = tuple(pow(n, p - 2, p) * pow(2, 32, p) % p for p in primes)
+    _same(mxu32_cuda.pointwise_inv_multi(*xs, primes, scales),
+          mxu32_cuda.pointwise_inv_multi_plain(*xs, primes, scales))
+
+
+@pytest.mark.parametrize("factors", [PRIMES[:2], (2147352577, 4293918721)], ids=["K1", "K2"])
+def test_product_polymul_on_card_matches_cpu(gen, cuda_device, factors):
+    n, b = 1 << 14, 3
+    m = factors[0] * factors[1]
+    plan = product.Plan.new(n, m, factors)
+    vals = [gen.integers(0, 1 << 64, (b, n), dtype=np.uint64) % np.uint64(m) for _ in range(3)]
+    signed = gen.integers(-(1 << 19), 1 << 19, (b, n))
+    vals.append(np.where(signed < 0, np.uint64(m) - np.abs(signed).astype(np.uint64),
+                         signed.astype(np.uint64)))
+    lo_hi = lambda v: torch.from_numpy(np.stack([(v & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                                                 (v >> np.uint64(32)).astype(np.uint32)], -1))
+    a, c, acc, x = (lo_hi(v) for v in vals)
+    for lhs, mode, fm in [(a, product.REPLACE, product.GENERIC),
+                          (a, product.ACCUMULATE, product.GENERIC),
+                          (x, product.ACCUMULATE, product.bounded(1 << 20))]:
+        kw = dict(mode=mode, lhs_fwd_mode=fm)
+        got = plan.negacyclic_polymul(lhs.to(cuda_device), c.to(cuda_device),
+                                      standard=acc.to(cuda_device), **kw)
+        _same(got, plan.negacyclic_polymul(lhs, c, standard=acc, **kw))

@@ -1,4 +1,4 @@
-"""K1a / K1b, K2 and K3 of the port (ops/mxu32_cuda.py, ops/mxu32.py) vs the
+"""K1a-K1d, K2 and K3 of the port (ops/mxu32_cuda.py, ops/mxu32.py) vs the
 JAX package.
 
 On the CPU the wrappers run their plain torch twins. These are held against
@@ -23,6 +23,7 @@ from concrete_ntt_tpu.ops import mxu32_pallas as jpal
 from concrete_ntt_tpu_torch.ops import cuda_build
 from concrete_ntt_tpu_torch.ops import mxu32 as tmx
 from concrete_ntt_tpu_torch.ops import mxu32_cuda as tcu
+from concrete_ntt_tpu_torch.ops.u32 import mont_neginv
 from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
 from concrete_ntt_tpu_torch.utils.prime import largest_prime_in_arithmetic_progression64
 
@@ -59,6 +60,62 @@ def test_multi_plain_matches_pallas_interpret(rng, interpret, case, b):
         want = jpal.inv_multi(jnp.asarray(x), PRIMES, scales)
     assert got.dtype == torch.uint32 and got.shape == (len(PRIMES), b, N_BIG)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _redc_overflows(a, b, p):
+    """Where hi + mulhi(m, p) + carry of REDC(a*b) passes 2^32 (numpy)."""
+    ab = a.astype(np.uint64) * b.astype(np.uint64)
+    lo = ab & np.uint64(0xFFFFFFFF)
+    m = (lo * np.uint64(mont_neginv(p))) & np.uint64(0xFFFFFFFF)
+    t = (ab >> np.uint64(32)) + ((m * np.uint64(p)) >> np.uint64(32)) + (lo != 0)
+    return t >= np.uint64(1 << 32)
+
+
+@pytest.mark.parametrize("b", [8, 5])
+@pytest.mark.parametrize("case", ["perchannel1", "perchannel2", "pointwise"])
+def test_k1c_k1d_plain_matches_pallas_interpret(rng, interpret, case, b):
+    """K1c (1 and 2 limbs) and K1d's plain twins against the JAX Pallas
+    kernels in interpret mode, two channels at n = 2^14. K1d gets
+    full-range u32 operands, among them pairs whose REDC sum overflows u32
+    (the overflow `_sc_mont_mul` tracks and the masked stacked sum drops)."""
+    primes = PRIMES[:2]
+    t = torch.from_numpy
+    if case.startswith("perchannel"):
+        xs = tuple(_u32(rng, (2, b, N_BIG)) for _ in range(int(case[-1])))
+        if len(xs) == 1:
+            got = tcu.fwd_multi_perchannel(t(xs[0]), primes)
+            want = jpal.fwd_multi_perchannel(jnp.asarray(xs[0]), primes)
+        else:
+            got = tcu.fwd_wide_multi_perchannel(*map(t, xs), primes)
+            want = jpal.fwd_wide_multi_perchannel(*map(jnp.asarray, xs), primes)
+    else:
+        fl, fr = _u32(rng, (2, b, N_BIG)), _u32(rng, (2, b, N_BIG))
+        fl[:, 0, :8] = fr[:, 0, :8] = 0xFFFFFFFF
+        assert all(_redc_overflows(fl[c], fr[c], p).any() for c, p in enumerate(primes))
+        scales = tuple(_scale(N_BIG, p) for p in primes)
+        got = tcu.pointwise_inv_multi(t(fl), t(fr), primes, scales)
+        want = jpal.pointwise_inv_multi(jnp.asarray(fl), jnp.asarray(fr), primes, scales)
+    assert got.dtype == torch.uint32 and got.shape == (2, b, N_BIG)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_k1c_k1d_wrappers_check_operands(rng):
+    primes = PRIMES[:2]
+    x = torch.from_numpy(_u32(rng, (2, 3, 2048)))
+    with pytest.raises(ValueError, match="channels"):
+        tcu.fwd_multi_perchannel(x[:1], primes)
+    with pytest.raises(ValueError, match="no route"):
+        tcu.pointwise_inv_multi(x.to("meta"), x.to("meta"), primes, (1, 1))
+    with pytest.raises(ValueError, match="scales"):
+        tcu.pointwise_inv_multi(x, x, primes, (1,))
+    with pytest.raises(ValueError, match="one shape"):
+        tcu.fwd_wide_multi_perchannel(x, x[:, :2], primes)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcu.fwd_multi_perchannel(x[..., :1024], primes)
+    before = dict(tcu.LAUNCHES)
+    tcu.fwd_multi_perchannel(x, primes)
+    tcu.pointwise_inv_multi(x, x, primes, (1, 1))
+    assert tcu.LAUNCHES == before  # the CPU route launches nothing
 
 
 def _prime(n, lo, hi):

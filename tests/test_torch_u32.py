@@ -112,6 +112,12 @@ CASES64 = {
 }
 _P60 = 0x3F5A0001 * 0x3F5D0001  # a two-prime product, as rec_u64_from5 uses
 _W64 = 0x123456789ABCD % _P60
+CASES64.update({
+    "mul64_u32": (1, lambda m, a: tuple(
+        x for b32 in (0, 1, P30, (1 << 32) - 1) for x in m.mul64_u32(a, _c(m, (b32,))[0]))),
+    "add64c": (2, lambda m, a, b: m.add64c(a, b)),
+    "sub64b": (2, lambda m, a, b: m.sub64b(a, b)),
+})
 
 
 @pytest.mark.parametrize("name", sorted(CASES64))
@@ -121,6 +127,31 @@ def test_u64_limb_helpers_match_jax(rng, name):
     port = fn(T, *[(_t(lo), _t(hi)) for lo, hi in pairs])
     ref = fn(J, *[(_j(lo), _j(hi)) for lo, hi in pairs])
     _eq(port, ref)
+
+
+# product-plan moduli: two 30-bit primes, a 31-bit and a 32-bit prime (as
+# the product plan's 2^14 cells), and the largest prime below 2^64
+MODULI64 = (_P60, 2147352577 * 4293918721, (1 << 64) - 59)
+
+
+@pytest.mark.parametrize("p", MODULI64)
+@pytest.mark.parametrize("name", ["add_mod64", "sub_mod64"])
+def test_mod64_helpers_match_jax(rng, name, p):
+    """Operands in [0, p): every pair of the edges 0, 1, 2^32 - 1, 2^32,
+    p/2, p - 2, p - 1, plus random pairs; the largest modulus makes the
+    add carry out of 64 bits."""
+    edges = [0, 1, (1 << 32) - 1, 1 << 32, p // 2, p - 2, p - 1]
+    a = [x for x in edges for _ in edges] + [int(v) % p for v in rng.integers(0, 1 << 64, 2048, dtype=np.uint64)]
+    b = edges * len(edges) + [int(v) % p for v in rng.integers(0, 1 << 64, 2048, dtype=np.uint64)]
+    pair = lambda vals: (np.array([v & 0xFFFFFFFF for v in vals], dtype=np.uint32),
+                         np.array([v >> 32 for v in vals], dtype=np.uint32))
+    (alo, ahi), (blo, bhi) = pair(a), pair(b)
+    got = getattr(T, name)((_t(alo), _t(ahi)), (_t(blo), _t(bhi)), p)
+    want = getattr(J, name)((_j(alo), _j(ahi)), (_j(blo), _j(bhi)), p)
+    _eq(got, want)
+    op = (lambda x, y: (x + y) % p) if name == "add_mod64" else (lambda x, y: (x - y) % p)
+    vals = [int(lo) | int(hi) << 32 for lo, hi in zip(*(g.numpy() for g in got))]
+    assert vals == [op(x, y) for x, y in zip(a, b)]
 
 
 def test_numpy_limb_helpers_match_jax(rng):
