@@ -20,7 +20,21 @@ Drives the port's paths through their hand-written CUDA kernels:
     Bounded through K1a, K1c (`fwd_multi_perchannel`, the Bounded fwd) and
     K1d (`pointwise_inv_multi`, the fused pointwise product + inverse) of
     `csrc/mxu32_multi.cu`, and K1b for `inv`; a PBS-shaped loop; a pair of
-    primes above 2^31 through K2 once per channel.
+    primes above 2^31 through K2 once per channel; one u32 and one u64
+    factor (the u64 channel through K5);
+  * prime64: `prime64.Plan(2^14, p).negacyclic_polymul` at batch 16 in the
+    four epilogue regimes (five primes: Goldilocks, PRIMES52[0], the largest
+    NTT primes below 2^62, 2^63 and 2^64), through K5 (`fwd64` / `inv64`,
+    the whole four-step transform on u64 limb pairs) of
+    `csrc/mxu64_pass.cu`; n = 1024 through the plain stage engine;
+  * rank-local 64-bit passes: K6 (`pass_matmod64`, same source) as the
+    sharded prime64 four-step's ranks call it, R = 4 ranks on one card;
+  * Plan52: `native64.Plan52(2^14).negacyclic_polymul` on planar (lo, hi)
+    limbs at batch 8 over three 50-bit primes, through K7a (`fwd_multi64`)
+    and K7d (`pointwise_inv_multi64`) of `csrc/mxu64_multi.cu`, held
+    against Plan32 on the same inputs; `Plan52.fwd` (K7a) and `inv` (K5);
+  * the device rule: a default-constructed plan given numpy input computes
+    on the card (its launch counters move).
 
 Phases, one line each (or a few), stopping with a non-zero exit at the first
 failure:
@@ -40,7 +54,15 @@ failure:
                {2, 32, 256, 1024, 2^14, 2^15}, B in {16, 9}, in each regime,
                and with p = 67043329 at 2^14 and 2^15; K1c (1 and 2 limbs)
                and K1d (full-range u32 operands) with two 30-bit primes at
-               (n, B) = (2^14, 16), (2^14, 5), (2^11, 3), (2^15, 2).
+               (n, B) = (2^14, 16), (2^14, 5), (2^11, 3), (2^15, 2); K5 fwd,
+               inv unscaled and scaled for the five regime primes at
+               (2^14, 16), (2^14, 3), (2^11, 3) and at (2^15, 2) for
+               Goldilocks and PRIMES52[0], full-range u32 limbs; K6 (A
+               scaled, F, G scaled, Ainv plain and scaled, a row slice with
+               rank-local diagonals) at n in {2048, 4096, 8192}, B in
+               {16, 3}, five primes; K7a and K7d over PRIMES52[:3] at
+               (2^14, 8), (2^14, 5), (2^11, 3), (2^15, 2), K7d with
+               full-range u64 operands.
   4. main    — native64: three polymuls on the card == CPU plain path ==
                numpy wrapping oracle (row 0); K1a +2, K1b +1 per call.
                prime32: Plan(2^14, p) polymul at B = 16 for each bench prime
@@ -59,19 +81,37 @@ failure:
                against a preloaded NTT-domain operand per term, 16 terms,
                one inv(ACCUMULATE)) == CPU plain path; primes (2147352577,
                4293918721) at 2^14: K2 fwd +4, inv +2 a polymul, == CPU.
-               Each path's launch counters are set to 0 just before it and
-               read just after.
+               prime64: Plan(2^14, p) polymul at B = 16 per regime == CPU
+               plain path, inv(fwd(x)) == n·x (K5 +2 fwd +1 inv a polymul);
+               Plan(1024, PRIMES52[0]) polymul through the stage engine,
+               row 0 == the schoolbook oracle; rank-local fwd and inv
+               through K6 at n = 4096 (K6 +4R a round trip). Plan52(2^14)
+               polymul at B = 8 == CPU plain path == numpy wrapping oracle
+               (row 0) == Plan32 on the same inputs (K7a +2, K7d +1);
+               Plan52.fwd (K7a +1) and inv (K5 inv +3); product.Plan with a
+               30-bit and a 34-bit factor at 2^14 == CPU plain path. A
+               numpy-input polymul on a default-constructed plan moves the
+               launch counters. Each path's launch counters are set to 0
+               just before it and read just after.
   5. times   — CUDA events, warm-up then the median of reps, each kernel
                beside its plain version (K1d also beside plain mont_mul +
                K1b), the polymuls in products/s (product in its three
-               modes) and the PBS loop's ms per term.
-Then one JSON line of kernel summaries, the nvidia-smi line, and last
+               modes) and the PBS loop's ms per term; K5 fwd / inv per
+               regime, one K6 pass, K7a, K7d (also beside plain mont_mul64 +
+               three K5 inverses), the prime64 polymul per regime and the
+               Plan52 polymul beside Plan32's.
+Then one JSON line of kernel summaries (each with its launches on its main
+path, error, ms, plain ms, and the bound: the larger of its bytes over
+3.35 TB/s and its int8 operations over 1,979 TOP/s, the H100 SXM data-sheet
+rates; `library_ms` is null for all: no single PyTorch call computes an
+exact modular transform), the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 `--profile` adds, before the JSON lines, a torch.profiler breakdown of the
 prime32 polymul at B = 16 (n = 2^14 per regime, 4096, 1024) and of the
-product polymul at (2^14, 16) in Replace and Bounded: host-clock ms, device
+product polymul at (2^14, 16) in Replace and Bounded, of the prime64 polymul
+per regime and of the Plan52 polymul: host-clock ms, device
 busy ms and share, matmod_pass / butterfly device ms, and device kernels
 and aten ops per polymul.
 Inputs come from numpy's default_rng(--seed); the script imports no JAX.
@@ -107,9 +147,17 @@ BOUND = 1 << 20  # Bounded fwd: |value| < 2^19, a PBS decomposition digit's size
 PBS_TERMS = 16
 K2_PAIR = (BENCH_PRIMES["lt31"], BENCH_PRIMES["generic"])  # product < 2^64
 SMALL_P = 67043329  # < 2^26: the butterfly kernel at every n
+N64, B64, B52 = 1 << 14, 16, 8
+K5_SHAPES = ((1 << 14, 16), (1 << 14, 3), (1 << 11, 3))
+K7_SHAPES = ((1 << 14, 8), (1 << 14, 5), (1 << 11, 3), (1 << 15, 2))
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet: 80 GB of HBM at 3.35 TB/s
+INT8_OPS_PER_S = 1979e12    # H100 SXM data sheet: 1,979 TOP/s int8, dense (2 ops a MAC)
+CORE_OPS_PER_S = 67e12      # H100 SXM data sheet: 67 TFLOP/s outside the tensor cores
 MULTI_SRC = "concrete_ntt_tpu_torch/csrc/mxu32_multi.cu"
 PASS_SRC = "concrete_ntt_tpu_torch/csrc/mxu32_pass.cu"
 BFLY_SRC = "concrete_ntt_tpu_torch/csrc/butterfly32.cu"
+PASS64_SRC = "concrete_ntt_tpu_torch/csrc/mxu64_pass.cu"
+MULTI64_SRC = "concrete_ntt_tpu_torch/csrc/mxu64_multi.cu"
 KERNELS = {  # JSON name -> (source, TPU kernel replaced)
     "fwd_wide_multi": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:367"),
     "inv_multi": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:398"),
@@ -120,6 +168,11 @@ KERNELS = {  # JSON name -> (source, TPU kernel replaced)
     "pass_matmod": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:687"),
     "butterfly32_fwd": (BFLY_SRC, "concrete_ntt_tpu/ops/pallas32.py:115"),
     "butterfly32_inv": (BFLY_SRC, "concrete_ntt_tpu/ops/pallas32.py:115"),
+    "fwd64": (PASS64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:32"),
+    "inv64": (PASS64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:32"),
+    "pass_matmod64": (PASS64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:197"),
+    "fwd_multi64": (MULTI64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:522"),
+    "pointwise_inv_multi64": (MULTI64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:728"),
 }
 
 
@@ -153,7 +206,7 @@ def profile_polymul(fn, reps: int = 10) -> dict:
     """Per-call breakdown of fn(): host-clock ms (perf_counter around reps
     synchronized calls, no profiler), then under torch.profiler the device
     busy ms (device events: kernels and copies), the device ms of the GEMM
-    pass (matmod_pass) and butterfly (ntt_radix2) kernels, and the counts
+    passes (matmod_pass, matmod64_pass) and butterfly (ntt_radix2) kernels, and the counts
     of device events and aten ops (nested ones included)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -176,7 +229,7 @@ def profile_polymul(fn, reps: int = 10) -> dict:
             us = ev.time_range.elapsed_us()
             busy += us
             n_dev += 1
-            if "matmod_pass" in ev.name or "ntt_radix2" in ev.name:
+            if "matmod_pass" in ev.name or "matmod64_pass" in ev.name or "ntt_radix2" in ev.name:
                 kern += us
         elif ev.name.startswith("aten::"):
             n_aten += 1
@@ -220,6 +273,61 @@ def rank_local_inv(pass_matmod, x, diag, *, n, n1, n2, p):
     return torch.cat(outs, dim=2).reshape(b, n)
 
 
+def rank_local_fwd64(pass_matmod64, x, diag, *, n, n1, n2, p):
+    """`rank_local_fwd` on (lo, hi) limb pairs through the 64-bit pass."""
+    b = x[0].shape[0]
+    c, c1 = n2 // RANKS, n1 // RANKS
+    xv = tuple(a.reshape(b, n1, n2) for a in x)
+    ys = [pass_matmod64(tuple(a[:, :, r * c:(r + 1) * c].transpose(1, 2).contiguous() for a in xv),
+                        n=n, p=p, which="A",
+                        diag_slices=tuple(t[r * c:(r + 1) * c] for t in diag))
+          for r in range(RANKS)]  # (lo, hi) [B, c, n1] each
+    outs = [pass_matmod64(tuple(torch.cat([y[i][:, :, q * c1:(q + 1) * c1] for y in ys], dim=1)
+                                .transpose(1, 2).contiguous() for i in range(2)),
+                          n=n, p=p, which="F")
+            for q in range(RANKS)]  # (lo, hi) [B, c1, n2] each
+    return tuple(torch.cat([o[i] for o in outs], dim=1).reshape(b, n) for i in range(2))
+
+
+def rank_local_inv64(pass_matmod64, x, diag, *, n, n1, n2, p):
+    """`rank_local_inv` on (lo, hi) limb pairs through the 64-bit pass."""
+    b = x[0].shape[0]
+    c, c1 = n2 // RANKS, n1 // RANKS
+    xv = tuple(a.reshape(b, n1, n2) for a in x)
+    ys = [pass_matmod64(tuple(a[:, q * c1:(q + 1) * c1].contiguous() for a in xv), n=n, p=p,
+                        which="G", diag_slices=tuple(t[q * c1:(q + 1) * c1] for t in diag))
+          for q in range(RANKS)]  # (lo, hi) [B, c1, n2] each
+    outs = [pass_matmod64(tuple(torch.cat([y[i][:, :, r * c:(r + 1) * c] for y in ys], dim=1)
+                                .transpose(1, 2).contiguous() for i in range(2)),
+                          n=n, p=p, which="Ainv")
+            for r in range(RANKS)]  # (lo, hi) [B, c, n1] each
+    return tuple(torch.cat([o[i].transpose(1, 2) for o in outs], dim=2).reshape(b, n)
+                 for i in range(2))
+
+
+def gemm_bound(macs: float, nbytes: float) -> tuple:
+    """(bound ms, which bounds): the larger of the bytes the function must
+    move over the card's memory rate and its int8 operations (2 a MAC) over
+    the card's int8 tensor-core peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * macs / INT8_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def fourstep_work(direction, b, n1, n2, c, e1, e2, d, limbs_in, limbs_out, n_diag,
+                  operands=1, shared_operand=False) -> tuple:
+    """(int8 MACs, bytes) of a two-pass four-step transform over c channels:
+    MACs a pass = B·R·(E·K)·(D·O) from the plane shapes (E operand planes, D
+    matrix planes); bytes = operands and results once (4-byte limbs) plus the
+    tables once (int8 planes, int32 cvec, u32 diagonals). The mid-pass
+    scratch is the kernel's own and not counted."""
+    n = n1 * n2
+    k1, k2 = (n1, n2) if direction == "fwd" else (n2, n1)
+    macs = c * b * n * d * (e1 * k1 + e2 * k2)
+    tables = c * (d * (e1 * k1 * k1 + e2 * k2 * k2) + 4 * d * (k1 + k2) + 4 * n_diag * n)
+    io = 4 * b * n * ((1 if shared_operand else c) * operands * limbs_in + c * limbs_out)
+    return macs, io + tables
+
+
 def u64_limbs(v: np.ndarray) -> torch.Tensor:
     """numpy uint64 [..., n] -> uint32 [..., n, 2] little-endian limbs."""
     return torch.from_numpy(np.stack([(v & np.uint64(0xFFFFFFFF)).astype(np.uint32),
@@ -249,15 +357,30 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from concrete_ntt_tpu_torch import native64, prime32, product
+    from concrete_ntt_tpu_torch import native64, prime32, prime64, product
     from concrete_ntt_tpu_torch.golden.polymul import (
         negacyclic_convolution_mod,
         negacyclic_convolution_wrapping_np,
     )
     from concrete_ntt_tpu_torch.ops import butterfly32_cuda as bcu
-    from concrete_ntt_tpu_torch.ops import cuda_build, mxu32, mxu32_cuda
-    from concrete_ntt_tpu_torch.ops.u32 import limbs_to_np_u64, mont_mul, mont_neginv, to_i64, to_u32
+    from concrete_ntt_tpu_torch.ops import cuda_build, mxu32, mxu32_cuda, mxu64, mxu64_cuda
+    from concrete_ntt_tpu_torch.ops.u32 import (
+        limbs_to_np_u64, mont_mul, mont_mul64, mont_neginv, mont_neginv64, to_i64, to_u32)
+    from concrete_ntt_tpu_torch.tables import GOLDILOCKS, PRIMES52
     from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
+    from concrete_ntt_tpu_torch.utils.prime import (
+        largest_prime_in_arithmetic_progression64 as prime_in_ap)
+
+    # the five regime primes of the prime64 plan: four epilogue regimes, and
+    # the shoup regime with 7 and with 8 digit planes
+    PRIMES64 = {
+        "goldilocks": GOLDILOCKS,
+        "p50": PRIMES52[0],
+        "p63": prime_in_ap(1 << 15, 1, 1 << 62, 1 << 63),
+        "p64": prime_in_ap(1 << 15, 1, 1 << 63, (1 << 64) - 1),
+        "p62": prime_in_ap(1 << 16, 1, 1 << 61, 1 << 62),
+    }
+    P52 = PRIMES52[:3]
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -273,6 +396,7 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(len(cuda_build.SOURCES)) as pool:
         sos = list(pool.map(cuda_build.build, cuda_build.SOURCES))
     mxu32_cuda._lib(), mxu32_cuda._pass_lib(), bcu._lib()
+    mxu64_cuda._pass_lib(), mxu64_cuda._multi_lib()
     print(f"build: {len(sos)} sources in {time.perf_counter() - t0:.1f} s", flush=True)
     for so in sos:
         with open(so[:-3] + ".log") as f:
@@ -281,11 +405,13 @@ def main() -> int:
         print(f"build: {os.path.relpath(so)}: " + " | ".join(ptxas), flush=True)
 
     def counts() -> dict:
-        return {**mxu32_cuda.LAUNCHES, **{f"butterfly32_{k}": v for k, v in bcu.LAUNCHES.items()}}
+        return {**mxu32_cuda.LAUNCHES, **{f"butterfly32_{k}": v for k, v in bcu.LAUNCHES.items()},
+                **mxu64_cuda.LAUNCHES}
 
     def reset_counts() -> None:
         mxu32_cuda.reset_launch_counts()
         bcu.reset_launch_counts()
+        mxu64_cuda.reset_launch_counts()
 
     # -- 3. parity --------------------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -394,6 +520,77 @@ def main() -> int:
           f"exact at n in {K4_SIZES}, B in {K4_BATCHES}, three regimes, and p={SMALL_P} at "
           f"2^14, 2^15 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    def compare_pair(name: str, got, want, what: str) -> None:
+        for g, w, limb in zip(got, want, ("lo", "hi")):
+            compare(name, g, w, f"{what} ({limb})")
+        checks[name] -= 1  # one check a pair
+
+    def scale64(n, p):
+        return pow(n, p - 2, p) * pow(2, 64, p) % p
+
+    def mid_pair(shape, p):
+        """A mid-pass operand: any u64, or below 4p where the pass takes only
+        7 operand planes (the plane diet of the 50-bit primes)."""
+        if mxu64._n_eplanes_lazy(p) == 8:
+            return u32(shape), u32(shape)
+        v = rng.integers(0, 4 * p, shape, dtype=np.uint64)
+        return tuple(torch.from_numpy(a).to(dev) for a in
+                     ((v & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                      (v >> np.uint64(32)).astype(np.uint32)))
+
+    t0 = time.perf_counter()
+    for rname, p in PRIMES64.items():
+        shapes = K5_SHAPES + (((1 << 15, 2),) if rname in ("goldilocks", "p50") else ())
+        for n, b in shapes:
+            x = (u32((b, n)), u32((b, n)))
+            compare_pair("fwd64", mxu64_cuda.fwd(x, n=n, p=p), mxu64_cuda.fwd_plain(x, n=n, p=p),
+                         f"p={p} n={n} B={b}")
+            for sc in (1, scale64(n, p)):
+                compare_pair("inv64", mxu64_cuda.inv(x, n=n, p=p, scale=sc),
+                             mxu64_cuda.inv_plain(x, n=n, p=p, scale=sc),
+                             f"p={p} n={n} B={b} scaled={sc != 1}")
+    print(f"parity: K5 fwd {checks['fwd64']}, inv {checks['inv64']} checks exact at (n, B) in "
+          f"{K5_SHAPES} (+ (32768, 2) for goldilocks, p50) x p in {tuple(PRIMES64.values())}, "
+          f"full-range limbs, in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    for p in PRIMES64.values():
+        for n in K3_SIZES:
+            tbl = mxu64._tables(n, p)
+            n1, n2 = tbl["n1"], tbl["n2"]
+            d = tuple(torch.from_numpy(a).to(dev) for a in tbl["d"])  # [n2, n1]
+            e = tuple(torch.from_numpy(a).to(dev) for a in tbl["e"])  # [n1, n2]
+            for b in K3_BATCHES:
+                cases = [
+                    ("A", (u32((b, n2, n1)), u32((b, n2, n1))), d, 1),
+                    ("F", mid_pair((b, n1, n2), p), (), 1),
+                    ("G", (u32((b, n1, n2)), u32((b, n1, n2))), e, 1),
+                    ("Ainv", mid_pair((b, n2, n1), p), (), 1),
+                    ("Ainv", mid_pair((b, n2, n1), p), (), scale64(n, p)),
+                    ("A", (u32((b, n2 // 2, n1)), u32((b, n2 // 2, n1))),
+                     tuple(t[n2 // 4: n2 // 4 + n2 // 2] for t in d), 1),  # a rank-local slice
+                ]
+                for which, x, dg, sc in cases:
+                    kw = dict(n=n, p=p, which=which, diag_slices=dg, scale=sc)
+                    compare_pair("pass_matmod64", mxu64_cuda.pass_matmod64(x, **kw),
+                                 mxu64_cuda.pass_matmod64_plain(x, **kw),
+                                 f"p={p} n={n} B={b} {which} scale={sc} rows={x[0].shape[1]}")
+    print(f"parity: K6 {checks['pass_matmod64']} checks exact at n in {K3_SIZES}, B in "
+          f"{K3_BATCHES}, five primes in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    for n, b in K7_SHAPES:
+        x = (u32((b, n)), u32((b, n)))
+        compare_pair("fwd_multi64", mxu64_cuda.fwd_multi(x, P52),
+                     mxu64_cuda.fwd_multi_plain(x, P52), f"n={n} B={b}")
+        fl, fr = ((u32((3, b, n)), u32((3, b, n))) for _ in range(2))  # full-range u64
+        scs = tuple(scale64(n, p) for p in P52)
+        compare_pair("pointwise_inv_multi64", mxu64_cuda.pointwise_inv_multi(fl, fr, P52, scs),
+                     mxu64_cuda.pointwise_inv_multi_plain(fl, fr, P52, scs), f"n={n} B={b}")
+    print(f"parity: K7a {checks['fwd_multi64']}, K7d {checks['pointwise_inv_multi64']} checks "
+          f"exact at (n, B) in {K7_SHAPES}, primes {P52}, full-range u64 operands in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- 4. main paths ------------------------------------------------------------
     plan = native64.Plan32.try_new(N_MAIN)
     operands = [
@@ -433,6 +630,20 @@ def main() -> int:
         delta = {k: after[k] - before[k] for k in after}
         require(all(delta[k] == want.get(k, 0) for k in delta),
                 f"main: {what} moved the launch counters by {delta}, expected {want}")
+
+    # the device rule: a default-constructed plan moves numpy input to the card
+    require(plan.device == "cuda", f"main: default plan device is {plan.device!r}, not the card")
+    torch.cuda.synchronize()
+    reset_counts()
+    np_out = plan.negacyclic_polymul(*operands[0])
+    rule = counts()
+    require(rule["fwd_wide_multi"] == 2 and rule["inv_multi"] == 1,
+            f"main: a numpy-input polymul on a default plan launched {rule}")
+    require(isinstance(np_out, np.ndarray) and np.array_equal(
+        np_out, limbs_to_np_u64(torch.stack([o.cpu() for o in outs[0]], dim=-1).numpy())),
+        "main: numpy-input polymul differs from the planar one")
+    print(f"main: device rule: Plan32 default device {plan.device!r}, numpy-input polymul "
+          f"launched K1a x{rule['fwd_wide_multi']}, K1b x{rule['inv_multi']}", flush=True)
 
     host = lambda a: torch.from_numpy(a)
     p32_cases = []
@@ -613,6 +824,149 @@ def main() -> int:
           f"{PBS_TERMS} terms == CPU; Plan({N_PROD}, {K2_PAIR}) polymul via K2 == CPU; "
           f"launches {launches_prod}", flush=True)
 
+    # prime64: K5 through the plan, per regime
+    p64_cases = []
+    for rname, p in PRIMES64.items():
+        pl = prime64.Plan.new(N64, p)
+        lhs, rhs = (rand_mod(rng, p, (B64, N64)) for _ in range(2))
+        p64_cases.append((rname, pl, lhs, rhs))
+    small64 = prime64.Plan.new(1024, PRIMES52[0])
+    small64_ops = tuple(rand_mod(rng, small64.p, (B64, 1024)) for _ in range(2))
+    torch.cuda.synchronize()
+    reset_counts()
+    p64_out = []
+    for rname, pl, lhs, rhs in p64_cases:
+        before = counts()
+        got = pl.negacyclic_polymul(card(lhs), card(rhs))
+        expect_delta(before, {"fwd64": 2, "inv64": 1}, f"prime64 Plan({N64}, {pl.p}) polymul")
+        before = counts()
+        rt = pl.inv(pl.fwd(card(lhs)))
+        expect_delta(before, {"fwd64": 1, "inv64": 1}, f"prime64 Plan({N64}, {pl.p}) round trip")
+        p64_out.append((got, rt))
+    before = counts()
+    small64_got = small64.negacyclic_polymul(*(card(a) for a in small64_ops))
+    expect_delta(before, {}, "prime64 Plan(1024) polymul (stage engine)")
+    torch.cuda.synchronize()
+    launches64 = counts()
+    for (rname, pl, lhs, rhs), (got, rt) in zip(p64_cases, p64_out):
+        want = prime64.Plan.new(N64, pl.p, device="cpu").negacyclic_polymul(
+            u64_limbs(lhs), u64_limbs(rhs))
+        require(got.device.type == "cuda" and got.shape == (B64, N64, 2)
+                and torch.equal(got.cpu(), want),
+                f"main: prime64 Plan({N64}, {pl.p}) polymul differs from the CPU plain path")
+        nx = np.array([int(v) * N64 % pl.p for v in lhs[0]], dtype=np.uint64)
+        require(np.array_equal(limbs_to_np_u64(rt[0].cpu().numpy()), nx),
+                f"main: prime64 Plan({N64}, {pl.p}) inv(fwd(x)) != n·x mod p (row 0)")
+    require(small64_got.device.type == "cuda" and torch.equal(
+        small64_got.cpu(), prime64.Plan.new(1024, small64.p, device="cpu").negacyclic_polymul(
+            *(u64_limbs(a) for a in small64_ops))),
+        "main: prime64 Plan(1024) polymul differs from the CPU plain path")
+    require(limbs_to_np_u64(small64_got[0].cpu().numpy()).tolist() == negacyclic_convolution_mod(
+        small64_ops[0][0].tolist(), small64_ops[1][0].tolist(), small64.p),
+        "main: prime64 Plan(1024) polymul row 0 differs from the schoolbook oracle")
+    for k in ("fwd64", "inv64"):
+        launches[k] = launches64[k]
+    print(f"main: prime64 polymuls on {kind}: Plan({N64}, p) B={B64} for p in "
+          f"{tuple(PRIMES64.values())} == CPU plain path, inv(fwd(x)) == n·x; Plan(1024, "
+          f"{small64.p}) through the stage engine == CPU == schoolbook oracle (row 0); "
+          f"launches {launches64}", flush=True)
+
+    sharded64 = []
+    for p in PRIMES64.values():
+        tbl = mxu64._tables(n_sh, p)
+        geo = dict(n=n_sh, n1=tbl["n1"], n2=tbl["n2"], p=p)
+        d, e = (tuple(torch.from_numpy(a).to(dev) for a in tbl[k]) for k in ("d", "e"))
+        sharded64.append((geo, d, e, rand_mod(rng, p, (B64, n_sh))))
+    pair_of = lambda v: tuple(t.contiguous() for t in card(v).unbind(-1))
+    torch.cuda.synchronize()
+    reset_counts()
+    sh64_out = []
+    for geo, d, e, x in sharded64:
+        before = counts()
+        f = rank_local_fwd64(mxu64_cuda.pass_matmod64, pair_of(x), d, **geo)
+        sh64_out.append((f, rank_local_inv64(mxu64_cuda.pass_matmod64, f, e, **geo)))
+        expect_delta(before, {"pass_matmod64": 4 * RANKS},
+                     f"rank-local 64-bit passes n={n_sh} p={geo['p']}")
+    torch.cuda.synchronize()
+    launches_k6 = counts()
+    for (geo, d, e, x), (f, back) in zip(sharded64, sh64_out):
+        p = geo["p"]
+        want = mxu64_cuda.fwd_plain(tuple(t.contiguous() for t in u64_limbs(x).unbind(-1)),
+                                    n=n_sh, p=p)
+        require(all(g.device.type == "cuda" and torch.equal(g.cpu(), w) for g, w in zip(f, want)),
+                f"main: rank-local 64-bit fwd n={n_sh} p={p} differs from the CPU plain path")
+        got = limbs_to_np_u64(torch.stack([t.cpu() for t in back], dim=-1).numpy())
+        nx = np.array([int(v) * n_sh % p for v in x[0]], dtype=np.uint64)
+        require(np.array_equal(got[0], nx),
+                f"main: rank-local 64-bit inv(fwd(x)) != n·x mod p at n={n_sh} p={p} (row 0)")
+    launches["pass_matmod64"] = launches_k6["pass_matmod64"]
+    print(f"main: rank-local 64-bit passes on {kind}: fwd and inv at n={n_sh} B={B64}, "
+          f"R={RANKS} ranks, five primes == CPU plain path, inv(fwd(x)) == n·x; launches "
+          f"{launches_k6}", flush=True)
+
+    # Plan52: K7a, K7d (polymul, fwd), K5 (inv), held against Plan32
+    plan52 = native64.Plan52.try_new(N64)
+    ops52 = [tuple(rng.integers(0, 1 << 64, (B52, N64), dtype=np.uint64) for _ in range(2))
+             for _ in range(2)]
+    card52 = [tuple(tuple(t.to(dev) for t in planar(a)) for a in pair) for pair in ops52]
+    torch.cuda.synchronize()
+    reset_counts()
+    outs52 = []
+    for lhs, rhs in card52:
+        before = counts()
+        outs52.append(plan52.negacyclic_polymul(lhs, rhs))
+        expect_delta(before, {"fwd_multi64": 2, "pointwise_inv_multi64": 1}, "Plan52 polymul")
+    before = counts()
+    res52 = plan52.fwd(card52[0][0])
+    expect_delta(before, {"fwd_multi64": 1}, "Plan52 fwd")
+    before = counts()
+    back52 = plan52.inv(res52, out_format="planar")
+    expect_delta(before, {"inv64": 3}, "Plan52 inv")
+    torch.cuda.synchronize()
+    launches52 = counts()
+    before = counts()
+    outs32 = [plan.negacyclic_polymul(lhs, rhs) for lhs, rhs in card52]
+    expect_delta(before, {"fwd_wide_multi": 4, "inv_multi": 2}, "Plan32 on the Plan52 inputs")
+    plan52_cpu = native64.Plan52.try_new(N64, device="cpu")
+    as_np = lambda pr: limbs_to_np_u64(torch.stack([t.cpu() for t in pr], dim=-1).numpy())
+    for i, ((a, b), out) in enumerate(zip(ops52, outs52)):
+        got = as_np(out)
+        require(out[0].device.type == "cuda" and got.shape == (B52, N64)
+                and np.array_equal(got, as_np(plan52_cpu.negacyclic_polymul(planar(a), planar(b)))),
+                f"main: Plan52 call {i} differs from the CPU plain path")
+        require(np.array_equal(got[0], negacyclic_convolution_wrapping_np(a[0], b[0])),
+                f"main: Plan52 call {i} row 0 differs from the numpy wrapping oracle")
+        require(np.array_equal(got, as_np(outs32[i])),
+                f"main: Plan52 call {i} differs from Plan32 on the same inputs")
+    require(tuple(res52.shape) == (3, B52, N64, 2) and torch.equal(
+        res52.cpu(), plan52_cpu.fwd(planar(ops52[0][0]))),
+        "main: Plan52 fwd differs from the CPU plain path")
+    require(np.array_equal(as_np(back52), ops52[0][0] * np.uint64(N64)),
+            "main: Plan52 inv(fwd(x)) != n·x (wrapping)")
+    for k in ("fwd_multi64", "pointwise_inv_multi64"):
+        launches[k] = launches52[k]
+    launches["inv64"] += launches52["inv64"]
+    print(f"main: 2 x Plan52({N64}).negacyclic_polymul B={B52} on {kind} == CPU plain path == "
+          f"numpy oracle (row 0) == Plan32 on the same inputs; fwd == CPU, inv(fwd(x)) == n·x; "
+          f"launches {launches52}", flush=True)
+
+    # product with one u32 and one u64 factor: the u64 channel through K5
+    mix = (PRIMES[0], prime_in_ap(1 << 15, 1, 1 << 33, 1 << 34))
+    mplan = product.Plan.new(N_PROD, mix[0] * mix[1], mix)
+    ma, mb = (rand_mod(rng, mplan.modulus, (B_PROD, N_PROD)) for _ in range(2))
+    torch.cuda.synchronize()
+    reset_counts()
+    before = counts()
+    p_mix = mplan.negacyclic_polymul(card(ma), card(mb))
+    expect_delta(before, {"fwd_wide_multi": 2, "inv_multi": 1, "fwd64": 2, "inv64": 1},
+                 f"product {mix} polymul")
+    require(p_mix.device.type == "cuda" and torch.equal(
+        p_mix.cpu(), product.Plan.new(N_PROD, mplan.modulus, mix, device="cpu").negacyclic_polymul(
+            u64_limbs(ma), u64_limbs(mb))),
+        f"main: product {mix} polymul differs from the CPU plain path")
+    print(f"main: product Plan({N_PROD}, {mix}) B={B_PROD} polymul (u32 channel K1a / K1b, u64 "
+          f"channel K5) == CPU plain path; launches {counts()}", flush=True)
+
     # -- 5. times -----------------------------------------------------------------
     ms, plain_ms = {}, {}
     limbs = (u32((B_MAIN, N_MAIN)), u32((B_MAIN, N_MAIN)))
@@ -707,6 +1061,98 @@ def main() -> int:
     print(f"times: PBS loop n={N_PROD} B={B_PROD} {PBS_TERMS} terms: {t:.4f} ms (median of 5) "
           f"= {t / PBS_TERMS:.4f} ms a term | {smi}", flush=True)
 
+    for rname, p in PRIMES64.items():
+        x = (u32((B64, N64)), u32((B64, N64)))
+        sc = scale64(N64, p)
+        headline = rname == "goldilocks"
+        timed("K5 fwd64", f"n={N64} B={B64} p={p} ({rname})",
+              lambda: mxu64_cuda.fwd(x, n=N64, p=p), lambda: mxu64_cuda.fwd_plain(x, n=N64, p=p),
+              "fwd64" if headline else None)
+        timed("K5 inv64", f"n={N64} B={B64} p={p} ({rname}) scaled",
+              lambda: mxu64_cuda.inv(x, n=N64, p=p, scale=sc),
+              lambda: mxu64_cuda.inv_plain(x, n=N64, p=p, scale=sc),
+              "inv64" if headline else None)
+    p = PRIMES64["p50"]
+    tbl64 = mxu64._tables(4096, p)
+    dg64 = tuple(torch.from_numpy(a).to(dev) for a in tbl64["d"])
+    xa64 = (u32((B64, tbl64["n2"], tbl64["n1"])), u32((B64, tbl64["n2"], tbl64["n1"])))
+    kw = dict(n=4096, p=p, which="A", diag_slices=dg64)
+    timed("K6 pass_matmod64", f"A scaled n=4096 B={B64} p={p}",
+          lambda: mxu64_cuda.pass_matmod64(xa64, **kw),
+          lambda: mxu64_cuda.pass_matmod64_plain(xa64, **kw), "pass_matmod64")
+    x52 = (u32((B52, N64)), u32((B52, N64)))
+    fl52, fr52 = ((u32((3, B52, N64)), u32((3, B52, N64))) for _ in range(2))
+    sc52 = tuple(scale64(N64, q) for q in P52)
+    timed("K7a fwd_multi64", f"n={N64} B={B52} C=3",
+          lambda: mxu64_cuda.fwd_multi(x52, P52), lambda: mxu64_cuda.fwd_multi_plain(x52, P52),
+          "fwd_multi64")
+    timed("K7d pointwise_inv_multi64", f"n={N64} B={B52} C=3 scaled",
+          lambda: mxu64_cuda.pointwise_inv_multi(fl52, fr52, P52, sc52),
+          lambda: mxu64_cuda.pointwise_inv_multi_plain(fl52, fr52, P52, sc52),
+          "pointwise_inv_multi64")
+
+    def mont64_then_k5():
+        a, b = tuple(map(to_i64, fl52)), tuple(map(to_i64, fr52))
+        outs = []
+        for c, q in enumerate(P52):
+            prod = mont_mul64((a[0][c], a[1][c]), (b[0][c], b[1][c]), q, mont_neginv64(q))
+            outs.append(mxu64_cuda.inv(tuple(to_u32(t) for t in prod), n=N64, p=q, scale=sc52[c]))
+        return outs
+
+    t_fused = median_ms(lambda: mxu64_cuda.pointwise_inv_multi(fl52, fr52, P52, sc52))
+    t_split = median_ms(mont64_then_k5)
+    print(f"times: K7d vs plain mont_mul64 + 3 x K5 inv n={N64} B={B52} C=3: K7d {t_fused:.4f} "
+          f"ms, mont_mul64 + K5 {t_split:.4f} ms (median of {REPS}) | {smi}", flush=True)
+    for rname, pl, lhs, rhs in p64_cases:
+        a, b = card(lhs), card(rhs)
+        t = median_ms(lambda: pl.negacyclic_polymul(a, b))
+        print(f"times: prime64 polymul n={N64} B={B64} p={pl.p} ({rname}): {t:.4f} ms (median "
+              f"of {REPS}) = {B64 / t * 1e3:.1f} products/s | {smi}", flush=True)
+    lhs52, rhs52 = card52[0]
+    for name, pl in (("Plan52", plan52), ("Plan32", plan), ("Plan52", plan52), ("Plan32", plan)):
+        t = median_ms(lambda: pl.negacyclic_polymul(lhs52, rhs52))
+        print(f"times: native64 {name} polymul n={N64} B={B52} planar: {t:.4f} ms (median of "
+              f"{REPS}) = {B52 / t * 1e3:.1f} products/s | {smi}", flush=True)
+
+    # the bound of each kernel at the shape it was timed at: MACs a pass =
+    # B·R·(E·K)·(D·O) from the plane shapes, bytes = operands, results and tables once
+    n1m, n2m = mxu32.four_step_factors(N_MAIN)
+    d50, d_gl = mxu64._n_dplanes(PRIMES64["p50"]), mxu64._n_dplanes(GOLDILOCKS)
+    e50 = mxu64._n_eplanes_lazy(PRIMES64["p50"])
+    n1k, n2k = mxu32.four_step_factors(4096)
+    work = {
+        "fwd_wide_multi": fourstep_work("fwd", B_MAIN, n1m, n2m, 5, 8, 4, 4, 2, 1, 4,
+                                        shared_operand=True),
+        "inv_multi": fourstep_work("inv", B_MAIN, n1m, n2m, 5, 4, 4, 4, 1, 1, 4),
+        "fwd_multi_perchannel": fourstep_work("fwd", B_PROD, n1m, n2m, 2, 4, 4, 4, 1, 1, 4),
+        "pointwise_inv_multi": fourstep_work("inv", B_PROD, n1m, n2m, 2, 4, 4, 4, 1, 1, 4,
+                                             operands=2),
+        "fwd": fourstep_work("fwd", B32, n1m, n2m, 1, 4, 4, 4, 1, 1, 4),
+        "inv": fourstep_work("inv", B32, n1m, n2m, 1, 4, 4, 4, 1, 1, 4),
+        # one A pass at (4096, 16): rows n2, contraction 4 planes x n1, 4 x n1 outputs
+        "pass_matmod": (B32 * n2k * 4 * n1k * 4 * n1k,
+                        4 * B32 * 4096 * 2 + 16 * n1k * n1k + 16 * n1k + 16 * 4096),
+        "fwd64": fourstep_work("fwd", B64, n1m, n2m, 1, 8, 8, d_gl, 2, 2, 2),
+        "inv64": fourstep_work("inv", B64, n1m, n2m, 1, 8, 8, d_gl, 2, 2, 2),
+        "pass_matmod64": (B64 * n2k * 8 * n1k * d50 * n1k,
+                          4 * B64 * 4096 * 4 + 8 * d50 * n1k * n1k + 4 * d50 * n1k + 32 * 4096),
+        "fwd_multi64": fourstep_work("fwd", B52, n1m, n2m, 3, 8, e50, d50, 2, 2, 8,
+                                     shared_operand=True),
+        "pointwise_inv_multi64": fourstep_work("inv", B52, n1m, n2m, 3, 8, e50, d50, 2, 2, 8,
+                                               operands=2),
+    }
+    bounds = {k: gemm_bound(*w) for k, w in work.items()}
+    # K4 at (1024, 16): B·(n/2)·log2 n butterflies of about 12 integer operations
+    # on the CUDA cores; operand, result and two twiddle tables once
+    bfly_ops = B32 * 512 * 10 * 12
+    bfly_bytes = 4 * (2 * B32 * 1024 + 2 * 1024)
+    t_b, t_o = bfly_bytes / HBM_BYTES_PER_S, bfly_ops / CORE_OPS_PER_S
+    for k in ("butterfly32_fwd", "butterfly32_inv"):
+        bounds[k] = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+    for k in KERNELS:
+        print(f"bound: {k}: {bounds[k][0]:.6f} ms by {bounds[k][1]} (kernel {ms[k]:.4f} ms = "
+              f"{ms[k] / bounds[k][0]:.1f} x the bound)", flush=True)
+
     if args.profile:
         prof_cases = [(f"n={N32} ({name})", pl, lhs, rhs) for name, pl, lhs, rhs in p32_cases]
         prof_cases += [("n=4096 (lt30)", mid, *mid_ops), ("n=1024 (lt30)", small, *small_ops)]
@@ -726,10 +1172,27 @@ def main() -> int:
                   f"{r['device_events']:.0f} device events and {r['aten_ops']:.0f} aten ops "
                   f"a polymul (10 polymuls) | {smi}", flush=True)
 
+        for rname, pl, lhs, rhs in p64_cases:
+            a, b = card(lhs), card(rhs)
+            r = profile_polymul(lambda: pl.negacyclic_polymul(a, b))
+            print(f"profile: prime64 polymul n={N64} B={B64} p={pl.p} ({rname}): host clock "
+                  f"{r['host_ms']:.4f} ms, device busy {r['busy_ms']:.4f} ms "
+                  f"({100 * r['busy_share']:.1f} %), matmod64_pass {r['kernel_ms']:.4f} ms, "
+                  f"{r['device_events']:.0f} device events and {r['aten_ops']:.0f} aten ops "
+                  f"a polymul (10 polymuls) | {smi}", flush=True)
+        for name, pl in (("Plan52", plan52), ("Plan32", plan)):
+            r = profile_polymul(lambda: pl.negacyclic_polymul(lhs52, rhs52))
+            print(f"profile: native64 {name} polymul n={N64} B={B52} planar: host clock "
+                  f"{r['host_ms']:.4f} ms, device busy {r['busy_ms']:.4f} ms "
+                  f"({100 * r['busy_share']:.1f} %), GEMM passes {r['kernel_ms']:.4f} ms, "
+                  f"{r['device_events']:.0f} device events and {r['aten_ops']:.0f} aten ops "
+                  f"a polymul (10 polymuls) | {smi}", flush=True)
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": max_err[k], "ms": ms[k],
-         "plain_ms": plain_ms[k]}
+         "plain_ms": plain_ms[k], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+         "library_ms": None}
         for k, (src, rep) in KERNELS.items()
     ]}))
     print(smi)

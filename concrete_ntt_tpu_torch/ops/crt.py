@@ -1,6 +1,8 @@
 """CRT residue split and signed reconstruction, in plain torch.
 
-Counterpart of `concrete_ntt_tpu/ops/crt.py`: the native64 Plan32 pieces.
+Counterpart of `concrete_ntt_tpu/ops/crt.py`: the native64 pieces, for the
+Plan32 tier (five 30-bit channels) and the Plan52 tier (three 50-bit
+channels).
 
   * `split_u64`: u64 limb pairs → residues mod each 30-bit prime, the
     reference's plain `value % p` (native64.rs:980-993). The main path folds
@@ -9,6 +11,11 @@ Counterpart of `concrete_ntt_tpu/ops/crt.py`: the native64 Plan32 pieces.
     (mod P3·P4); sign = v34 > P34/2; wrap u64 (reconstruct_32bit_01234_v2,
     native64.rs:91-141). The exact digit structure and sign rule keep the
     results bit-identical at the hairline contract boundary.
+  * `split_u64_to_p50`: u64 limb pairs → residues mod each ~50-bit prime as
+    limb pairs. The Plan52 kernel routes fold this split into the column
+    matmul; the stage-engine route and the tests use it.
+  * `rec_from3_p50_u64`: 3×u64 residues → wrapping u64 (reconstruct_52bit_012,
+    native64.rs:770-829).
 
 Elementwise over [..., n] tensors in the int64 carrier of ops/u32.py;
 constants are Python bigints computed per call.
@@ -50,6 +57,22 @@ def split_u64(lo, hi, primes) -> list:
         t = shoup_mul(hi_mod, r32, r32_shoup, p)  # [0,p)
         lo_mod = reduce_u32_mod(lo, p, m)
         out.append(cond_sub(t + lo_mod, p))
+    return out
+
+
+def split_u64_to_p50(lo, hi, primes64) -> list:
+    """u64 limb pairs → residues mod each ~50-bit prime, as limb pairs.
+
+    For p > 2^32: hi, lo < 2^32 < p are already reduced; r = hi·(2^32 mod p) + lo.
+    """
+    out = []
+    z = torch.zeros_like(lo)
+    for p in primes64:
+        r32 = (1 << 32) % p
+        ws = (r32 << 64) // p
+        t = shoup_mul_lazy64((hi, z), const64_like(r32), const64_like(ws), p)  # [0, 2p)
+        r = add64(cond_sub64(t, p), (lo, z))  # < p + 2^32 < 2p
+        out.append(cond_sub64(r, p))
     return out
 
 
@@ -113,4 +136,21 @@ def rec_u64_from5(mods, primes):
     mask64 = (1 << 64) - 1
     pos = add64(v0, add64(mullo64(v12, const64_like(p0)), mullo64(v34, const64_like((p0 * p12) & mask64))))
     neg = sub64(pos, const64_like((p0 * p12 * p34) & mask64))
+    return select64(sign, neg, pos)
+
+
+def rec_from3_p50_u64(mods, primes):
+    """3×u64 residues (50-bit primes, limb pairs) → wrapping u64 limb pair
+    (reconstruct_52bit_012, native64.rs:770-829)."""
+    p0, p1, p2 = primes
+    m0, m1, m2 = mods
+    v0 = m0
+    v1 = _mul_mod64(_sub_mod64_lazy(m1, v0, p1), pow(p0 % p1, p1 - 2, p1), p1)
+    partial = add64(v0, _mul_mod64(v1, p0 % p2, p2))
+    v2 = _mul_mod64(_sub_mod64_lazy(m2, partial, p2), pow((p0 * p1) % p2, p2 - 2, p2), p2)
+    sign = geq64(v2, const64_like(p2 // 2 + 1))
+    mask64 = (1 << 64) - 1
+    pos = add64(v0, add64(mullo64(v1, const64_like(p0)),
+                          mullo64(v2, const64_like((p0 * p1) & mask64))))
+    neg = sub64(pos, const64_like((p0 * p1 * p2) & mask64))
     return select64(sign, neg, pos)

@@ -1,6 +1,6 @@
-"""Routing of the prime32 transforms.
+"""Routing of the prime32 and prime64 transforms.
 
-Counterpart of `concrete_ntt_tpu/ops/ntt_dispatch.py`, two parts of it:
+Counterpart of `concrete_ntt_tpu/ops/ntt_dispatch.py`, four parts of it:
 
   * the single-prime tiers `fwd32` / `inv32` (:502-549) that
     `prime32.Plan.fwd/inv` call: `tier32` picks the four-step kernel K2
@@ -9,10 +9,22 @@ Counterpart of `concrete_ntt_tpu/ops/ntt_dispatch.py`, two parts of it:
     for 2048 <= n < 2^14 (`passes_engine`, :60-77), is cut there by VMEM
     (`mxu32_pallas.fused_applicable`); K2 serves those sizes whole on the
     card, so they take K2 here;
-  * the channel routes of the CRT plans (`try_fwd32_wide_all` :125,
-    `try_fwd32_perchannel_all` :156, `try_pointwise_inv32_all` :180,
-    `try_inv32_all` :219, `try_polymul32_stacked` :248-305): `route32`
-    picks the channel grid (K1a-K1d) or K2 once per channel.
+  * the channel routes of the CRT plans' prime32 channels
+    (`try_fwd32_wide_all` :125, `try_fwd32_perchannel_all` :156,
+    `try_pointwise_inv32_all` :180, `try_inv32_all` :219,
+    `try_polymul32_stacked` :248-305): `route32` picks the channel grid
+    (K1a-K1d) or K2 once per channel;
+  * the single-prime 64-bit tier `try_fwd64` / `try_inv64` (:397-409) that
+    `prime64.Plan` calls: `tier64` picks the four-step kernel K5 where
+    `mxu64.applicable` holds (odd 2^33 < p < 2^64, 2^11 <= n <= 2^15), else
+    the stage engine (`ops/butterflies64.py`, plain torch: the JAX package
+    has no Pallas kernel there). The TPU's cuts between its whole-transform
+    kernel and two passes (`fused_applicable`, `_fused64_profitable`) are
+    VMEM and lane limits and are not carried over;
+  * the Plan52 channel routes (`try_fwd64_wide_all` :412,
+    `try_pointwise_inv64_all` :440): `route64` picks the channel grid
+    (K7a, K7d) where `mxu64.multi_applicable` holds, else K5 once per
+    channel.
 
 The JAX package routes on the backend and environment knobs; here the route
 is the device of the operand, inside the kernel modules: a CUDA tensor
@@ -21,18 +33,30 @@ the CPU takes the same tier as the card. The one exception is n > 2^15 on
 the CPU, which runs the stage engine (as the JAX package off the TPU); on
 the card such sizes raise. There is no knob and no hybrid or presplit
 branch (both are off in the reference's 'auto'). Where the JAX functions
-return None for "not applicable", these raise NotImplementedError naming
-the ROADMAP item (a caller that has another path asks `route32` first),
-and they return the stacked [C, B, n] tensor rather than a list of
-channels.
+return None for "not applicable", the 32-bit ones raise NotImplementedError
+naming the ROADMAP item (a caller that has another path asks `route32`
+first) and the 64-bit single-prime ones return None (the caller's other
+path is the stage engine); all return stacked [C, B, n] tensors rather than
+lists of channels.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import butterfly32_cuda, mxu32, mxu32_cuda
-from .u32 import MASK32, mont_mul, mont_neginv, mulhi_u32, mullo_u32, mulwide_u32, to_i64, to_u32
+from . import butterfly32_cuda, mxu32, mxu32_cuda, mxu64, mxu64_cuda
+from .u32 import (
+    MASK32,
+    mont_mul,
+    mont_mul64,
+    mont_neginv,
+    mont_neginv64,
+    mulhi_u32,
+    mullo_u32,
+    mulwide_u32,
+    to_i64,
+    to_u32,
+)
 
 
 def _primes(plans) -> tuple:
@@ -60,11 +84,11 @@ def _route(n: int, primes: tuple) -> str:
     route = route32(n, primes)
     if route is None:
         raise NotImplementedError(
-            f"n = {n}, primes {primes}: no channel route (the channel grid takes "
-            "30-bit primes, the per-channel four-step odd p >= 2^26, both at "
-            "2^11 <= n <= 2^15); native plans below 2^11 wait for their "
-            "per-channel route and larger sizes for the native128 2^16 work "
-            "(ROADMAP.md Queue 1 item 5)"
+            f"n = {n}, primes {primes}: no prime32 channel route (the channel grid "
+            "K1 takes 30-bit primes, the per-channel four-step K2 odd p >= 2^26, "
+            "both at 2^11 <= n <= 2^15; the 64-bit routes K7 / K5 are `route64`'s); "
+            "native plans below 2^11 wait for their per-channel route and larger "
+            "sizes for the native128 2^16 work (ROADMAP.md Queue 1 item 5)"
         )
     return route
 
@@ -181,3 +205,94 @@ def inv32(x, tbl, *, p, variant, p_neginv):
     if tier32(n, p, variant, x.device) == "K2":
         return mxu32_cuda.inv(x, n=n, p=p)
     return butterfly32_cuda.try_inv(x, tbl, p=p, variant=variant, p_neginv=p_neginv)
+
+
+# ---------------------------------------------------------------------------
+# prime64: the single-prime tier and the Plan52 channel routes
+# ---------------------------------------------------------------------------
+
+
+def tier64(n: int, p: int, device) -> str:
+    """The prime64 tier for (n, p) on `device`: "K5" (the four-step kernel,
+    or its plain twin on the CPU) or "stage" (the stage engine in plain
+    torch). Decided before any launch. On the card n > 2^15 raises: those
+    sizes wait for the stage-split hybrid (ROADMAP.md Queue 1 item 9); on
+    the CPU they run the stage engine."""
+    if n > mxu64_cuda.MAX_N:
+        if torch.device(device).type != "cpu":
+            raise NotImplementedError(
+                f"n = {n}: prime64 transforms above 2^15 on the card wait for the "
+                "stage-split hybrid (ROADMAP.md Queue 1 item 9)"
+            )
+        return "stage"
+    return "K5" if mxu64.applicable(n, p) else "stage"
+
+
+def try_fwd64(limbs, n: int, p: int):
+    """Four-step forward for prime64, (lo, hi) [B, n] uint32 -> (lo, hi)
+    bit-reversed [0, p); None where the stage engine serves (n, p)."""
+    if tier64(n, p, limbs[0].device) != "K5":
+        return None
+    return mxu64_cuda.fwd(tuple(limbs), n=n, p=p)
+
+
+def try_inv64(limbs, n: int, p: int, scale: int = 1):
+    """Four-step inverse for prime64 (a scale folded into A_inv); None where
+    the stage engine serves (n, p)."""
+    if tier64(n, p, limbs[0].device) != "K5":
+        return None
+    return mxu64_cuda.inv(tuple(limbs), n=n, p=p, scale=scale)
+
+
+def route64(n: int, primes: tuple) -> str | None:
+    """The channel route of a CRT plan's prime64 (Plan52) channels, decided
+    before any launch and the same on the CPU as on the card: "K7" (the
+    channel grid: `mxu64.multi_applicable`, 2^11 <= n <= 2^15), "K5" (the
+    four-step once per channel where `mxu64.applicable` holds for every
+    prime), or None (each channel's prime64 plan: the stage engine)."""
+    if not primes or n & (n - 1) or not mxu64_cuda.MIN_N <= n <= mxu64_cuda.MAX_N:
+        return None
+    if mxu64.multi_applicable(n, primes):
+        return "K7"
+    return "K5" if all(mxu64.applicable(n, p) for p in primes) else None
+
+
+def try_fwd64_wide_all(parts, plans):
+    """Fused residue split + forward NTT for a CRT plan's prime64 channels:
+    (lo, hi) [B, n] uint32 -> (lo, hi) of [C, B, n] NTT-domain residues. The
+    four-step takes any u64 representative, so the per-coefficient `mod p`
+    split disappears (K7a, or K5 once per channel). None without a route."""
+    n, primes = parts[0].shape[-1], _primes(plans)
+    route = route64(n, primes)
+    if route is None:
+        return None
+    if route == "K7":
+        return mxu64_cuda.fwd_multi(tuple(parts), primes)
+    outs = [mxu64_cuda.fwd(tuple(parts), n=n, p=p) for p in primes]
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(2))
+
+
+def _pointwise_scales64(n: int, primes: tuple) -> tuple:
+    """n^-1 * 2^64 mod p: the normalization and the compensation of the bare
+    Montgomery product's 2^-64, folded into the inverse."""
+    return tuple(pow(n, p - 2, p) * pow(2, 64, p) % p for p in primes)
+
+
+def try_pointwise_inv64_all(fl, fr, plans):
+    """Pointwise Montgomery product + normalized inverse NTT of all Plan52
+    channels: fl, fr = (lo, hi) of [C, B, n] uint32 -> (lo, hi) of [C, B, n]
+    standard-order canonical residues. K7d does both in one kernel; on the
+    K5 route the product is plain torch per channel. None without a route."""
+    n, primes = fl[0].shape[-1], _primes(plans)
+    route = route64(n, primes)
+    if route is None:
+        return None
+    scales = _pointwise_scales64(n, primes)
+    if route == "K7":
+        return mxu64_cuda.pointwise_inv_multi(tuple(fl), tuple(fr), primes, scales)
+    a, b = tuple(map(to_i64, fl)), tuple(map(to_i64, fr))
+    outs = []
+    for i, (p, s) in enumerate(zip(primes, scales)):
+        prod = mont_mul64((a[0][i], a[1][i]), (b[0][i], b[1][i]), p, mont_neginv64(p))
+        outs.append(mxu64_cuda.inv(tuple(to_u32(t) for t in prod), n=n, p=p, scale=s))
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(2))

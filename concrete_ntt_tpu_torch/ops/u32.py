@@ -1,11 +1,9 @@
 """u32-limb modular arithmetic primitives, in plain torch.
 
-Counterpart of `concrete_ntt_tpu/ops/u32.py`. Only the helpers the ported
-paths reach come across: the 32-bit half, the 64-bit limb helpers of
-`rec_u64_from5` and of the product plan's u32-channel path (`mul64_u32`,
-`add64c`, `sub64b`, `add_mod64`, `sub_mod64`), and the numpy limb
-converters. `mont_mul64` and the rest of the 64-bit half wait for the
-prime64 slice.
+Counterpart of `concrete_ntt_tpu/ops/u32.py`: the 32-bit half, the 64-bit
+limb-pair half (Shoup, Montgomery and Goldilocks multiplies of the prime64
+plan and of the 64-bit four-step engine), and the numpy limb converters.
+The generic N-limb helpers (u128) wait for the native128 slice.
 
 Carrier convention: torch has no `+`, `>>` or `<` for `uint32` on the CPU,
 so every function here takes and returns u32 values held in `int64`
@@ -26,6 +24,32 @@ import torch
 
 MASK32 = 0xFFFFFFFF
 _MASK16 = 0xFFFF
+
+
+DEFAULT_DEVICE = "cuda"  # every plan computes on the card unless told otherwise
+
+
+def check_device(device) -> torch.device:
+    """`device` as a torch.device; raises where it is the card and there is
+    none, so that no plan carries on on the CPU by itself."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"the plan's device is {device!r} but torch.cuda.is_available() is False; "
+            'construct the plan with device="cpu" to compute on the CPU'
+        )
+    return dev
+
+
+def input_tensor(x, device) -> torch.Tensor:
+    """A plan's input as a tensor: a numpy array (the host-convenience
+    format) is moved to the plan's `device`; a tensor computes on the device
+    it is on."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(check_device(device))
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"expected a tensor or a numpy array, got {type(x).__name__}")
+    return x
 
 
 def to_i64(x: torch.Tensor) -> torch.Tensor:
@@ -247,6 +271,90 @@ def sub_mod64(a, b, p: int):
     """(a - b) mod p for limb pairs in [0, p)."""
     d, borrow = sub64b(a, b)
     return select64(borrow, add64(d, const64_like(p)), d)
+
+
+def mont_neginv64(p: int) -> int:
+    """-p^{-1} mod 2^64 (host-side; p odd)."""
+    return (-pow(p, -1, 1 << 64)) % (1 << 64)
+
+
+def mont_mul64(a, b, p, p_neginv):
+    """a·b·2^{-64} mod p for odd p < 2^64 (REDC), limb pairs.
+
+    With a·b < 2^64·p (one operand < p) REDC's t = (a·b + m·p)/2^64 < 2p and
+    the result is canonical. For two arbitrary u64 operands t can pass 2^64:
+    on that overflow the wrapped sum gets 2^64 - p added (t - p), else one
+    conditional subtract, and the result may land in [p, 2p) — the JAX
+    package's bit pattern, which the channel-grid kernel K7d reproduces.
+    `p` and `p_neginv` are Python ints."""
+    l0, l1, l2, l3 = mulwide64(a, b)
+    m = mullo64((l0, l1), const64_like(p_neginv))
+    mp_hi = mulhi64(m, const64_like(p))
+    # low 64 bits of T + m·p are zero; carry out iff T_lo != 0
+    carry = ((l0 != 0) | (l1 != 0)).to(torch.int64)
+    s, c1 = add64c((l2, l3), mp_hi)
+    s2, c2 = add64c(s, (carry, 0))
+    over = (c1 | c2) != 0
+    return select64(over, add64(s2, const64_like((1 << 64) - p)), cond_sub64(s2, p))
+
+
+def shoup_mul_u32_lazy64(z32, w, w_shoup, p: int):
+    """t ≡ z·w (mod p), t in [0, 2p), for a u32 operand z against a u64
+    constant w < p < 2^63 with companion w_shoup = ⌊w·2^64/p⌋ (limb pairs of
+    tensors or Python ints). z < 2^32 makes the quotient
+    q = ⌊z·w_shoup/2^64⌋ a single u32: the top limb of the 96-bit product."""
+    w_lo, w_hi = w
+    wsh_lo, wsh_hi = w_shoup
+    lo1, hi1 = mulwide_u32(z32, wsh_hi)
+    q = (hi1 + ((lo1 + mulhi_u32(z32, wsh_lo)) >> 32)) & MASK32
+    return sub64(mul64_u32((w_lo, w_hi), z32), mul64_u32(const64_like(p), q))
+
+
+# ---------------------------------------------------------------------------
+# Goldilocks prime p = 2^64 - 2^32 + 1 (reference: prime64::Solinas,
+# generic_solinas.rs:103-128). With φ = 2^32: 2^64 ≡ φ-1, 2^96 ≡ -1, so a
+# 128-bit product (l0, l1, l2, l3) reduces with shifts and adds only.
+# ---------------------------------------------------------------------------
+
+GOLDILOCKS_P = (1 << 64) - (1 << 32) + 1
+
+
+def gl_reduce128_lazy(l0, l1, l2, l3):
+    """4-limb value mod Goldilocks as a u64 representative (< 2^64, possibly
+    >= p: one cond_sub64 from canonical)."""
+    # t0 = (l0, l1) - l3: on a borrow the wrapped value is 2^64 too large,
+    # and 2^64 ≡ φ-1, so subtract φ-1
+    t0, b1 = sub64b((l0, l1), (l3, 0))
+    t0 = select64(b1, sub64(t0, (MASK32, 0)), t0)
+    # t1 = l2·(φ-1) = (l2 << 32) - l2, exact in 64 bits
+    t1 = sub64((0, l2), (l2, 0))
+    t2, c2 = add64c(t0, t1)
+    return select64(c2 != 0, add64(t2, (MASK32, 0)), t2)
+
+
+def gl_reduce128(l0, l1, l2, l3):
+    """4-limb value mod Goldilocks, canonical [0, p)."""
+    return cond_sub64(gl_reduce128_lazy(l0, l1, l2, l3), GOLDILOCKS_P)
+
+
+def gl_mul_lazy(a, b):
+    """a·b mod Goldilocks as a u64 representative (4 wide multiplies)."""
+    return gl_reduce128_lazy(*mulwide64(a, b))
+
+
+def gl_mul(a, b):
+    """a·b mod Goldilocks, canonical, for any u64 limb pairs a, b."""
+    return gl_reduce128(*mulwide64(a, b))
+
+
+def gl_add(a, b):
+    """(a + b) mod Goldilocks for a, b in [0, p)."""
+    return add_mod64(a, b, GOLDILOCKS_P)
+
+
+def gl_sub(a, b):
+    """(a - b) mod Goldilocks for a, b in [0, p)."""
+    return sub_mod64(a, b, GOLDILOCKS_P)
 
 
 # ---------------------------------------------------------------------------

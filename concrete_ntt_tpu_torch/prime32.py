@@ -7,8 +7,11 @@ elementwise ops. Three regimes by modulus size, as the reference's
 dispatch (prime32.rs:713-755): lt30 (p < 2^30), lt31 (p < 2^31) and
 generic (Montgomery twiddles).
 
-Transforms take a uint32 tensor (or numpy array) [..., n] and return a
-uint32 tensor on the input's device (numpy input computes on the CPU).
+Transforms take a uint32 tensor or numpy array [..., n] and return a uint32
+tensor on the computing device. The plan's device is given at construction
+and defaults to the card ("cuda"): a numpy array is moved to it, a tensor
+computes on the device it is on. With the default and no GPU a numpy call
+raises; the CPU is what a caller asks for with `device="cpu"`.
 `ops/ntt_dispatch.fwd32/inv32` choose the tier: the four-step kernel K2
 for 2^11 <= n <= 2^15 where `mxu32.applicable` holds (odd p >= 2^26), else
 the butterfly kernel K4 (K3 is only the sharded four-step's per-rank
@@ -31,7 +34,15 @@ import torch
 
 from .golden.ntt import negacyclic_twiddles
 from .ops import ntt_dispatch
-from .ops.u32 import add_mod, mont_mul, mont_neginv, to_i64, to_u32
+from .ops.u32 import (
+    DEFAULT_DEVICE,
+    add_mod,
+    input_tensor,
+    mont_mul,
+    mont_neginv,
+    to_i64,
+    to_u32,
+)
 from .utils.prime import is_prime64
 
 MIN_N = 2  # any power of two >= 2 (a superset of the reference's n >= 32)
@@ -60,11 +71,10 @@ def _tables(n: int, p: int):
     return {"twid": tw, "twid_shoup": tws, "inv_twid": itw, "inv_twid_shoup": itws}
 
 
-def _as_tensor(x) -> torch.Tensor:
-    if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    if not isinstance(x, torch.Tensor):
+def _as_tensor(x, device) -> torch.Tensor:
+    if not isinstance(x, (np.ndarray, torch.Tensor)):
         raise TypeError(f"expected a uint32 tensor or numpy array, got {type(x).__name__}")
+    x = input_tensor(x, device)
     if x.dtype != torch.uint32:
         raise TypeError(f"expected uint32 coefficients, got {x.dtype}")
     return x
@@ -81,19 +91,20 @@ class Plan:
     n: int
     p: int
     _tbl: dict = field(repr=False, compare=False)
+    device: str = DEFAULT_DEVICE
 
     # -- construction --------------------------------------------------------
 
     @classmethod
-    def try_new(cls, n: int, p: int) -> "Plan | None":
+    def try_new(cls, n: int, p: int, device: str = DEFAULT_DEVICE) -> "Plan | None":
         """Returns None for invalid (n, p) — parity with Plan::try_new."""
         try:
-            return cls.new(n, p)
+            return cls.new(n, p, device)
         except ValueError:
             return None
 
     @classmethod
-    def new(cls, n: int, p: int) -> "Plan":
+    def new(cls, n: int, p: int, device: str = DEFAULT_DEVICE) -> "Plan":
         if n < MIN_N or n & (n - 1) != 0:
             raise ValueError(f"n must be a power of two >= {MIN_N}, got {n}")
         if not (2 <= p < 1 << 32):
@@ -102,7 +113,7 @@ class Plan:
             raise ValueError(f"p must be prime, got {p}")
         if (p - 1) % (2 * n) != 0:
             raise ValueError(f"no 2n-th root of unity: 2*{n} does not divide {p}-1")
-        return cls(n=n, p=p, _tbl=_tables(n, p))
+        return cls(n=n, p=p, _tbl=_tables(n, p), device=str(device))
 
     # -- derived constants ---------------------------------------------------
 
@@ -121,7 +132,7 @@ class Plan:
     # -- transforms ----------------------------------------------------------
 
     def _prep(self, x):
-        x = _as_tensor(x)
+        x = _as_tensor(x, self.device)
         if x.dim() < 1 or x.shape[-1] != self.n:
             raise ValueError(f"last axis must be n={self.n}, got {tuple(x.shape)}")
         return x.reshape(-1, self.n).contiguous(), x.shape[:-1]
@@ -144,25 +155,28 @@ class Plan:
         )
         return out.reshape(*lead, self.n)
 
+    def _carrier(self, x):
+        return to_i64(_as_tensor(x, self.device))
+
     # -- elementwise ops (prime32.rs:812-927) --------------------------------
 
     def mul_assign_normalize(self, lhs, rhs):
         """lhs·rhs·n^{-1} mod p, elementwise, canonical."""
         c1 = (self.n_inv << 64) % self.p
-        v = mont_mul(to_i64(_as_tensor(lhs)), to_i64(_as_tensor(rhs)), self.p, self.p_neginv)
+        v = mont_mul(self._carrier(lhs), self._carrier(rhs), self.p, self.p_neginv)
         return to_u32(mont_mul(v, c1, self.p, self.p_neginv))
 
     def normalize(self, values):
         """values·n^{-1} mod p, elementwise."""
         c2 = (self.n_inv << 32) % self.p
-        return to_u32(mont_mul(to_i64(_as_tensor(values)), c2, self.p, self.p_neginv))
+        return to_u32(mont_mul(self._carrier(values), c2, self.p, self.p_neginv))
 
     def mul_accumulate(self, acc, lhs, rhs):
         """acc + lhs·rhs mod p, elementwise."""
         c3 = (1 << 64) % self.p
-        v = mont_mul(to_i64(_as_tensor(lhs)), to_i64(_as_tensor(rhs)), self.p, self.p_neginv)
+        v = mont_mul(self._carrier(lhs), self._carrier(rhs), self.p, self.p_neginv)
         t = mont_mul(v, c3, self.p, self.p_neginv)
-        return to_u32(add_mod(to_i64(_as_tensor(acc)), t, self.p))
+        return to_u32(add_mod(self._carrier(acc), t, self.p))
 
     # -- convenience ---------------------------------------------------------
 

@@ -6,8 +6,8 @@ P0..P9, each ≡ 1 (mod 2^16), which support negacyclic transforms up to
 N = 2^15 (reference src/lib.rs:447-462). The native64 Plan32 uses the first
 five. An extended family ≡ 1 (mod 2^18) reaches N = 2^17.
 
-Only what the native64 Plan32 path needs comes across; the 52-bit table,
-the Goldilocks constant, the other native prime selections and
+Beside them the six ~50-bit primes of the Plan52 tier and the Goldilocks
+prime of the prime64 plan. The other native prime selections and
 `crt_constants` wait for the slices that use them (ROADMAP.md).
 """
 
@@ -31,6 +31,22 @@ PRIMES32: tuple[int, ...] = (
     0x3FDE0001,
     0x3FFC0001,
 )
+
+# reference src/lib.rs (primes52): ~50-bit primes ≡ 1 (mod 2^16), the Plan52
+# channel moduli (native64 Plan52 uses the first three)
+PRIMES52: tuple[int, ...] = (
+    0x3FFFFFE770001,
+    0x3FFFFFEB90001,
+    0x3FFFFFEC80001,
+    0x3FFFFFF8B0001,
+    0x3FFFFFFB80001,
+    0x3FFFFFFC70001,
+)
+
+#: Goldilocks prime 2^64 - 2^32 + 1 (reference: prime64::Solinas,
+#: generic_solinas.rs:35-40): a 128-bit product reduces with 32-bit shifts
+#: and adds only, since 2^64 ≡ 2^32 - 1 (mod p).
+GOLDILOCKS: int = (1 << 64) - (1 << 32) + 1
 
 
 def generate_ntt_primes(

@@ -110,7 +110,7 @@ def test_stage_engine_matches_jax(rng, variant, direction):
 @pytest.mark.parametrize("variant", list(REGIMES))
 def test_k4_plain_matches_pallas_interpret(rng, interpret, variant, n):
     p = REGIMES[variant]
-    tplan, jplan = tp32.Plan.new(n, p), jp32.Plan.new(n, p)
+    tplan, jplan = tp32.Plan.new(n, p, device="cpu"), jp32.Plan.new(n, p)
     kw = dict(p=p, variant=variant, p_neginv=tplan.p_neginv)
     x = rng.integers(0, p, (9, n), dtype=np.uint32)  # 9: not a multiple of the TPU's 8 rows
     for t_fn, j_fn in ((tcu4.try_fwd, jpal32.try_fwd), (tcu4.try_inv, jpal32.try_inv)):
@@ -126,7 +126,7 @@ def test_k4_plain_serves_below_the_tpu_floor(rng):
     stage engine, equal to the JAX XLA path."""
     p = 67043329
     for n in (2, 8, 128):
-        tplan, jplan = tp32.Plan.new(n, p), jp32.Plan.new(n, p)
+        tplan, jplan = tp32.Plan.new(n, p, device="cpu"), jp32.Plan.new(n, p)
         x = rng.integers(0, p, (5, n), dtype=np.uint32)
         kw = dict(p=p, variant="lt30", p_neginv=tplan.p_neginv)
         got = tcu4.try_fwd(torch.from_numpy(x), tplan._tbl, **kw)
@@ -137,7 +137,7 @@ def test_k4_plain_serves_below_the_tpu_floor(rng):
 
 def test_k4_routes_by_device_and_range(rng):
     p, n = REGIMES["lt31"], 256
-    plan = tp32.Plan.new(n, p)
+    plan = tp32.Plan.new(n, p, device="cpu")
     kw = dict(p=p, variant=plan.variant, p_neginv=plan.p_neginv)
     x = torch.from_numpy(rng.integers(0, p, (2, n), dtype=np.uint32))
     with pytest.raises(ValueError, match="no route"):

@@ -1,6 +1,7 @@
-"""Card tests of the port: each kernel (K1a-K1d, K2, K3, K4) against its
-plain torch twin, and the native64 Plan32, prime32 and product polymuls
-through the kernels against the CPU plain path.
+"""Card tests of the port: each kernel (K1a-K1d, K2, K3, K4, K5, K6, K7a,
+K7d) against its plain torch twin, and the native64 Plan32 and Plan52,
+prime32, prime64 and product polymuls through the kernels against the CPU
+plain path.
 
 Every test here is marked `cuda` and skips without a CUDA GPU. The file
 imports only the port (no JAX), so it runs on a GPU machine without JAX:
@@ -15,13 +16,22 @@ import numpy as np
 import pytest
 import torch
 
-from concrete_ntt_tpu_torch import native64, prime32, product
-from concrete_ntt_tpu_torch.ops import butterfly32_cuda, mxu32, mxu32_cuda
+from concrete_ntt_tpu_torch import native64, prime32, prime64, product
+from concrete_ntt_tpu_torch.ops import butterfly32_cuda, mxu32, mxu32_cuda, mxu64, mxu64_cuda
+from concrete_ntt_tpu_torch.tables import GOLDILOCKS, PRIMES52
 from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
+from concrete_ntt_tpu_torch.utils.prime import largest_prime_in_arithmetic_progression64 as _lp
 
 pytestmark = pytest.mark.cuda
 
 BENCH = {"lt30": 1073479681, "lt31": 2147352577, "generic": 4293918721}
+REGIMES64 = {
+    "goldilocks": GOLDILOCKS,
+    "p50": PRIMES52[0],
+    "p63": _lp(1 << 15, 1, 1 << 62, 1 << 63),
+    "p64": _lp(1 << 15, 1, 1 << 63, (1 << 64) - 1),
+    "p62": _lp(1 << 16, 1, 1 << 61, 1 << 62),
+}
 
 
 @pytest.fixture
@@ -62,7 +72,7 @@ def test_kernels_match_plain_on_card(gen, cuda_device, n, b):
 
 def test_polymul_on_card_matches_cpu(gen, cuda_device):
     n, b = 1 << 14, 3
-    plan = native64.Plan32.try_new(n)
+    plan = native64.Plan32.try_new(n)  # the default device is the card
     lhs, rhs = ((_u32(gen, (b, n), "cpu"), _u32(gen, (b, n), "cpu")) for _ in range(2))
     mxu32_cuda.reset_launch_counts()
     got = plan.negacyclic_polymul(tuple(t.to(cuda_device) for t in lhs),
@@ -123,7 +133,10 @@ def test_prime32_polymul_on_card_matches_cpu(gen, cuda_device, n):
     lhs, rhs = (gen.integers(0, p, (4, n), dtype=np.uint32) for _ in range(2))
     got = plan.negacyclic_polymul(torch.from_numpy(lhs).to(cuda_device),
                                   torch.from_numpy(rhs).to(cuda_device))
-    _same(got, plan.negacyclic_polymul(lhs, rhs))
+    want = prime32.Plan.new(n, p, device="cpu").negacyclic_polymul(lhs, rhs)
+    assert want.device.type == "cpu"
+    _same(got, want)
+    _same(plan.negacyclic_polymul(lhs, rhs), want)  # numpy input goes to the card
 
 
 @pytest.mark.parametrize("n,b", [(1 << 11, 3), (1 << 14, 5)])
@@ -158,3 +171,79 @@ def test_product_polymul_on_card_matches_cpu(gen, cuda_device, factors):
         got = plan.negacyclic_polymul(lhs.to(cuda_device), c.to(cuda_device),
                                       standard=acc.to(cuda_device), **kw)
         _same(got, plan.negacyclic_polymul(lhs, c, standard=acc, **kw))
+
+
+def _same_pair(got, want):
+    for g, w in zip(got, want):
+        _same(g, w)
+
+
+@pytest.mark.parametrize("regime", list(REGIMES64))
+def test_k5_matches_plain_on_card(gen, cuda_device, regime):
+    p = REGIMES64[regime]
+    for n, b in ((1 << 14, 3), (1 << 11, 3)):
+        x = (_u32(gen, (b, n), cuda_device), _u32(gen, (b, n), cuda_device))
+        _same_pair(mxu64_cuda.fwd(x, n=n, p=p), mxu64_cuda.fwd_plain(x, n=n, p=p))
+        for s in (1, pow(n, p - 2, p) * pow(2, 64, p) % p):
+            _same_pair(mxu64_cuda.inv(x, n=n, p=p, scale=s),
+                       mxu64_cuda.inv_plain(x, n=n, p=p, scale=s))
+
+
+@pytest.mark.parametrize("regime", list(REGIMES64))
+def test_k6_matches_plain_on_card(gen, cuda_device, regime):
+    p, n, b = REGIMES64[regime], 4096, 3
+    tbl = mxu64._tables(n, p)
+    n1, n2 = tbl["n1"], tbl["n2"]
+    d = tuple(torch.from_numpy(a[: n2 // 2]).to(cuda_device) for a in tbl["d"])
+    x = (_u32(gen, (b, n2 // 2, n1), cuda_device), _u32(gen, (b, n2 // 2, n1), cuda_device))
+    kw = dict(n=n, p=p, which="A", diag_slices=d)
+    _same_pair(mxu64_cuda.pass_matmod64(x, **kw), mxu64_cuda.pass_matmod64_plain(x, **kw))
+    y = (_u32(gen, (b, n1 // 4, n2), cuda_device),
+         _u32(gen, (b, n1 // 4, n2), cuda_device, 1 << 18))  # mid-pass values, below 2^50
+    kw = dict(n=n, p=p, which="F")
+    _same_pair(mxu64_cuda.pass_matmod64(y, **kw), mxu64_cuda.pass_matmod64_plain(y, **kw))
+
+
+@pytest.mark.parametrize("n,b", [(1 << 11, 3), (1 << 14, 5)])
+def test_k7_matches_plain_on_card(gen, cuda_device, n, b):
+    primes = PRIMES52[:3]
+    x = (_u32(gen, (b, n), cuda_device), _u32(gen, (b, n), cuda_device))
+    _same_pair(mxu64_cuda.fwd_multi(x, primes), mxu64_cuda.fwd_multi_plain(x, primes))
+    fl, fr = ((_u32(gen, (3, b, n), cuda_device), _u32(gen, (3, b, n), cuda_device))
+              for _ in range(2))
+    scales = tuple(pow(n, p - 2, p) * pow(2, 64, p) % p for p in primes)
+    _same_pair(mxu64_cuda.pointwise_inv_multi(fl, fr, primes, scales),
+               mxu64_cuda.pointwise_inv_multi_plain(fl, fr, primes, scales))
+
+
+@pytest.mark.parametrize("regime", list(REGIMES64))
+def test_prime64_polymul_on_card_matches_cpu(gen, cuda_device, regime):
+    p, n = REGIMES64[regime], 1 << 14
+    lhs, rhs = (gen.integers(0, 1 << 64, (3, n), dtype=np.uint64) % np.uint64(p) for _ in range(2))
+    mxu64_cuda.reset_launch_counts()
+    got = prime64.Plan.new(n, p).negacyclic_polymul(lhs, rhs)  # numpy input, default device
+    assert mxu64_cuda.LAUNCHES["fwd64"] == 2 and mxu64_cuda.LAUNCHES["inv64"] == 1
+    np.testing.assert_array_equal(
+        got, prime64.Plan.new(n, p, device="cpu").negacyclic_polymul(lhs, rhs))
+
+
+def test_plan52_polymul_on_card_matches_cpu_and_plan32(gen, cuda_device):
+    n, b = 1 << 14, 3
+    lhs, rhs = (gen.integers(0, 1 << 64, (b, n), dtype=np.uint64) for _ in range(2))
+    mxu64_cuda.reset_launch_counts()
+    got = native64.Plan52.try_new(n).negacyclic_polymul(lhs, rhs)
+    assert mxu64_cuda.LAUNCHES == {"fwd64": 0, "inv64": 0, "pass_matmod64": 0, "fwd_multi64": 2,
+                                   "pointwise_inv_multi64": 1}
+    np.testing.assert_array_equal(
+        got, native64.Plan52.try_new(n, device="cpu").negacyclic_polymul(lhs, rhs))
+    np.testing.assert_array_equal(got, native64.Plan32.try_new(n).negacyclic_polymul(lhs, rhs))
+
+
+def test_product_u64_channel_on_card_matches_cpu(gen, cuda_device):
+    n = 1 << 14
+    factors = (PRIMES[0], _lp(1 << 15, 1, 1 << 33, 1 << 34))
+    m = factors[0] * factors[1]
+    a, c = (gen.integers(0, 1 << 64, (3, n), dtype=np.uint64) % np.uint64(m) for _ in range(2))
+    got = product.Plan.new(n, m, factors).negacyclic_polymul(a, c)
+    np.testing.assert_array_equal(
+        got, product.Plan.new(n, m, factors, device="cpu").negacyclic_polymul(a, c))

@@ -23,7 +23,7 @@ SHAPES = [(1 << 11, 3), (1 << 14, 2)]
 
 
 def _plans(n):
-    return tn64.Plan32.try_new(n), jn64.Plan32.try_new(n)
+    return tn64.Plan32.try_new(n, device="cpu"), jn64.Plan32.try_new(n)
 
 
 def _values(rng, b, n, binary=False):
@@ -106,20 +106,20 @@ def test_fwd_inv_match_jax(rng, n, b):
 
 
 def test_out_of_range_sizes_raise(rng):
-    plan = tn64.Plan32.try_new(1024)  # builds, like the reference
+    plan = tn64.Plan32.try_new(1024, device="cpu")  # builds, like the reference
     assert plan is not None and plan.primes == jn64.Plan32.try_new(1024).primes
     x = _values(rng, 1, 1024)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         plan.negacyclic_polymul(x, x)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tn64.Plan32.try_new(1 << 16).fwd(_values(rng, 1, 1 << 16))
+        tn64.Plan32.try_new(1 << 16, device="cpu").fwd(_values(rng, 1, 1 << 16))
     assert tn64.Plan32.try_new(1 << 18) is None
 
 
 @pytest.mark.parametrize("n,p", [(1024, 0x3F5A0001), (8, 17), (16, 17), (6, 13), (4, 15),
                                  (2, 4293918721), (64, 2147483777)])
 def test_prime32_plan_construction_matches_jax(n, p):
-    tp, jp = tp32.Plan.try_new(n, p), jp32.Plan.try_new(n, p)
+    tp, jp = tp32.Plan.try_new(n, p, device="cpu"), jp32.Plan.try_new(n, p)
     assert (tp is None) == (jp is None)
     if tp is not None:
         assert (tp.variant, tp.p_neginv, tp.n_inv) == (jp.variant, jp.p_neginv, jp.n_inv)

@@ -48,7 +48,7 @@ def _assert_same(port, ref, path="tables"):
 @pytest.mark.parametrize("name", list(PRIMES))
 def test_plan_matches_jax(rng, name, n):
     p = PRIMES[name]
-    tplan, jplan = tp32.Plan.new(n, p), jp32.Plan.new(n, p)
+    tplan, jplan = tp32.Plan.new(n, p, device="cpu"), jp32.Plan.new(n, p)
     assert (tplan.variant, tplan.p_neginv, tplan.n_inv) == (
         jplan.variant, jplan.p_neginv, jplan.n_inv)
     x, y = (rng.integers(0, p, (2, 3, n), dtype=np.uint32) for _ in range(2))
@@ -71,7 +71,7 @@ def test_plan_matches_jax(rng, name, n):
 def test_plan_at_the_k2_size(rng, name):
     """n = 2^14: the port's K2 twin against the JAX stage engine."""
     p, n = PRIMES[name], 1 << 14
-    tplan, jplan = tp32.Plan.new(n, p), jp32.Plan.new(n, p)
+    tplan, jplan = tp32.Plan.new(n, p, device="cpu"), jp32.Plan.new(n, p)
     x = rng.integers(0, p, (2, n), dtype=np.uint32)
     np.testing.assert_array_equal(tplan.fwd(x).numpy(), np.asarray(jplan.fwd(x)))
     np.testing.assert_array_equal(tplan.inv(x).numpy(), np.asarray(jplan.inv(x)))
@@ -79,7 +79,7 @@ def test_plan_at_the_k2_size(rng, name):
 
 def test_plan_above_the_kernel_range_runs_the_stage_engine(rng):
     p, n = PRIMES["lt30"], 1 << 16
-    tplan, jplan = tp32.Plan.new(n, p), jp32.Plan.new(n, p)
+    tplan, jplan = tp32.Plan.new(n, p, device="cpu"), jp32.Plan.new(n, p)
     x = rng.integers(0, p, (1, n), dtype=np.uint32)
     np.testing.assert_array_equal(tplan.fwd(x).numpy(), np.asarray(jplan.fwd(x)))
 
@@ -89,7 +89,7 @@ def test_polymul_matches_golden(rng):
     n, p = 1024, 1073479681
     lhs = rng.integers(0, p, n).astype(np.uint32)
     rhs = rng.integers(0, p, n).astype(np.uint32)
-    got = tp32.Plan.new(n, p).negacyclic_polymul(lhs, rhs)
+    got = tp32.Plan.new(n, p, device="cpu").negacyclic_polymul(lhs, rhs)
     want = negacyclic_convolution_mod(lhs.tolist(), rhs.tolist(), p)
     assert got.tolist() == want
     assert tgold.negacyclic_convolution_mod(lhs[:64], rhs[:64], p) == \
@@ -97,7 +97,7 @@ def test_polymul_matches_golden(rng):
 
 
 def test_readme_vector():
-    plan = tp32.Plan.new(32, 1062862849)
+    plan = tp32.Plan.new(32, 1062862849, device="cpu")
     x = np.arange(32, dtype=np.uint32)
     got = plan.inv(plan.fwd(x[None]))
     assert got.shape == (1, 32)
@@ -138,7 +138,7 @@ def test_compact_twiddles_index_like_the_expanded_tables(name, direction):
 def test_plan_validation_and_inputs(rng):
     assert tp32.Plan.try_new(1024, 1073479681) is not None
     assert tp32.Plan.try_new(3, 17) is None and tp32.Plan.try_new(1 << 20, 17) is None
-    plan = tp32.Plan.new(64, PRIMES["lt31"])
+    plan = tp32.Plan.new(64, PRIMES["lt31"], device="cpu")
     with pytest.raises(TypeError):
         plan.fwd(np.zeros(64, dtype=np.uint64))
     with pytest.raises(ValueError, match="n=64"):

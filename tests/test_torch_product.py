@@ -56,7 +56,7 @@ MID = {"K1": P30, "K2": _two_primes(N_MID, 1 << 31, (1 << 32) - 1)}
 
 def _plans(n, factors):
     m = int(np.prod([int(f) for f in factors], dtype=object))
-    return J.Plan.new(n, m, factors), T.Plan.new(n, m, factors), m
+    return J.Plan.new(n, m, factors), T.Plan.new(n, m, factors, device="cpu"), m
 
 
 def _rand_mod(rng, m, shape):
@@ -184,9 +184,9 @@ def test_pbs_composite_matches_jax(rng, n):
     digits = [_centred(rng, m, (b, n)) for _ in range(k)]
     acc0 = _rand_mod(rng, m, (b, n))
     pre_j = [jp.normalize(jp.fwd(key)) for key in keys]
-    pre_t = [T.NttDomain.from_numpy(np.asarray(d.res32)) for d in pre_j]
+    pre_t = [T.NttDomain.from_numpy(np.asarray(d.res32), device="cpu") for d in pre_j]
     zeros = np.zeros((2, b, n), dtype=np.uint32)
-    acc_t, acc_j = T.NttDomain.from_numpy(zeros), J.NttDomain(jnp.asarray(zeros), None)
+    acc_t, acc_j = T.NttDomain.from_numpy(zeros, device="cpu"), J.NttDomain(jnp.asarray(zeros), None)
     for d, pt, pj in zip(digits, pre_t, pre_j):
         acc_t = tp.mul_accumulate(acc_t, tp.fwd(d, T.bounded(BOUND)), pt)
         acc_j = jp.mul_accumulate(acc_j, jp.fwd(d, J.bounded(BOUND)), pj)
@@ -203,10 +203,10 @@ def test_ntt_domain_crosses_packages(rng):
     jp, tp, m = _plans(N_MID, P30)
     x = _rand_mod(rng, m, (2, N_MID))
     jdom = jp.fwd(x)
-    res32, res64 = T.NttDomain.from_numpy(np.asarray(jdom.res32)).numpy()
+    res32, res64 = T.NttDomain.from_numpy(np.asarray(jdom.res32), device="cpu").numpy()
     assert res64 is None and res32.dtype == np.uint32
     np.testing.assert_array_equal(
-        tp.inv(T.NttDomain.from_numpy(res32)), np.asarray(jp.inv(jdom)))
+        tp.inv(T.NttDomain.from_numpy(res32, device="cpu")), np.asarray(jp.inv(jdom)))
     back = J.NttDomain(jnp.asarray(tp.fwd(x).numpy()[0]), None)
     np.testing.assert_array_equal(np.asarray(jp.inv(back)), tp.inv(tp.fwd(x)))
     with pytest.raises(TypeError):
@@ -243,17 +243,78 @@ def test_validation_matches_jax():
     cases = [(15, [3, 5]), (p0 * p1, [p1, p0]), (p0 * p0, [p0, p0]), (p0 * p1 + 1, [p0, p1]),
              (p0, [1, p0]), (p0 * 4, [2, 2, p0])]
     for modulus, factors in cases:
-        tp, jp = T.Plan.try_new(N, modulus, factors), J.Plan.try_new(N, modulus, factors)
+        tp, jp = T.Plan.try_new(N, modulus, factors, device="cpu"), J.Plan.try_new(N, modulus, factors)
         assert (tp is None) == (jp is None), (modulus, factors)
         if tp is not None:
             assert tp.factors == jp.factors
     assert T.Plan.try_new(N, p0, [1, p0]).factors == (p0,)
+    assert T.Plan.try_new(N, p0, [1, p0]).device == "cuda"  # the card is the default
 
 
-def test_prime64_factor_raises():
+def test_prime64_factor_raises(rng):
+    """A factor >= 2^32 is a prime64 channel now (it raised NotImplementedError
+    before the prime64 plan was ported): the plan builds and equals the JAX
+    package's. What still raises: a plan on the default device (the card)
+    given numpy input where there is no GPU."""
     p33 = largest_prime_in_arithmetic_progression64(2 * N, 1, 1 << 32, (1 << 33) - 1)
     p15 = _p15(N)[:2]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.Plan.new(N, p15[0] * p15[1] * p33, [*p15, p33])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.NttDomain.from_numpy(np.zeros((1, N), np.uint32), np.zeros((1, N, 2), np.uint32))
+    factors = [*p15, p33]
+    m = p15[0] * p15[1] * p33
+    tp, jp = T.Plan.new(N, m, factors, device="cpu"), J.Plan.new(N, m, factors)
+    assert tp.primes32 == tuple(p15) and tp.primes64 == (p33,)
+    a, b = _rand_mod(rng, m, (2, N)), _rand_mod(rng, m, (2, N))
+    np.testing.assert_array_equal(tp.negacyclic_polymul(a, b), jp.negacyclic_polymul(a, b))
+    dom = T.NttDomain.from_numpy(np.zeros((2, N), np.uint32), np.zeros((1, N, 2), np.uint32),
+                                 device="cpu")
+    assert dom.res64.shape == (1, N, 2)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            T.Plan.new(N, m, factors).negacyclic_polymul(a, b)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            T.NttDomain.from_numpy(np.zeros((2, N), np.uint32))
+
+
+def _mix64(n, mix):
+    """Factor sets with prime64 channels: one u64 prime alone, a u32 and a
+    u64 prime, two primes below 2^15.5 and a 33-bit one."""
+    lp = largest_prime_in_arithmetic_progression64
+    if mix == "u64x1":
+        return (lp(2 * n, 1, 1 << 40, 1 << 41),)
+    if mix == "u30+u64":
+        return (lp(2 * n, 1, 1 << 29, 1 << 30), lp(2 * n, 1, 1 << 33, 1 << 34))
+    small = lp(2 * n, 1, 1 << 10, 46340)
+    return (lp(2 * n, 1, 1 << 10, small - 1), small, lp(2 * n, 1, 1 << 32, (1 << 33) - 1))
+
+
+@pytest.mark.parametrize("n", [N, N_MID])
+@pytest.mark.parametrize("mix", ["u64x1", "u30+u64", "u15x2+u33"])
+def test_prime64_channels_match_jax(rng, mix, n):
+    """Plans with u64 factors: fwd (res32 and res64), inv in both modes, the
+    elementwise ops, the polymul and a Bounded request (Generic there), all
+    against the JAX plan; the NTT domain crosses the packages with res64."""
+    factors = _mix64(n, mix)
+    jp, tp, m = _plans(n, factors)
+    assert tp.primes64 == jp.primes64 and tp.primes32 == jp.primes32
+    a, b, c = (_rand_mod(rng, m, (2, n)) for _ in range(3))
+    jd, td = jp.fwd(a), tp.fwd(a)
+    for got, want in zip(td.numpy(), (jd.res32, jd.res64)):
+        assert (got is None) == (want is None)
+        if want is not None:
+            np.testing.assert_array_equal(got, np.asarray(want))
+    crossed = T.NttDomain.from_numpy(*(None if r is None else np.asarray(r)
+                                       for r in (jd.res32, jd.res64)), device="cpu")
+    np.testing.assert_array_equal(tp.inv(crossed), jp.inv(jd))
+    np.testing.assert_array_equal(tp.inv(td, mode=T.ACCUMULATE, standard=c),
+                                  jp.inv(jd, mode=J.ACCUMULATE, standard=c))
+    np.testing.assert_array_equal(tp.inv(td)[0], [int(v) * n % m for v in a[0]])
+    jd2, td2 = jp.fwd(b), tp.fwd(b)
+    np.testing.assert_array_equal(
+        tp.inv(tp.mul_accumulate(td, td2, tp.normalize(td))),
+        jp.inv(jp.mul_accumulate(jd, jd2, jp.normalize(jd))))
+    for kw_t, kw_j in (({}, {}), ({"mode": T.ACCUMULATE, "standard": c},
+                                  {"mode": J.ACCUMULATE, "standard": c})):
+        np.testing.assert_array_equal(
+            tp.negacyclic_polymul(a, b, lhs_fwd_mode=T.bounded(1 << 10), **kw_t),
+            jp.negacyclic_polymul(a, b, lhs_fwd_mode=J.bounded(1 << 10), **kw_j))
+    if n == N:
+        assert tp.negacyclic_polymul(a, b)[0].tolist() == _conv_row0(a, b, m)

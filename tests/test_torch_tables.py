@@ -11,9 +11,14 @@ import pytest
 from concrete_ntt_tpu import tables as jtab
 from concrete_ntt_tpu.ops import mxu32 as jmx
 from concrete_ntt_tpu.ops import mxu32_pallas as jpal
+from concrete_ntt_tpu.ops import mxu64 as jmx64
+from concrete_ntt_tpu.ops import mxu64_pallas as jpal64
 from concrete_ntt_tpu_torch import tables as ttab
 from concrete_ntt_tpu_torch.ops import mxu32 as tmx
 from concrete_ntt_tpu_torch.ops import mxu32_cuda as tcu
+from concrete_ntt_tpu_torch.ops import mxu64 as tmx64
+from concrete_ntt_tpu_torch.ops import mxu64_cuda as tcu64
+from concrete_ntt_tpu_torch.utils.prime import largest_prime_in_arithmetic_progression64 as _lp
 
 PRIMES = jtab.NATIVE64_PRIMES
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -74,9 +79,48 @@ def test_multi_tables_match_jax(n):
         _assert_same(tcu._multi_tables(n, PRIMES, limbs, scales), ref)
 
 
+REGIMES64 = {
+    "goldilocks": jtab.GOLDILOCKS,
+    "p50": jtab.PRIMES52[0],
+    "p63": _lp(1 << 15, 1, 1 << 62, 1 << 63),
+    "p64": _lp(1 << 15, 1, 1 << 63, (1 << 64) - 1),
+    "p62": _lp(1 << 16, 1, 1 << 61, 1 << 62),
+}
+
+
+def test_prime64_constants_match_jax():
+    assert ttab.PRIMES52 == jtab.PRIMES52 and ttab.GOLDILOCKS == jtab.GOLDILOCKS
+
+
+@pytest.mark.parametrize("regime", list(REGIMES64))
+def test_mxu64_tables_match_jax(regime):
+    """The C++-built operators and every array and scalar of the 64-bit
+    table dict, in the five regime primes at n = 2048."""
+    p, n = REGIMES64[regime], 2048
+    _assert_same(tmx64._operators(n, p), jmx64._operators(n, p), "operators")
+    _assert_same(tmx64._build_operators(n, p), jmx64._operators(n, p), "built operators")
+    _assert_same(tmx64._tables(n, p), jmx64._tables(n, p))
+    s = pow(n, p - 2, p) * pow(2, 64, p) % p
+    _assert_same(tmx64._scaled_ainv_planes(n, p, s), jmx64._scaled_ainv_planes(n, p, s))
+
+
+@pytest.mark.parametrize("n", [1 << 11, 1 << 14])
+def test_multi_tables64_match_jax(n):
+    primes = jtab.PRIMES52[:3]
+    if n == 1 << 14:
+        for p in primes:
+            _assert_same(tmx64._tables(n, p), jmx64._tables(n, p))
+    scales = tuple(pow(n, p - 2, p) * pow(2, 64, p) % p for p in primes)
+    for sc in ((1,) * 3, scales):
+        _assert_same(tmx64._multi_tables64(n, primes, sc), jpal64._multi_tables64(n, primes, sc))
+    record = np.stack([tcu64.scalar_record(n, p) for p in primes])
+    np.testing.assert_array_equal(record, jpal64._multi_tables64(n, primes, scales)["scalars"])
+
+
 def test_import_leaves_jax_out():
     code = (
-        "import sys, concrete_ntt_tpu_torch, concrete_ntt_tpu_torch.ops.mxu32_cuda; "
+        "import sys, concrete_ntt_tpu_torch, concrete_ntt_tpu_torch.ops.mxu32_cuda, "
+        "concrete_ntt_tpu_torch.ops.mxu64_cuda, concrete_ntt_tpu_torch.prime64; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'concrete_ntt_tpu' not in sys.modules, 'concrete_ntt_tpu imported'; "
         "assert 'triton' not in sys.modules, 'triton imported'"
