@@ -33,6 +33,20 @@ Drives the port's paths through their hand-written CUDA kernels:
     limbs at batch 8 over three 50-bit primes, through K7a (`fwd_multi64`)
     and K7d (`pointwise_inv_multi64`) of `csrc/mxu64_multi.cu`, held
     against Plan32 on the same inputs; `Plan52.fwd` (K7a) and `inv` (K5);
+  * prime64 above 2^15: `prime64.Plan(2^16, p)` (five regime primes) and
+    `Plan(2^17, p)` (a 50-bit prime and Goldilocks) `fwd`, `inv` and
+    `negacyclic_polymul` at batch 16 from numpy uint64 input on
+    default-device plans, through the stage-split hybrid
+    (`ops/stagesplit.py`): butterfly prefix / suffix stages in plain torch
+    around K5 with block tables (`fwd64_hyb` / `inv64_hyb`, all 2^l blocks
+    in one launch pair) of `csrc/mxu64_pass.cu`; `product.Plan(2^16, p,
+    (p,))` with one u64 factor through the same;
+  * the channel-grid hybrid at its one system shape, Plan52's three primes at
+    n = 2^15, n_h = 2^14, batch 8: `stagesplit.fwd_multi_hybrid64`,
+    `pointwise_inv_multi_hybrid64` and `inv_multi_hybrid64` through K7c,
+    K7d and K7b with block tables of `csrc/mxu64_multi.cu`, held against
+    Plan52's direct route (K7a, K7d, K5); and K7c / K7b direct at 2^14 as a
+    per-channel round trip;
   * the device rule: a default-constructed plan given numpy input computes
     on the card (its launch counters move).
 
@@ -62,7 +76,14 @@ failure:
                rank-local diagonals) at n in {2048, 4096, 8192}, B in
                {16, 3}, five primes; K7a and K7d over PRIMES52[:3] at
                (2^14, 8), (2^14, 5), (2^11, 3), (2^15, 2), K7d with
-               full-range u64 operands.
+               full-range u64 operands; K5 with block tables (K5h) fwd and
+               inv scaled at (2^15, 16), (2^16, 16) in five regime primes
+               with 2^18 | p - 1 and at (2^17, 16) in two, and at 2^15 the
+               whole hybrid against the plain hybrid and the direct K5
+               output; K7c and K7b direct at (2^14, 8) and (2^11, 3); K7c,
+               K7b and K7d with block tables at (2^15, 8) against their
+               plain versions and, as the whole channel-grid hybrid,
+               against K7a, K5 x3 and K7d direct.
   4. main    — native64: three polymuls on the card == CPU plain path ==
                numpy wrapping oracle (row 0); K1a +2, K1b +1 per call.
                prime32: Plan(2^14, p) polymul at B = 16 for each bench prime
@@ -91,7 +112,16 @@ failure:
                Plan52.fwd (K7a +1) and inv (K5 inv +3); product.Plan with a
                30-bit and a 34-bit factor at 2^14 == CPU plain path. A
                numpy-input polymul on a default-constructed plan moves the
-               launch counters. Each path's launch counters are set to 0
+               launch counters. prime64 Plan(2^16, p) x5 and Plan(2^17, p)
+               x2 at B = 16, numpy input on default plans: polymul (K5h fwd
+               +2, inv +1, direct K5 +0), fwd, inv == CPU plain path (all
+               rows at 2^16, four at 2^17), inv(fwd(x)) == n·x, four
+               sampled coefficients of row 0 == direct sums in Python
+               integers; product.Plan(2^16, p, (p,)) == CPU. The
+               channel-grid hybrid at (2^15, 8): K7c-hyb +2, K7d-hyb +1 a
+               polymul == Plan52 direct == CPU plain path, K7b-hyb +1 an
+               inverse, n·x; K7c +1, K7b +1 a per-channel round trip at
+               2^14. Each path's launch counters are set to 0
                just before it and read just after.
   5. times   — CUDA events, warm-up then the median of reps, each kernel
                beside its plain version (K1d also beside plain mont_mul +
@@ -99,7 +129,12 @@ failure:
                modes) and the PBS loop's ms per term; K5 fwd / inv per
                regime, one K6 pass, K7a, K7d (also beside plain mont_mul64 +
                three K5 inverses), the prime64 polymul per regime and the
-               Plan52 polymul beside Plan32's.
+               Plan52 polymul beside Plan32's; K5h fwd / inv at 2^16 and
+               2^17, K7c / K7b direct, K7 with block tables; K5 direct
+               beside the hybrid (prefix + K5h, K5h + suffix) at (2^15, 16)
+               and the Plan52 polymul direct beside the channel-grid hybrid
+               at (2^15, 8), in turns; the prime64 transforms and polymul
+               at 2^16 and 2^17.
 Then one JSON line of kernel summaries (each with its launches on its main
 path, error, ms, plain ms, and the bound: the larger of its bytes over
 3.35 TB/s and its int8 operations over 1,979 TOP/s, the H100 SXM data-sheet
@@ -113,7 +148,8 @@ prime32 polymul at B = 16 (n = 2^14 per regime, 4096, 1024) and of the
 product polymul at (2^14, 16) in Replace and Bounded, of the prime64 polymul
 per regime and of the Plan52 polymul: host-clock ms, device
 busy ms and share, matmod_pass / butterfly device ms, and device kernels
-and aten ops per polymul.
+and aten ops per polymul; and of the prime64 polymul at 2^16 with its split
+into prefix stages, block kernels and suffix stages.
 Inputs come from numpy's default_rng(--seed); the script imports no JAX.
 """
 
@@ -150,6 +186,11 @@ SMALL_P = 67043329  # < 2^26: the butterfly kernel at every n
 N64, B64, B52 = 1 << 14, 16, 8
 K5_SHAPES = ((1 << 14, 16), (1 << 14, 3), (1 << 11, 3))
 K7_SHAPES = ((1 << 14, 8), (1 << 14, 5), (1 << 11, 3), (1 << 15, 2))
+N_H = 1 << 14  # the hybrid's block size
+N_HYB15, HYB_SIZES, B_HYB = 1 << 15, (1 << 16, 1 << 17), 16
+HYB_BIG = ("p50", "goldilocks")  # the regimes run at 2^17 (the reference grid's two)
+K7BC_SHAPES = ((1 << 14, 8), (1 << 11, 3))
+CPU_ROWS_BIG = 4  # rows held against the CPU plain path at 2^17
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet: 80 GB of HBM at 3.35 TB/s
 INT8_OPS_PER_S = 1979e12    # H100 SXM data sheet: 1,979 TOP/s int8, dense (2 ops a MAC)
 CORE_OPS_PER_S = 67e12      # H100 SXM data sheet: 67 TFLOP/s outside the tensor cores
@@ -173,6 +214,14 @@ KERNELS = {  # JSON name -> (source, TPU kernel replaced)
     "pass_matmod64": (PASS64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:197"),
     "fwd_multi64": (MULTI64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:522"),
     "pointwise_inv_multi64": (MULTI64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:728"),
+    # the same TPU kernels with their `hyb` argument (block tables)
+    "fwd64_hyb": (PASS64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:32"),
+    "inv64_hyb": (PASS64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:32"),
+    "fwd_multi_perchannel64": (MULTI64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:695"),
+    "inv_multi64": (MULTI64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:712"),
+    "fwd_multi_perchannel64_hyb": (MULTI64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:695"),
+    "inv_multi64_hyb": (MULTI64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:712"),
+    "pointwise_inv_multi64_hyb": (MULTI64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:728"),
 }
 
 
@@ -328,6 +377,27 @@ def fourstep_work(direction, b, n1, n2, c, e1, e2, d, limbs_in, limbs_out, n_dia
     return macs, io + tables
 
 
+def hybrid_work(direction, b, n1, n2, nb, c, e1, e2, d, n_diag, operands=1) -> tuple:
+    """(int8 MACs, bytes) of the nb block transforms of size n1·n2 of a
+    stage-split hybrid over c channels: the MACs of nb four-steps; operands
+    and results once ((lo, hi) limbs of [c, B, nb·n1·n2]); the per-block
+    column operator and diagonals nb times, the shared row operator once."""
+    n = n1 * n2
+    k1, k2 = (n1, n2) if direction == "fwd" else (n2, n1)
+    macs = c * nb * b * n * d * (e1 * k1 + e2 * k2)
+    blk, sh = ((e1, k1), (e2, k2)) if direction == "fwd" else ((e2, k2), (e1, k1))
+    tables = c * (nb * (d * blk[0] * blk[1] ** 2 + 4 * d * blk[1] + 4 * n_diag * n)
+                  + d * sh[0] * sh[1] ** 2 + 4 * d * sh[1])
+    io = 4 * b * nb * n * c * 2 * (operands + 1)
+    return macs, io + tables
+
+
+def negacyclic_coeff(a, b, k: int, p: int) -> int:
+    """Coefficient k of a·b mod (X^n + 1, p) by its direct sum, a and b
+    object arrays of Python integers."""
+    return (int((a[:k + 1] * b[k::-1]).sum()) - int((a[k + 1:] * b[:k:-1]).sum())) % p
+
+
 def u64_limbs(v: np.ndarray) -> torch.Tensor:
     """numpy uint64 [..., n] -> uint32 [..., n, 2] little-endian limbs."""
     return torch.from_numpy(np.stack([(v & np.uint64(0xFFFFFFFF)).astype(np.uint32),
@@ -363,7 +433,8 @@ def main() -> int:
         negacyclic_convolution_wrapping_np,
     )
     from concrete_ntt_tpu_torch.ops import butterfly32_cuda as bcu
-    from concrete_ntt_tpu_torch.ops import cuda_build, mxu32, mxu32_cuda, mxu64, mxu64_cuda
+    from concrete_ntt_tpu_torch.ops import (
+        cuda_build, mxu32, mxu32_cuda, mxu64, mxu64_cuda, stagesplit)
     from concrete_ntt_tpu_torch.ops.u32 import (
         limbs_to_np_u64, mont_mul, mont_mul64, mont_neginv, mont_neginv64, to_i64, to_u32)
     from concrete_ntt_tpu_torch.tables import GOLDILOCKS, PRIMES52
@@ -381,6 +452,14 @@ def main() -> int:
         "p62": prime_in_ap(1 << 16, 1, 1 << 61, 1 << 62),
     }
     P52 = PRIMES52[:3]
+    # the same five regimes with 2^18 | p - 1: NTT primes up to n = 2^17
+    HYB64 = {
+        "goldilocks": GOLDILOCKS,
+        "p50": prime_in_ap(1 << 18, 1, 0, 1 << 50),
+        "p62": prime_in_ap(1 << 18, 1, 1 << 61, 1 << 62),
+        "p63": prime_in_ap(1 << 18, 1, 1 << 62, 1 << 63),
+        "p64": prime_in_ap(1 << 18, 1, 1 << 63, (1 << 64) - 1),
+    }
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -589,6 +668,79 @@ def main() -> int:
                      mxu64_cuda.pointwise_inv_multi_plain(fl, fr, P52, scs), f"n={n} B={b}")
     print(f"parity: K7a {checks['fwd_multi64']}, K7d {checks['pointwise_inv_multi64']} checks "
           f"exact at (n, B) in {K7_SHAPES}, primes {P52}, full-range u64 operands in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    hyb_shapes, hyb_build = [], []
+    for rname, p in HYB64.items():
+        sizes = (N_HYB15, 1 << 16) + ((1 << 17,) if rname in HYB_BIG else ())
+        for n in sizes:
+            hyb_shapes.append((rname, n))
+            t1 = time.perf_counter()  # the host build: operators, block proof, digit planes
+            stagesplit._dev64(n, p, N_H)
+            hyb_build.append(f"{n} {rname} {time.perf_counter() - t1:.1f} s")
+            x = (u32((B_HYB, n)), u32((B_HYB, n)))
+            sc = scale64(n, p)
+            kw = dict(n=n, p=p, n_h=N_H)
+            what = f"p={p} n={n} B={B_HYB}"
+            compare_pair("fwd64_hyb", mxu64_cuda.fwd_hyb(x, **kw),
+                         mxu64_cuda.fwd_hyb_plain(x, **kw), what)
+            compare_pair("inv64_hyb", mxu64_cuda.inv_hyb(x, scale=sc, **kw),
+                         mxu64_cuda.inv_hyb_plain(x, scale=sc, **kw), what + " scaled")
+            if n != N_HYB15:
+                continue
+            # the whole hybrid == the plain hybrid == the direct kernel, bit for bit
+            f = stagesplit.fwd64_fused(x, n=n, p=p)
+            compare_pair("fwd64_hyb", f, stagesplit.fwd64(x, n=n, p=p), what + " vs plain hybrid")
+            compare_pair("fwd64_hyb", f, mxu64_cuda.fwd(x, n=n, p=p), what + " vs direct K5")
+            i = stagesplit.inv64_fused(x, n=n, p=p, scale=sc)
+            compare_pair("inv64_hyb", i, stagesplit.inv64(x, n=n, p=p, scale=sc),
+                         what + " scaled vs plain hybrid")
+            compare_pair("inv64_hyb", i, mxu64_cuda.inv(x, n=n, p=p, scale=sc),
+                         what + " scaled vs direct K5")
+    print(f"parity: K5h fwd {checks['fwd64_hyb']}, inv {checks['inv64_hyb']} checks exact at "
+          f"B={B_HYB}, (regime, n) in {hyb_shapes}, n_h={N_H}, full-range limbs; at n={N_HYB15} "
+          f"also the whole hybrid == plain hybrid == direct K5, in "
+          f"{time.perf_counter() - t0:.1f} s; host build of the block tables (from the table "
+          f"cache where it is warm): {', '.join(hyb_build)}", flush=True)
+
+    t0 = time.perf_counter()
+    for n, b in K7BC_SHAPES:
+        x3 = (u32((3, b, n)), u32((3, b, n)))
+        compare_pair("fwd_multi_perchannel64", mxu64_cuda.fwd_multi_perchannel64(*x3, P52),
+                     mxu64_cuda.fwd_multi_perchannel64_plain(x3, P52), f"n={n} B={b}")
+        for scs in ((1, 1, 1), tuple(scale64(n, p) for p in P52)):
+            compare_pair("inv_multi64", mxu64_cuda.inv_multi(*x3, P52, scs),
+                         mxu64_cuda.inv_multi_plain(x3, P52, scs),
+                         f"n={n} B={b} scaled={scs != (1, 1, 1)}")
+    n = N_HYB15
+    x3, y3 = ((u32((3, B52, n)), u32((3, B52, n))) for _ in range(2))  # full-range u64
+    scs = tuple(scale64(n, p) for p in P52)
+    what = f"n={n} B={B52} n_h={N_H}"
+    compare_pair("fwd_multi_perchannel64_hyb",
+                 mxu64_cuda.fwd_multi_perchannel64(*x3, P52, n_h=N_H),
+                 mxu64_cuda.fwd_multi_perchannel64_plain(x3, P52, N_H), what)
+    compare_pair("inv_multi64_hyb", mxu64_cuda.inv_multi(*x3, P52, scs, n_h=N_H),
+                 mxu64_cuda.inv_multi_plain(x3, P52, scs, N_H), what)
+    compare_pair("pointwise_inv_multi64_hyb",
+                 mxu64_cuda.pointwise_inv_multi(x3, y3, P52, scs, n_h=N_H),
+                 mxu64_cuda.pointwise_inv_multi_plain(x3, y3, P52, scs, N_H), what)
+    shared = (x3[0][0].contiguous(), x3[1][0].contiguous())
+    compare_pair("fwd_multi_perchannel64_hyb", stagesplit.fwd_multi_hybrid64(shared, P52, n=n),
+                 mxu64_cuda.fwd_multi(shared, P52), what + " hybrid vs K7a direct")
+    k5_inv = [mxu64_cuda.inv((x3[0][c].contiguous(), x3[1][c].contiguous()), n=n, p=p,
+                             scale=scs[c]) for c, p in enumerate(P52)]
+    compare_pair("inv_multi64_hyb", stagesplit.inv_multi_hybrid64(*x3, P52, scs, n=n),
+                 tuple(torch.stack([o[i] for o in k5_inv]) for i in range(2)),
+                 what + " hybrid vs K5 direct")
+    compare_pair("pointwise_inv_multi64_hyb",
+                 stagesplit.pointwise_inv_multi_hybrid64(x3, y3, P52, scs, n=n),
+                 mxu64_cuda.pointwise_inv_multi(x3, y3, P52, scs), what + " hybrid vs K7d direct")
+    print(f"parity: K7c {checks['fwd_multi_perchannel64']}, K7b {checks['inv_multi64']} checks "
+          f"exact at (n, B) in {K7BC_SHAPES}; with block tables at (n, B) = ({n}, {B52}): K7c "
+          f"{checks['fwd_multi_perchannel64_hyb']}, K7b {checks['inv_multi64_hyb']}, K7d "
+          f"{checks['pointwise_inv_multi64_hyb']} checks exact against the plain versions and "
+          f"against K7a / K5 / K7d direct, primes {P52}, full-range u64 operands in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 4. main paths ------------------------------------------------------------
@@ -967,6 +1119,125 @@ def main() -> int:
     print(f"main: product Plan({N_PROD}, {mix}) B={B_PROD} polymul (u32 channel K1a / K1b, u64 "
           f"channel K5) == CPU plain path; launches {counts()}", flush=True)
 
+    # prime64 above 2^15: the stage-split hybrid through default-device plans,
+    # numpy uint64 in and out
+    hyb_cases = []
+    for n in HYB_SIZES:
+        for rname, p in HYB64.items():
+            if n == 1 << 17 and rname not in HYB_BIG:
+                continue
+            pl = prime64.Plan.new(n, p)
+            lhs, rhs = (rand_mod(rng, p, (B_HYB, n)) for _ in range(2))
+            hyb_cases.append((rname, pl, lhs, rhs))
+    pp = prime_in_ap(1 << 17, 1, 1 << 40, 1 << 41)
+    hplan = product.Plan.new(1 << 16, pp, (pp,))
+    ha, hb = (rand_mod(rng, pp, (4, 1 << 16)) for _ in range(2))
+    torch.cuda.synchronize()
+    reset_counts()
+    hyb_out = []
+    for rname, pl, lhs, rhs in hyb_cases:
+        require(pl.device == "cuda", f"main: default prime64 plan device is {pl.device!r}")
+        what = f"prime64 Plan({pl.n}, {pl.p})"
+        before = counts()
+        got = pl.negacyclic_polymul(lhs, rhs)
+        expect_delta(before, {"fwd64_hyb": 2, "inv64_hyb": 1}, what + " polymul")
+        before = counts()
+        f = pl.fwd(lhs)
+        expect_delta(before, {"fwd64_hyb": 1}, what + " fwd")
+        before = counts()
+        rt = pl.inv(f)
+        expect_delta(before, {"inv64_hyb": 1}, what + " inv")
+        hyb_out.append((got, f, rt))
+    before = counts()
+    h_got = hplan.negacyclic_polymul(card(ha), card(hb))
+    expect_delta(before, {"fwd64_hyb": 2, "inv64_hyb": 1}, f"product Plan(65536, ({pp},)) polymul")
+    torch.cuda.synchronize()
+    launches_hyb = counts()
+    t0 = time.perf_counter()
+    for (rname, pl, lhs, rhs), (got, f, rt) in zip(hyb_cases, hyb_out):
+        n, p = pl.n, pl.p
+        rows = B_HYB if n == 1 << 16 else CPU_ROWS_BIG
+        cpu = prime64.Plan.new(n, p, device="cpu")
+        require(isinstance(got, np.ndarray) and got.shape == (B_HYB, n) and np.array_equal(
+            got[:rows], cpu.negacyclic_polymul(lhs[:rows], rhs[:rows])),
+            f"main: prime64 Plan({n}, {p}) polymul differs from the CPU plain path")
+        require(np.array_equal(f[:2], cpu.fwd(lhs[:2])),
+                f"main: prime64 Plan({n}, {p}) fwd differs from the CPU plain path")
+        require(np.array_equal(rt[:2], cpu.inv(f[:2])),
+                f"main: prime64 Plan({n}, {p}) inv differs from the CPU plain path")
+        nx = np.array([int(v) * n % p for v in lhs[0]], dtype=np.uint64)
+        require(np.array_equal(rt[0], nx), f"main: prime64 Plan({n}, {p}) inv(fwd(x)) != n·x mod p")
+        ao, bo = lhs[0].astype(object), rhs[0].astype(object)
+        for k in (0, 1, n // 2 + 7, n - 1):
+            require(int(got[0, k]) == negacyclic_coeff(ao, bo, k, p),
+                    f"main: prime64 Plan({n}, {p}) polymul coefficient {k} of row 0 differs "
+                    "from its direct sum")
+    require(h_got.device.type == "cuda" and torch.equal(
+        h_got.cpu(), product.Plan.new(1 << 16, pp, (pp,), device="cpu").negacyclic_polymul(
+            u64_limbs(ha), u64_limbs(hb))),
+        f"main: product Plan(65536, ({pp},)) polymul differs from the CPU plain path")
+    for k in ("fwd64_hyb", "inv64_hyb"):
+        launches[k] = launches_hyb[k]
+    print(f"main: prime64 hybrid on {kind}: Plan(n, p) B={B_HYB} numpy input on default plans, "
+          f"(n, regime) in {[(pl.n, r) for r, pl, *_ in hyb_cases]}: polymul, fwd, inv == CPU "
+          f"plain path (all rows at 65536, {CPU_ROWS_BIG} at 131072), inv(fwd(x)) == n·x, 4 "
+          f"sampled coefficients == direct sums; product Plan(65536, ({pp},)) == CPU; launches "
+          f"{launches_hyb}; checks {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the channel-grid hybrid at its one system shape: Plan52's primes at 2^15
+    n15 = N_HYB15
+    plan52_15 = native64.Plan52.try_new(n15)
+    a15, b15 = (rng.integers(0, 1 << 64, (B52, n15), dtype=np.uint64) for _ in range(2))
+    l15, r15 = (tuple(t.to(dev) for t in planar(v)) for v in (a15, b15))
+    sc15 = tuple(scale64(n15, q) for q in P52)
+
+    def hybrid52_polymul(lhs, rhs):
+        fl = stagesplit.fwd_multi_hybrid64(lhs, P52, n=n15)
+        fr = stagesplit.fwd_multi_hybrid64(rhs, P52, n=n15)
+        res = stagesplit.pointwise_inv_multi_hybrid64(fl, fr, P52, sc15, n=n15)
+        return plan52_15._lift(res, (lhs[0].shape[0],), "planar")
+
+    res_x = tuple(torch.stack([t.to(dev) for t in parts]) for parts in zip(
+        *(planar(rand_mod(rng, q, (B52, N64))) for q in P52)))  # canonical residues [3, B, n]
+    n_inv = tuple(pow(N64, q - 2, q) for q in P52)
+    torch.cuda.synchronize()
+    reset_counts()
+    before = counts()
+    hyb52 = hybrid52_polymul(l15, r15)
+    expect_delta(before, {"fwd_multi_perchannel64_hyb": 2, "pointwise_inv_multi64_hyb": 1},
+                 "channel-grid hybrid polymul")
+    before = counts()
+    f15 = stagesplit.fwd_multi_hybrid64(l15, P52, n=n15)
+    back15 = stagesplit.inv_multi_hybrid64(*f15, P52, (1, 1, 1), n=n15)
+    expect_delta(before, {"fwd_multi_perchannel64_hyb": 1, "inv_multi64_hyb": 1},
+                 "channel-grid hybrid round trip")
+    before = counts()
+    rt14 = mxu64_cuda.inv_multi(*mxu64_cuda.fwd_multi_perchannel64(*res_x, P52), P52, n_inv)
+    expect_delta(before, {"fwd_multi_perchannel64": 1, "inv_multi64": 1},
+                 "per-channel round trip (K7c, K7b)")
+    torch.cuda.synchronize()
+    launches_ch = counts()
+    before = counts()
+    direct52 = plan52_15.negacyclic_polymul(l15, r15)
+    expect_delta(before, {"fwd_multi64": 2, "pointwise_inv_multi64": 1}, "Plan52(32768) polymul")
+    cpu52 = native64.Plan52.try_new(n15, device="cpu").negacyclic_polymul(
+        tuple(t[:2] for t in planar(a15)), tuple(t[:2] for t in planar(b15)))
+    require(hyb52[0].device.type == "cuda" and np.array_equal(as_np(hyb52), as_np(direct52)),
+            "main: channel-grid hybrid polymul differs from Plan52's direct route")
+    require(np.array_equal(as_np(hyb52)[:2], as_np(cpu52)),
+            "main: channel-grid hybrid polymul differs from the CPU plain path")
+    require(np.array_equal(as_np(plan52_15._lift(back15, (B52,), "planar")),
+                           a15 * np.uint64(n15)),
+            "main: channel-grid hybrid inv(fwd(x)) != n·x (wrapping)")
+    require(all(torch.equal(g, w) for g, w in zip(rt14, res_x)),
+            "main: per-channel round trip K7b(K7c(x), n^-1) != x")
+    for k in ("fwd_multi_perchannel64_hyb", "pointwise_inv_multi64_hyb", "inv_multi64_hyb",
+              "fwd_multi_perchannel64", "inv_multi64"):
+        launches[k] = launches_ch[k]
+    print(f"main: channel-grid hybrid on {kind}: n={n15} n_h={N_H} B={B52} primes {P52}: "
+          f"polymul == Plan52 direct == CPU plain path (2 rows), inv(fwd(x)) == n·x; K7c / K7b "
+          f"round trip at n={N64} == x; launches {launches_ch}", flush=True)
+
     # -- 5. times -----------------------------------------------------------------
     ms, plain_ms = {}, {}
     limbs = (u32((B_MAIN, N_MAIN)), u32((B_MAIN, N_MAIN)))
@@ -1114,6 +1385,84 @@ def main() -> int:
         print(f"times: native64 {name} polymul n={N64} B={B52} planar: {t:.4f} ms (median of "
               f"{REPS}) = {B52 / t * 1e3:.1f} products/s | {smi}", flush=True)
 
+    # the hybrid: K5 with block tables at 2^16 / 2^17, K7b / K7c, K7 with block tables
+    for n in HYB_SIZES:
+        for rname in (HYB64 if n == 1 << 16 else HYB_BIG):
+            p = HYB64[rname]
+            x = (u32((B_HYB, n)), u32((B_HYB, n)))
+            sc = scale64(n, p)
+            kw = dict(n=n, p=p, n_h=N_H)
+            headline = n == 1 << 16 and rname == "goldilocks"
+            timed("K5h fwd64_hyb", f"n={n} B={B_HYB} p={p} ({rname})",
+                  lambda: mxu64_cuda.fwd_hyb(x, **kw), lambda: mxu64_cuda.fwd_hyb_plain(x, **kw),
+                  "fwd64_hyb" if headline else None)
+            timed("K5h inv64_hyb", f"n={n} B={B_HYB} p={p} ({rname}) scaled",
+                  lambda: mxu64_cuda.inv_hyb(x, scale=sc, **kw),
+                  lambda: mxu64_cuda.inv_hyb_plain(x, scale=sc, **kw),
+                  "inv64_hyb" if headline else None)
+    xc = (u32((3, B52, N64)), u32((3, B52, N64)))
+    timed("K7c fwd_multi_perchannel64", f"n={N64} B={B52} C=3",
+          lambda: mxu64_cuda.fwd_multi_perchannel64(*xc, P52),
+          lambda: mxu64_cuda.fwd_multi_perchannel64_plain(xc, P52), "fwd_multi_perchannel64")
+    timed("K7b inv_multi64", f"n={N64} B={B52} C=3 scaled",
+          lambda: mxu64_cuda.inv_multi(*xc, P52, sc52),
+          lambda: mxu64_cuda.inv_multi_plain(xc, P52, sc52), "inv_multi64")
+    timed("K7c fwd_multi_perchannel64 with block tables", f"n={n15} n_h={N_H} B={B52} C=3",
+          lambda: mxu64_cuda.fwd_multi_perchannel64(*x3, P52, n_h=N_H),
+          lambda: mxu64_cuda.fwd_multi_perchannel64_plain(x3, P52, N_H),
+          "fwd_multi_perchannel64_hyb")
+    timed("K7b inv_multi64 with block tables", f"n={n15} n_h={N_H} B={B52} C=3 scaled",
+          lambda: mxu64_cuda.inv_multi(*x3, P52, sc15, n_h=N_H),
+          lambda: mxu64_cuda.inv_multi_plain(x3, P52, sc15, N_H), "inv_multi64_hyb")
+    timed("K7d pointwise_inv_multi64 with block tables", f"n={n15} n_h={N_H} B={B52} C=3 scaled",
+          lambda: mxu64_cuda.pointwise_inv_multi(x3, y3, P52, sc15, n_h=N_H),
+          lambda: mxu64_cuda.pointwise_inv_multi_plain(x3, y3, P52, sc15, N_H),
+          "pointwise_inv_multi64_hyb")
+
+    # the direct kernel beside the hybrid at 2^15, in turns (direct, hybrid, hybrid, direct)
+    def split_times(n, p, x, sc):
+        """(prefix stages, K5h fwd, K5h inv scaled, suffix stages) ms of the hybrid."""
+        dv = stagesplit._dev64(n, p, N_H)
+        canon = mxu64_cuda.inv_hyb(x, n=n, p=p, n_h=N_H, scale=sc)
+        return (median_ms(lambda: stagesplit._pair_u32(
+                    stagesplit._prefix64(stagesplit._carriers(x), dv))),
+                median_ms(lambda: mxu64_cuda.fwd_hyb(x, n=n, p=p, n_h=N_H)),
+                median_ms(lambda: mxu64_cuda.inv_hyb(x, n=n, p=p, n_h=N_H, scale=sc)),
+                median_ms(lambda: stagesplit._pair_u32(
+                    stagesplit._suffix64(stagesplit._carriers(canon), dv))))
+
+    for rname in HYB_BIG:
+        p, n = HYB64[rname], N_HYB15
+        x = (u32((B_HYB, n)), u32((B_HYB, n)))
+        sc = scale64(n, p)
+        runs = {"fwd": (lambda: mxu64_cuda.fwd(x, n=n, p=p),
+                        lambda: stagesplit.fwd64_fused(x, n=n, p=p)),
+                "inv scaled": (lambda: mxu64_cuda.inv(x, n=n, p=p, scale=sc),
+                               lambda: stagesplit.inv64_fused(x, n=n, p=p, scale=sc))}
+        for what, (direct, hybrid) in runs.items():
+            t = [median_ms(fn) for fn in (direct, hybrid, hybrid, direct)]
+            print(f"times: K5 direct vs hybrid {what} n={n} B={B_HYB} p={p} ({rname}): direct "
+                  f"{t[0]:.4f} / {t[3]:.4f} ms, hybrid {t[1]:.4f} / {t[2]:.4f} ms (median of "
+                  f"{REPS}, in turns) | {smi}", flush=True)
+        pre, kf, ki, suf = split_times(n, p, x, sc)
+        print(f"times: hybrid split n={n} B={B_HYB} p={p} ({rname}): prefix stage {pre:.4f} ms, "
+              f"K5h fwd {kf:.4f} ms, K5h inv {ki:.4f} ms, suffix stage {suf:.4f} ms | {smi}",
+              flush=True)
+    t = [median_ms(fn) for fn in (
+        lambda: plan52_15.negacyclic_polymul(l15, r15), lambda: hybrid52_polymul(l15, r15),
+        lambda: hybrid52_polymul(l15, r15), lambda: plan52_15.negacyclic_polymul(l15, r15))]
+    print(f"times: Plan52 polymul n={n15} B={B52} planar, direct (K7a x2 + K7d) vs channel-grid "
+          f"hybrid: direct {t[0]:.4f} / {t[3]:.4f} ms, hybrid {t[1]:.4f} / {t[2]:.4f} ms (median "
+          f"of {REPS}, in turns) | {smi}", flush=True)
+    for rname, pl, lhs, rhs in hyb_cases:
+        a, b = card(lhs), card(rhs)
+        tf, ti = median_ms(lambda: pl.fwd(a)), median_ms(lambda: pl.inv(a))
+        t = median_ms(lambda: pl.negacyclic_polymul(a, b))
+        print(f"times: prime64 hybrid n={pl.n} B={B_HYB} p={pl.p} ({rname}): fwd {tf:.4f} ms = "
+              f"{B_HYB / tf * 1e3:.1f} transforms/s, inv {ti:.4f} ms = {B_HYB / ti * 1e3:.1f} "
+              f"transforms/s, polymul {t:.4f} ms = {B_HYB / t * 1e3:.1f} products/s (median of "
+              f"{REPS}) | {smi}", flush=True)
+
     # the bound of each kernel at the shape it was timed at: MACs a pass =
     # B·R·(E·K)·(D·O) from the plane shapes, bytes = operands, results and tables once
     n1m, n2m = mxu32.four_step_factors(N_MAIN)
@@ -1140,6 +1489,16 @@ def main() -> int:
                                      shared_operand=True),
         "pointwise_inv_multi64": fourstep_work("inv", B52, n1m, n2m, 3, 8, e50, d50, 2, 2, 8,
                                                operands=2),
+        # K5h at (2^16, 16), Goldilocks: 4 blocks of 2^14
+        "fwd64_hyb": hybrid_work("fwd", B_HYB, n1m, n2m, 4, 1, 8, 8, d_gl, 2),
+        "inv64_hyb": hybrid_work("inv", B_HYB, n1m, n2m, 4, 1, 8, 8, d_gl, 2),
+        "fwd_multi_perchannel64": fourstep_work("fwd", B52, n1m, n2m, 3, 8, e50, d50, 2, 2, 8),
+        "inv_multi64": fourstep_work("inv", B52, n1m, n2m, 3, 8, e50, d50, 2, 2, 8),
+        # the channel grid with block tables at (2^15, 8): 2 blocks of 2^14 a channel
+        "fwd_multi_perchannel64_hyb": hybrid_work("fwd", B52, n1m, n2m, 2, 3, 8, e50, d50, 8),
+        "inv_multi64_hyb": hybrid_work("inv", B52, n1m, n2m, 2, 3, 8, e50, d50, 8),
+        "pointwise_inv_multi64_hyb": hybrid_work("inv", B52, n1m, n2m, 2, 3, 8, e50, d50, 8,
+                                                 operands=2),
     }
     bounds = {k: gemm_bound(*w) for k, w in work.items()}
     # K4 at (1024, 16): B·(n/2)·log2 n butterflies of about 12 integer operations
@@ -1187,6 +1546,20 @@ def main() -> int:
                   f"({100 * r['busy_share']:.1f} %), GEMM passes {r['kernel_ms']:.4f} ms, "
                   f"{r['device_events']:.0f} device events and {r['aten_ops']:.0f} aten ops "
                   f"a polymul (10 polymuls) | {smi}", flush=True)
+
+        for rname, pl, lhs, rhs in hyb_cases:
+            if pl.n != 1 << 16:
+                continue
+            a, b = card(lhs), card(rhs)
+            r = profile_polymul(lambda: pl.negacyclic_polymul(a, b))
+            x = tuple(t.contiguous() for t in a.unbind(-1))
+            pre, kf, ki, suf = split_times(pl.n, pl.p, x, scale64(pl.n, pl.p))
+            print(f"profile: prime64 hybrid polymul n={pl.n} B={B_HYB} p={pl.p} ({rname}): host "
+                  f"clock {r['host_ms']:.4f} ms, device busy {r['busy_ms']:.4f} ms "
+                  f"({100 * r['busy_share']:.1f} %), matmod64_pass {r['kernel_ms']:.4f} ms, "
+                  f"{r['device_events']:.0f} device events and {r['aten_ops']:.0f} aten ops a "
+                  f"polymul (10 polymuls); by CUDA events: prefix {pre:.4f} ms x2, K5h fwd "
+                  f"{kf:.4f} ms x2, K5h inv {ki:.4f} ms, suffix {suf:.4f} ms | {smi}", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -6,8 +6,8 @@
 //
 //   fourstep_build  the six four-step operators A, F, d, G, e, A_inv of
 //                   (n, p, n1) from the negacyclic twiddle tables, with the
-//                   factorization checks of ops/mxu32.py's numpy version
-//                   (column independence, F diag(d_r), diag(e_r) G);
+//                   row factorization checks of ops/mxu32.py's numpy version
+//                   (F diag(d_r), diag(e_r) G);
 //   prep_matrix     the balanced radix-256 int8 digit planes of a matrix
 //                   mod p for E operand planes and D matrix planes, and the
 //                   epilogue constants (ops/mxu32.py::_prep_matrix).
@@ -78,25 +78,20 @@ static void inv_stages(u64* data, i64 rows, i64 n, const u64* inv_twid, u64 p, i
   }
 }
 
-// One shared column matrix M[n1][n1] from a stage range applied to the
-// column-basis vectors; 0 if a second column gives another matrix.
+// The column matrix M[n1][n1] of a stage range s < log2(n1): M[r][i] is the
+// coefficient of input row i in output row r of any one column. Such stages
+// pair index j with j + t for t a multiple of n2 and take their twiddle by
+// the block index j / (2t), so column `col` of the [n1][n2] view never mixes
+// with another and sees a size-n1 stage engine with the same twiddles,
+// whatever col is: the stages run on the n1 x n1 identity (n1^2 log n1
+// products, not n1 n log n1, and no n1 x n buffer at n = 2^17).
 template <typename Stages>
-static bool col_matrix(u64* M, i64 n, i64 n1, i64 n2, Stages run) {
-  std::vector<u64> buf(n1 * n);
-  for (int col = 0; col < 2 && col < n2; col++) {
-    std::fill(buf.begin(), buf.end(), 0);
-    for (i64 i = 0; i < n1; i++) buf[i * n + i * n2 + col] = 1;
-    run(buf.data(), n1);
-    for (i64 r = 0; r < n1; r++)
-      for (i64 i = 0; i < n1; i++) {
-        const u64 v = buf[i * n + r * n2 + col];
-        if (col == 0)
-          M[r * n1 + i] = v;
-        else if (M[r * n1 + i] != v)
-          return false;
-      }
-  }
-  return true;
+static void col_matrix(u64* M, i64 n1, Stages run) {
+  std::vector<u64> buf(n1 * n1, 0);
+  for (i64 i = 0; i < n1; i++) buf[i * n1 + i] = 1;
+  run(buf.data(), n1);
+  for (i64 r = 0; r < n1; r++)
+    for (i64 i = 0; i < n1; i++) M[r * n1 + i] = buf[i * n1 + r];
 }
 
 extern "C" {
@@ -111,9 +106,7 @@ int fourstep_build(u64 p, i64 n, i64 n1, const u64* twid, const u64* inv_twid, u
   while ((1ll << k) < n1) k++;
   while ((1ll << log2n) < n) log2n++;
 
-  if (!col_matrix(A, n, n1, n2,
-                  [&](u64* b, i64 rows) { fwd_stages(b, rows, n, twid, p, 0, k); }))
-    return 2;
+  col_matrix(A, n1, [&](u64* b, i64 rows) { fwd_stages(b, rows, n1, twid, p, 0, k); });
 
   // B[j][r*n2 + kap] = (row r's operator)[kap][j], for fwd then inv
   std::vector<u64> B(n2 * n);
@@ -152,9 +145,7 @@ int fourstep_build(u64 p, i64 n, i64 n1, const u64* twid, const u64* inv_twid, u
     }
   }
 
-  if (!col_matrix(Ainv, n, n1, n2,
-                  [&](u64* b, i64 rows) { inv_stages(b, rows, n, inv_twid, p, k, 0); }))
-    return 5;
+  col_matrix(Ainv, n1, [&](u64* b, i64 rows) { inv_stages(b, rows, n1, inv_twid, p, k, 0); });
   return 0;
 }
 

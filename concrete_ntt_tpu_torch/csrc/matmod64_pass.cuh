@@ -1,7 +1,8 @@
 // One exact modular GEMM pass of the four-step prime64 NTT on u64 limb pairs,
 // for every odd prime 2^33 < p < 2^64: the building block of kernels K5 and
-// K6 (mxu64_pass.cu) and K7a / K7d (mxu64_multi.cu). It is the 64-bit
-// sibling of matmod_pass.cuh and shares its tiling and plane packing.
+// K6 (mxu64_pass.cu) and K7a-K7d (mxu64_multi.cu), direct and with the
+// stage-split hybrid's block tables. It is the 64-bit sibling of
+// matmod_pass.cuh and shares its tiling and plane packing.
 //
 // The pass computes the JAX package's ops/mxu64.py math for a [rows, K] x
 // [K, O] product mod p per polynomial and channel. The operand is a pair of
@@ -35,7 +36,16 @@
 // threads, warp w owns rows w, w+8, ..., lane l output l. Strides of the
 // operand and of the output are fields of the descriptor, so the mid-pass
 // transpose is a stride of the second pass's loads. Grid = (row tiles over
-// batch x rows, output tiles, channel); rows past the batch edge are masked.
+// batch x rows, output tiles, z); rows past the batch edge are masked.
+//
+// The z axis is channel * nb + block. nb = 1 is a direct transform. With the
+// stage-split hybrid's block tables (ops/stagesplit.py) a transform of size
+// nb * n is nb block transforms of size n after the prefix butterflies: block
+// `blk` reads and writes its n-slice of each polynomial in place (x_blk,
+// out_blk; the polynomial stride x_b / out_b is then the parent's size), takes
+// its own diagonal rows, and takes its own planes where the pass is the
+// column operator (A_b, A_inv,b: planes_blk) or the channel's where it is the
+// shared row operator (F, G). The scalar record is the channel's.
 
 #pragma once
 
@@ -63,6 +73,9 @@ struct Pass {
   const uint32_t* y[2];  // second operand (kPointwise only), same geometry
   long long x_b;         // elements between polynomials of the operand
   long long x_chan;      // elements between channels of the operand (0: shared)
+  long long x_blk;       // elements between blocks of the operand
+  int nb = 1;            // blocks per channel (grid z = channel * nb + block)
+  int planes_blk = 0;    // planes / cvec indexed by z (per block), else by the channel
   int k1;                // contraction words per limb (multiple of kKC)
   int s_k, s_r;          // operand strides of the contraction and the row index
   int rows_per_poly;     // R
@@ -70,10 +83,11 @@ struct Pass {
   int o;                 // outputs per row (multiple of kTO)
   long long out_b;       // elements between polynomials of the output
   long long out_chan;    // elements between channels of the output
+  long long out_blk;     // elements between blocks of the output
   int t_r, t_o;          // output strides of the row and the output index
-  const int32_t* planes;  // [C][2 * k1][kD * o] packed digit words
-  const int32_t* cvec;    // [C][kD][o]
-  const uint32_t* diag;   // [C][8 or 2][R][o] (scaled pass; _scale_tables64 order)
+  const int32_t* planes;  // [C or C * nb][2 * k1][kD * o] packed digit words
+  const int32_t* cvec;    // [C or C * nb][kD][o]
+  const uint32_t* diag;   // [C * nb][8 or 2][R][o] (scaled pass; _scale_tables64 order)
   const uint32_t* scal;   // [C][kScalWords]
   uint32_t* out[2];       // result limbs (lo, hi)
 };
@@ -182,14 +196,17 @@ __global__ void __launch_bounds__(kThreads) matmod64_pass(Pass a) {
   static_assert(kD >= 5 && kD <= 9, "5 to 9 matrix digit planes");
   __shared__ uint32_t xs[kKC][kTM + 1];  // operand digit words, [k][row]
   __shared__ int32_t ps[kKC][kD * kTO];  // plane words, [k][digit * kTO + out]
-  const int c = blockIdx.z;
+  const int z = blockIdx.z;
+  const int c = z / a.nb;           // channel
+  const int blk = z - c * a.nb;     // block of the channel
+  const int pz = a.planes_blk ? z : c;
   const int row0 = blockIdx.x * kTM;
   const int o0 = blockIdx.y * kTO;
   const int tx = threadIdx.x & 31;
   const int ty = threadIdx.x >> 5;
   const int kw = 2 * a.k1;
   const int od = kD * a.o;
-  const int32_t* planes = a.planes + (size_t)c * kw * od;
+  const int32_t* planes = a.planes + (size_t)pz * kw * od;
   const Scalars sc = read_scalars(a.scal + kScalWords * c);
 
   int acc[kRowsPerThread][kD];
@@ -201,7 +218,7 @@ __global__ void __launch_bounds__(kThreads) matmod64_pass(Pass a) {
   for (int k0 = 0; k0 < kw; k0 += kKC) {
     const int limb = k0 / a.k1;
     const int i0 = k0 - limb * a.k1;
-    const long long chan = (long long)c * a.x_chan;
+    const long long chan = (long long)c * a.x_chan + (long long)blk * a.x_blk;
     for (int t = threadIdx.x; t < kTM * kKC; t += kThreads) {
       int r, kk;  // neighbouring threads read neighbouring addresses
       if (a.s_k == 1) {
@@ -251,7 +268,7 @@ __global__ void __launch_bounds__(kThreads) matmod64_pass(Pass a) {
   }
 
   const int oi = o0 + tx;
-  const int32_t* cv = a.cvec + (size_t)c * kD * a.o + oi;
+  const int32_t* cv = a.cvec + (size_t)pz * kD * a.o + oi;
   uint32_t cvr[kD];
 #pragma unroll
   for (int d = 0; d < kD; ++d) cvr[d] = (uint32_t)cv[d * a.o];
@@ -276,7 +293,7 @@ __global__ void __launch_bounds__(kThreads) matmod64_pass(Pass a) {
     if constexpr (kScaled) {
       const size_t plane = (size_t)a.rows_per_poly * a.o;
       const int n_dg = kMode == kShoup ? 8 : 2;
-      const uint32_t* dg = a.diag + (size_t)c * n_dg * plane + (size_t)j * a.o + oi;
+      const uint32_t* dg = a.diag + (size_t)z * n_dg * plane + (size_t)j * a.o + oi;
       const uint64_t w = pair(dg[0], dg[plane]);
       if constexpr (kMode == kShoup) {
         // _scaled_epilogue: (v0, v1)*W + v2*(2^64 W), each lazy in [0, 2p)
@@ -295,8 +312,8 @@ __global__ void __launch_bounds__(kThreads) matmod64_pass(Pass a) {
     } else {
       y = canonical<kMode>(v01, v2, sc);
     }
-    const long long at = (long long)c * a.out_chan + (long long)b * a.out_b +
-                         (long long)j * a.t_r + (long long)oi * a.t_o;
+    const long long at = (long long)c * a.out_chan + (long long)blk * a.out_blk +
+                         (long long)b * a.out_b + (long long)j * a.t_r + (long long)oi * a.t_o;
     a.out[0][at] = (uint32_t)y;
     a.out[1][at] = (uint32_t)(y >> 32);
   }
@@ -304,7 +321,7 @@ __global__ void __launch_bounds__(kThreads) matmod64_pass(Pass a) {
 
 template <int kD, int kMode, bool kScaled, bool kPointwise = false>
 cudaError_t launch(const Pass& a, int channels, cudaStream_t stream) {
-  const dim3 grid((a.total_rows + kTM - 1) / kTM, a.o / kTO, channels);
+  const dim3 grid((a.total_rows + kTM - 1) / kTM, a.o / kTO, channels * a.nb);
   matmod64_pass<kD, kMode, kScaled, kPointwise><<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
@@ -314,20 +331,27 @@ struct Tables {
   const void *planes1, *cvec1, *planes2, *cvec2, *diag, *scal;
 };
 
-// The two passes of a four-step forward transform over channels: column pass
-// (rows (b, j < n2), contract i < n1 at x[i*n2 + j], diagonal d) into scratch
-// [C][B][n2][n1], then row pass (rows (b, r < n1), contract j < n2 at
-// scratch[j*n1 + r], canonical) into out [C][B][n] (bit-reversed). x_chan is
-// 0 for an operand shared by all channels.
+// The two passes of nb four-step forward block transforms of size n = n1 * n2
+// over channels (nb = 1: one direct transform). The operand holds polynomials
+// of nb * n values, block blk at offset blk * n. Column pass (rows (b, j <
+// n2), contract i < n1 at x[i*n2 + j], diagonal d, per-block planes A_b) into
+// scratch [C][nb][B][n2][n1], then row pass (rows (b, r < n1), contract j < n2
+// at scratch[j*n1 + r], canonical, the channel's planes F) into out
+// [C][B][nb * n] (bit-reversed). x_chan is 0 for an operand shared by all
+// channels.
 inline void fwd_passes(Pass* col, Pass* row, const void* x_lo, const void* x_hi,
-                       long long x_chan, int batch, int n1, int n2, const Tables& t,
+                       long long x_chan, int batch, int n1, int n2, int nb, const Tables& t,
                        void* scratch_lo, void* scratch_hi, void* out_lo, void* out_hi) {
   const int n = n1 * n2;
+  const long long poly = (long long)nb * n;  // the parent polynomial
   Pass a{};
   a.x[0] = a.y[0] = (const uint32_t*)x_lo;
   a.x[1] = a.y[1] = (const uint32_t*)x_hi;
-  a.x_b = n;
+  a.x_b = poly;
   a.x_chan = x_chan;
+  a.x_blk = n;
+  a.nb = nb;
+  a.planes_blk = 1;
   a.k1 = n1;
   a.s_k = n2;
   a.s_r = 1;
@@ -335,7 +359,8 @@ inline void fwd_passes(Pass* col, Pass* row, const void* x_lo, const void* x_hi,
   a.total_rows = batch * n2;
   a.o = n1;
   a.out_b = n;
-  a.out_chan = (long long)batch * n;
+  a.out_blk = (long long)batch * n;
+  a.out_chan = (long long)batch * poly;
   a.t_r = n1;
   a.t_o = 1;
   a.planes = (const int32_t*)t.planes1;
@@ -348,13 +373,18 @@ inline void fwd_passes(Pass* col, Pass* row, const void* x_lo, const void* x_hi,
   Pass b = a;
   b.x[0] = b.y[0] = (const uint32_t*)scratch_lo;
   b.x[1] = b.y[1] = (const uint32_t*)scratch_hi;
-  b.x_chan = (long long)batch * n;
+  b.x_b = n;
+  b.x_blk = (long long)batch * n;
+  b.x_chan = (long long)batch * poly;
+  b.planes_blk = 0;
   b.k1 = n2;
   b.s_k = n1;
   b.s_r = 1;
   b.rows_per_poly = n1;
   b.total_rows = batch * n1;
   b.o = n2;
+  b.out_b = poly;
+  b.out_blk = n;
   b.t_r = n2;
   b.t_o = 1;
   b.planes = (const int32_t*)t.planes2;
@@ -365,23 +395,28 @@ inline void fwd_passes(Pass* col, Pass* row, const void* x_lo, const void* x_hi,
   *row = b;
 }
 
-// The two passes of a four-step inverse transform: row pass (rows (b, r <
-// n1), contract j < n2 at x[r*n2 + j], diagonal e) into scratch [C][B][n1][n2],
-// then column pass (rows (b, k < n2), contract r < n1 at scratch[r*n2 + k],
-// canonical) into out[s*n2 + k] (standard order). (y_lo, y_hi) is the second
-// operand of a pointwise first pass, else null.
+// The two passes of nb four-step inverse block transforms: row pass (rows (b,
+// r < n1), contract j < n2 at x[r*n2 + j], diagonal e, the channel's planes
+// G) into scratch [C][nb][B][n1][n2], then column pass (rows (b, k < n2),
+// contract r < n1 at scratch[r*n2 + k], canonical, per-block planes A_inv,b)
+// into out[s*n2 + k] of each block (standard order within the block). (y_lo,
+// y_hi) is the second operand of a pointwise first pass, else null.
 inline void inv_passes(Pass* row, Pass* col, const void* x_lo, const void* x_hi,
-                       const void* y_lo, const void* y_hi, int batch, int n1, int n2,
+                       const void* y_lo, const void* y_hi, int batch, int n1, int n2, int nb,
                        const Tables& t, void* scratch_lo, void* scratch_hi, void* out_lo,
                        void* out_hi) {
   const int n = n1 * n2;
+  const long long poly = (long long)nb * n;
   Pass a{};
   a.x[0] = (const uint32_t*)x_lo;
   a.x[1] = (const uint32_t*)x_hi;
   a.y[0] = (const uint32_t*)(y_lo ? y_lo : x_lo);
   a.y[1] = (const uint32_t*)(y_hi ? y_hi : x_hi);
-  a.x_b = n;
-  a.x_chan = (long long)batch * n;
+  a.x_b = poly;
+  a.x_chan = (long long)batch * poly;
+  a.x_blk = n;
+  a.nb = nb;
+  a.planes_blk = 0;
   a.k1 = n2;
   a.s_k = 1;
   a.s_r = n2;
@@ -389,7 +424,8 @@ inline void inv_passes(Pass* row, Pass* col, const void* x_lo, const void* x_hi,
   a.total_rows = batch * n1;
   a.o = n2;
   a.out_b = n;
-  a.out_chan = (long long)batch * n;
+  a.out_blk = (long long)batch * n;
+  a.out_chan = (long long)batch * poly;
   a.t_r = n2;
   a.t_o = 1;
   a.planes = (const int32_t*)t.planes1;
@@ -402,12 +438,17 @@ inline void inv_passes(Pass* row, Pass* col, const void* x_lo, const void* x_hi,
   Pass b = a;
   b.x[0] = b.y[0] = (const uint32_t*)scratch_lo;
   b.x[1] = b.y[1] = (const uint32_t*)scratch_hi;
+  b.x_b = n;
+  b.x_blk = (long long)batch * n;
+  b.planes_blk = 1;
   b.k1 = n1;
   b.s_k = n2;
   b.s_r = 1;
   b.rows_per_poly = n2;
   b.total_rows = batch * n2;
   b.o = n1;
+  b.out_b = poly;
+  b.out_blk = n;
   b.t_r = 1;
   b.t_o = n2;
   b.planes = (const int32_t*)t.planes2;

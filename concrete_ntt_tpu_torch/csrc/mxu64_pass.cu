@@ -4,7 +4,10 @@
 //   K5  k5_fwd / k5_inv  <- _build_call (:32, kernel :71-96; fwd :153, inv
 //       :157): the whole four-step transform of one 64-bit prime on u64 limb
 //       pairs, (lo, hi) 2 x [B, n] u32 -> 2 x [B, n] u32, fwd and inv with a
-//       scale folded into A_inv;
+//       scale folded into A_inv; and the same function with its hyb argument
+//       (:36-43, :62-65; called at ops/stagesplit.py:380, 401), K5h: the nb
+//       block transforms of the stage-split hybrid, each with the tables of
+//       its block of a parent transform, (lo, hi) 2 x [B, nb * n];
 //   K6  k6_pass          <- _build_pass_call64 (:197, kernel :212-227;
 //       pass_matmod64 :269): one exact modular GEMM pass on limb pairs,
 //       [B, rows, K] -> [B, rows, O], scaled-lazy (rank-local diagonal rows)
@@ -19,7 +22,12 @@
 // time from the host's n_d and mode. K5 is two launches: the mid-pass
 // intermediate (any-u64 representatives, a limb pair) goes through the
 // wrapper's two scratch tensors and the transpose is a stride of the second
-// pass's loads.
+// pass's loads. With block tables (nb > 1) the block index is a grid axis
+// (z = block; matmod64_pass.cuh): one launch pair serves all nb blocks, each
+// reading its slice of the [B, nb * n] operand in place and writing its slice
+// of the result, where the TPU code launches one kernel a block on sliced
+// copies and concatenates. The column operators A_b / A_inv,b and the
+// diagonals are stacked over the block, F / G and the scalar record are one.
 //
 // Bound at n = 2^14, B = 16: K5 fwd needs 2048·256·D·128 dp4a a pass, 1.2e9
 // for both with D = 9 (Goldilocks; 4.8e9 int8 MACs) and 0.94e9 with D = 7,
@@ -70,8 +78,11 @@ cudaError_t launch_any(const Pass& a, int n_d, int mode, cudaStream_t s) {
 
 }  // namespace
 
-// K5 fwd: (x_lo, x_hi) [B, n] -> (out_lo, out_hi) [B, n] canonical, bit-reversed.
-extern "C" int k5_fwd(const void* x_lo, const void* x_hi, int batch, int n1, int n2,
+// K5 fwd: (x_lo, x_hi) [B, nb * n] -> (out_lo, out_hi) [B, nb * n] canonical:
+// nb block transforms of size n = n1 * n2 (nb = 1: the direct transform,
+// bit-reversed order). planes1 / cvec1 [nb][..] (A_b), planes2 / cvec2 (F),
+// diag [nb][8 or 2][n2][n1].
+extern "C" int k5_fwd(const void* x_lo, const void* x_hi, int batch, int n1, int n2, int nb,
                       const void* planes1, const void* cvec1, const void* planes2,
                       const void* cvec2, const void* diag, const void* scal, int n_d, int mode,
                       void* scratch_lo, void* scratch_hi, void* out_lo, void* out_hi,
@@ -79,15 +90,17 @@ extern "C" int k5_fwd(const void* x_lo, const void* x_hi, int batch, int n1, int
   cudaStream_t s = (cudaStream_t)stream;
   const Tables t{planes1, cvec1, planes2, cvec2, diag, scal};
   Pass col, row;
-  mxu64::fwd_passes(&col, &row, x_lo, x_hi, 0, batch, n1, n2, t, scratch_lo, scratch_hi, out_lo,
-                    out_hi);
+  mxu64::fwd_passes(&col, &row, x_lo, x_hi, 0, batch, n1, n2, nb, t, scratch_lo, scratch_hi,
+                    out_lo, out_hi);
   cudaError_t e = launch_any<true>(col, n_d, mode, s);
   if (e != cudaSuccess) return (int)e;
   return (int)launch_any<false>(row, n_d, mode, s);
 }
 
-// K5 inv: (x_lo, x_hi) [B, n], any u64 -> (out_lo, out_hi) canonical, standard order.
-extern "C" int k5_inv(const void* x_lo, const void* x_hi, int batch, int n1, int n2,
+// K5 inv: (x_lo, x_hi) [B, nb * n], any u64 -> (out_lo, out_hi) canonical,
+// standard order within each block. planes1 / cvec1 (G), planes2 / cvec2
+// [nb][..] (A_inv,b times the scale), diag [nb][8 or 2][n1][n2].
+extern "C" int k5_inv(const void* x_lo, const void* x_hi, int batch, int n1, int n2, int nb,
                       const void* planes1, const void* cvec1, const void* planes2,
                       const void* cvec2, const void* diag, const void* scal, int n_d, int mode,
                       void* scratch_lo, void* scratch_hi, void* out_lo, void* out_hi,
@@ -95,7 +108,7 @@ extern "C" int k5_inv(const void* x_lo, const void* x_hi, int batch, int n1, int
   cudaStream_t s = (cudaStream_t)stream;
   const Tables t{planes1, cvec1, planes2, cvec2, diag, scal};
   Pass row, col;
-  mxu64::inv_passes(&row, &col, x_lo, x_hi, nullptr, nullptr, batch, n1, n2, t, scratch_lo,
+  mxu64::inv_passes(&row, &col, x_lo, x_hi, nullptr, nullptr, batch, n1, n2, nb, t, scratch_lo,
                     scratch_hi, out_lo, out_hi);
   cudaError_t e = launch_any<true>(row, n_d, mode, s);
   if (e != cudaSuccess) return (int)e;

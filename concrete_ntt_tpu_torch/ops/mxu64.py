@@ -11,14 +11,17 @@ of `mxu64_pallas.py`), in two halves as `ops/mxu32.py`:
     `_n_eplanes_lazy`), the epilogue regime (`_scale_mode`), the diagonal
     tables (`_scale_tables64`), the table dict (`_tables`), A_inv times a
     constant (`_scaled_ainv_planes`), and the channel grid's stacked tables
-    and 16-word scalar record (`_multi_tables64`, `_scal_vec64`). The tests
-    assert every array equals the JAX package's.
+    and 16-word scalar record (`_multi_tables64`, `_scal_vec64`; with `hyb`
+    the block tables of the stage-split hybrid, `ops/stagesplit.py`, which
+    also builds a parent transform with its own n1 and the exact stage
+    engine on Python integers, `_fwd_stage_range_obj`). The tests assert
+    every array equals the JAX package's.
   * **Device half, plain torch.** `_digit_cat`, `_dot` (`torch._int_mm`),
     the 3-limb combine, the top-limb fold, the two epilogues, `fwd`,
     `inv(scale)`, one pass (`pass_plain`) and the channel-grid twins that
     read the scalar record (`_sc_*`). This is the plain version the kernels
-    of `ops/mxu64_cuda.py` (K5, K6, K7a, K7d) are held against, and the CPU
-    route.
+    of `ops/mxu64_cuda.py` (K5, K6, K7a-K7d, direct and with block tables)
+    are held against, and the CPU route.
 
 The algebra is `ops/mxu32.py`'s, widened: operands are u64 limb pairs split
 into 8 unsigned digit planes; matrix entries are centred to (-p/2, p/2] and
@@ -125,9 +128,45 @@ def _operators(n: int, p: int):
     return cached_operators(n, p, lambda: _build_operators(n, p))
 
 
-def _build_operators(n: int, p: int):
+def _build_operators(n: int, p: int, n1: int | None = None):
+    """The six operators of (n, p) for the split n = n1 · n2 (default: the
+    balanced `four_step_factors`; the stage-split hybrid asks for the parent
+    transform with n1 = 2^l · n1_h, `ops/stagesplit.py`)."""
     twid, inv_twid = negacyclic_twiddles(p, n)
-    return host_build.fourstep_build(n, p, four_step_factors(n)[0], twid, inv_twid)
+    if n1 is None:
+        n1 = four_step_factors(n)[0]
+    return host_build.fourstep_build(n, p, n1, twid, inv_twid)
+
+
+def _fwd_stage_range_obj(data, twid, p, s0, s1):
+    """Forward CT stages [s0, s1) of the exact stage engine on object-dtype
+    rows [rows, n] (Python integers): the hybrid's 2^l x 2^l block-index
+    matrices come from it (`stagesplit._cross_mats`)."""
+    rows, n = data.shape
+    for s in range(s0, s1):
+        m = 1 << s
+        t = n >> (s + 1)
+        v = data.reshape(rows, m, 2, t)
+        z0 = v[:, :, 0, :].copy()
+        z1 = v[:, :, 1, :]
+        wz1 = z1 * twid[m : 2 * m][None, :, None] % p
+        v[:, :, 0, :] = (z0 + wz1) % p
+        v[:, :, 1, :] = (z0 - wz1) % p
+    return data
+
+
+def _inv_stage_range_obj(data, inv_twid, p, s_hi, s_lo):
+    """Inverse GS stages s_hi - 1 down to s_lo, as `_fwd_stage_range_obj`."""
+    rows, n = data.shape
+    for s in range(s_hi - 1, s_lo - 1, -1):
+        m = 1 << s
+        t = n >> (s + 1)
+        v = data.reshape(rows, m, 2, t)
+        z0 = v[:, :, 0, :].copy()
+        z1 = v[:, :, 1, :]
+        v[:, :, 0, :] = (z0 + z1) % p
+        v[:, :, 1, :] = (z0 - z1) * inv_twid[m : 2 * m][None, :, None] % p
+    return data
 
 
 def _prep64(M: np.ndarray, p: int, n_eplanes: int = 8):
@@ -234,22 +273,43 @@ def multi_applicable(n: int, primes) -> bool:
 
 
 @lru_cache(maxsize=16)
-def _multi_tables64(n: int, primes: tuple, scales: tuple):
-    """Stacked per-channel tables of the channel grid (numpy)."""
+def _multi_tables64(n: int, primes: tuple, scales: tuple, hyb: int | None = None):
+    """Stacked per-channel tables of the channel grid (numpy) for transforms
+    of size n. With `hyb` = N, the size of a parent transform, they are the
+    block tables of the stage-split hybrid (`ops/stagesplit.py`) for its
+    nb = N // n blocks: what differs per block (A_b and d_b forward, e_b
+    and A_inv,b times the scale inverse) gains a block axis after the
+    channel's, [C, nb, ...]; F, G and the scalars stay per channel."""
     n1, n2 = four_step_factors(n)
     stk = lambda xs: np.ascontiguousarray(np.stack(xs, axis=0))
+    if hyb is not None:
+        from . import stagesplit
+
+        per_block = lambda xs: stk(xs)  # [nb, ...]
+    else:
+        per_block = lambda xs: xs[0]
     p1f, c1f, p2f, c2f = [], [], [], []
     p1i, c1i, p2i, c2i = [], [], [], []
     dm, em, scal = [], [], []
     for ch, p in enumerate(primes):
         assert (1 << 33) < p < (1 << 62), "channel-grid tables need p in (2^33, 2^62)"
-        tbl = _tables(n, p)
-        p1f.append(tbl["A"][0]); c1f.append(tbl["A"][1])
+        sc = scales[ch] % p
+        if hyb is None:
+            blocks = (_tables(n, p),)
+            ainv = (blocks[0]["Ainv"] if sc == 1 else _scaled_ainv_planes(n, p, sc),)
+        else:
+            blocks = stagesplit._dev64(hyb, p, n)["blocks"]
+            ainv = (tuple(t["Ainv"] for t in blocks) if sc == 1
+                    else stagesplit._scaled_ainv_blocks64(hyb, p, n, sc))
+        tbl = blocks[0]  # F, G and the scalars are one for all blocks
+        p1f.append(per_block([t["A"][0] for t in blocks]))
+        c1f.append(per_block([t["A"][1] for t in blocks]))
         p2f.append(tbl["F"][0]); c2f.append(tbl["F"][1])
         p1i.append(tbl["G"][0]); c1i.append(tbl["G"][1])
-        m2 = tbl["Ainv"] if scales[ch] % p == 1 else _scaled_ainv_planes(n, p, scales[ch] % p)
-        p2i.append(m2[0]); c2i.append(m2[1])
-        dm.append(tbl["d"]); em.append(tbl["e"])
+        p2i.append(per_block([m[0] for m in ainv]))
+        c2i.append(per_block([m[1] for m in ainv]))
+        dm.append([per_block([t["d"][j] for t in blocks]) for j in range(len(tbl["d"]))])
+        em.append([per_block([t["e"][j] for t in blocks]) for j in range(len(tbl["e"]))])
         scal.append(_scal_vec64(n, p, tbl) + [0] * (_SCAL_WORDS - 2 * len(_SC_FIELDS)))
     n_tab = len(dm[0])  # 8: the shoup regime's arrays
     return {
@@ -481,23 +541,31 @@ def _sc_canonical(v0, v1, v2, sc: dict):
     return _canonical(v0, v1, v2, _sc_tbl(sc))
 
 
-def _multi_channel(limbs, tabs, direction: str, ch: int):
+def _multi_channel(limbs, tabs, direction: str, ch: int, blk: int = 0):
     """Channel `ch` of the channel grid on carrier limbs [B, n]: the
-    four-step against the stacked tables and the scalar record."""
+    four-step against the stacked tables and the scalar record; with hybrid
+    tables (`_multi_tables64(..., hyb=N)`), block `blk` of that channel."""
     n1, n2 = tabs["n1"], tabs["n2"]
     planes1, cvec1, planes2, cvec2, diag = tabs[direction]
     sc = _read_sc(tabs["scalars"][ch])
     dev = limbs[0].device
     b = limbs[0].shape[0]
-    if direction == "fwd":
+    fwd = direction == "fwd"
+    blocked = diag[0].ndim == 4  # [C, nb, R, O]: hybrid block tables
+    if fwd:
         v = tuple(a.reshape(b, n1, n2).transpose(1, 2) for a in limbs)
     else:
         v = tuple(a.reshape(b, n1, n2) for a in limbs)
-    tab = tuple(_dev(t, dev)[ch] for t in diag)
-    mat1 = (_dev(planes1, dev)[ch], _dev(cvec1, dev)[ch])
-    mat2 = (_dev(planes2, dev)[ch], _dev(cvec2, dev)[ch])
+
+    def pick(t, per_block):
+        t = _dev(t, dev)[ch]
+        return t[blk] if per_block and blocked else t
+
+    tab = tuple(pick(t, True) for t in diag)
+    mat1 = (pick(planes1, fwd), pick(cvec1, fwd))  # A_b per block, G shared
+    mat2 = (pick(planes2, not fwd), pick(cvec2, not fwd))  # F shared, Ainv_b per block
     y = _sc_scaled_epilogue(*_combined(v, mat1), tab, sc)
     out = _sc_canonical(*_combined(_t(y), mat2), sc)
-    if direction == "inv":
+    if not fwd:
         out = _t(out)
     return tuple(a.reshape(b, n1 * n2) for a in out)

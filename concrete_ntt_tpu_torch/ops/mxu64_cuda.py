@@ -1,4 +1,4 @@
-"""Four-step prime64 NTT kernels: K5, K6, K7a, K7d.
+"""Four-step prime64 NTT kernels: K5 (direct and with block tables), K6, K7a-K7d.
 
 Counterpart of `concrete_ntt_tpu/ops/mxu64_pallas.py`. Values are u64 limb
 pairs: a tuple `(lo, hi)` of uint32 tensors of one shape.
@@ -11,6 +11,13 @@ pairs: a tuple `(lo, hi)` of uint32 tensors of one shape.
     :157). It also serves the sizes 2^11 <= n < 2^14 that the TPU sends
     through two `pass_matmod64` passes (its whole-transform kernel needs both
     factors >= 128 and its VMEM; a CUDA launch has neither limit).
+  * K5h `fwd_hyb` / `inv_hyb(scale)`: the same function with its `hyb`
+    argument (:36-43, :62-65): the 2^l block transforms of the stage-split
+    hybrid (`ops/stagesplit.py`), each of size n_h with the tables of its
+    block of a parent transform of size n (A_b, d_b, e_b, A_inv,b times the
+    scale per block; F, G shared). The TPU launches one kernel a block on
+    slices and concatenates; here the block is a grid axis: one launch pair
+    transforms all blocks of (lo, hi) [B, n] in place in the arrays.
   * K6 `pass_matmod64`: one exact modular GEMM pass, (lo, hi) [B, rows, K]
     -> (lo, hi) [B, rows, O] (which in A, F, G, Ainv; scaled-lazy against
     rank-local rows of the diagonal tables, or canonical): the per-rank pass
@@ -19,16 +26,22 @@ pairs: a tuple `(lo, hi)` of uint32 tensors of one shape.
   * K7a `fwd_multi`: all Plan52 channels' forward NTTs of one operand,
     (lo, hi) [B, n] -> (lo, hi) [C, B, n]. Replaces the fwd branch of
     `_build_multi_call64` (:522; `fwd_multi` :679).
+  * K7c `fwd_multi_perchannel64`: the same with one operand per channel,
+    (lo, hi) [C, B, n] any u64 -> [C, B, n] (`perch_fwd=True`, :695).
+  * K7b `inv_multi`: all channels' scaled inverse, (lo, hi) [C, B, n] any
+    u64 -> canonical, standard order (`pointwise=False`, :712).
   * K7d `pointwise_inv_multi`: per channel the Montgomery product
     fl·fr·2^-64 of two [C, B, n] limb-pair operands (any u64; the overflow of
     the REDC sum kept, as `_sc_mont_mul64` :391) and its scaled inverse NTT
     in one kernel. Replaces the same function's `pointwise=True` inv
     (`pointwise_inv_multi` :728).
+  K7b, K7c and K7d take `n_h`: with it the operand's last axis is a parent
+  transform's n, and its n // n_h blocks are transformed with the hybrid's
+  block tables (the `hyb` argument of `_build_multi_call64`, :524), z = channel · nb +
+  block on the grid.
 
-`_build_multi_call64`'s other entries (`inv_multi` :712, `fwd_multi_perchannel64`
-:695), its `hyb` argument and K5's wide forward (`n_limbs = 4`) serve only
-the stage-split hybrid or no default route, and are not ported yet
-(ROADMAP.md Queue 2).
+K5's wide forward (`n_limbs = 4`) has no default route and is not ported yet
+(ROADMAP.md Queue 1 item 5).
 
 All are CUDA C++ for sm_90a built with nvcc at first use (ops/cuda_build.py)
 and called through ctypes: K5/K6 in `csrc/mxu64_pass.cu`, K7 in
@@ -42,13 +55,15 @@ when the planes are packed, so every pass contracts two words per value.
 
 Routing is by the device of the operand: a CUDA tensor launches the kernel
 or raises, a CPU tensor runs the plain torch version (`*_plain`, built on
-`ops/mxu64.py`), any other device raises. Every kernel launch adds one to
-`LAUNCHES[name]`; nothing else does.
+`ops/mxu64.py` and, for block tables, `ops/stagesplit.py`), any other device
+raises. Every kernel launch adds one to `LAUNCHES[name]` (`name_hyb` with
+block tables); nothing else does.
 
 Range: K5/K6 take every odd prime 2^33 < p < 2^64; K7 takes channel primes
 2^33 < p < 2^62 with one (matrix, operand) plane count for all channels;
-all take powers of two 2^11 <= n <= 2^15. Outside it both routes raise
-NotImplementedError.
+all take powers of two 2^11 <= n <= 2^15 as the transform (block) size, and
+with block tables a parent size that is a larger power of two. Outside it
+both routes raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -63,8 +78,10 @@ from . import cuda_build, mxu64
 from .mxu32_cuda import _call, _check_operands, _ptrs, pack_planes
 from .u32 import to_i64, to_u32
 
-LAUNCHES = {"fwd64": 0, "inv64": 0, "pass_matmod64": 0, "fwd_multi64": 0,
-            "pointwise_inv_multi64": 0}
+LAUNCHES = dict.fromkeys(
+    ("fwd64", "inv64", "fwd64_hyb", "inv64_hyb", "pass_matmod64", "fwd_multi64",
+     "fwd_multi_perchannel64", "inv_multi64", "pointwise_inv_multi64",
+     "fwd_multi_perchannel64_hyb", "inv_multi64_hyb", "pointwise_inv_multi64_hyb"), 0)
 
 MIN_N, MAX_N = 1 << 11, 1 << 15
 _MODES = {"shoup": 0, "mont": 1, "gl": 3}  # mont with p >= 2^63 is 2
@@ -79,8 +96,8 @@ def _check_n(n: int, what: str) -> None:
     if n & (n - 1) or not MIN_N <= n <= MAX_N:
         raise NotImplementedError(
             f"n = {n}: the {what} serve powers of two in [2^11, 2^15]; smaller sizes take "
-            "the stage engine through prime64.Plan, larger ones wait for the stage-split "
-            "hybrid (ROADMAP.md Queue 1 item 9)"
+            "the stage engine through prime64.Plan, larger ones the stage-split hybrid "
+            "(ops/stagesplit.py: block tables, `fwd_hyb` / `inv_hyb` and `n_h=`)"
         )
 
 
@@ -94,8 +111,24 @@ def check_single_range(n: int, p: int) -> None:
         )
 
 
+def check_hyb_range(n: int, n_h: int, p: int) -> None:
+    """Raise NotImplementedError outside the range K5 serves with block
+    tables: a block size K5 takes and a parent size above it."""
+    check_single_range(n_h, p)
+    _check_parent(n, n_h)
+
+
+def _check_parent(n: int, n_h: int) -> None:
+    if n & (n - 1) or n <= n_h:
+        raise NotImplementedError(
+            f"n = {n}, n_h = {n_h}: block tables need a parent size that is a power of two "
+            "above the block size"
+        )
+
+
 def check_multi_range(n: int, primes: tuple) -> None:
-    """Raise NotImplementedError outside the range K7a/K7d serve."""
+    """Raise NotImplementedError outside the range K7 serves (n the
+    transform size: the block size with block tables)."""
     _check_n(n, "channel-grid kernels K7")
     if not mxu64.multi_applicable(n, primes):
         raise NotImplementedError(
@@ -113,12 +146,14 @@ def mode(p: int) -> int:
     return 2 if m == 1 and p >= (1 << 63) else m
 
 
-def scalar_record(n: int, p: int) -> np.ndarray:
+def scalar_record(n: int, p: int, tbl: dict | None = None) -> np.ndarray:
     """[16] uint32 per-prime scalars the GEMM pass reads, as limb pairs: the
     six of `mxu64._scal_vec64` (p, 2^64 mod p, its Shoup companion, -p^-1
     mod 2^64, floor(2^64/p), 2p mod 2^64), then 2^128 mod p (the
-    Montgomery fold's constant, used for p >= 2^63), then 0."""
-    tbl = mxu64._tables(n, p)
+    Montgomery fold's constant, used for p >= 2^63), then 0. They depend on
+    p alone; `tbl` is any table dict of p (default: that of (n, p))."""
+    if tbl is None:
+        tbl = mxu64._tables(n, p)
     words = [w & 0xFFFFFFFF for w in mxu64._scal_vec64(n, p, tbl)]
     c64_mont = tbl.get("c64_mont", 0)
     return np.array(words + [c64_mont & 0xFFFFFFFF, c64_mont >> 32, 0, 0], dtype=np.uint32)
@@ -176,21 +211,59 @@ def _single_tables(n: int, p: int, scale: int, direction: str, device: str):
     return t1, t2, _diag_tables(n, p, "d" if direction == "fwd" else "e", device)
 
 
+def _flat_blocks(a: np.ndarray, lead: int) -> np.ndarray:
+    """Merge the first `lead` axes ([C, nb, ...] -> [C * nb, ...])."""
+    return a.reshape(-1, *a.shape[lead:])
+
+
 @lru_cache(maxsize=16)
-def _kernel_tables(n: int, primes: tuple, scales: tuple, direction: str, device: str):
-    """K7's stacked tables for one direction, as tensors on `device`."""
-    tabs = mxu64._multi_tables64(n, primes, scales)
+def _kernel_tables(n: int, primes: tuple, scales: tuple, direction: str, device: str,
+                   hyb: int | None = None):
+    """K7's stacked tables for one direction, as tensors on `device`. With
+    `hyb` (a parent size) the per-block tables are indexed by
+    z = channel * nb + block, the shared ones by the channel."""
+    tabs = mxu64._multi_tables64(n, primes, scales, hyb)
     n1, n2 = tabs["n1"], tabs["n2"]
     planes1, cvec1, planes2, cvec2, diag = tabs[direction]
     k1, k2 = (n1, n2) if direction == "fwd" else (n2, n1)
+    lead = 1 if hyb is None else 2
+    l1, l2 = (lead, 1) if direction == "fwd" else (1, lead)  # A_b / Ainv_b are per block
     return {
-        "planes1": _to_dev(pack_planes64(planes1, k1), device),
-        "cvec1": _to_dev(cvec1, device),
-        "planes2": _to_dev(pack_planes64(planes2, k2), device),
-        "cvec2": _to_dev(cvec2, device),
-        "diag": _to_dev(np.stack(diag, axis=1), device),  # [C, 8, R, O]
+        "planes1": _to_dev(pack_planes64(_flat_blocks(planes1, l1), k1), device),
+        "cvec1": _to_dev(_flat_blocks(cvec1, l1), device),
+        "planes2": _to_dev(pack_planes64(_flat_blocks(planes2, l2), k2), device),
+        "cvec2": _to_dev(_flat_blocks(cvec2, l2), device),
+        # [C * nb, 8, R, O]
+        "diag": _to_dev(np.stack([_flat_blocks(d, lead) for d in diag], axis=1), device),
         "scal": _to_dev(tabs["scalars"].view(np.int32), device),
-        "n_d": cvec1.shape[1],
+        "n_d": cvec1.shape[-2],
+    }
+
+
+@lru_cache(maxsize=32)
+def _hyb_tables(n: int, p: int, n_h: int, scale: int, direction: str, device: str):
+    """K5's block tables for one direction of the hybrid of (n, p, n_h): the
+    per-block pass (A_b forward, A_inv,b times the scale inverse) and the
+    per-block diagonal stacked over the block, the shared pass (F, G) and the
+    scalar record once."""
+    from . import stagesplit
+
+    blocks = stagesplit._dev64(n, p, n_h)["blocks"]
+    n1, n2 = mxu64.four_step_factors(n_h)  # the column operators contract n1, the row ones n2
+    if direction == "fwd":
+        per_block, shared, diag = [t["A"] for t in blocks], blocks[0]["F"], "d"
+    else:
+        per_block = [m if m is not None else t["Ainv"]
+                     for m, t in zip(stagesplit._ainv_mats(n, p, n_h, scale), blocks)]
+        shared, diag = blocks[0]["G"], "e"
+    return {
+        "planes_blk": _to_dev(pack_planes64(np.stack([m[0] for m in per_block]), n1), device),
+        "cvec_blk": _to_dev(np.stack([m[1] for m in per_block]), device),
+        "planes_sh": _to_dev(pack_planes64(shared[0][None], n2), device),
+        "cvec_sh": _to_dev(shared[1], device),
+        "diag": _to_dev(np.stack([np.stack(t[diag]) for t in blocks]), device),  # [nb, 8|2, R, O]
+        "scal": _to_dev(scalar_record(n_h, p, blocks[0]).view(np.int32), device),
+        "n_d": shared[1].shape[0],
     }
 
 
@@ -219,8 +292,65 @@ def pass_matmod64_plain(limbs: tuple, *, n: int, p: int, which: str, diag_slices
                             scale=scale)
 
 
+def fwd_hyb_plain(limbs: tuple, *, n: int, p: int, n_h: int) -> tuple:
+    """Plain twin of K5h fwd: the hybrid's 2^l block transforms of (lo, hi)
+    [B, n], each `mxu64._fwd_core` against its block's tables."""
+    from . import stagesplit
+
+    check_hyb_range(n, n_h, p)
+    dv = stagesplit._dev64(n, p, n_h)
+    out = stagesplit._blocks_fwd64(tuple(to_i64(a) for a in limbs), dv, n_h)
+    return tuple(to_u32(a) for a in out)
+
+
+def inv_hyb_plain(limbs: tuple, *, n: int, p: int, n_h: int, scale: int = 1) -> tuple:
+    """Plain twin of K5h inv (scale folded into each block's A_inv)."""
+    from . import stagesplit
+
+    check_hyb_range(n, n_h, p)
+    dv = stagesplit._dev64(n, p, n_h)
+    out = stagesplit._blocks_inv64(tuple(to_i64(a) for a in limbs), dv, n_h,
+                                   stagesplit._ainv_mats(n, p, n_h, scale))
+    return tuple(to_u32(a) for a in out)
+
+
 def _stack_pairs(outs: list) -> tuple:
     return tuple(to_u32(torch.stack([o[i] for o in outs])) for i in range(2))
+
+
+def _check_multi(n: int, primes: tuple, n_h: int | None) -> None:
+    if n_h is None:
+        check_multi_range(n, primes)
+    else:
+        check_multi_range(n_h, primes)
+        _check_parent(n, n_h)
+
+
+def _tabs_args(n: int, n_h: int | None) -> tuple:
+    """(transform size, hyb) of the table functions for an operand of last
+    axis n: direct, or n_h-blocks of a parent transform of size n."""
+    return (n, None) if n_h is None else (n_h, n)
+
+
+def _multi_tabs(n: int, primes: tuple, scales: tuple, n_h: int | None) -> dict:
+    size, hyb = _tabs_args(n, n_h)
+    return mxu64._multi_tables64(size, tuple(primes), tuple(scales), hyb)
+
+
+def _multi_plain(xs: tuple, tabs: dict, direction: str, n_h: int | None) -> tuple:
+    """Per channel, and per block with block tables, `mxu64._multi_channel`
+    on carrier limbs [C, B, n] -> stacked (lo, hi) uint32 [C, B, n]."""
+    n = xs[0].shape[-1]
+    outs = []
+    for ch in range(xs[0].shape[0]):
+        x = (xs[0][ch], xs[1][ch])
+        if n_h is None:
+            outs.append(mxu64._multi_channel(x, tabs, direction, ch))
+            continue
+        blks = [mxu64._multi_channel(tuple(a[:, i * n_h:(i + 1) * n_h] for a in x), tabs,
+                                     direction, ch, i) for i in range(n // n_h)]
+        outs.append(tuple(torch.cat([o[j] for o in blks], dim=-1) for j in range(2)))
+    return _stack_pairs(outs)
 
 
 def fwd_multi_plain(limbs: tuple, primes: tuple) -> tuple:
@@ -228,24 +358,44 @@ def fwd_multi_plain(limbs: tuple, primes: tuple) -> tuple:
     tables and the scalar record (`mxu64._multi_channel`)."""
     n = limbs[0].shape[-1]
     check_multi_range(n, primes)
-    tabs = mxu64._multi_tables64(n, tuple(primes), (1,) * len(primes))
-    xs = tuple(to_i64(a) for a in limbs)
-    return _stack_pairs([mxu64._multi_channel(xs, tabs, "fwd", ch) for ch in range(len(primes))])
+    c = len(primes)
+    tabs = mxu64._multi_tables64(n, tuple(primes), (1,) * c)
+    xs = tuple(to_i64(a).expand(c, *a.shape) for a in limbs)
+    return _multi_plain(xs, tabs, "fwd", None)
 
 
-def pointwise_inv_multi_plain(fl: tuple, fr: tuple, primes: tuple, scales: tuple) -> tuple:
+def fwd_multi_perchannel64_plain(limbs: tuple, primes: tuple, n_h: int | None = None) -> tuple:
+    """Plain twin of K7c: K7a's with one operand per channel; with `n_h`,
+    per block against the hybrid's block tables."""
+    n = limbs[0].shape[-1]
+    _check_multi(n, primes, n_h)
+    tabs = _multi_tabs(n, primes, (1,) * len(primes), n_h)
+    return _multi_plain(tuple(to_i64(a) for a in limbs), tabs, "fwd", n_h)
+
+
+def inv_multi_plain(limbs: tuple, primes: tuple, scales: tuple, n_h: int | None = None) -> tuple:
+    """Plain twin of K7b: per channel (and block) the scaled inverse."""
+    n = limbs[0].shape[-1]
+    _check_multi(n, primes, n_h)
+    tabs = _multi_tabs(n, primes, scales, n_h)
+    return _multi_plain(tuple(to_i64(a) for a in limbs), tabs, "inv", n_h)
+
+
+def pointwise_inv_multi_plain(fl: tuple, fr: tuple, primes: tuple, scales: tuple,
+                              n_h: int | None = None) -> tuple:
     """Plain twin of K7d: per channel `_sc_mont_mul64` of any-u64 operands
-    (the REDC sum's overflow kept), then the scaled inverse."""
+    (the REDC sum's overflow kept), then the scaled inverse (per block with
+    `n_h`: the product is elementwise, so it commutes with the block cut)."""
     n = fl[0].shape[-1]
-    check_multi_range(n, primes)
-    tabs = mxu64._multi_tables64(n, tuple(primes), tuple(scales))
+    _check_multi(n, primes, n_h)
+    tabs = _multi_tabs(n, primes, scales, n_h)
     a, b = tuple(to_i64(t) for t in fl), tuple(to_i64(t) for t in fr)
-    outs = []
+    prods = []
     for ch in range(len(primes)):
         sc = mxu64._read_sc(tabs["scalars"][ch])
-        prod = mxu64._sc_mont_mul64((a[0][ch], a[1][ch]), (b[0][ch], b[1][ch]), sc)
-        outs.append(mxu64._multi_channel(prod, tabs, "inv", ch))
-    return _stack_pairs(outs)
+        prods.append(mxu64._sc_mont_mul64((a[0][ch], a[1][ch]), (b[0][ch], b[1][ch]), sc))
+    xs = tuple(torch.stack([pr[j] for pr in prods]) for j in range(2))
+    return _multi_plain(xs, tabs, "inv", n_h)
 
 
 # ---------------------------------------------------------------------------
@@ -260,7 +410,7 @@ def _pass_lib() -> ctypes.CDLL:
     lib = cuda_build.load("mxu64_pass")
     if not lib.k5_fwd.argtypes:
         for fn in (lib.k5_fwd, lib.k5_inv):
-            fn.argtypes = [_P, _P, _I, _I, _I, *[_P] * 6, _I, _I, *[_P] * 5]
+            fn.argtypes = [_P, _P, _I, _I, _I, _I, *[_P] * 6, _I, _I, *[_P] * 5]
             fn.restype = ctypes.c_int
         lib.k6_pass.argtypes = [_P, _P, _I, _I, _I, _I, *[_P] * 4, _I, _I, _I, _P, _P, _P]
         lib.k6_pass.restype = ctypes.c_int
@@ -269,12 +419,11 @@ def _pass_lib() -> ctypes.CDLL:
 
 def _multi_lib() -> ctypes.CDLL:
     lib = cuda_build.load("mxu64_multi")
-    if not lib.k7a_fwd_multi.argtypes:
-        lib.k7a_fwd_multi.argtypes = [_P, _P, _I, _I, _I, _I, *[_P] * 6, _I, *[_P] * 5]
-        lib.k7a_fwd_multi.restype = ctypes.c_int
-        lib.k7d_pointwise_inv_multi.argtypes = [*[_P] * 4, _I, _I, _I, _I, *[_P] * 6, _I,
-                                                *[_P] * 5]
-        lib.k7d_pointwise_inv_multi.restype = ctypes.c_int
+    if not lib.k7_fwd_multi.argtypes:
+        lib.k7_fwd_multi.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, *[_P] * 6, _I, *[_P] * 5]
+        lib.k7_fwd_multi.restype = ctypes.c_int
+        lib.k7_inv_multi.argtypes = [*[_P] * 4, _I, _I, _I, _I, _I, *[_P] * 6, _I, *[_P] * 5]
+        lib.k7_inv_multi.restype = ctypes.c_int
     return lib
 
 
@@ -290,24 +439,30 @@ def _check_last(x: torch.Tensor, n: int) -> None:
         raise ValueError(f"last axis must be n={n}, got {tuple(x.shape)}")
 
 
-def _single(name: str, limbs: tuple, dev, n: int, p: int, scale: int) -> tuple:
-    """Launch K5 in one direction on checked operands [B, n]."""
-    direction = "fwd" if name == "fwd64" else "inv"
-    t1, t2, diag = _single_tables(n, p, scale, direction, str(dev))
-    n1, n2 = mxu64.four_step_factors(n)
+def _single(name: str, limbs: tuple, dev, n_blk: int, nb: int, tabs6: tuple, n_d: int,
+            p: int) -> tuple:
+    """Launch K5 in one direction on checked operands [B, nb * n_blk]: nb
+    block transforms of size n_blk (1: the direct transform). tabs6 =
+    (planes1, cvec1, planes2, cvec2, diag, scal) in pass order."""
+    n1, n2 = mxu64.four_step_factors(n_blk)
     b = limbs[0].shape[0]
-    out = tuple(torch.empty((b, n), dtype=torch.uint32, device=dev) for _ in range(2))
+    out = tuple(torch.empty((b, nb * n_blk), dtype=torch.uint32, device=dev) for _ in range(2))
     if b == 0:
         return out
     scratch = tuple(torch.empty_like(o) for o in out)
-    ptrs = _ptrs(*limbs, t1["planes"], t1["cvec"], t2["planes"], t2["cvec"], diag, t1["scal"],
-                 *scratch, *out)
-    fn = _pass_lib().k5_fwd if direction == "fwd" else _pass_lib().k5_inv
-    err = _call(dev, fn, ptrs[0], ptrs[1], b, n1, n2, *ptrs[2:8], t1["n_d"], mode(p), *ptrs[8:])
+    ptrs = _ptrs(*limbs, *tabs6, *scratch, *out)
+    fn = _pass_lib().k5_fwd if name.startswith("fwd") else _pass_lib().k5_inv
+    err = _call(dev, fn, ptrs[0], ptrs[1], b, n1, n2, nb, *ptrs[2:8], n_d, mode(p), *ptrs[8:])
     LAUNCHES[name] += 1
     if err != 0:
         raise RuntimeError(f"K5 {name} launch failed: CUDA error {err}")
     return out
+
+
+def _direct(name: str, limbs: tuple, dev, n: int, p: int, scale: int) -> tuple:
+    t1, t2, diag = _single_tables(n, p, scale, "fwd" if name == "fwd64" else "inv", str(dev))
+    tabs6 = (t1["planes"], t1["cvec"], t2["planes"], t2["cvec"], diag, t1["scal"])
+    return _single(name, limbs, dev, n, 1, tabs6, t1["n_d"], p)
 
 
 def fwd(limbs: tuple, *, n: int, p: int) -> tuple:
@@ -318,7 +473,7 @@ def fwd(limbs: tuple, *, n: int, p: int) -> tuple:
     if dev.type == "cpu":
         return fwd_plain(limbs, n=n, p=p)
     check_single_range(n, p)
-    return _single("fwd64", limbs, dev, n, p, 1)
+    return _direct("fwd64", limbs, dev, n, p, 1)
 
 
 def inv(limbs: tuple, *, n: int, p: int, scale: int = 1) -> tuple:
@@ -330,7 +485,36 @@ def inv(limbs: tuple, *, n: int, p: int, scale: int = 1) -> tuple:
     if dev.type == "cpu":
         return inv_plain(limbs, n=n, p=p, scale=scale)
     check_single_range(n, p)
-    return _single("inv64", limbs, dev, n, p, scale % p)
+    return _direct("inv64", limbs, dev, n, p, scale % p)
+
+
+def fwd_hyb(limbs: tuple, *, n: int, p: int, n_h: int) -> tuple:
+    """K5h fwd: the n // n_h block transforms of the stage-split hybrid of
+    (n, p) in one launch pair. (lo, hi) [B, n] uint32, the output of the
+    hybrid's prefix stages (any u64) -> (lo, hi) [B, n] canonical: the
+    forward NTT of size n in bit-reversed order."""
+    limbs, dev = _check_pair(limbs, 2)
+    _check_last(limbs[0], n)
+    if dev.type == "cpu":
+        return fwd_hyb_plain(limbs, n=n, p=p, n_h=n_h)
+    check_hyb_range(n, n_h, p)
+    t = _hyb_tables(n, p, n_h, 1, "fwd", str(dev))
+    tabs6 = (t["planes_blk"], t["cvec_blk"], t["planes_sh"], t["cvec_sh"], t["diag"], t["scal"])
+    return _single("fwd64_hyb", limbs, dev, n_h, n // n_h, tabs6, t["n_d"], p)
+
+
+def inv_hyb(limbs: tuple, *, n: int, p: int, n_h: int, scale: int = 1) -> tuple:
+    """K5h inv: the block inverses of the hybrid of (n, p), `scale` folded
+    into each block's A_inv. (lo, hi) [B, n] uint32 (any u64, bit-reversed)
+    -> (lo, hi) [B, n] canonical: the input of the hybrid's suffix stages."""
+    limbs, dev = _check_pair(limbs, 2)
+    _check_last(limbs[0], n)
+    if dev.type == "cpu":
+        return inv_hyb_plain(limbs, n=n, p=p, n_h=n_h, scale=scale)
+    check_hyb_range(n, n_h, p)
+    t = _hyb_tables(n, p, n_h, scale % p, "inv", str(dev))
+    tabs6 = (t["planes_sh"], t["cvec_sh"], t["planes_blk"], t["cvec_blk"], t["diag"], t["scal"])
+    return _single("inv64_hyb", limbs, dev, n_h, n // n_h, tabs6, t["n_d"], p)
 
 
 def pass_matmod64(limbs: tuple, *, n: int, p: int, which: str, diag_slices=(),
@@ -379,6 +563,37 @@ def pass_matmod64(limbs: tuple, *, n: int, p: int, which: str, diag_slices=(),
     return out
 
 
+def _multi(name: str, x: tuple, y: tuple | None, perchannel: bool, dev, primes: tuple,
+           scales: tuple, n_h: int | None) -> tuple:
+    """Launch K7 on checked operands: x (lo, hi) [B, n] (shared forward
+    operand) or [C, B, n]; y the second operand of the pointwise inverse."""
+    direction = "fwd" if name.startswith("fwd") else "inv"
+    b, n = x[0].shape[-2:]
+    c = len(primes)
+    size, hyb = _tabs_args(n, n_h)
+    tabs = _kernel_tables(size, primes, scales, direction, str(dev), hyb)
+    n1, n2 = mxu64.four_step_factors(size)
+    out = tuple(torch.empty((c, b, n), dtype=torch.uint32, device=dev) for _ in range(2))
+    if b == 0:
+        return out
+    scratch = tuple(torch.empty_like(o) for o in out)
+    tp = _ptrs(tabs["planes1"], tabs["cvec1"], tabs["planes2"], tabs["cvec2"], tabs["diag"],
+               tabs["scal"])
+    rest = _ptrs(*scratch, *out)
+    xp = _ptrs(*x)
+    if direction == "fwd":
+        err = _call(dev, _multi_lib().k7_fwd_multi, *xp, int(perchannel), b, n1, n2, n // size,
+                    c, *tp, tabs["n_d"], *rest)
+    else:
+        yp = _ptrs(*y) if y is not None else (None, None)
+        err = _call(dev, _multi_lib().k7_inv_multi, *xp, *yp, b, n1, n2, n // size, c, *tp,
+                    tabs["n_d"], *rest)
+    LAUNCHES[name + ("_hyb" if n_h is not None else "")] += 1
+    if err != 0:
+        raise RuntimeError(f"K7 {name} launch failed: CUDA error {err}")
+    return out
+
+
 def fwd_multi(limbs: tuple, primes: tuple) -> tuple:
     """K7a: all channels' forward NTTs of one operand. (lo, hi) [B, n]
     uint32 (any u64 values) -> (lo, hi) [C, B, n] canonical NTT-domain
@@ -387,56 +602,69 @@ def fwd_multi(limbs: tuple, primes: tuple) -> tuple:
     primes = tuple(primes)
     if dev.type == "cpu":
         return fwd_multi_plain(limbs, primes)
-    b, n = limbs[0].shape
-    check_multi_range(n, primes)
-    c = len(primes)
-    tabs = _kernel_tables(n, primes, (1,) * c, "fwd", str(dev))
-    n1, n2 = mxu64.four_step_factors(n)
-    out = tuple(torch.empty((c, b, n), dtype=torch.uint32, device=dev) for _ in range(2))
-    if b == 0:
-        return out
-    scratch = tuple(torch.empty_like(o) for o in out)
-    ptrs = _ptrs(*limbs, tabs["planes1"], tabs["cvec1"], tabs["planes2"], tabs["cvec2"],
-                 tabs["diag"], tabs["scal"], *scratch, *out)
-    err = _call(dev, _multi_lib().k7a_fwd_multi, ptrs[0], ptrs[1], b, n1, n2, c, *ptrs[2:8],
-                tabs["n_d"], *ptrs[8:])
-    LAUNCHES["fwd_multi64"] += 1
-    if err != 0:
-        raise RuntimeError(f"K7a fwd_multi launch failed: CUDA error {err}")
-    return out
+    check_multi_range(limbs[0].shape[-1], primes)
+    return _multi("fwd_multi64", limbs, None, False, dev, primes, (1,) * len(primes), None)
 
 
-def pointwise_inv_multi(fl: tuple, fr: tuple, primes: tuple, scales: tuple) -> tuple:
+def _check_channels(x: torch.Tensor, primes: tuple) -> None:
+    if x.shape[0] != len(primes):
+        raise ValueError(f"expected {len(primes)} channels, got {tuple(x.shape)}")
+
+
+def fwd_multi_perchannel64(x_lo, x_hi, primes: tuple, n_h: int | None = None) -> tuple:
+    """K7c: all channels' forward NTTs of per-channel operands. (lo, hi)
+    [C, B, n] uint32 (any u64 values) -> (lo, hi) [C, B, n] canonical,
+    bit-reversed order. With `n_h`, n is a parent transform's size and the
+    n // n_h blocks take the stage-split hybrid's block tables: the operand
+    is the hybrid's per-channel prefix output, the result the forward NTT of
+    size n."""
+    limbs, dev = _check_pair((x_lo, x_hi), 3)
+    primes = tuple(primes)
+    _check_channels(limbs[0], primes)
+    if dev.type == "cpu":
+        return fwd_multi_perchannel64_plain(limbs, primes, n_h)
+    _check_multi(limbs[0].shape[-1], primes, n_h)
+    return _multi("fwd_multi_perchannel64", limbs, None, True, dev, primes,
+                  (1,) * len(primes), n_h)
+
+
+def _check_scales(primes: tuple, scales: tuple) -> tuple:
+    if len(scales) != len(primes):
+        raise ValueError(f"expected {len(primes)} scales, got {len(scales)}")
+    return tuple(s % p for s, p in zip(scales, primes))
+
+
+def inv_multi(x_lo, x_hi, primes: tuple, scales: tuple, n_h: int | None = None) -> tuple:
+    """K7b: all channels' scaled inverse NTTs. (lo, hi) [C, B, n] uint32 (any
+    u64 representatives, bit-reversed) -> (lo, hi) [C, B, n] canonical,
+    standard order, times scales[ch] (folded into A_inv). With `n_h`, the
+    n // n_h block inverses of the stage-split hybrid: the result is the
+    input of its suffix stages."""
+    limbs, dev = _check_pair((x_lo, x_hi), 3)
+    primes = tuple(primes)
+    _check_channels(limbs[0], primes)
+    scales = _check_scales(primes, tuple(scales))
+    if dev.type == "cpu":
+        return inv_multi_plain(limbs, primes, scales, n_h)
+    _check_multi(limbs[0].shape[-1], primes, n_h)
+    return _multi("inv_multi64", limbs, None, True, dev, primes, scales, n_h)
+
+
+def pointwise_inv_multi(fl: tuple, fr: tuple, primes: tuple, scales: tuple,
+                        n_h: int | None = None) -> tuple:
     """K7d: all channels' Montgomery product fl·fr·2^-64 mod p (fl, fr
     (lo, hi) [C, B, n] uint32, any u64 representatives) and scaled inverse
     NTT in one kernel -> (lo, hi) [C, B, n] canonical, standard order. With
     scale n^-1 · 2^64 mod p the result is the normalized inverse of the
-    product."""
+    product. With `n_h`, the block inverses of the stage-split hybrid."""
     fl, dev = _check_pair(fl, 3)
     fr, dev_r = _check_pair(fr, 3)
-    primes, scales = tuple(primes), tuple(scales)
+    primes = tuple(primes)
     if fr[0].shape != fl[0].shape or dev_r != dev:
         raise ValueError("fl and fr must have one shape on one device")
-    if fl[0].shape[0] != len(primes):
-        raise ValueError(f"expected {len(primes)} channels, got {tuple(fl[0].shape)}")
-    if len(scales) != len(primes):
-        raise ValueError(f"expected {len(primes)} scales, got {len(scales)}")
+    _check_channels(fl[0], primes)
+    scales = _check_scales(primes, tuple(scales))
     if dev.type == "cpu":
-        return pointwise_inv_multi_plain(fl, fr, primes, scales)
-    c, b, n = fl[0].shape
-    check_multi_range(n, primes)
-    tabs = _kernel_tables(n, primes, tuple(s % p for s, p in zip(scales, primes)), "inv",
-                          str(dev))
-    n1, n2 = mxu64.four_step_factors(n)
-    out = tuple(torch.empty((c, b, n), dtype=torch.uint32, device=dev) for _ in range(2))
-    if b == 0:
-        return out
-    scratch = tuple(torch.empty_like(o) for o in out)
-    ptrs = _ptrs(*fl, *fr, tabs["planes1"], tabs["cvec1"], tabs["planes2"], tabs["cvec2"],
-                 tabs["diag"], tabs["scal"], *scratch, *out)
-    err = _call(dev, _multi_lib().k7d_pointwise_inv_multi, *ptrs[:4], b, n1, n2, c, *ptrs[4:10],
-                tabs["n_d"], *ptrs[10:])
-    LAUNCHES["pointwise_inv_multi64"] += 1
-    if err != 0:
-        raise RuntimeError(f"K7d pointwise_inv_multi launch failed: CUDA error {err}")
-    return out
+        return pointwise_inv_multi_plain(fl, fr, primes, scales, n_h)
+    _check_multi(fl[0].shape[-1], primes, n_h)
+    return _multi("pointwise_inv_multi64", fl, fr, True, dev, primes, scales, n_h)

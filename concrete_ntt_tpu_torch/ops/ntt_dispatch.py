@@ -16,23 +16,30 @@ Counterpart of `concrete_ntt_tpu/ops/ntt_dispatch.py`, four parts of it:
     (K1a-K1d) or K2 once per channel;
   * the single-prime 64-bit tier `try_fwd64` / `try_inv64` (:397-409) that
     `prime64.Plan` calls: `tier64` picks the four-step kernel K5 where
-    `mxu64.applicable` holds (odd 2^33 < p < 2^64, 2^11 <= n <= 2^15), else
-    the stage engine (`ops/butterflies64.py`, plain torch: the JAX package
-    has no Pallas kernel there). The TPU's cuts between its whole-transform
-    kernel and two passes (`fused_applicable`, `_fused64_profitable`) are
-    VMEM and lane limits and are not carried over;
+    `mxu64.applicable` holds (odd 2^33 < p < 2^64, 2^11 <= n <= 2^15), the
+    stage-split hybrid (`ops/stagesplit.py`: butterfly prefix + K5 with
+    block tables, tier "K5h") for the same moduli above 2^15, else the stage
+    engine (`ops/butterflies64.py`, plain torch: the JAX package has no
+    Pallas kernel there). The reference's 'auto' takes the 64-bit hybrid
+    above 2^14 (`_hybrid64_wanted` :356-369), where its whole-transform
+    kernel meets a VMEM cliff; the card has none and K5 serves 2^15
+    directly, so the hybrid starts above 2^15 here. The TPU's cuts between
+    its whole-transform kernel and two passes (`fused_applicable`,
+    `_fused64_profitable`) are VMEM and lane limits and are not carried
+    over, and neither is the hybrid's hardware-parity marker
+    (`_hybrid_deployable`: Mosaic plumbing);
   * the Plan52 channel routes (`try_fwd64_wide_all` :412,
     `try_pointwise_inv64_all` :440): `route64` picks the channel grid
     (K7a, K7d) where `mxu64.multi_applicable` holds, else K5 once per
-    channel.
+    channel; above 2^15 the channel-grid hybrid (K7c / K7d with block
+    tables, :426-433, :452-462) or the single-prime hybrid per channel.
 
 The JAX package routes on the backend and environment knobs; here the route
 is the device of the operand, inside the kernel modules: a CUDA tensor
 launches the kernel or raises, a CPU tensor runs its plain torch twin, so
-the CPU takes the same tier as the card. The one exception is n > 2^15 on
-the CPU, which runs the stage engine (as the JAX package off the TPU); on
-the card such sizes raise. There is no knob and no hybrid or presplit
-branch (both are off in the reference's 'auto'). Where the JAX functions
+the CPU takes the same tier as the card at every n. There is no knob. The
+32-bit hybrid and the presplit inverse (both off in the reference's 'auto')
+are not ported. Where the JAX functions
 return None for "not applicable", the 32-bit ones raise NotImplementedError
 naming the ROADMAP item (a caller that has another path asks `route32`
 first) and the 64-bit single-prime ones return None (the caller's other
@@ -44,7 +51,7 @@ from __future__ import annotations
 
 import torch
 
-from . import butterfly32_cuda, mxu32, mxu32_cuda, mxu64, mxu64_cuda
+from . import butterfly32_cuda, mxu32, mxu32_cuda, mxu64, mxu64_cuda, stagesplit
 from .u32 import (
     MASK32,
     mont_mul,
@@ -212,64 +219,84 @@ def inv32(x, tbl, *, p, variant, p_neginv):
 # ---------------------------------------------------------------------------
 
 
-def tier64(n: int, p: int, device) -> str:
-    """The prime64 tier for (n, p) on `device`: "K5" (the four-step kernel,
-    or its plain twin on the CPU) or "stage" (the stage engine in plain
-    torch). Decided before any launch. On the card n > 2^15 raises: those
-    sizes wait for the stage-split hybrid (ROADMAP.md Queue 1 item 9); on
-    the CPU they run the stage engine."""
-    if n > mxu64_cuda.MAX_N:
-        if torch.device(device).type != "cpu":
-            raise NotImplementedError(
-                f"n = {n}: prime64 transforms above 2^15 on the card wait for the "
-                "stage-split hybrid (ROADMAP.md Queue 1 item 9)"
-            )
-        return "stage"
-    return "K5" if mxu64.applicable(n, p) else "stage"
+def tier64(n: int, p: int, device=None) -> str:
+    """The prime64 tier for (n, p): "K5" (the four-step kernel, or its plain
+    twin on the CPU) up to 2^15, "K5h" (the stage-split hybrid around K5
+    with block tables, or its plain twin) above, both for the moduli the
+    four-step takes, else "stage" (the stage engine in plain torch).
+    Decided before any launch, and the same on every device (`device` is
+    accepted and not read)."""
+    if n <= mxu64_cuda.MAX_N:
+        return "K5" if mxu64.applicable(n, p) else "stage"
+    return "K5h" if stagesplit.applicable64(n, p) else "stage"
 
 
 def try_fwd64(limbs, n: int, p: int):
     """Four-step forward for prime64, (lo, hi) [B, n] uint32 -> (lo, hi)
     bit-reversed [0, p); None where the stage engine serves (n, p)."""
-    if tier64(n, p, limbs[0].device) != "K5":
-        return None
-    return mxu64_cuda.fwd(tuple(limbs), n=n, p=p)
+    tier = tier64(n, p)
+    if tier == "K5":
+        return mxu64_cuda.fwd(tuple(limbs), n=n, p=p)
+    if tier == "K5h":
+        return stagesplit.engine64_fused.fwd(tuple(limbs), n=n, p=p)
+    return None
 
 
 def try_inv64(limbs, n: int, p: int, scale: int = 1):
     """Four-step inverse for prime64 (a scale folded into A_inv); None where
     the stage engine serves (n, p)."""
-    if tier64(n, p, limbs[0].device) != "K5":
-        return None
-    return mxu64_cuda.inv(tuple(limbs), n=n, p=p, scale=scale)
+    tier = tier64(n, p)
+    if tier == "K5":
+        return mxu64_cuda.inv(tuple(limbs), n=n, p=p, scale=scale)
+    if tier == "K5h":
+        return stagesplit.engine64_fused.inv(tuple(limbs), n=n, p=p, scale=scale)
+    return None
 
 
 def route64(n: int, primes: tuple) -> str | None:
     """The channel route of a CRT plan's prime64 (Plan52) channels, decided
-    before any launch and the same on the CPU as on the card: "K7" (the
-    channel grid: `mxu64.multi_applicable`, 2^11 <= n <= 2^15), "K5" (the
-    four-step once per channel where `mxu64.applicable` holds for every
-    prime), or None (each channel's prime64 plan: the stage engine)."""
-    if not primes or n & (n - 1) or not mxu64_cuda.MIN_N <= n <= mxu64_cuda.MAX_N:
+    before any launch and the same on the CPU as on the card. For
+    2^11 <= n <= 2^15: "K7" (the channel grid: `mxu64.multi_applicable`) or
+    "K5" (the four-step once per channel where `mxu64.applicable` holds for
+    every prime). Above 2^15: "K7h" (the channel-grid hybrid,
+    `stagesplit.multi_hybrid_applicable64`) or "K5h" (the single-prime hybrid
+    once per channel). Else None (each channel's prime64 plan: the stage
+    engine)."""
+    if not primes or n & (n - 1) or n < mxu64_cuda.MIN_N:
         return None
+    if n > mxu64_cuda.MAX_N:
+        if stagesplit.multi_hybrid_applicable64(n, primes):
+            return "K7h"
+        return "K5h" if all(stagesplit.applicable64(n, p) for p in primes) else None
     if mxu64.multi_applicable(n, primes):
         return "K7"
     return "K5" if all(mxu64.applicable(n, p) for p in primes) else None
+
+
+def _stack_channels(outs: list) -> tuple:
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(2))
+
+
+def _engine64(route: str):
+    """The single-prime engine of a per-channel route."""
+    return mxu64_cuda if route == "K5" else stagesplit.engine64_fused
 
 
 def try_fwd64_wide_all(parts, plans):
     """Fused residue split + forward NTT for a CRT plan's prime64 channels:
     (lo, hi) [B, n] uint32 -> (lo, hi) of [C, B, n] NTT-domain residues. The
     four-step takes any u64 representative, so the per-coefficient `mod p`
-    split disappears (K7a, or K5 once per channel). None without a route."""
+    split disappears (K7a, or K5 once per channel; above 2^15 the hybrids).
+    None without a route."""
     n, primes = parts[0].shape[-1], _primes(plans)
     route = route64(n, primes)
     if route is None:
         return None
     if route == "K7":
         return mxu64_cuda.fwd_multi(tuple(parts), primes)
-    outs = [mxu64_cuda.fwd(tuple(parts), n=n, p=p) for p in primes]
-    return tuple(torch.stack([o[i] for o in outs]) for i in range(2))
+    if route == "K7h":
+        return stagesplit.fwd_multi_hybrid64(tuple(parts), primes, n=n)
+    return _stack_channels([_engine64(route).fwd(tuple(parts), n=n, p=p) for p in primes])
 
 
 def _pointwise_scales64(n: int, primes: tuple) -> tuple:
@@ -281,8 +308,9 @@ def _pointwise_scales64(n: int, primes: tuple) -> tuple:
 def try_pointwise_inv64_all(fl, fr, plans):
     """Pointwise Montgomery product + normalized inverse NTT of all Plan52
     channels: fl, fr = (lo, hi) of [C, B, n] uint32 -> (lo, hi) of [C, B, n]
-    standard-order canonical residues. K7d does both in one kernel; on the
-    K5 route the product is plain torch per channel. None without a route."""
+    standard-order canonical residues. K7d does both in one kernel (with
+    block tables inside the channel-grid hybrid); on the per-channel routes
+    the product is plain torch. None without a route."""
     n, primes = fl[0].shape[-1], _primes(plans)
     route = route64(n, primes)
     if route is None:
@@ -290,9 +318,11 @@ def try_pointwise_inv64_all(fl, fr, plans):
     scales = _pointwise_scales64(n, primes)
     if route == "K7":
         return mxu64_cuda.pointwise_inv_multi(tuple(fl), tuple(fr), primes, scales)
+    if route == "K7h":
+        return stagesplit.pointwise_inv_multi_hybrid64(tuple(fl), tuple(fr), primes, scales, n=n)
     a, b = tuple(map(to_i64, fl)), tuple(map(to_i64, fr))
     outs = []
     for i, (p, s) in enumerate(zip(primes, scales)):
         prod = mont_mul64((a[0][i], a[1][i]), (b[0][i], b[1][i]), p, mont_neginv64(p))
-        outs.append(mxu64_cuda.inv(tuple(to_u32(t) for t in prod), n=n, p=p, scale=s))
-    return tuple(torch.stack([o[i] for o in outs]) for i in range(2))
+        outs.append(_engine64(route).inv(tuple(to_u32(t) for t in prod), n=n, p=p, scale=s))
+    return _stack_channels(outs)

@@ -3,7 +3,9 @@
 Counterpart of `concrete_ntt_tpu/ops/table_cache.py`. Building the six
 four-step operators (A, F, d, G, e, Ainv) per (n, p) in numpy takes seconds
 per prime, and they are pure functions of (n, p), so they are cached as
-.npz files across processes (tests, `chip_smoke.py`).
+.npz files across processes (tests, `chip_smoke.py`): `cached_operators`
+for a transform's six, `cached_arrays` for any named set of uint64 arrays
+(the stage-split hybrid's per-block operators, `ops/stagesplit.py`).
 
 The cache lives inside the package, in `_build/tables/` (ignored by git), so
 it never mixes with the JAX package's files and nothing is written outside
@@ -30,26 +32,41 @@ def _cache_dir() -> str | None:
         return None
 
 
-def cached_operators(n: int, p: int, build_fn):
-    """Return build_fn()'s {A,F,d,G,e,Ainv} dict, memoized on disk."""
-    d = _cache_dir()
-    if d is None:
+def _memoized(path: str | None, keys, build_fn):
+    """build_fn()'s {name: uint64 array} dict, read from `path` where it
+    holds one (all of `keys`, or any non-empty set where keys is None)."""
+    if path is None:
         return build_fn()
-    path = os.path.join(d, f"fourstep_v{_FORMAT}_{n}_{p}.npz")
     if os.path.exists(path):
         try:
             with np.load(path) as z:
-                ops = {k: z[k] for k in _KEYS}
-            if all(ops[k].dtype == np.uint64 for k in _KEYS):
-                return ops
+                out = {k: z[k] for k in (z.files if keys is None else keys)}
+            if out and all(v.dtype == np.uint64 for v in out.values()):
+                return out
         except (OSError, KeyError, ValueError):
             pass  # corrupt/partial file: rebuild below
-    ops = build_fn()
+    out = build_fn()
     try:
-        fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz")
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".npz")
         with os.fdopen(fd, "wb") as f:
-            np.savez(f, **{k: np.ascontiguousarray(ops[k]) for k in _KEYS})
+            np.savez(f, **{k: np.ascontiguousarray(out[k]) for k in (keys or out)})
         os.replace(tmp, path)  # atomic: concurrent builders race benignly
     except OSError:
         pass
-    return ops
+    return out
+
+
+def _path(name: str) -> str | None:
+    d = _cache_dir()
+    return None if d is None else os.path.join(d, name)
+
+
+def cached_operators(n: int, p: int, build_fn):
+    """Return build_fn()'s {A,F,d,G,e,Ainv} dict, memoized on disk."""
+    return _memoized(_path(f"fourstep_v{_FORMAT}_{n}_{p}.npz"), _KEYS, build_fn)
+
+
+def cached_arrays(key: str, build_fn):
+    """Return build_fn()'s {name: uint64 array} dict, memoized on disk under
+    an arbitrary key (the stage-split hybrid's per-block operator sets)."""
+    return _memoized(_path(f"arrays_v{_FORMAT}_{key}.npz"), None, build_fn)

@@ -18,10 +18,12 @@ a numpy call raises, and the CPU is what a caller asks for with
 `device="cpu"`.
 
 `ops/ntt_dispatch.tier64` chooses the tier: the four-step kernel K5
-(`ops/mxu64_cuda.py`) for 2^11 <= n <= 2^15 and odd 2^33 < p < 2^64, else
-the stage engine with `ops/butterflies64.py` in plain torch (the JAX package
-has no Pallas kernel there either). A CUDA tensor launches the kernel; a CPU
-tensor runs its plain torch twin. Outputs equal the JAX package's bit for
+(`ops/mxu64_cuda.py`) for 2^11 <= n <= 2^15 and odd 2^33 < p < 2^64, the
+stage-split hybrid (`ops/stagesplit.py`: butterfly prefix stages + K5 with
+block tables) for the same moduli above 2^15, else the stage engine with
+`ops/butterflies64.py` in plain torch (the JAX package has no Pallas kernel
+there either). A CUDA tensor launches the kernel; a CPU tensor runs its
+plain torch twin. Outputs equal the JAX package's bit for
 bit: fwd = standard order -> bit-reversed NTT values in [0, p); inv =
 bit-reversed -> standard order, unnormalized (inv(fwd(x)) == n·x mod p).
 The elementwise ops are plain torch on the operands' device.

@@ -1,7 +1,8 @@
-"""Card tests of the port: each kernel (K1a-K1d, K2, K3, K4, K5, K6, K7a,
-K7d) against its plain torch twin, and the native64 Plan32 and Plan52,
-prime32, prime64 and product polymuls through the kernels against the CPU
-plain path.
+"""Card tests of the port: each kernel (K1a-K1d, K2, K3, K4, K5, K5 with
+block tables, K6, K7a-K7d direct and with block tables) against its plain
+torch twin, and the native64 Plan32 and Plan52, prime32, prime64 (direct and
+through the stage-split hybrid at 2^16) and product polymuls through the
+kernels against the CPU plain path.
 
 Every test here is marked `cuda` and skips without a CUDA GPU. The file
 imports only the port (no JAX), so it runs on a GPU machine without JAX:
@@ -17,7 +18,8 @@ import pytest
 import torch
 
 from concrete_ntt_tpu_torch import native64, prime32, prime64, product
-from concrete_ntt_tpu_torch.ops import butterfly32_cuda, mxu32, mxu32_cuda, mxu64, mxu64_cuda
+from concrete_ntt_tpu_torch.ops import (
+    butterfly32_cuda, mxu32, mxu32_cuda, mxu64, mxu64_cuda, stagesplit)
 from concrete_ntt_tpu_torch.tables import GOLDILOCKS, PRIMES52
 from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
 from concrete_ntt_tpu_torch.utils.prime import largest_prime_in_arithmetic_progression64 as _lp
@@ -31,6 +33,14 @@ REGIMES64 = {
     "p63": _lp(1 << 15, 1, 1 << 62, 1 << 63),
     "p64": _lp(1 << 15, 1, 1 << 63, (1 << 64) - 1),
     "p62": _lp(1 << 16, 1, 1 << 61, 1 << 62),
+}
+# the same five regimes with 2^18 | p - 1: NTT primes up to n = 2^17
+HYB64 = {
+    "goldilocks": GOLDILOCKS,
+    "p50": _lp(1 << 18, 1, 0, 1 << 50),
+    "p62": _lp(1 << 18, 1, 1 << 61, 1 << 62),
+    "p63": _lp(1 << 18, 1, 1 << 62, 1 << 63),
+    "p64": _lp(1 << 18, 1, 1 << 63, (1 << 64) - 1),
 }
 
 
@@ -232,7 +242,7 @@ def test_plan52_polymul_on_card_matches_cpu_and_plan32(gen, cuda_device):
     lhs, rhs = (gen.integers(0, 1 << 64, (b, n), dtype=np.uint64) for _ in range(2))
     mxu64_cuda.reset_launch_counts()
     got = native64.Plan52.try_new(n).negacyclic_polymul(lhs, rhs)
-    assert mxu64_cuda.LAUNCHES == {"fwd64": 0, "inv64": 0, "pass_matmod64": 0, "fwd_multi64": 2,
+    assert mxu64_cuda.LAUNCHES == {**dict.fromkeys(mxu64_cuda.LAUNCHES, 0), "fwd_multi64": 2,
                                    "pointwise_inv_multi64": 1}
     np.testing.assert_array_equal(
         got, native64.Plan52.try_new(n, device="cpu").negacyclic_polymul(lhs, rhs))
@@ -247,3 +257,74 @@ def test_product_u64_channel_on_card_matches_cpu(gen, cuda_device):
     got = product.Plan.new(n, m, factors).negacyclic_polymul(a, c)
     np.testing.assert_array_equal(
         got, product.Plan.new(n, m, factors, device="cpu").negacyclic_polymul(a, c))
+
+
+def _scale64(n, p):
+    return pow(n, p - 2, p) * pow(2, 64, p) % p
+
+
+@pytest.mark.parametrize("regime", list(HYB64))
+def test_k5h_matches_plain_and_direct_on_card(gen, cuda_device, regime):
+    """K5 with block tables at n = 2^15, n_h = 2^14: the block transforms
+    against their plain version, and the whole hybrid (prefix + K5h, K5h +
+    suffix) against the direct kernel K5 at 2^15 (bit-identical by
+    contract) on full-range u64 operands."""
+    p, n, n_h, b = HYB64[regime], 1 << 15, 1 << 14, 3
+    x = (_u32(gen, (b, n), cuda_device), _u32(gen, (b, n), cuda_device))
+    s = _scale64(n, p)
+    mxu64_cuda.reset_launch_counts()
+    _same_pair(mxu64_cuda.fwd_hyb(x, n=n, p=p, n_h=n_h),
+               mxu64_cuda.fwd_hyb_plain(x, n=n, p=p, n_h=n_h))
+    _same_pair(mxu64_cuda.inv_hyb(x, n=n, p=p, n_h=n_h, scale=s),
+               mxu64_cuda.inv_hyb_plain(x, n=n, p=p, n_h=n_h, scale=s))
+    _same_pair(stagesplit.fwd64_fused(x, n=n, p=p), mxu64_cuda.fwd(x, n=n, p=p))
+    _same_pair(stagesplit.inv64_fused(x, n=n, p=p, scale=s), mxu64_cuda.inv(x, n=n, p=p, scale=s))
+    _same_pair(stagesplit.inv64_fused(x, n=n, p=p), stagesplit.inv64(x, n=n, p=p))
+    assert mxu64_cuda.LAUNCHES["fwd64_hyb"] == 2 and mxu64_cuda.LAUNCHES["inv64_hyb"] == 3
+
+
+@pytest.mark.parametrize("n,b", [(1 << 11, 3), (1 << 14, 5)])
+def test_k7b_k7c_match_plain_on_card(gen, cuda_device, n, b):
+    primes = PRIMES52[:3]
+    x = (_u32(gen, (3, b, n), cuda_device), _u32(gen, (3, b, n), cuda_device))
+    _same_pair(mxu64_cuda.fwd_multi_perchannel64(*x, primes),
+               mxu64_cuda.fwd_multi_perchannel64_plain(x, primes))
+    for scales in ((1, 1, 1), tuple(_scale64(n, p) for p in primes)):
+        _same_pair(mxu64_cuda.inv_multi(*x, primes, scales),
+                   mxu64_cuda.inv_multi_plain(x, primes, scales))
+
+
+def test_k7_block_tables_match_plain_and_direct_on_card(gen, cuda_device):
+    """K7c / K7b / K7d with block tables at n = 2^15: against their plain
+    versions, and the channel-grid hybrid against K7a / K5 / K7d direct."""
+    primes, n, n_h, b = PRIMES52[:3], 1 << 15, 1 << 14, 3
+    scales = tuple(_scale64(n, p) for p in primes)
+    x = (_u32(gen, (3, b, n), cuda_device), _u32(gen, (3, b, n), cuda_device))
+    y = (_u32(gen, (3, b, n), cuda_device), _u32(gen, (3, b, n), cuda_device))
+    _same_pair(mxu64_cuda.fwd_multi_perchannel64(*x, primes, n_h=n_h),
+               mxu64_cuda.fwd_multi_perchannel64_plain(x, primes, n_h))
+    _same_pair(mxu64_cuda.inv_multi(*x, primes, scales, n_h=n_h),
+               mxu64_cuda.inv_multi_plain(x, primes, scales, n_h))
+    _same_pair(mxu64_cuda.pointwise_inv_multi(x, y, primes, scales, n_h=n_h),
+               mxu64_cuda.pointwise_inv_multi_plain(x, y, primes, scales, n_h))
+    shared = (x[0][0], x[1][0])
+    _same_pair(stagesplit.fwd_multi_hybrid64(shared, primes, n=n),
+               mxu64_cuda.fwd_multi(shared, primes))
+    want = [mxu64_cuda.inv((x[0][c], x[1][c]), n=n, p=p, scale=scales[c])
+            for c, p in enumerate(primes)]
+    _same_pair(stagesplit.inv_multi_hybrid64(*x, primes, scales, n=n),
+               tuple(torch.stack([w[i] for w in want]) for i in range(2)))
+    _same_pair(stagesplit.pointwise_inv_multi_hybrid64(x, y, primes, scales, n=n),
+               mxu64_cuda.pointwise_inv_multi(x, y, primes, scales))
+
+
+@pytest.mark.parametrize("regime", ["goldilocks", "p62"])
+def test_prime64_hybrid_polymul_on_card_matches_cpu(gen, cuda_device, regime):
+    p, n = HYB64[regime], 1 << 16
+    lhs, rhs = (gen.integers(0, 1 << 64, (2, n), dtype=np.uint64) % np.uint64(p) for _ in range(2))
+    mxu64_cuda.reset_launch_counts()
+    got = prime64.Plan.new(n, p).negacyclic_polymul(lhs, rhs)  # numpy input, default device
+    assert mxu64_cuda.LAUNCHES == {**dict.fromkeys(mxu64_cuda.LAUNCHES, 0), "fwd64_hyb": 2,
+                                   "inv64_hyb": 1}
+    np.testing.assert_array_equal(
+        got, prime64.Plan.new(n, p, device="cpu").negacyclic_polymul(lhs, rhs))

@@ -243,8 +243,10 @@ def test_wrappers_check_operands(rng):
         tcu.inv(tuple(a.to(torch.int64) for a in x), n=2048, p=p)
     with pytest.raises(ValueError, match="no route"):
         tcu.fwd(tuple(a.to("meta") for a in x), n=2048, p=p)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="stage engine"):
         tcu.fwd(_t(_pair(rng, (1, 1024))), n=1024, p=p)
+    with pytest.raises(NotImplementedError, match="stage-split hybrid"):
+        tcu.fwd(_t(_pair(rng, (1, 1 << 16))), n=1 << 16, p=p)
     with pytest.raises(NotImplementedError, match="2\\^33"):
         tcu.fwd(x, n=2048, p=(1 << 32) + 15)
     with pytest.raises(NotImplementedError, match="channel-grid"):

@@ -86,7 +86,9 @@ def test_channel_routes():
     assert ntt_dispatch.route64(1 << 14, (PRIMES52[0], p63)) == "K5"
     assert ntt_dispatch.route64(1 << 14, (GOLDILOCKS,)) == "K5"
     assert ntt_dispatch.route64(1024, PRIMES52[:3]) is None
-    assert ntt_dispatch.route64(1 << 16, PRIMES52[:3]) is None
+    assert ntt_dispatch.route64(1 << 16, PRIMES52[:3]) == "K7h"  # the channel-grid hybrid
+    assert ntt_dispatch.route64(1 << 16, (PRIMES52[0], p63)) == "K5h"
+    assert ntt_dispatch.route64(1 << 16, ((1 << 32) + 15,)) is None
     assert ntt_dispatch.route64(2048, ((1 << 32) + 15,)) is None
 
 

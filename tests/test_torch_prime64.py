@@ -1,8 +1,9 @@
 """The port's `prime64.Plan` against the JAX package's plan, in the five
 regime primes (Goldilocks, a 50-bit Plan52 prime, the largest NTT primes
-below 2^62, 2^63 and 2^64), through the stage engine (n = 64) and the
-four-step's plain twin (n = 2048), and against the schoolbook oracle.
-Inputs from a numpy seed; tolerance: exact equality.
+below 2^62, 2^63 and 2^64), through the stage engine (n = 64), the
+four-step's plain twin (n = 2048) and the stage-split hybrid's plain twin
+(n = 2^16), and against the schoolbook oracle. Inputs from a numpy seed;
+tolerance: exact equality.
 """
 
 import numpy as np
@@ -120,8 +121,42 @@ def test_device_rule(rng):
     got = plan.fwd(_limbs(a))
     assert got.device.type == "cpu"
     np.testing.assert_array_equal(got.numpy(), tp64.Plan.new(n, p, device="cpu").fwd(_limbs(a)).numpy())
+    # the tier is one for every device, at every n: above 2^15 the hybrid
+    big = tp64.Plan.try_new(1 << 16, GOLDILOCKS)
+    for n in (64, 1024, 2048, 1 << 15, big.n, 1 << 17):
+        for q in (GOLDILOCKS, 65537):
+            assert ntt_dispatch.tier64(n, q, "cpu") == ntt_dispatch.tier64(n, q, "cuda")
+    assert ntt_dispatch.tier64(big.n, big.p, "cuda") == "K5h"
+    assert ntt_dispatch.tier64(1 << 15, big.p, "cuda") == "K5"
+    assert ntt_dispatch.tier64(big.n, 65537, "cpu") == "stage"
     if not torch.cuda.is_available():
-        big = tp64.Plan.try_new(1 << 16, GOLDILOCKS)
-        assert ntt_dispatch.tier64(1 << 16, GOLDILOCKS, "cpu") == "stage"
-        with pytest.raises(NotImplementedError, match="item 9"):
-            ntt_dispatch.tier64(big.n, big.p, "cuda")
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            big.fwd(np.zeros((1, big.n), dtype=np.uint64))
+
+
+@pytest.fixture
+def jax_mxu(monkeypatch):
+    monkeypatch.setenv("CONCRETE_NTT_TPU_ENGINE", "mxu")
+
+
+@pytest.mark.parametrize("regime", ["goldilocks", "p62"])
+def test_hybrid_plan_matches_jax_and_stage_engine(rng, jax_mxu, regime):
+    """`Plan(2^16, p)` takes the stage-split hybrid (tier "K5h", its plain
+    twin here): fwd, inv and the polymul at B = 1 equal the JAX plan's with
+    its matmul engine (which takes its hybrid above 2^14) and the port's own
+    stage engine."""
+    n = 1 << 16
+    p = GOLDILOCKS if regime == "goldilocks" else _lp(2 * n, 1, 1 << 61, 1 << 62)
+    tplan, jplan = tp64.Plan.new(n, p, device="cpu"), jp64.Plan.new(n, p)
+    assert ntt_dispatch.tier64(n, p, "cpu") == "K5h"
+    a, b = _vals(rng, p, (1, n)), _vals(rng, p, (1, n))
+    fwd = tplan.fwd(a)
+    np.testing.assert_array_equal(fwd, jplan.fwd(a))
+    np.testing.assert_array_equal(tplan.inv(a), jplan.inv(a))
+    np.testing.assert_array_equal(tplan.negacyclic_polymul(a, b), jplan.negacyclic_polymul(a, b))
+    x = _limbs(a)
+    lo, hi = x[..., 0].contiguous(), x[..., 1].contiguous()
+    for direction, fn in (("fwd", tplan.fwd_pair), ("inv", tplan.inv_pair)):
+        for g, w in zip(fn(lo, hi), tplan._stage_engine(lo, hi, direction)):
+            assert torch.equal(g, w)
+    assert mxu64_cuda.LAUNCHES == dict.fromkeys(mxu64_cuda.LAUNCHES, 0)

@@ -318,3 +318,18 @@ def test_prime64_channels_match_jax(rng, mix, n):
             jp.negacyclic_polymul(a, b, lhs_fwd_mode=J.bounded(1 << 10), **kw_j))
     if n == N:
         assert tp.negacyclic_polymul(a, b)[0].tolist() == _conv_row0(a, b, m)
+
+
+def test_prime64_channel_takes_the_hybrid_at_2pow16(rng):
+    """At n = 2^16 a u64 factor's channel runs the stage-split hybrid (tier
+    "K5h": its plain twin here) through `prime64.Plan`; the plan with a u32
+    and a u64 factor equals the JAX plan's at B = 1."""
+    from concrete_ntt_tpu_torch.ops import ntt_dispatch
+
+    n = 1 << 16
+    factors = _mix64(n, "u30+u64")
+    jp, tp, m = _plans(n, factors)
+    assert tp.primes64 == (factors[1],) and ntt_dispatch.tier64(n, factors[1], "cpu") == "K5h"
+    a, b = (_rand_mod(rng, m, (1, n)) for _ in range(2))
+    np.testing.assert_array_equal(tp.negacyclic_polymul(a, b), jp.negacyclic_polymul(a, b))
+    np.testing.assert_array_equal(tp.inv(tp.fwd(a))[0], [int(v) * n % m for v in a[0]])
