@@ -47,6 +47,18 @@ Drives the port's paths through their hand-written CUDA kernels:
     K7d and K7b with block tables of `csrc/mxu64_multi.cu`, held against
     Plan52's direct route (K7a, K7d, K5); and K7c / K7b direct at 2^14 as a
     per-channel round trip;
+  * the other five native families (native32, native_binary32,
+    native_binary64 in the Plan32 and Plan52 tiers; native128 and
+    native_binary128 Plan32): `negacyclic_polymul`, `fwd`, `inv` at n = 2^14,
+    batch 8. The u128 plans run K1a with the four limbs of the operand (the
+    u128 -> residue split folded into the column matmul as 16 operand digit
+    planes) over 10 and 5 channels, the others K1a / K1b with one or two
+    limbs and K7a / K7d / K5 on `(x, 0)` limb pairs; at n = 1024 one plan of
+    each width through the per-channel route (explicit split, K4 per
+    channel, the lift); Python-int and 4-limb planar input on a default
+    plan; K2's `fwd_wide` with four limbs as the per-channel four-step route
+    of `ntt_dispatch.try_fwd32_wide_all`, and K3's A pass with four limbs as
+    the rank-local column pass of a u128 operand;
   * the device rule: a default-constructed plan given numpy input computes
     on the card (its launch counters move).
 
@@ -83,7 +95,11 @@ failure:
                output; K7c and K7b direct at (2^14, 8) and (2^11, 3); K7c,
                K7b and K7d with block tables at (2^15, 8) against their
                plain versions and, as the whole channel-grid hybrid,
-               against K7a, K5 x3 and K7d direct.
+               against K7a, K5 x3 and K7d direct; with the four limbs of
+               a u128 operand (full-range u32 limbs): K1a over 10 and over 5
+               channels at (2^14, 8), (2^14, 5), (2^11, 3), (2^15, 2), K2
+               fwd_wide at K2's shapes and K3's A pass (scaled) at K3's, in
+               the three bench primes.
   4. main    — native64: three polymuls on the card == CPU plain path ==
                numpy wrapping oracle (row 0); K1a +2, K1b +1 per call.
                prime32: Plan(2^14, p) polymul at B = 16 for each bench prime
@@ -121,8 +137,18 @@ failure:
                channel-grid hybrid at (2^15, 8): K7c-hyb +2, K7d-hyb +1 a
                polymul == Plan52 direct == CPU plain path, K7b-hyb +1 an
                inverse, n·x; K7c +1, K7b +1 a per-channel round trip at
-               2^14. Each path's launch counters are set to 0
-               just before it and read just after.
+               2^14. The native families at (2^14, 8): each of the eight
+               plan classes' polymul == CPU plain path == the wrapping
+               oracle (row 0; four sampled coefficients at width 128), fwd
+               == CPU, inv(fwd(x)) == n·x wrapping; native128 K1a-u128 +2,
+               K1b +1, native_binary128 K1a-u128 +1, K1a +1, K1b +1; at
+               n = 1024 native32, native_binary64 and native128 Plan32
+               through the per-channel route (K4 +2k fwd, +k inv, no K1
+               launch); `"py128"` lists on a default native128 plan == the
+               planar result; a u128 operand through K2 (x3 primes) and
+               through the rank-local passes (K3-u128 +R, K3 +R) == its
+               residues through the one-limb path. Each path's launch
+               counters are set to 0 just before it and read just after.
   5. times   — CUDA events, warm-up then the median of reps, each kernel
                beside its plain version (K1d also beside plain mont_mul +
                K1b), the polymuls in products/s (product in its three
@@ -134,7 +160,10 @@ failure:
                beside the hybrid (prefix + K5h, K5h + suffix) at (2^15, 16)
                and the Plan52 polymul direct beside the channel-grid hybrid
                at (2^15, 8), in turns; the prime64 transforms and polymul
-               at 2^16 and 2^17.
+               at 2^16 and 2^17; K1a with four limbs over 10 and 5
+               channels, K1b over 10, K2 fwd_wide and K3 A with four limbs;
+               the polymul of every native family at (2^14, 8) and the
+               per-channel route's at 1024.
 Then one JSON line of kernel summaries (each with its launches on its main
 path, error, ms, plain ms, and the bound: the larger of its bytes over
 3.35 TB/s and its int8 operations over 1,979 TOP/s, the H100 SXM data-sheet
@@ -149,7 +178,8 @@ product polymul at (2^14, 16) in Replace and Bounded, of the prime64 polymul
 per regime and of the Plan52 polymul: host-clock ms, device
 busy ms and share, matmod_pass / butterfly device ms, and device kernels
 and aten ops per polymul; and of the prime64 polymul at 2^16 with its split
-into prefix stages, block kernels and suffix stages.
+into prefix stages, block kernels and suffix stages; and of the polymul of
+each native family at (2^14, 8).
 Inputs come from numpy's default_rng(--seed); the script imports no JAX.
 """
 
@@ -222,7 +252,19 @@ KERNELS = {  # JSON name -> (source, TPU kernel replaced)
     "fwd_multi_perchannel64_hyb": (MULTI64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:695"),
     "inv_multi64_hyb": (MULTI64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:712"),
     "pointwise_inv_multi64_hyb": (MULTI64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:728"),
+    # the same TPU kernels with the four limbs of a u128 operand (16 operand planes)
+    "fwd_wide_multi_u128": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:527"),
+    "fwd_u128": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:163"),
+    "pass_matmod_u128": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:687"),
 }
+# (module, tier) of the native plans beside native64's, and the three run at
+# n = 1024 through the per-channel route (one of each width)
+NATIVE_PLANS = (("native32", "Plan32"), ("native32", "Plan52"), ("native_binary32", "Plan32"),
+                ("native_binary32", "Plan52"), ("native_binary64", "Plan32"),
+                ("native_binary64", "Plan52"), ("native128", "Plan32"),
+                ("native_binary128", "Plan32"))
+PERCHANNEL_PLANS = (("native32", "Plan32"), ("native_binary64", "Plan32"), ("native128", "Plan32"))
+N_PERCH = 1024
 
 
 class PhaseError(RuntimeError):
@@ -294,11 +336,17 @@ def rank_local_fwd(pass_matmod, x, diag, *, n, n1, n2, p):
     and runs the column pass A with its rows of the diagonal d; the
     all-to-all gives rank q outputs q*c1.. of every rank; each runs the row
     pass F on its rows."""
-    b = x.shape[0]
+    limbs = x if isinstance(x, tuple) else (x,)  # a wide operand: little-endian u32 limbs
+    b = limbs[0].shape[0]
     c, c1 = n2 // RANKS, n1 // RANKS
-    xv = x.reshape(b, n1, n2)
-    ys = [pass_matmod(xv[:, :, r * c:(r + 1) * c].transpose(1, 2).contiguous(), n=n, p=p,
-                      which="A", diag_slices=tuple(t[r * c:(r + 1) * c] for t in diag))
+
+    def cols(r):
+        sl = tuple(a.reshape(b, n1, n2)[:, :, r * c:(r + 1) * c].transpose(1, 2).contiguous()
+                   for a in limbs)
+        return sl if len(sl) > 1 else sl[0]
+
+    ys = [pass_matmod(cols(r), n=n, p=p, which="A", n_limbs=len(limbs),
+                      diag_slices=tuple(t[r * c:(r + 1) * c] for t in diag))
           for r in range(RANKS)]  # [B, c, n1] each
     outs = [pass_matmod(torch.cat([y[:, :, q * c1:(q + 1) * c1] for y in ys], dim=1)
                         .transpose(1, 2).contiguous(), n=n, p=p, which="F")
@@ -427,17 +475,19 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import concrete_ntt_tpu_torch as port
     from concrete_ntt_tpu_torch import native64, prime32, prime64, product
     from concrete_ntt_tpu_torch.golden.polymul import (
+        negacyclic_coefficients_wrapping,
         negacyclic_convolution_mod,
         negacyclic_convolution_wrapping_np,
     )
     from concrete_ntt_tpu_torch.ops import butterfly32_cuda as bcu
     from concrete_ntt_tpu_torch.ops import (
-        cuda_build, mxu32, mxu32_cuda, mxu64, mxu64_cuda, stagesplit)
+        cuda_build, mxu32, mxu32_cuda, mxu64, mxu64_cuda, ntt_dispatch, stagesplit)
     from concrete_ntt_tpu_torch.ops.u32 import (
         limbs_to_np_u64, mont_mul, mont_mul64, mont_neginv, mont_neginv64, to_i64, to_u32)
-    from concrete_ntt_tpu_torch.tables import GOLDILOCKS, PRIMES52
+    from concrete_ntt_tpu_torch.tables import GOLDILOCKS, NATIVE128_PRIMES, PRIMES52
     from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
     from concrete_ntt_tpu_torch.utils.prime import (
         largest_prime_in_arithmetic_progression64 as prime_in_ap)
@@ -742,6 +792,35 @@ def main() -> int:
           f"{checks['pointwise_inv_multi64_hyb']} checks exact against the plain versions and "
           f"against K7a / K5 / K7d direct, primes {P52}, full-range u64 operands in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the four limbs of a u128 operand: K1a over the native128 (10) and the
+    # native_binary128 (5) channels, K2 fwd_wide and K3's A pass per bench prime
+    t0 = time.perf_counter()
+    for n, b in PARITY_SHAPES:
+        limbs = tuple(u32((b, n)) for _ in range(4))
+        for ch in (10, 5):
+            compare("fwd_wide_multi_u128",
+                    mxu32_cuda.fwd_wide_multi(limbs, NATIVE128_PRIMES[:ch]),
+                    mxu32_cuda.fwd_wide_multi_plain(limbs, NATIVE128_PRIMES[:ch]),
+                    f"n={n} B={b} limbs=4 channels={ch}")
+    for p in BENCH_PRIMES.values():
+        for n, b in K2_SHAPES:
+            limbs = tuple(u32((b, n)) for _ in range(4))
+            compare("fwd_u128", mxu32_cuda.fwd_wide(limbs, n=n, p=p),
+                    mxu32_cuda.fwd_wide_plain(limbs, n=n, p=p), f"p={p} n={n} B={b} 4 limbs")
+        for n in K3_SIZES:
+            tbl = mxu32._mxu_tables(n, p)
+            d = tuple(torch.from_numpy(a).to(dev) for a in tbl["d"])  # [n2, n1]
+            for b in K3_BATCHES:
+                xa = tuple(u32((b, tbl["n2"], tbl["n1"])) for _ in range(4))
+                kw = dict(n=n, p=p, which="A", diag_slices=d, n_limbs=4)
+                compare("pass_matmod_u128", mxu32_cuda.pass_matmod(xa, **kw),
+                        mxu32_cuda.pass_matmod_plain(xa, **kw), f"p={p} n={n} B={b} A 4 limbs")
+    print(f"parity: four-limb (u128) operands, full-range u32 limbs: K1a "
+          f"{checks['fwd_wide_multi_u128']} checks exact over 10 and 5 channels at (n, B) in "
+          f"{PARITY_SHAPES}; K2 fwd_wide {checks['fwd_u128']} at (n, B) in {K2_SHAPES}, K3 A "
+          f"{checks['pass_matmod_u128']} at n in {K3_SIZES}, B in {K3_BATCHES}, p in "
+          f"{tuple(BENCH_PRIMES.values())}, in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 4. main paths ------------------------------------------------------------
     plan = native64.Plan32.try_new(N_MAIN)
@@ -1238,6 +1317,186 @@ def main() -> int:
           f"polymul == Plan52 direct == CPU plain path (2 rows), inv(fwd(x)) == n·x; K7c / K7b "
           f"round trip at n={N64} == x; launches {launches_ch}", flush=True)
 
+    # the other native families: widths 32, 64 and 128, both tiers
+    def limbs_np(width, shape, binary=False):
+        """Random `width`-bit values as uint32 limbs [..., width / 32] ({0, 1} if binary)."""
+        nl = width // 32
+        if not binary:
+            return rng.integers(0, 1 << 32, (*shape, nl), dtype=np.uint32)
+        out = np.zeros((*shape, nl), dtype=np.uint32)
+        out[..., 0] = rng.integers(0, 2, shape, dtype=np.uint32)
+        return out
+
+    def as_ints(limbs):
+        """uint32 limbs [..., nl] -> object array of Python integers [...]."""
+        return sum(limbs[..., k].astype(object) << (32 * k) for k in range(limbs.shape[-1]))
+
+    def plan_arg(limbs, device):
+        """The plan's performance format: a uint32 tensor (width 32) or planar limbs."""
+        ts = tuple(torch.from_numpy(np.ascontiguousarray(limbs[..., k])).to(device)
+                   for k in range(limbs.shape[-1]))
+        return ts[0] if len(ts) == 1 else ts
+
+    def out_limbs(out):
+        """A plan's output (a tensor or planar limbs) -> uint32 limbs [..., nl] on the host."""
+        parts = out if isinstance(out, tuple) else (out,)
+        return np.stack([t.cpu().numpy() for t in parts], axis=-1)
+
+    def native_counts(pl, binary):
+        """Launches of one polymul, one fwd and one inv of a native plan at 2^11 <= n <= 2^15."""
+        k, nl = len(pl.primes), pl.width // 32
+        if pl.tier == "plan32":
+            wide = "fwd_wide_multi_u128" if nl == 4 else "fwd_wide_multi"
+            poly = {wide: 1, "inv_multi": 1}
+            poly["fwd_wide_multi" if binary else wide] = poly.get(
+                "fwd_wide_multi" if binary else wide, 0) + 1
+            return poly, {wide: 1}, {"inv_multi": 1}
+        if ntt_dispatch.route64(pl.n, pl.primes) == "K7":
+            return ({"fwd_multi64": 2, "pointwise_inv_multi64": 1}, {"fwd_multi64": 1},
+                    {"inv64": k})
+        return {"fwd64": 2 * k, "inv64": k}, {"fwd64": k}, {"inv64": k}
+
+    fam = []
+    for mod, tier in NATIVE_PLANS:
+        cls = getattr(getattr(port, mod), tier)
+        pl = cls.try_new(N_MAIN)
+        require(pl is not None and pl.device == "cuda",
+                f"main: {mod}.{tier}({N_MAIN}) default device is not the card")
+        binary = "binary" in mod
+        fam.append((f"{mod}.{tier}", pl, cls.try_new(N_MAIN, device="cpu"), binary,
+                    limbs_np(pl.width, (B_MAIN, N_MAIN)),
+                    limbs_np(pl.width, (B_MAIN, N_MAIN), binary)))
+    torch.cuda.synchronize()
+    reset_counts()
+    fam_out = []
+    for name, pl, _, binary, a, b in fam:
+        poly, fwd_c, inv_c = native_counts(pl, binary)
+        la, lb = plan_arg(a, dev), plan_arg(b, dev)
+        before = counts()
+        got = pl.negacyclic_polymul(la, lb)  # the binary plans take rhs as the {0, 1} operand
+        expect_delta(before, poly, f"{name}({N_MAIN}) polymul")
+        before = counts()
+        f = pl.fwd(la)
+        expect_delta(before, fwd_c, f"{name}({N_MAIN}) fwd")
+        before = counts()
+        back = pl.inv(f, out_format="u32" if pl.width == 32 else "planar")
+        expect_delta(before, inv_c, f"{name}({N_MAIN}) inv")
+        fam_out.append((got, f, back))
+    torch.cuda.synchronize()
+    launches_fam = counts()
+    t0 = time.perf_counter()
+    for (name, pl, cpu, binary, a, b), (got, f, back) in zip(fam, fam_out):
+        g = out_limbs(got)
+        require(f.device.type == "cuda" and g.shape == a.shape and np.array_equal(
+            g, out_limbs(cpu.negacyclic_polymul(plan_arg(a, "cpu"), plan_arg(b, "cpu")))),
+            f"main: {name}({N_MAIN}) polymul differs from the CPU plain path")
+        if pl.width == 128:
+            ks = (0, 1, N_MAIN // 2 + 7, N_MAIN - 1)
+            want = negacyclic_coefficients_wrapping(as_ints(a[0]), as_ints(b[0]), ks, 128)
+            require([int(v) for v in as_ints(g[0])[list(ks)]] == want,
+                    f"main: {name}({N_MAIN}) polymul row 0 differs from the wrapping oracle at "
+                    f"coefficients {ks}")
+        else:
+            dt = np.uint32 if pl.width == 32 else np.uint64
+            row = lambda v: as_ints(v[0]).astype(dt)
+            require(np.array_equal(row(g), negacyclic_convolution_wrapping_np(row(a), row(b))),
+                    f"main: {name}({N_MAIN}) polymul row 0 differs from the numpy wrapping oracle")
+        require(torch.equal(f.cpu(), cpu.fwd(plan_arg(a, "cpu"))),
+                f"main: {name}({N_MAIN}) fwd differs from the CPU plain path")
+        nx = (as_ints(a[:2]) * N_MAIN) & ((1 << pl.width) - 1)
+        require((as_ints(out_limbs(back)[:2]) == nx).all(),
+                f"main: {name}({N_MAIN}) inv(fwd(x)) != n·x (wrapping)")
+    launches["fwd_wide_multi_u128"] = launches_fam["fwd_wide_multi_u128"]
+    print(f"main: native families on {kind}: {[n for n, *_ in fam]} at n={N_MAIN} B={B_MAIN}: "
+          f"polymul == CPU plain path == wrapping oracle (row 0; 4 coefficients at width 128), "
+          f"fwd == CPU, inv(fwd(x)) == n·x; launches {launches_fam}; checks "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # below 2^11: no channel route, each channel's prime32 plan (K4)
+    perch = []
+    for mod, tier in PERCHANNEL_PLANS:
+        cls = getattr(getattr(port, mod), tier)
+        pl = cls.try_new(N_PERCH)
+        perch.append((f"{mod}.{tier}", pl, cls.try_new(N_PERCH, device="cpu"),
+                      limbs_np(pl.width, (B_MAIN, N_PERCH)),
+                      limbs_np(pl.width, (B_MAIN, N_PERCH), "binary" in mod)))
+    torch.cuda.synchronize()
+    reset_counts()
+    perch_out = []
+    for name, pl, _, a, b in perch:
+        k = len(pl.primes)
+        require(ntt_dispatch.route32(N_PERCH, pl.primes) is None,
+                f"main: {name}({N_PERCH}) has a channel route")
+        before = counts()
+        perch_out.append(pl.negacyclic_polymul(plan_arg(a, dev), plan_arg(b, dev)))
+        expect_delta(before, {"butterfly32_fwd": 2 * k, "butterfly32_inv": k},
+                     f"{name}({N_PERCH}) polymul")
+    torch.cuda.synchronize()
+    launches_perch = counts()
+    for (name, pl, cpu, a, b), got in zip(perch, perch_out):
+        g = out_limbs(got)
+        require(np.array_equal(g, out_limbs(cpu.negacyclic_polymul(
+            plan_arg(a, "cpu"), plan_arg(b, "cpu")))),
+            f"main: {name}({N_PERCH}) polymul differs from the CPU plain path")
+        ks = (0, 1, N_PERCH // 2 + 7, N_PERCH - 1)
+        require([int(v) for v in as_ints(g[0])[list(ks)]] == negacyclic_coefficients_wrapping(
+            as_ints(a[0]), as_ints(b[0]), ks, pl.width),
+            f"main: {name}({N_PERCH}) polymul row 0 differs from the wrapping oracle")
+    print(f"main: per-channel route on {kind}: {[n for n, *_ in perch]} at n={N_PERCH} "
+          f"B={B_MAIN}: polymul == CPU plain path == wrapping oracle (4 coefficients of row 0), "
+          f"K4 per channel and no K1 launch; launches {launches_perch}", flush=True)
+
+    # host formats on a default plan: Python ints ("py128") move to the card
+    name, pl128, _, _, a128, b128 = fam[[n for n, *_ in fam].index("native128.Plan32")]
+    torch.cuda.synchronize()
+    reset_counts()
+    before = counts()
+    py_out = pl128.negacyclic_polymul([int(v) for v in as_ints(a128[0])],
+                                      [int(v) for v in as_ints(b128[0])])
+    expect_delta(before, {"fwd_wide_multi_u128": 2, "inv_multi": 1}, "native128 py128 polymul")
+    planar_row0 = as_ints(out_limbs(fam_out[[n for n, *_ in fam].index(name)][0])[0])
+    require(isinstance(py_out, list) and py_out == [int(v) for v in planar_row0],
+            "main: native128 py128 polymul differs from the planar one")
+    print(f"main: device rule: native128.Plan32 default device {pl128.device!r}, a polymul of "
+          f"two lists of {N_MAIN} Python ints launched {counts()} and == the 4-limb planar "
+          f"result (row 0)", flush=True)
+
+    # a u128 operand through K2 (the per-channel four-step route of the plans'
+    # forward) and through K3 (the rank-local column pass): both must give the
+    # transform of the operand's residue
+    wide_plans = tuple(prime32.Plan.new(N32, p) for p in BENCH_PRIMES.values())
+    w128 = limbs_np(128, (B32, N32))
+    w_sh = limbs_np(128, (B32, n_sh))
+    torch.cuda.synchronize()
+    reset_counts()
+    before = counts()
+    wide_got = ntt_dispatch.try_fwd32_wide_all(plan_arg(w128, dev), wide_plans)
+    expect_delta(before, {"fwd_u128": len(wide_plans)}, "u128 operand through the K2 route")
+    sh_wide = []
+    for geo, d, e, _ in sharded:
+        before = counts()
+        sh_wide.append(rank_local_fwd(mxu32_cuda.pass_matmod, plan_arg(w_sh, dev), d, **geo))
+        expect_delta(before, {"pass_matmod_u128": RANKS, "pass_matmod": RANKS},
+                     f"rank-local fwd of a u128 operand n={n_sh} p={geo['p']}")
+    torch.cuda.synchronize()
+    launches_wide = counts()
+    residue = lambda v, p: torch.from_numpy((as_ints(v) % p).astype(np.uint32))
+    for i, pl in enumerate(wide_plans):
+        require(wide_got.device.type == "cuda" and torch.equal(
+            wide_got[i].cpu(), mxu32_cuda.fwd_plain(residue(w128, pl.p), n=N32, p=pl.p)),
+            f"main: u128 operand through K2, p={pl.p}: differs from the transform of value mod p")
+    for (geo, *_), f in zip(sharded, sh_wide):
+        require(torch.equal(f.cpu(), mxu32_cuda.fwd_plain(residue(w_sh, geo["p"]), n=n_sh,
+                                                          p=geo["p"])),
+                f"main: rank-local fwd of a u128 operand, p={geo['p']}: differs from the "
+                "transform of value mod p")
+    for k in ("fwd_u128", "pass_matmod_u128"):
+        launches[k] = launches_wide[k]
+    print(f"main: u128 operands on {kind}: try_fwd32_wide_all over p in "
+          f"{tuple(BENCH_PRIMES.values())} at n={N32} B={B32} (K2 with four limbs) and the "
+          f"rank-local fwd at n={n_sh} (K3's A pass with four limbs, R={RANKS}) == the CPU "
+          f"transform of value mod p; launches {launches_wide}", flush=True)
+
     # -- 5. times -----------------------------------------------------------------
     ms, plain_ms = {}, {}
     limbs = (u32((B_MAIN, N_MAIN)), u32((B_MAIN, N_MAIN)))
@@ -1463,6 +1722,45 @@ def main() -> int:
               f"transforms/s, polymul {t:.4f} ms = {B_HYB / t * 1e3:.1f} products/s (median of "
               f"{REPS}) | {smi}", flush=True)
 
+    # the u128 operand: K1a over 10 and 5 channels, K1b over 10, K2 / K3 with four limbs
+    w4 = tuple(u32((B_MAIN, N_MAIN)) for _ in range(4))
+    for ch in (10, 5):
+        pr = NATIVE128_PRIMES[:ch]
+        timed("K1a fwd_wide_multi", f"n={N_MAIN} B={B_MAIN} C={ch} 4 limbs",
+              lambda: mxu32_cuda.fwd_wide_multi(w4, pr),
+              lambda: mxu32_cuda.fwd_wide_multi_plain(w4, pr),
+              "fwd_wide_multi_u128" if ch == 10 else None)
+    x10 = u32((10, B_MAIN, N_MAIN))
+    sc10 = tuple(pow(N_MAIN, p - 2, p) * pow(2, 32, p) % p for p in NATIVE128_PRIMES)
+    timed("K1b inv_multi", f"n={N_MAIN} B={B_MAIN} C=10 scaled",
+          lambda: mxu32_cuda.inv_multi(x10, NATIVE128_PRIMES, sc10),
+          lambda: mxu32_cuda.inv_multi_plain(x10, NATIVE128_PRIMES, sc10))
+    p = BENCH_PRIMES["lt30"]
+    w4k2 = tuple(u32((B32, N32)) for _ in range(4))
+    timed("K2 fwd_wide", f"n={N32} B={B32} p={p} 4 limbs",
+          lambda: mxu32_cuda.fwd_wide(w4k2, n=N32, p=p),
+          lambda: mxu32_cuda.fwd_wide_plain(w4k2, n=N32, p=p), "fwd_u128")
+    tbl = mxu32._mxu_tables(4096, p)
+    w4k3 = tuple(u32((B32, tbl["n2"], tbl["n1"])) for _ in range(4))
+    kw = dict(n=4096, p=p, which="A", n_limbs=4,
+              diag_slices=tuple(torch.from_numpy(a).to(dev) for a in tbl["d"]))
+    timed("K3 pass_matmod", f"A scaled n=4096 B={B32} p={p} 4 limbs",
+          lambda: mxu32_cuda.pass_matmod(w4k3, **kw),
+          lambda: mxu32_cuda.pass_matmod_plain(w4k3, **kw), "pass_matmod_u128")
+    fam_calls = {}
+    for name, pl, _, binary, a, b in fam:
+        la, lb = plan_arg(a, dev), plan_arg(b, dev)
+        fam_calls[name] = (lambda pl=pl, la=la, lb=lb: pl.negacyclic_polymul(la, lb))
+        t = median_ms(fam_calls[name])
+        print(f"times: {name} polymul n={N_MAIN} B={B_MAIN} "
+              f"{'planar' if pl.width > 32 else 'u32'}: {t:.4f} ms (median of {REPS}) = "
+              f"{B_MAIN / t * 1e3:.1f} products/s | {smi}", flush=True)
+    for name, pl, _, a, b in perch:
+        la, lb = plan_arg(a, dev), plan_arg(b, dev)
+        t = median_ms(lambda: pl.negacyclic_polymul(la, lb), reps=5, warmup=1)
+        print(f"times: {name} polymul n={N_PERCH} B={B_MAIN} (per-channel route): {t:.4f} ms "
+              f"(median of 5) = {B_MAIN / t * 1e3:.1f} products/s | {smi}", flush=True)
+
     # the bound of each kernel at the shape it was timed at: MACs a pass =
     # B·R·(E·K)·(D·O) from the plane shapes, bytes = operands, results and tables once
     n1m, n2m = mxu32.four_step_factors(N_MAIN)
@@ -1499,6 +1797,12 @@ def main() -> int:
         "inv_multi64_hyb": hybrid_work("inv", B52, n1m, n2m, 2, 3, 8, e50, d50, 8),
         "pointwise_inv_multi64_hyb": hybrid_work("inv", B52, n1m, n2m, 2, 3, 8, e50, d50, 8,
                                                  operands=2),
+        # four operand limbs: 16 operand planes in the column pass
+        "fwd_wide_multi_u128": fourstep_work("fwd", B_MAIN, n1m, n2m, 10, 16, 4, 4, 4, 1, 4,
+                                             shared_operand=True),
+        "fwd_u128": fourstep_work("fwd", B32, n1m, n2m, 1, 16, 4, 4, 4, 1, 4),
+        "pass_matmod_u128": (B32 * n2k * 16 * n1k * 4 * n1k,
+                             4 * B32 * 4096 * 5 + 64 * n1k * n1k + 16 * n1k + 16 * 4096),
     }
     bounds = {k: gemm_bound(*w) for k, w in work.items()}
     # K4 at (1024, 16): B·(n/2)·log2 n butterflies of about 12 integer operations
@@ -1542,6 +1846,14 @@ def main() -> int:
         for name, pl in (("Plan52", plan52), ("Plan32", plan)):
             r = profile_polymul(lambda: pl.negacyclic_polymul(lhs52, rhs52))
             print(f"profile: native64 {name} polymul n={N64} B={B52} planar: host clock "
+                  f"{r['host_ms']:.4f} ms, device busy {r['busy_ms']:.4f} ms "
+                  f"({100 * r['busy_share']:.1f} %), GEMM passes {r['kernel_ms']:.4f} ms, "
+                  f"{r['device_events']:.0f} device events and {r['aten_ops']:.0f} aten ops "
+                  f"a polymul (10 polymuls) | {smi}", flush=True)
+
+        for name, fn in fam_calls.items():
+            r = profile_polymul(fn)
+            print(f"profile: {name} polymul n={N_MAIN} B={B_MAIN}: host clock "
                   f"{r['host_ms']:.4f} ms, device busy {r['busy_ms']:.4f} ms "
                   f"({100 * r['busy_share']:.1f} %), GEMM passes {r['kernel_ms']:.4f} ms, "
                   f"{r['device_events']:.0f} device events and {r['aten_ops']:.0f} aten ops "

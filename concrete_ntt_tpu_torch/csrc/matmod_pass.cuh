@@ -4,7 +4,8 @@
 //
 // The pass computes the JAX package's ops/mxu32.py math for a [rows, K] x
 // [K, O] product mod p per polynomial and channel: the operand (any u32
-// representative, or a limb pair) is split into int8 digits (byte - 128,
+// representative, or the 2 / 4 little-endian limbs of a u64 / u128) is split
+// into int8 digits (byte - 128,
 // the xor-128 bit pattern of _digit8); the digits meet the balanced-digit
 // int8 operator planes in kD int32 accumulators (4 matrix digit planes, or
 // 5 for primes near 2^32); the accumulators plus the epilogue constants
@@ -54,7 +55,7 @@ constexpr int kMaxChain = kScalWords - 7;
 enum Regime { kLt30 = 0, kLt31 = 1, kGeneric = 2 };
 
 struct Pass {
-  const uint32_t* x[2];  // operand limbs (x[1] read only if n_limbs == 2)
+  const uint32_t* x[4];  // operand limbs (x[l] read only if l < n_limbs; K1d reads x[1])
   long long x_b;         // elements between polynomials of the operand
   long long x_chan;      // elements between channels of the operand (0: shared)
   int n_limbs;
@@ -241,14 +242,14 @@ cudaError_t launch(const Pass& a, int channels, cudaStream_t stream) {
 // column pass (rows (b, j < n2), contract i < n1 at x[i*n2 + j], diagonal d)
 // into scratch [C][B][n2][n1], then row pass (rows (b, r < n1), contract
 // j < n2 at scratch[j*n1 + r], canonical) into out [C][B][n] (bit-reversed).
-inline void fwd_passes(Pass* col, Pass* row, const void* x0, const void* x1, int n_limbs,
+// x holds four limb pointers; those at and past n_limbs are not read.
+inline void fwd_passes(Pass* col, Pass* row, const void* const x[4], int n_limbs,
                        int batch, int n1, int n2, const void* planes1, const void* cvec1,
                        const void* planes2, const void* cvec2, const void* diag,
                        const void* scal, void* scratch, void* out) {
   const int n = n1 * n2;
   Pass a{};
-  a.x[0] = (const uint32_t*)x0;
-  a.x[1] = (const uint32_t*)(n_limbs > 1 ? x1 : x0);
+  for (int l = 0; l < 4; ++l) a.x[l] = (const uint32_t*)x[l < n_limbs ? l : 0];
   a.x_b = n;
   a.x_chan = 0;
   a.n_limbs = n_limbs;
@@ -269,7 +270,7 @@ inline void fwd_passes(Pass* col, Pass* row, const void* x0, const void* x1, int
   a.out = (uint32_t*)scratch;
   *col = a;
   Pass b = a;
-  b.x[0] = b.x[1] = (const uint32_t*)scratch;
+  for (int l = 0; l < 4; ++l) b.x[l] = (const uint32_t*)scratch;
   b.x_chan = (long long)batch * n;
   b.n_limbs = 1;
   b.k1 = n2;
@@ -297,7 +298,7 @@ inline void inv_passes(Pass* row, Pass* col, const void* x, int batch, int n1, i
                        void* out) {
   const int n = n1 * n2;
   Pass a{};
-  a.x[0] = a.x[1] = (const uint32_t*)x;
+  for (int l = 0; l < 4; ++l) a.x[l] = (const uint32_t*)x;
   a.x_b = n;
   a.x_chan = (long long)batch * n;
   a.n_limbs = 1;
@@ -318,7 +319,7 @@ inline void inv_passes(Pass* row, Pass* col, const void* x, int batch, int n1, i
   a.out = (uint32_t*)scratch;
   *row = a;
   Pass b = a;
-  b.x[0] = b.x[1] = (const uint32_t*)scratch;
+  for (int l = 0; l < 4; ++l) b.x[l] = (const uint32_t*)scratch;
   b.k1 = n1;
   b.s_k = n2;
   b.s_r = 1;

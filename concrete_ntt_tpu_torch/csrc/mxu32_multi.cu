@@ -18,8 +18,9 @@
 // operator planes, accumulates in int32 (exact by assert_accumulator_exact),
 // combines the four digit accumulators into a (lo, hi) u32 pair and reduces
 // it with Shoup multiplies:
-//   K1a: transpose [n1,n2]->[n2,n1] . planes1 (A, or A with the u64->residue
-//        split folded in as 8 operand digit planes) . scaled-lazy epilogue by
+//   K1a: transpose [n1,n2]->[n2,n1] . planes1 (A, or A with the u64 / u128 ->
+//        residue split folded in as 8 / 16 operand digit planes: 2 / 4 operand
+//        limbs, contraction 4 * limbs * n1 digits) . scaled-lazy epilogue by
 //        the diagonal d . transpose . planes2 (F) . canonical epilogue.
 //   K1b: planes1 (G) . scaled-lazy epilogue by the diagonal e . transpose .
 //        planes2 (scale-folded A_inv) . canonical epilogue . transpose.
@@ -59,15 +60,18 @@ using mxu32::kLt30;
 using mxu32::launch;
 using mxu32::Pass;
 
-// K1a: x0 (, x1) [B, n] u32 limbs -> out [C, B, n] canonical, bit-reversed.
-extern "C" int k1a_fwd_wide_multi(const void* x0, const void* x1, int n_limbs, int batch,
+// K1a: x0 (, x1 (, x2, x3)) [B, n] u32 limbs of a u32 / u64 / u128 operand
+// (n_limbs = 1, 2 or 4) -> out [C, B, n] canonical, bit-reversed.
+extern "C" int k1a_fwd_wide_multi(const void* x0, const void* x1, const void* x2,
+                                  const void* x3, int n_limbs, int batch,
                                   int n1, int n2, int channels, const void* planes1,
                                   const void* cvec1, const void* planes2, const void* cvec2,
                                   const void* diag, const void* scal, void* scratch, void* out,
                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   Pass col, row;
-  mxu32::fwd_passes(&col, &row, x0, x1, n_limbs, batch, n1, n2, planes1, cvec1, planes2, cvec2,
+  const void* const x[4] = {x0, x1, x2, x3};
+  mxu32::fwd_passes(&col, &row, x, n_limbs, batch, n1, n2, planes1, cvec1, planes2, cvec2,
                     diag, scal, scratch, out);
   cudaError_t e = launch<4, kLt30, true>(col, channels, s);
   if (e != cudaSuccess) return (int)e;
@@ -97,7 +101,8 @@ extern "C" int k1c_fwd_multi_perchannel(const void* x0, const void* x1, int n_li
                                         void* scratch, void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   Pass col, row;
-  mxu32::fwd_passes(&col, &row, x0, x1, n_limbs, batch, n1, n2, planes1, cvec1, planes2, cvec2,
+  const void* const x[4] = {x0, x1, x0, x0};  // 1 or 2 limbs
+  mxu32::fwd_passes(&col, &row, x, n_limbs, batch, n1, n2, planes1, cvec1, planes2, cvec2,
                     diag, scal, scratch, out);
   col.x_chan = (long long)batch * n1 * n2;
   cudaError_t e = launch<4, kLt30, true>(col, channels, s);

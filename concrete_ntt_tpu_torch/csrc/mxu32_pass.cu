@@ -2,7 +2,7 @@
 //
 // Replaces two TPU kernels of concrete_ntt_tpu/ops/mxu32_pallas.py:
 //   K2  k2_fwd / k2_inv  <- _build_call (kernel :72-107): the whole four-step
-//       transform of one prime, fwd (1 or 2 operand limbs) and inv (scale
+//       transform of one prime, fwd (1, 2 or 4 operand limbs) and inv (scale
 //       folded into A_inv). It serves every 2^11 <= n <= 2^15, so it also
 //       takes the sizes the TPU sends through two _build_pass_call passes
 //       (2048 <= n < 2^14): that split exists because the whole transform
@@ -57,14 +57,17 @@ cudaError_t launch_any(const Pass& a, int n_d, int regime, cudaStream_t s) {
 
 }  // namespace
 
-// K2 fwd: x0 (, x1) [B, n] u32 limbs -> out [B, n] canonical, bit-reversed.
-extern "C" int k2_fwd(const void* x0, const void* x1, int n_limbs, int batch, int n1, int n2,
+// K2 fwd: x0 (, x1 (, x2, x3)) [B, n] u32 limbs (n_limbs = 1, 2 or 4) -> out
+// [B, n] canonical, bit-reversed.
+extern "C" int k2_fwd(const void* x0, const void* x1, const void* x2, const void* x3,
+                      int n_limbs, int batch, int n1, int n2,
                       const void* planes1, const void* cvec1, const void* planes2,
                       const void* cvec2, const void* diag, const void* scal, int n_d, int regime,
                       void* scratch, void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   Pass col, row;
-  mxu32::fwd_passes(&col, &row, x0, x1, n_limbs, batch, n1, n2, planes1, cvec1, planes2, cvec2,
+  const void* const x[4] = {x0, x1, x2, x3};
+  mxu32::fwd_passes(&col, &row, x, n_limbs, batch, n1, n2, planes1, cvec1, planes2, cvec2,
                     diag, scal, scratch, out);
   cudaError_t e = launch_any<true>(col, n_d, regime, s);
   if (e != cudaSuccess) return (int)e;
@@ -86,15 +89,15 @@ extern "C" int k2_inv(const void* x, int batch, int n1, int n2, const void* plan
 }
 
 // K3: one pass over contiguous operands. Row j < rows of polynomial b
-// contracts x_l[b][j][0..k1) of each limb l and writes out[b][j][0..o);
-// diag is [4 or 2][rows][o] (scaled only).
-extern "C" int k3_pass(const void* x0, const void* x1, int n_limbs, int batch, int rows, int k1,
-                       int o, const void* planes, const void* cvec, const void* diag,
+// contracts x_l[b][j][0..k1) of each limb l < n_limbs (1, 2 or 4) and writes
+// out[b][j][0..o); diag is [4 or 2][rows][o] (scaled only).
+extern "C" int k3_pass(const void* x0, const void* x1, const void* x2, const void* x3,
+                       int n_limbs, int batch, int rows, int k1, int o, const void* planes, const void* cvec, const void* diag,
                        const void* scal, int n_d, int regime, int scaled, void* out,
                        void* stream) {
   Pass a{};
-  a.x[0] = (const uint32_t*)x0;
-  a.x[1] = (const uint32_t*)(n_limbs > 1 ? x1 : x0);
+  const void* const x[4] = {x0, x1, x2, x3};
+  for (int l = 0; l < 4; ++l) a.x[l] = (const uint32_t*)x[l < n_limbs ? l : 0];
   a.x_b = (long long)rows * k1;
   a.x_chan = 0;
   a.n_limbs = n_limbs;

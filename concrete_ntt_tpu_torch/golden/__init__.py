@@ -3,6 +3,6 @@
 The port's kernels and plain paths are asserted bit-exact against these.
 """
 
-from . import ntt, polymul
+from . import crt, ntt, polymul
 
-__all__ = ["ntt", "polymul"]
+__all__ = ["crt", "ntt", "polymul"]

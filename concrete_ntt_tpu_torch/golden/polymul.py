@@ -24,6 +24,34 @@ def negacyclic_convolution_mod(lhs, rhs, p: int) -> list[int]:
     return [(full[i] - full[i + n]) % p for i in range(n)]
 
 
+def negacyclic_convolution_wrapping(lhs, rhs, bits: int) -> list[int]:
+    """Schoolbook negacyclic convolution in wrapping arithmetic mod 2^bits.
+
+    This is the exactness contract of the native plans: the reference's test
+    oracle with p == 0 runs in wrapping u32/u64/u128 machine arithmetic
+    (prime32.rs:957-963 treats p == 0 as wrapping).
+    """
+    return negacyclic_coefficients_wrapping(lhs, rhs, range(len(lhs)), bits)
+
+
+def negacyclic_coefficients_wrapping(lhs, rhs, ks, bits: int) -> list[int]:
+    """Coefficients `ks` of the wrapping negacyclic product mod 2^bits, each
+    an O(n) bigint sum: c[k] = Σ_{i<=k} a[i]·b[k-i] - Σ_{i>k} a[i]·b[n+k-i].
+    Sampling a few coefficients holds a large transform to the contract
+    where the whole O(n^2) product would take too long."""
+    mask = (1 << bits) - 1
+    a = [int(v) for v in lhs]
+    b = [int(v) for v in rhs]
+    n = len(a)
+    assert len(b) == n
+    out = []
+    for k in ks:
+        pos = sum(a[i] * b[k - i] for i in range(k + 1))
+        neg = sum(a[i] * b[n + k - i] for i in range(k + 1, n))
+        out.append((pos - neg) & mask)
+    return out
+
+
 def negacyclic_convolution_wrapping_np(lhs: np.ndarray, rhs: np.ndarray) -> np.ndarray:
     """Vectorized wrapping oracle for u32/u64 NumPy inputs (faster, same result).
 

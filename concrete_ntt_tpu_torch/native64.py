@@ -13,12 +13,13 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ._native_common import NativePlanBase, build_plans32, build_plans52
+from ._native_common import NativePlanBase, build_plans32, build_plans52, channel_accessors
 from .ops import crt as crt_ops
 from .ops.u32 import DEFAULT_DEVICE
 from .tables import PRIMES52, native_channel_primes
 
 
+@channel_accessors(5)
 @dataclass(frozen=True)
 class Plan32(NativePlanBase):
     @classmethod
@@ -35,22 +36,8 @@ class Plan32(NativePlanBase):
     def _reconstruct(self, residues):
         return crt_ops.rec_u64_from5(residues, self.primes)
 
-    def ntt_0(self):
-        return self.plans[0]
 
-    def ntt_1(self):
-        return self.plans[1]
-
-    def ntt_2(self):
-        return self.plans[2]
-
-    def ntt_3(self):
-        return self.plans[3]
-
-    def ntt_4(self):
-        return self.plans[4]
-
-
+@channel_accessors(3)
 @dataclass(frozen=True)
 class Plan52(NativePlanBase):
     @classmethod
@@ -64,12 +51,3 @@ class Plan52(NativePlanBase):
 
     def _reconstruct(self, residues):
         return crt_ops.rec_from3_p50_u64(residues, self.primes)
-
-    def ntt_0(self):
-        return self.plans[0]
-
-    def ntt_1(self):
-        return self.plans[1]
-
-    def ntt_2(self):
-        return self.plans[2]

@@ -50,8 +50,8 @@ def check_range(n: int, variant: str) -> None:
     if n & (n - 1) or not 2 <= n <= MAX_N:
         raise NotImplementedError(
             f"n = {n}: the butterfly kernel serves powers of two in [2, 2^15]; "
-            "larger transforms wait for the native128 2^16 work "
-            "(ROADMAP.md Queue 1 item 5)"
+            "larger transforms wait for the larger K1 / K2 range "
+            "(ROADMAP.md Queue 2, row N17)"
         )
     if variant not in _REGIME:
         raise ValueError(f"unknown prime32 regime {variant!r}")

@@ -2,9 +2,13 @@
 
 Counterpart of `concrete_ntt_tpu/ops/mxu32_pallas.py`:
 
-  * K1a `fwd_wide_multi`: [B, n] u32 limb tuple (1 or 2 limbs) -> [C, B, n]
-    canonical NTT-domain residues, bit-reversed order, all CRT channels.
-    Replaces the fwd branch of `_build_multi_call` (kernel body :367-397).
+  * K1a `fwd_wide_multi`: [B, n] u32 limb tuple (1, 2 or 4 limbs: a u32, u64
+    or u128 operand) -> [C, B, n] canonical NTT-domain residues,
+    bit-reversed order, all CRT channels. Replaces the fwd branch of
+    `_build_multi_call` (kernel body :367-397). With four limbs the u128 ->
+    residue split is 16 operand digit planes of the column matmul
+    (`mxu32._wide_col_planes(n, p, 4)`, contraction 16 * n1 <= 4096, the
+    edge `assert_accumulator_exact` proves at every table build).
   * K1b `inv_multi`: [C, B, n] u32 (any representative) -> [C, B, n]
     canonical, standard order, times a per-channel scale folded into A_inv.
     Replaces the inv branch of the same builder (kernel body :398-412).
@@ -44,14 +48,17 @@ Routing is by the device of the operand: a CUDA tensor launches the kernel
 or raises, a CPU tensor runs the plain torch version (`*_plain`, built on
 `ops/mxu32.py`), any other device raises. Every kernel launch adds one to
 `LAUNCHES[name]`; nothing else does. K2's `fwd_wide` is its `fwd` kernel
-with a second limb and counts under "fwd".
+with more limbs and counts under "fwd"; a launch with four operand limbs
+(K1a, K2 fwd, K3's A pass) counts under its own name, `*_u128`, and not
+under the plain one.
 
 Range: K1 takes channel primes 2^29 < p < 2^30 (as `mxu32_pallas.py:254`)
 and 2^11 <= n <= 2^15 (the TPU serves K1c/K1d only at n >= 2^14, a VMEM
 and lane limit; the results are the same bits at every n);
 K2/K3 take every prime32 regime with odd 2^26 <= p < 2^32 (lt30, lt31,
 generic with its Montgomery epilogues and, near 2^32, a fifth matrix digit
-plane); all take powers of two 2^11 <= n <= 2^15 and 1 or 2 operand limbs.
+plane); all take powers of two 2^11 <= n <= 2^15 and 1, 2 or 4 operand limbs
+(K1c 1 or 2: no plan has a u128 operand per channel).
 Outside it both routes raise NotImplementedError. The Mosaic workarounds
 `row_fuse` / `_fused_pass_mat` (mxu32_pallas.py:667-683) are not ported:
 they only kept TPU lanes at least 128 wide.
@@ -69,7 +76,8 @@ from . import cuda_build, mxu32
 from .u32 import MASK32, mont_mul, mont_neginv, to_i64, to_u32
 
 LAUNCHES = {"fwd_wide_multi": 0, "inv_multi": 0, "fwd_multi_perchannel": 0,
-            "pointwise_inv_multi": 0, "fwd": 0, "inv": 0, "pass_matmod": 0}
+            "pointwise_inv_multi": 0, "fwd": 0, "inv": 0, "pass_matmod": 0,
+            "fwd_wide_multi_u128": 0, "fwd_u128": 0, "pass_matmod_u128": 0}
 
 MIN_N, MAX_N = 1 << 11, 1 << 15
 _SCAL_WORDS = 16  # the scalar record of csrc/matmod_pass.cuh
@@ -84,14 +92,14 @@ def _check_n_limbs(n: int, n_limbs: int, what: str) -> None:
     if n & (n - 1) or not MIN_N <= n <= MAX_N:
         raise NotImplementedError(
             f"n = {n}: the {what} serve powers of two in [2^11, 2^15]; a prime32 "
-            "plan takes the butterfly kernel K4 below, the native plans wait "
-            "for their per-channel route there, and larger sizes for the "
-            "native128 2^16 work (ROADMAP.md Queue 1 item 5)"
+            "plan takes the butterfly kernel K4 below and a native plan each "
+            "channel's prime32 plan; n = 2^16, 2^17 wait for the larger K1 / K2 "
+            "range (ROADMAP.md Queue 2, row N17)"
         )
-    if n_limbs not in (1, 2):
+    if n_limbs not in (1, 2, 4):
         raise NotImplementedError(
-            f"{n_limbs} operand limbs: u128 operands wait for the native128 "
-            "slice (ROADMAP.md Queue 1 item 5)"
+            f"{n_limbs} operand limbs: the operand is a u32, a u64 limb pair or "
+            "four u128 limbs"
         )
 
 
@@ -318,7 +326,7 @@ def fwd_plain(x: torch.Tensor, *, n: int, p: int) -> torch.Tensor:
 
 
 def fwd_wide_plain(limbs: tuple, *, n: int, p: int) -> torch.Tensor:
-    """Plain twin of K2 fwd_wide (1 or 2 limbs)."""
+    """Plain twin of K2 fwd_wide (1, 2 or 4 limbs)."""
     check_single_range(n, p, len(limbs))
     if len(limbs) == 1:
         return mxu32.fwd(limbs[0], n=n, p=p)
@@ -359,7 +367,7 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("mxu32_multi")
     if not lib.k1a_fwd_wide_multi.argtypes:
-        lib.k1a_fwd_wide_multi.argtypes = [_P, _P, _I, _I, _I, _I, _I, *[_P] * 9]
+        lib.k1a_fwd_wide_multi.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, *[_P] * 9]
         lib.k1a_fwd_wide_multi.restype = ctypes.c_int
         lib.k1b_inv_multi.argtypes = [_P, _I, _I, _I, _I, *[_P] * 9]
         lib.k1b_inv_multi.restype = ctypes.c_int
@@ -373,11 +381,12 @@ def _lib() -> ctypes.CDLL:
 def _pass_lib() -> ctypes.CDLL:
     lib = cuda_build.load("mxu32_pass")
     if not lib.k2_fwd.argtypes:
-        lib.k2_fwd.argtypes = [_P, _P, _I, _I, _I, _I, *[_P] * 6, _I, _I, _P, _P, _P]
+        lib.k2_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, *[_P] * 6, _I, _I, _P, _P, _P]
         lib.k2_fwd.restype = ctypes.c_int
         lib.k2_inv.argtypes = [_P, _I, _I, _I, *[_P] * 6, _I, _I, _P, _P, _P]
         lib.k2_inv.restype = ctypes.c_int
-        lib.k3_pass.argtypes = [_P, _P, _I, _I, _I, _I, _I, *[_P] * 4, _I, _I, _I, _P, _P]
+        lib.k3_pass.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, *[_P] * 4, _I, _I, _I,
+                                _P, _P]
         lib.k3_pass.restype = ctypes.c_int
     return lib
 
@@ -408,9 +417,20 @@ def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
 
 
+def _limb_ptrs(limbs: tuple) -> list:
+    """Four limb pointers for the kernels' entry points: those past the
+    operand's limbs alias limb 0 and are not read."""
+    return _ptrs(*limbs) + [limbs[0].data_ptr()] * (4 - len(limbs))
+
+
+def _count(name: str, n_limbs: int) -> None:
+    LAUNCHES[name + "_u128" if n_limbs == 4 else name] += 1
+
+
 def fwd_wide_multi(limbs: tuple, primes: tuple) -> torch.Tensor:
-    """K1a: all CRT channels' forward NTTs. [B, n] uint32 limb tuple ->
-    [C, B, n] uint32 canonical NTT-domain residues (bit-reversed order)."""
+    """K1a: all CRT channels' forward NTTs. [B, n] uint32 limb tuple (1, 2
+    or 4 little-endian limbs, any values) -> [C, B, n] uint32 canonical
+    NTT-domain residues (bit-reversed order)."""
     limbs = tuple(limbs)
     dev = _check_operands(limbs, 2)
     primes = tuple(primes)
@@ -422,16 +442,11 @@ def fwd_wide_multi(limbs: tuple, primes: tuple) -> torch.Tensor:
     n1, n2 = mxu32.four_step_factors(n)
     out = torch.empty((len(primes), b, n), dtype=torch.uint32, device=dev)
     scratch = torch.empty_like(out)
-    x0 = limbs[0]
-    x1 = limbs[1] if len(limbs) > 1 else limbs[0]
-    ptrs = _ptrs(x0, x1, tabs["planes1"], tabs["cvec1"], tabs["planes2"],
+    ptrs = _ptrs(tabs["planes1"], tabs["cvec1"], tabs["planes2"],
                  tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.k1a_fwd_wide_multi(ptrs[0], ptrs[1], len(limbs), b, n1, n2, len(primes),
-                                     *ptrs[2:], stream)
-    LAUNCHES["fwd_wide_multi"] += 1
+    err = _call(dev, _lib().k1a_fwd_wide_multi, *_limb_ptrs(limbs), len(limbs), b, n1, n2,
+                len(primes), *ptrs)
+    _count("fwd_wide_multi", len(limbs))
     if err != 0:
         raise RuntimeError(f"K1a fwd_wide_multi launch failed: CUDA error {err}")
     return out
@@ -550,8 +565,8 @@ def _single_tables(n: int, p: int, n_limbs: int, scale: int, direction: str, dev
 
 
 def fwd_wide(limbs: tuple, *, n: int, p: int) -> torch.Tensor:
-    """K2 fwd: one prime's forward NTT of a [B, n] uint32 limb tuple (1 or 2
-    limbs, any values) -> [B, n] canonical, bit-reversed order."""
+    """K2 fwd: one prime's forward NTT of a [B, n] uint32 limb tuple (1, 2 or
+    4 limbs, any values) -> [B, n] canonical, bit-reversed order."""
     limbs = tuple(limbs)
     dev = _check_operands(limbs, 2)
     _check_n(limbs[0], n)
@@ -565,12 +580,11 @@ def fwd_wide(limbs: tuple, *, n: int, p: int) -> torch.Tensor:
     if b == 0:
         return out
     scratch = torch.empty_like(out)
-    x1 = limbs[1] if len(limbs) > 1 else limbs[0]
-    ptrs = _ptrs(limbs[0], x1, t1["planes"], t1["cvec"], t2["planes"], t2["cvec"], diag,
-                 t1["scal"], scratch, out)
-    err = _call(dev, _pass_lib().k2_fwd, ptrs[0], ptrs[1], len(limbs), b, n1, n2, *ptrs[2:8],
-                t1["n_d"], regime(p), ptrs[8], ptrs[9])
-    LAUNCHES["fwd"] += 1
+    ptrs = _ptrs(t1["planes"], t1["cvec"], t2["planes"], t2["cvec"], diag, t1["scal"],
+                 scratch, out)
+    err = _call(dev, _pass_lib().k2_fwd, *_limb_ptrs(limbs), len(limbs), b, n1, n2, *ptrs[:6],
+                t1["n_d"], regime(p), ptrs[6], ptrs[7])
+    _count("fwd", len(limbs))
     if err != 0:
         raise RuntimeError(f"K2 fwd launch failed: CUDA error {err}")
     return out
@@ -646,12 +660,11 @@ def pass_matmod(x, *, n: int, p: int, which: str, diag_slices=(), n_limbs: int =
     out = torch.empty((b, rows, tabs["o"]), dtype=torch.uint32, device=dev)
     if b == 0 or rows == 0:
         return out  # nothing to compute; an empty grid is not a valid launch
-    x1 = xs[1] if len(xs) > 1 else xs[0]
     dg = diag if diag is not None else tabs["scal"]  # not read by a canonical pass
-    ptrs = _ptrs(xs[0], x1, tabs["planes"], tabs["cvec"], dg, tabs["scal"], out)
-    err = _call(dev, _pass_lib().k3_pass, ptrs[0], ptrs[1], len(xs), b, rows, k, tabs["o"],
-                *ptrs[2:6], tabs["n_d"], regime(p), int(diag is not None), ptrs[6])
-    LAUNCHES["pass_matmod"] += 1
+    ptrs = _ptrs(tabs["planes"], tabs["cvec"], dg, tabs["scal"], out)
+    err = _call(dev, _pass_lib().k3_pass, *_limb_ptrs(xs), len(xs), b, rows, k, tabs["o"],
+                *ptrs[:4], tabs["n_d"], regime(p), int(diag is not None), ptrs[4])
+    _count("pass_matmod", len(xs))
     if err != 0:
         raise RuntimeError(f"K3 pass_matmod launch failed: CUDA error {err}")
     return out

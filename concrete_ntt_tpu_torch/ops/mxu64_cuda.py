@@ -41,7 +41,7 @@ pairs: a tuple `(lo, hi)` of uint32 tensors of one shape.
   block on the grid.
 
 K5's wide forward (`n_limbs = 4`) has no default route and is not ported yet
-(ROADMAP.md Queue 1 item 5).
+(ROADMAP.md Queue 2, row W4-64).
 
 All are CUDA C++ for sm_90a built with nvcc at first use (ops/cuda_build.py)
 and called through ctypes: K5/K6 in `csrc/mxu64_pass.cu`, K7 in

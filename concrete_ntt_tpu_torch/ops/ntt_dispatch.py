@@ -41,8 +41,9 @@ the CPU takes the same tier as the card at every n. There is no knob. The
 32-bit hybrid and the presplit inverse (both off in the reference's 'auto')
 are not ported. Where the JAX functions
 return None for "not applicable", the 32-bit ones raise NotImplementedError
-naming the ROADMAP item (a caller that has another path asks `route32`
-first) and the 64-bit single-prime ones return None (the caller's other
+naming the ROADMAP row (a caller that has another path asks `route32`
+first: `product.py` its prime32 plans, the native plans their per-channel
+route below 2^11) and the 64-bit single-prime ones return None (the caller's other
 path is the stage engine); all return stacked [C, B, n] tensors rather than
 lists of channels.
 """
@@ -87,16 +88,22 @@ def route32(n: int, primes: tuple) -> str | None:
     return None
 
 
+def no_route32(n: int, primes: tuple) -> NotImplementedError:
+    """The error of a transform that no prime32 channel route serves."""
+    return NotImplementedError(
+        f"n = {n}, primes {primes}: no prime32 channel route (the channel grid "
+        "K1 takes 30-bit primes, the per-channel four-step K2 odd p >= 2^26, "
+        "both at 2^11 <= n <= 2^15; the 64-bit routes K7 / K5 are `route64`'s); "
+        "below 2^11 a native plan runs each channel's prime32 plan itself, and "
+        "n = 2^16, 2^17 wait for the larger K1 / K2 range (ROADMAP.md Queue 2, "
+        "row N17)"
+    )
+
+
 def _route(n: int, primes: tuple) -> str:
     route = route32(n, primes)
     if route is None:
-        raise NotImplementedError(
-            f"n = {n}, primes {primes}: no prime32 channel route (the channel grid "
-            "K1 takes 30-bit primes, the per-channel four-step K2 odd p >= 2^26, "
-            "both at 2^11 <= n <= 2^15; the 64-bit routes K7 / K5 are `route64`'s); "
-            "native plans below 2^11 wait for their per-channel route and larger "
-            "sizes for the native128 2^16 work (ROADMAP.md Queue 1 item 5)"
-        )
+        raise no_route32(n, primes)
     return route
 
 

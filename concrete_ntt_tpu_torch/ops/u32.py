@@ -2,8 +2,8 @@
 
 Counterpart of `concrete_ntt_tpu/ops/u32.py`: the 32-bit half, the 64-bit
 limb-pair half (Shoup, Montgomery and Goldilocks multiplies of the prime64
-plan and of the 64-bit four-step engine), and the numpy limb converters.
-The generic N-limb helpers (u128) wait for the native128 slice.
+plan and of the 64-bit four-step engine), the generic N-limb helpers of the
+u128 lifts, and the numpy limb converters.
 
 Carrier convention: torch has no `+`, `>>` or `<` for `uint32` on the CPU,
 so every function here takes and returns u32 values held in `int64`
@@ -15,6 +15,7 @@ convert at the boundary to and from `uint32` tensors.
 Value representations:
   * u32 fields: int64 tensors holding [0, 2^32).
   * u64 values: little-endian limb pairs `(lo, hi)` of such tensors.
+  * u128 values: little-endian tuples of four such tensors.
 """
 
 from __future__ import annotations
@@ -308,6 +309,73 @@ def shoup_mul_u32_lazy64(z32, w, w_shoup, p: int):
     lo1, hi1 = mulwide_u32(z32, wsh_hi)
     q = (hi1 + ((lo1 + mulhi_u32(z32, wsh_lo)) >> 32)) & MASK32
     return sub64(mul64_u32((w_lo, w_hi), z32), mul64_u32(const64_like(p), q))
+
+
+# ---------------------------------------------------------------------------
+# Generic N-limb arithmetic (u128 and mixed-width products; wrapping)
+# ---------------------------------------------------------------------------
+
+
+def add_limbs(a: tuple, b: tuple) -> tuple:
+    """Wrapping multi-limb add (lengths must match; final carry dropped)."""
+    assert len(a) == len(b)
+    out = []
+    carry = 0
+    for x, y in zip(a, b):
+        s = x + y + carry  # exact in int64: < 2^33
+        out.append(s & MASK32)
+        carry = s >> 32
+    return tuple(out)
+
+
+def sub_limbs(a: tuple, b: tuple) -> tuple:
+    """Wrapping multi-limb subtract."""
+    assert len(a) == len(b)
+    out = []
+    borrow = 0
+    for x, y in zip(a, b):
+        d = x - y - borrow  # exact in int64: > -2^33
+        out.append(d & MASK32)
+        borrow = (d < 0).to(torch.int64)
+    return tuple(out)
+
+
+def mullo_limbs(a: tuple, b: tuple, out_len: int) -> tuple:
+    """Low `out_len` limbs of the product of limb tuples a and b (wrapping).
+
+    Schoolbook by columns: limb k sums the low halves of the partial
+    products a[i]·b[j] with i + j == k, the high halves of those with
+    i + j == k - 1 and the carry of limb k - 1 (exact in int64: a dozen
+    terms below 2^32). The limbs of b may be Python ints (`const_limbs`); a
+    zero constant limb contributes nothing and is skipped."""
+    cols = [[] for _ in range(out_len)]
+    for i, x in enumerate(a[:out_len]):
+        for j, y in enumerate(b[: out_len - i]):
+            if isinstance(y, int) and y == 0:
+                continue
+            lo, hi = mulwide_u32(x, y)
+            cols[i + j].append(lo)
+            if i + j + 1 < out_len:
+                cols[i + j + 1].append(hi)
+    out = []
+    carry = torch.zeros_like(a[0])
+    for terms in cols:
+        s = carry
+        for t in terms:
+            s = s + t
+        out.append(s & MASK32)
+        carry = s >> 32
+    return tuple(out)
+
+
+def select_limbs(c, a: tuple, b: tuple) -> tuple:
+    """Per-limb where(c, a, b)."""
+    return tuple(torch.where(c, x, y) for x, y in zip(a, b))
+
+
+def const_limbs(v: int, length: int) -> tuple:
+    """`length` little-endian u32 limbs of a Python int, as Python ints."""
+    return tuple((v >> (32 * k)) & MASK32 for k in range(length))
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,10 @@ P0..P9, each ≡ 1 (mod 2^16), which support negacyclic transforms up to
 N = 2^15 (reference src/lib.rs:447-462). The native64 Plan32 uses the first
 five. An extended family ≡ 1 (mod 2^18) reaches N = 2^17.
 
-Beside them the six ~50-bit primes of the Plan52 tier and the Goldilocks
-prime of the prime64 plan. The other native prime selections and
-`crt_constants` wait for the slices that use them (ROADMAP.md).
+Beside them the six ~50-bit primes of the Plan52 tier, the Goldilocks
+prime of the prime64 plan, the channel selections of the six native plan
+families and `crt_constants` (the explicit-CRT constants of the golden
+lift).
 """
 
 from __future__ import annotations
@@ -76,8 +77,22 @@ def primes32_ext() -> tuple[int, ...]:
     return generate_ntt_primes(10, 30, 1 << 18)
 
 
-# native64 Plan32 → P0..P4 (reference native64.rs:16-22)
+# ---------------------------------------------------------------------------
+# CRT channel selections per native plan (reference channel counts):
+#   native32  Plan32 → P0..P2   (native32.rs:8-12)
+#   native64  Plan32 → P0..P4   (native64.rs:16-22)
+#   native128 Plan32 → P0..P9   (native128.rs:6-17)
+#   native_binary32  → P0..P1   (native_binary32.rs:11)
+#   native_binary64  → P0..P2   (native_binary64.rs:17-23)
+#   native_binary128 → P0..P4   (native_binary128.rs:4-10)
+# ---------------------------------------------------------------------------
+
+NATIVE32_PRIMES = PRIMES32[:3]
 NATIVE64_PRIMES = PRIMES32[:5]
+NATIVE128_PRIMES = PRIMES32[:10]
+NATIVE_BINARY32_PRIMES = PRIMES32[:2]
+NATIVE_BINARY64_PRIMES = PRIMES32[:3]
+NATIVE_BINARY128_PRIMES = PRIMES32[:5]
 
 
 def native_channel_primes(k: int, n: int) -> tuple[int, ...] | None:
@@ -91,3 +106,24 @@ def native_channel_primes(k: int, n: int) -> tuple[int, ...] | None:
     if n <= (1 << 17):
         return primes32_ext()[:k]
     return None
+
+
+def crt_constants(primes: tuple[int, ...]) -> dict:
+    """Host-side CRT reconstruction constants for a prime tuple.
+
+    For the explicit-CRT signed lift  v = Σ_i ((x_i * y_i) mod p_i) * M_i
+    (mod M), where M = Π p_i, M_i = M / p_i, y_i = M_i^{-1} mod p_i (the
+    reference's compile-time constants, lib.rs:512-594, computed with
+    bigints at plan-build time):
+
+      product   : M
+      half      : M // 2 (signed-truncation threshold)
+      y         : per-channel y_i
+      big_m     : per-channel M_i
+    """
+    m = 1
+    for p in primes:
+        m *= p
+    big_m = tuple(m // p for p in primes)
+    y = tuple(pow(mi % p, p - 2, p) for mi, p in zip(big_m, primes))
+    return {"product": m, "half": m // 2, "y": y, "big_m": big_m}

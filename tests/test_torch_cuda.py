@@ -1,8 +1,11 @@
 """Card tests of the port: each kernel (K1a-K1d, K2, K3, K4, K5, K5 with
-block tables, K6, K7a-K7d direct and with block tables) against its plain
-torch twin, and the native64 Plan32 and Plan52, prime32, prime64 (direct and
-through the stage-split hybrid at 2^16) and product polymuls through the
-kernels against the CPU plain path.
+block tables, K6, K7a-K7d direct and with block tables; K1a, K2 fwd and K3's
+A pass also with the four limbs of a u128 operand) against its plain torch
+twin, and the native64 Plan32 and Plan52, prime32, prime64 (direct and
+through the stage-split hybrid at 2^16), product and the other native plans'
+polymuls (widths 32, 64 and 128, both tiers, the channel routes and the
+per-channel route below 2^11) through the kernels against the CPU plain
+path.
 
 Every test here is marked `cuda` and skips without a CUDA GPU. The file
 imports only the port (no JAX), so it runs on a GPU machine without JAX:
@@ -17,10 +20,12 @@ import numpy as np
 import pytest
 import torch
 
-from concrete_ntt_tpu_torch import native64, prime32, prime64, product
+from concrete_ntt_tpu_torch import (
+    native32, native64, native128, native_binary32, native_binary64, native_binary128,
+    prime32, prime64, product)
 from concrete_ntt_tpu_torch.ops import (
     butterfly32_cuda, mxu32, mxu32_cuda, mxu64, mxu64_cuda, stagesplit)
-from concrete_ntt_tpu_torch.tables import GOLDILOCKS, PRIMES52
+from concrete_ntt_tpu_torch.tables import GOLDILOCKS, NATIVE128_PRIMES, PRIMES52
 from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
 from concrete_ntt_tpu_torch.utils.prime import largest_prime_in_arithmetic_progression64 as _lp
 
@@ -87,9 +92,8 @@ def test_polymul_on_card_matches_cpu(gen, cuda_device):
     mxu32_cuda.reset_launch_counts()
     got = plan.negacyclic_polymul(tuple(t.to(cuda_device) for t in lhs),
                                   tuple(t.to(cuda_device) for t in rhs))
-    assert mxu32_cuda.LAUNCHES == {"fwd_wide_multi": 2, "inv_multi": 1, "fwd_multi_perchannel": 0,
-                                   "pointwise_inv_multi": 0, "fwd": 0, "inv": 0,
-                                   "pass_matmod": 0}
+    assert mxu32_cuda.LAUNCHES == {**dict.fromkeys(mxu32_cuda.LAUNCHES, 0),
+                                   "fwd_wide_multi": 2, "inv_multi": 1}
     want = plan.negacyclic_polymul(lhs, rhs)
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
@@ -328,3 +332,97 @@ def test_prime64_hybrid_polymul_on_card_matches_cpu(gen, cuda_device, regime):
                                    "inv64_hyb": 1}
     np.testing.assert_array_equal(
         got, prime64.Plan.new(n, p, device="cpu").negacyclic_polymul(lhs, rhs))
+
+
+# -- the u128 operand (four limbs) and the other native plans --------------------
+
+
+@pytest.mark.parametrize("n,b", [(1 << 11, 3), (1 << 14, 5), (1 << 15, 2)])
+@pytest.mark.parametrize("channels", [10, 5])
+def test_k1a_u128_matches_plain_on_card(gen, cuda_device, n, b, channels):
+    primes = NATIVE128_PRIMES[:channels]
+    limbs = tuple(_u32(gen, (b, n), cuda_device) for _ in range(4))  # full-range u128
+    mxu32_cuda.reset_launch_counts()
+    got = mxu32_cuda.fwd_wide_multi(limbs, primes)
+    assert mxu32_cuda.LAUNCHES == {**dict.fromkeys(mxu32_cuda.LAUNCHES, 0),
+                                   "fwd_wide_multi_u128": 1}
+    _same(got, mxu32_cuda.fwd_wide_multi_plain(limbs, primes))
+
+
+@pytest.mark.parametrize("regime", list(BENCH))
+def test_k2_k3_u128_match_plain_on_card(gen, cuda_device, regime):
+    p, n, b = BENCH[regime], 1 << 14, 3
+    xs = tuple(_u32(gen, (b, n), cuda_device) for _ in range(4))
+    _same(mxu32_cuda.fwd_wide(xs, n=n, p=p), mxu32_cuda.fwd_wide_plain(xs, n=n, p=p))
+    n = 4096
+    tbl = mxu32._mxu_tables(n, p)
+    n1, n2 = tbl["n1"], tbl["n2"]
+    d = tuple(torch.from_numpy(a).to(cuda_device) for a in tbl["d"])
+    xa = tuple(_u32(gen, (b, n2, n1), cuda_device) for _ in range(4))
+    kw = dict(n=n, p=p, which="A", diag_slices=d, n_limbs=4)
+    _same(mxu32_cuda.pass_matmod(xa, **kw), mxu32_cuda.pass_matmod_plain(xa, **kw))
+
+
+def _plan_pair(module, tier, n):
+    cls = getattr(module, tier)
+    return cls.try_new(n), cls.try_new(n, device="cpu")  # the default device is the card
+
+
+NATIVE_PLANS = [(native32, "Plan32"), (native32, "Plan52"), (native_binary32, "Plan32"),
+                (native_binary32, "Plan52"), (native_binary64, "Plan32"),
+                (native_binary64, "Plan52"), (native128, "Plan32"), (native_binary128, "Plan32")]
+
+
+@pytest.mark.parametrize("n", [1024, 1 << 11, 1 << 14])
+@pytest.mark.parametrize("module,tier", NATIVE_PLANS,
+                         ids=[f"{m.__name__.rsplit('.', 1)[1]}-{t}" for m, t in NATIVE_PLANS])
+def test_native_plan_on_card_matches_cpu(gen, cuda_device, module, tier, n):
+    plan, cpu_plan = _plan_pair(module, tier, n)
+    b, nl = 2, plan.width // 32
+    binary = "binary" in module.__name__
+    lhs = tuple(_u32(gen, (b, n), "cpu") for _ in range(nl))
+    bits = tuple(_u32(gen, (b, n), "cpu", 2 if i == 0 else 1) for i in range(nl))  # {0, 1}
+    rhs = bits if binary else tuple(_u32(gen, (b, n), "cpu") for _ in range(nl))
+    as_arg = lambda limbs, dev: limbs[0].to(dev) if nl == 1 else tuple(t.to(dev) for t in limbs)
+    as_tuple = lambda out: (out,) if nl == 1 else out
+    mxu32_cuda.reset_launch_counts()
+    butterfly32_cuda.reset_launch_counts()
+    got = as_tuple(plan.negacyclic_polymul(as_arg(lhs, cuda_device), as_arg(rhs, cuda_device)))
+    if tier == "Plan32" and n >= 1 << 11:
+        wide = "fwd_wide_multi_u128" if nl == 4 else "fwd_wide_multi"
+        want = {**dict.fromkeys(mxu32_cuda.LAUNCHES, 0), "inv_multi": 1}
+        want[wide] += 1
+        want["fwd_wide_multi" if binary else wide] += 1
+        assert mxu32_cuda.LAUNCHES == want
+    elif tier == "Plan32":  # the per-channel route: K4 per channel, no K1 launch
+        k = len(plan.primes)
+        assert butterfly32_cuda.LAUNCHES == {"fwd": 2 * k, "inv": k}
+        assert not any(mxu32_cuda.LAUNCHES.values())
+    want = as_tuple(cpu_plan.negacyclic_polymul(as_arg(lhs, "cpu"), as_arg(rhs, "cpu")))
+    for g, w in zip(got, want):
+        _same(g, w)
+    f = plan.fwd(as_arg(lhs, cuda_device))
+    _same(f, cpu_plan.fwd(as_arg(lhs, "cpu")))
+    _same(plan.fwd_binary(as_arg(bits, cuda_device)), cpu_plan.fwd_binary(as_arg(bits, "cpu")))
+    back = plan.inv(f, out_format="u32" if nl == 1 else "planar")
+    for g, w in zip(as_tuple(back),
+                    as_tuple(cpu_plan.inv(f.cpu(), out_format="u32" if nl == 1 else "planar"))):
+        _same(g, w)
+
+
+def test_native128_host_formats_on_default_plan(gen, cuda_device):
+    n = 1 << 11
+    plan, cpu_plan = _plan_pair(native128, "Plan32", n)
+    a = [int.from_bytes(gen.bytes(16), "little") for _ in range(n)]
+    b = [int.from_bytes(gen.bytes(16), "little") for _ in range(n)]
+    mxu32_cuda.reset_launch_counts()
+    got = plan.negacyclic_polymul(a, b)  # Python ints move to the card
+    assert mxu32_cuda.LAUNCHES["fwd_wide_multi_u128"] == 2
+    assert got == cpu_plan.negacyclic_polymul(a, b)
+
+
+def test_native_plan_above_2_15_raises_on_card(gen, cuda_device):
+    plan = native64.Plan32.try_new(1 << 16)
+    x = tuple(_u32(gen, (1, 1 << 16), cuda_device) for _ in range(2))
+    with pytest.raises(NotImplementedError, match="N17"):
+        plan.fwd(x)

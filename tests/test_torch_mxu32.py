@@ -9,7 +9,9 @@ whole-transform kernel `mxu32_pallas.fwd/fwd_wide/inv` (K2, whose entries
 (K3); and against the
 single-channel XLA engine. The packed-plane layout the CUDA kernel reads is
 checked by a numpy dp4a emulation, with four and five matrix digit planes;
-the kernels themselves run in tests/test_torch_cuda.py. Tolerance: exact
+the kernels themselves run in tests/test_torch_cuda.py. The four-limb
+(u128) operand of K1a, K2's `fwd_wide` and K3's A pass has its own cases,
+with the accumulator proof at its widest contraction. Tolerance: exact
 equality everywhere.
 """
 
@@ -25,6 +27,7 @@ from concrete_ntt_tpu_torch.ops import mxu32 as tmx
 from concrete_ntt_tpu_torch.ops import mxu32_cuda as tcu
 from concrete_ntt_tpu_torch.ops.u32 import mont_neginv
 from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
+from concrete_ntt_tpu_torch.tables import NATIVE128_PRIMES as PRIMES10
 from concrete_ntt_tpu_torch.utils.prime import largest_prime_in_arithmetic_progression64
 
 N_BIG = 1 << 14
@@ -146,7 +149,7 @@ def test_single_channel_plain_matches_xla(rng, case, p):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("n_limbs", [1, 2])
+@pytest.mark.parametrize("n_limbs", [1, 2, 4])
 def test_packed_planes_dp4a_emulation(rng, n_limbs):
     """The packed plane words the kernel reads, contracted four digits per
     dp4a against (v ^ 0x80808080), equal the int8 digit-plane product."""
@@ -192,8 +195,10 @@ def test_wrappers_route_by_device_and_range(rng):
     small = torch.from_numpy(_u32(rng, (2, 1024)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcu.fwd_wide_multi((small,), PRIMES)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcu.fwd_wide_multi((x, x, x, x), PRIMES)
+    with pytest.raises(NotImplementedError, match="3 operand limbs"):
+        tcu.fwd_wide_multi((x, x, x), PRIMES)
+    tcu._check_n_limbs(2048, 4, "kernels")  # a u128 operand is served
+    assert tcu.fwd_wide_multi((x, x, x, x), PRIMES).shape == (len(PRIMES), 2, 2048)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcu.fwd_wide_multi((x,), (4293918721,))
     before = dict(tcu.LAUNCHES)
@@ -308,3 +313,73 @@ def test_single_wrappers_check_shapes(rng):
     before = dict(tcu.LAUNCHES)
     tcu.passes_engine.fwd(x, n=n, p=p)
     assert tcu.LAUNCHES == before  # the CPU route launches nothing
+
+
+# -- the u128 operand: four limbs, 16 operand digit planes ----------------------
+
+
+@pytest.mark.parametrize("channels", [10, 5])
+def test_k1a_u128_plain_matches_pallas_interpret(rng, interpret, channels):
+    """K1a's plain twin with four limbs over the native128 (10) and
+    native_binary128 (5) channel sets at n = 2^11, full-range u128 operands,
+    against the JAX Pallas kernel in interpret mode and against the
+    single-channel XLA engine."""
+    n, b, primes = 2048, 3, PRIMES10[:channels]
+    limbs = tuple(_u32(rng, (b, n)) for _ in range(4))
+    limbs[3][0, :4] = limbs[2][0, :4] = limbs[1][0, :4] = limbs[0][0, :4] = 0xFFFFFFFF
+    before = dict(tcu.LAUNCHES)
+    got = tcu.fwd_wide_multi(tuple(map(torch.from_numpy, limbs)), primes)
+    assert tcu.LAUNCHES == before  # the CPU route launches nothing
+    assert got.dtype == torch.uint32 and got.shape == (channels, b, n)
+    want = jpal.fwd_wide_multi(tuple(map(jnp.asarray, limbs)), primes)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for c in (0, channels - 1):
+        xla = jmx.fwd_wide(tuple(map(jnp.asarray, limbs)), n=n, p=primes[c])
+        np.testing.assert_array_equal(got[c].numpy(), np.asarray(xla))
+
+
+@pytest.mark.parametrize("regime", list(BENCH))
+def test_k2_k3_u128_plain_matches_pallas_interpret(rng, interpret, regime):
+    """K2 `fwd_wide` and K3 `which="A"` with four limbs in the three bench
+    primes at n = 2^11, against the JAX kernels in interpret mode and
+    `mxu32.fwd_wide`."""
+    p, n, b = BENCH[regime], 2048, 2
+    t = torch.from_numpy
+    limbs = tuple(_u32(rng, (b, n)) for _ in range(4))
+    got = tcu.fwd_wide(tuple(map(t, limbs)), n=n, p=p)
+    want = jpal.passes_engine.fwd_wide(tuple(map(jnp.asarray, limbs)), n=n, p=p)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    xla = jmx.fwd_wide(tuple(map(jnp.asarray, limbs)), n=n, p=p)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(xla))
+    np.testing.assert_array_equal(got.numpy(), tmx.fwd_wide(tuple(map(t, limbs)), n=n, p=p).numpy())
+    tbl = jmx._mxu_tables(n, p)
+    xs = tuple(_u32(rng, (b, tbl["n2"], tbl["n1"])) for _ in range(4))
+    kw = dict(n=n, p=p, which="A", n_limbs=4)
+    got = tcu.pass_matmod(tuple(map(t, xs)), diag_slices=tbl["d"], **kw)
+    want = jpal.pass_matmod(tuple(map(jnp.asarray, xs)),
+                            diag_slices=tuple(map(jnp.asarray, tbl["d"])), **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(NotImplementedError, match="3 operand limbs"):
+        tcu.pass_matmod(tuple(map(t, xs[:3])), n=n, p=p, which="A", n_limbs=3)
+
+
+@pytest.mark.parametrize("n,primes", [
+    (1 << 11, PRIMES10), (1 << 14, PRIMES10), (1 << 15, (PRIMES10[0], PRIMES10[9])),
+    pytest.param(1 << 15, PRIMES10, marks=pytest.mark.slow),  # 6 s of operators a prime
+], ids=["2048", "16384", "32768-two", "32768-all"])
+def test_accumulator_exact_with_four_limbs(n, primes):
+    """The int8 accumulators stay exact at the widest contraction, 16 operand
+    planes x n1 (2048 of the 4096 the proof allows), for the ten channel
+    primes: `_wide_col_planes` asserts it at the build, and the proof is run
+    again here on what it returned; the planes equal the JAX package's."""
+    n1, _ = tmx.four_step_factors(n)
+    for p in primes:
+        planes, cvec = tmx._wide_col_planes(n, p, 4)
+        assert planes.shape == (16 * n1, 4 * n1) and 16 * n1 <= 4096
+        tmx.assert_accumulator_exact(planes, cvec)
+    jplanes, jcvec = jmx._wide_col_planes(n, PRIMES10[-1], 4)
+    np.testing.assert_array_equal(planes, jplanes)
+    np.testing.assert_array_equal(cvec, jcvec)
+    bad = np.full((1 << 14, planes.shape[1]), 127, dtype=np.int8)  # past the edge
+    with pytest.raises(AssertionError, match="may wrap"):
+        tmx.assert_accumulator_exact(bad, cvec)

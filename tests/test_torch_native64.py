@@ -106,13 +106,25 @@ def test_fwd_inv_match_jax(rng, n, b):
 
 
 def test_out_of_range_sizes_raise(rng):
-    plan = tn64.Plan32.try_new(1024, device="cpu")  # builds, like the reference
-    assert plan is not None and plan.primes == jn64.Plan32.try_new(1024).primes
-    x = _values(rng, 1, 1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan.negacyclic_polymul(x, x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tn64.Plan32.try_new(1 << 16, device="cpu").fwd(_values(rng, 1, 1 << 16))
+    """Below 2^11 there is no channel route and the plan runs each channel's
+    prime32 plan, like the reference; above 2^15 the same route serves CPU
+    tensors, and the card raises until K1 / K2 reach those sizes (the card
+    case is in tests/test_torch_cuda.py); above 2^17 there is no plan."""
+    plan, jplan = tn64.Plan32.try_new(1024, device="cpu"), jn64.Plan32.try_new(1024)
+    assert plan is not None and plan.primes == jplan.primes
+    x, y = _values(rng, 2, 1024), _values(rng, 2, 1024)
+    got = plan.negacyclic_polymul(x, y)
+    np.testing.assert_array_equal(got, np.asarray(jplan.negacyclic_polymul(x, y)))
+    np.testing.assert_array_equal(got[0], negacyclic_convolution_wrapping_np(x[0], y[0]))
+    np.testing.assert_array_equal(plan.fwd(x).numpy(), np.asarray(jplan.fwd(x)))
+    p52, jp52 = tn64.Plan52.try_new(1024, device="cpu"), jn64.Plan52.try_new(1024)
+    np.testing.assert_array_equal(p52.negacyclic_polymul(x, y), got)
+    np.testing.assert_array_equal(p52.fwd(x).numpy(), np.asarray(jp52.fwd(x)))
+    big, jbig = tn64.Plan32.try_new(1 << 16, device="cpu"), jn64.Plan32.try_new(1 << 16)
+    z = _values(rng, 1, 1 << 16)
+    np.testing.assert_array_equal(big.fwd(z).numpy(), np.asarray(jbig.fwd(z)))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*N17"):
+        big._route32(torch.device("meta"))
     assert tn64.Plan32.try_new(1 << 18) is None
 
 

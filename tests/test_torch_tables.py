@@ -52,7 +52,35 @@ def test_prime_tables_match_jax():
     assert ttab.primes32_ext() == jtab.primes32_ext()
     assert ttab.generate_ntt_primes(3, 30, 1 << 16) == jtab.generate_ntt_primes(3, 30, 1 << 16)
     for n in (1 << 10, 1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18):
-        assert ttab.native_channel_primes(5, n) == jtab.native_channel_primes(5, n)
+        for k in (1, 2, 3, 5, 10):
+            assert ttab.native_channel_primes(k, n) == jtab.native_channel_primes(k, n)
+
+
+@pytest.mark.parametrize("name", ["NATIVE32_PRIMES", "NATIVE64_PRIMES", "NATIVE128_PRIMES",
+                                  "NATIVE_BINARY32_PRIMES", "NATIVE_BINARY64_PRIMES",
+                                  "NATIVE_BINARY128_PRIMES"])
+def test_native_prime_selections_and_crt_constants_match_jax(name):
+    primes = getattr(ttab, name)
+    assert primes == getattr(jtab, name)
+    port, ref = ttab.crt_constants(primes), jtab.crt_constants(primes)
+    assert port == ref
+    m = port["product"]
+    assert all(mi * y % p == 1 and mi * p == m
+               for mi, y, p in zip(port["big_m"], port["y"], primes))
+    assert ttab.crt_constants(ttab.PRIMES52[:3]) == jtab.crt_constants(jtab.PRIMES52[:3])
+
+
+@pytest.mark.parametrize("n", [1 << 11, 1 << 14])
+def test_u128_tables_match_jax(n):
+    """The four-limb column planes (16 operand digit planes) of a few of the
+    ten channels, and the channel-grid tables of the native_binary128 set."""
+    for p in (ttab.NATIVE128_PRIMES[0], ttab.NATIVE128_PRIMES[9]):
+        _assert_same(tmx._wide_col_planes(n, p, 4), jmx._wide_col_planes(n, p, 4))
+    primes = ttab.NATIVE_BINARY128_PRIMES
+    ones = (1,) * len(primes)
+    ref = jpal._multi_tables(n, primes, 4, ones)
+    ref.pop("scalars")
+    _assert_same(tcu._multi_tables(n, primes, 4, ones), ref)
 
 
 @pytest.mark.parametrize("n", [1 << 11, 1 << 14])

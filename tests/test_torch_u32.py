@@ -175,3 +175,61 @@ def test_uint32_carrier_roundtrip(rng):
     np.testing.assert_array_equal(back.numpy(), x)
     with pytest.raises(TypeError):
         T.to_i64(c)
+
+
+# -- the N-limb helpers of the u128 lifts ----------------------------------------
+
+
+def _limb_operands(rng, n_limbs, count=2048):
+    """[count, n_limbs] uint32 limbs: random rows after rows of edge limbs
+    (all ones, all zeros, a lone top bit, a lone low bit)."""
+    x = rng.integers(0, 1 << 32, (count, n_limbs), dtype=np.uint32)
+    x[0], x[1] = 0xFFFFFFFF, 0
+    x[2], x[3] = 0, 0
+    x[2, -1], x[3, 0] = 1 << 31, 1
+    return x
+
+
+def _to_ints(limbs):
+    """Tuple of limb arrays (or carriers) -> list of Python ints."""
+    cols = [np.asarray(c.numpy() if isinstance(c, torch.Tensor) else c).astype(object)
+            for c in limbs]
+    return list(sum(c << (32 * k) for k, c in enumerate(cols)))
+
+
+@pytest.mark.parametrize("name", ["add_limbs", "sub_limbs", "mullo_limbs_4x4", "mullo_limbs_2x4",
+                                  "mullo_limbs_const", "select_limbs"])
+def test_n_limb_helpers_match_python_ints_and_jax(rng, name):
+    mask = (1 << 128) - 1
+    a, b = _limb_operands(rng, 4), np.roll(_limb_operands(rng, 4), 2, axis=0)
+    cols = lambda x, k=4: [x[:, i] for i in range(k)]
+    ta, tb = tuple(map(_t, cols(a))), tuple(map(_t, cols(b)))
+    ja, jb = tuple(map(_j, cols(a))), tuple(map(_j, cols(b)))
+    ia, ib = _to_ints(cols(a)), _to_ints(cols(b))
+    if name == "add_limbs":
+        port, ref = T.add_limbs(ta, tb), J.add_limbs(ja, jb)
+        want = [(x + y) & mask for x, y in zip(ia, ib)]
+    elif name == "sub_limbs":
+        port, ref = T.sub_limbs(ta, tb), J.sub_limbs(ja, jb)
+        want = [(x - y) & mask for x, y in zip(ia, ib)]
+    elif name == "mullo_limbs_4x4":
+        port, ref = T.mullo_limbs(ta, tb, 4), J.mullo_limbs(ja, jb, 4)
+        want = [(x * y) & mask for x, y in zip(ia, ib)]
+    elif name == "mullo_limbs_2x4":  # a u64 digit times a u128 constant's limbs
+        port, ref = T.mullo_limbs(ta[:2], tb, 4), J.mullo_limbs(ja[:2], jb, 4)
+        want = [((x & ((1 << 64) - 1)) * y) & mask for x, y in zip(ia, ib)]
+    elif name == "mullo_limbs_const":  # Python-int limbs, a zero limb among them
+        c = 0x3F5A0001 * 0x3F5D0001 * 0x3F760001
+        assert T.const_limbs(c, 4)[3] == 0 and T.const_limbs(c, 4) == tuple(
+            int(v) for v in J.const_limbs(c, 4))
+        port, ref = T.mullo_limbs(ta[:2], T.const_limbs(c, 4), 4), J.mullo_limbs(
+            ja[:2], J.const_limbs(c, 4), 4)
+        want = [((x & ((1 << 64) - 1)) * c) & mask for x in ia]
+    else:
+        cond = (a[:, 0] & 1).astype(bool)
+        port = T.select_limbs(torch.from_numpy(cond), ta, tb)
+        ref = J.select_limbs(_j(cond), ja, jb)
+        want = [x if c else y for c, x, y in zip(cond, ia, ib)]
+    assert len(port) == 4
+    _eq(port, ref)
+    assert _to_ints(port) == want
