@@ -59,6 +59,21 @@ Drives the port's paths through their hand-written CUDA kernels:
     plan; K2's `fwd_wide` with four limbs as the per-channel four-step route
     of `ntt_dispatch.try_fwd32_wide_all`, and K3's A pass with four limbs as
     the rank-local column pass of a u128 operand;
+  * the 32-bit transforms above 2^15 (n1 = 256, n2 = 256 | 512), on the same
+    direct kernels: `native128.Plan32(2^16)` (K1a with four limbs over the ten
+    30-bit primes with 2^18 | p - 1, K1b), `native64.Plan32(2^16 | 2^17)`,
+    `prime32.Plan(2^16, p)` in the three regimes and `Plan(2^17, p)` (K2),
+    `product.Plan(2^16, f1·f2)` Replace and Bounded (K1a, K1c, K1d), a u128
+    operand through K2 and through K3's A pass at 2^16 (the 4096 contraction);
+  * the 32-bit stage-split hybrid, which no route takes (the direct kernels
+    serve 2^16 and 2^17): `stagesplit.engine32_fused.fwd / inv` around K2
+    with block tables (`fwd_hyb` / `inv_hyb`), and the four channel-grid
+    functions `fwd_wide_multi_hybrid32`, `fwd_perchannel_multi_hybrid32`,
+    `inv_multi_hybrid32`, `pointwise_inv_multi_hybrid32` around K1c / K1b /
+    K1d with block tables, at n = 2^16, held against the direct kernels;
+  * K1e (`inv_multi_presplit` on `digit_planes32`' int8 planes) and K5's
+    forward of a u128 operand (`mxu64_cuda.fwd` with four limbs), each as a
+    round trip through its entry point (no route takes either);
   * the device rule: a default-constructed plan given numpy input computes
     on the card (its launch counters move).
 
@@ -99,7 +114,19 @@ failure:
                a u128 operand (full-range u32 limbs): K1a over 10 and over 5
                channels at (2^14, 8), (2^14, 5), (2^11, 3), (2^15, 2), K2
                fwd_wide at K2's shapes and K3's A pass (scaled) at K3's, in
-               the three bench primes.
+               the three bench primes. Above 2^15: K1a (1, 2 and 4 limbs;
+               10 and 5 channels at 2^16, 5 at 2^17), K1b, K1c (1, 2 limbs),
+               K1d at (2^16, 8), (2^16, 3), (2^17, 8), (2^17, 2); K2 fwd,
+               fwd_wide (2, 4 limbs), inv plain and scaled in three regime
+               primes with 2^18 | p - 1 at (2^16, 16), (2^16, 3), (2^17, 16),
+               (2^17, 2): the main paths' shapes among them; K3's A pass
+               with four limbs at 2^16. Block tables: K2h fwd / inv scaled at
+               (2^15, 16), (2^16, 16), (2^17, 4) in the three regimes, K1c
+               (1, 2 limbs) / K1b / K1d over three channel primes at
+               (2^15, 8), (2^16, 8), each against its plain version and each
+               whole hybrid against the direct kernel. K1e == K1b at
+               (2^14, 8), (2^11, 3), (2^16, 2); K5 fwd with four limbs at
+               (2^14, 16), (2^11, 3) in five regime primes.
   4. main    — native64: three polymuls on the card == CPU plain path ==
                numpy wrapping oracle (row 0); K1a +2, K1b +1 per call.
                prime32: Plan(2^14, p) polymul at B = 16 for each bench prime
@@ -147,7 +174,20 @@ failure:
                launch); `"py128"` lists on a default native128 plan == the
                planar result; a u128 operand through K2 (x3 primes) and
                through the rank-local passes (K3-u128 +R, K3 +R) == its
-               residues through the one-limb path. Each path's launch
+               residues through the one-limb path. Above 2^15 at B = 8:
+               native128.Plan32(2^16) and native64.Plan32(2^16 | 2^17)
+               polymul, fwd, inv == CPU plain path (all rows) == the wrapping
+               oracle (4 coefficients of row 0), inv(fwd(x)) == n·x (K1a or
+               K1a-u128 +2, K1b +1 a polymul); prime32 Plan(2^16, p) x3 and
+               Plan(2^17, p) at B = 16 from numpy input (K2 +2 fwd +1 inv)
+               == CPU (all rows) == direct sums, n·x; product.Plan(2^16)
+               Replace and Bounded == CPU (all rows); a u128 operand through K2 and K3 at
+               2^16. The 32-bit hybrid at 2^16: engine32_fused (K2h fwd +1,
+               inv +1) == direct K2, n·x; the channel-grid hybrid as a
+               three-channel polymul (K1c-hyb +2, K1d-hyb +1) == K1a x2 + K1d
+               direct == native_binary64.Plan32's polymul, K1b-hyb +1 and
+               K1c-hyb +1 a round trip. K1e and K5-u128 round trips == the
+               operand's residues. Each path's launch
                counters are set to 0 just before it and read just after.
   5. times   — CUDA events, warm-up then the median of reps, each kernel
                beside its plain version (K1d also beside plain mont_mul +
@@ -163,9 +203,14 @@ failure:
                at 2^16 and 2^17; K1a with four limbs over 10 and 5
                channels, K1b over 10, K2 fwd_wide and K3 A with four limbs;
                the polymul of every native family at (2^14, 8) and the
-               per-channel route's at 1024.
+               per-channel route's at 1024; the direct 32-bit kernels at
+               2^16 (and K2 at 2^17), K2h and K1 with block tables at 2^16,
+               K1e beside K1b, K5 with four limbs; K2 and K1a / K1d direct
+               beside the 32-bit hybrid at 2^15, 2^16 and 2^17, in turns, with
+               the hybrid's split; the polymuls above 2^15.
 Then one JSON line of kernel summaries (each with its launches on its main
-path, error, ms, plain ms, and the bound: the larger of its bytes over
+path, error, ms, plain ms, and, for the direct 32-bit kernels, the same
+numbers at their shape above 2^15 under `n17`; and the bound: the larger of its bytes over
 3.35 TB/s and its int8 operations over 1,979 TOP/s, the H100 SXM data-sheet
 rates; `library_ms` is null for all: no single PyTorch call computes an
 exact modular transform), the nvidia-smi line, and last
@@ -178,8 +223,8 @@ product polymul at (2^14, 16) in Replace and Bounded, of the prime64 polymul
 per regime and of the Plan52 polymul: host-clock ms, device
 busy ms and share, matmod_pass / butterfly device ms, and device kernels
 and aten ops per polymul; and of the prime64 polymul at 2^16 with its split
-into prefix stages, block kernels and suffix stages; and of the polymul of
-each native family at (2^14, 8).
+into prefix stages, block kernels and suffix stages; of the polymul of
+each native family at (2^14, 8), and of the polymuls above 2^15.
 Inputs come from numpy's default_rng(--seed); the script imports no JAX.
 """
 
@@ -256,7 +301,19 @@ KERNELS = {  # JSON name -> (source, TPU kernel replaced)
     "fwd_wide_multi_u128": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:527"),
     "fwd_u128": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:163"),
     "pass_matmod_u128": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:687"),
+    # the 32-bit kernels with their `hyb` argument (block tables)
+    "fwd_hyb": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:35"),
+    "inv_hyb": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:35"),
+    "fwd_multi_perchannel_hyb": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:544"),
+    "inv_multi_hyb": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:585"),
+    "pointwise_inv_multi_hyb": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:637"),
+    # K1b from pre-split digit planes; K5 fwd with the four limbs of a u128 operand
+    "inv_multi_presplit": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:614"),
+    "fwd64_u128": (PASS64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:32"),
 }
+# the rows that also carry their shape above 2^15 (fields `n17_*` of the JSON line)
+BIG_ROWS = ("fwd_wide_multi", "fwd_wide_multi_u128", "inv_multi", "fwd_multi_perchannel",
+            "pointwise_inv_multi", "fwd", "fwd_u128", "inv", "pass_matmod_u128")
 # (module, tier) of the native plans beside native64's, and the three run at
 # n = 1024 through the per-channel route (one of each width)
 NATIVE_PLANS = (("native32", "Plan32"), ("native32", "Plan52"), ("native_binary32", "Plan32"),
@@ -265,6 +322,17 @@ NATIVE_PLANS = (("native32", "Plan32"), ("native32", "Plan52"), ("native_binary3
                 ("native_binary128", "Plan32"))
 PERCHANNEL_PLANS = (("native32", "Plan32"), ("native_binary64", "Plan32"), ("native128", "Plan32"))
 N_PERCH = 1024
+# n = 2^16 and 2^17 (n1 = 256, n2 = 256 | 512): the direct 32-bit kernels there,
+# the 32-bit hybrid's block tables, the presplit inverse, K5's u128 operand
+N16, N17 = 1 << 16, 1 << 17
+# the main paths' shapes (B = 8 for the channel grid, 16 for K2) and a ragged and a small batch
+K1_BIG_SHAPES = ((N16, 8), (N16, 3), (N17, 8), (N17, 2))
+K2_BIG_SHAPES = ((N16, 16), (N16, 3), (N17, 16), (N17, 2))
+HYB32_SHAPES = ((1 << 15, 16), (N16, 16), (N17, 4))
+K1H_SHAPES = ((1 << 15, 8), (N16, 8))
+K1E_SHAPES = ((1 << 14, 8), (1 << 11, 3), (N16, 2))
+W464_SHAPES = ((1 << 14, 16), (1 << 11, 3))
+B_BIG = 8      # batch of the native plans' polymuls at 2^16 and 2^17 (all rows are checked)
 
 
 class PhaseError(RuntimeError):
@@ -425,10 +493,11 @@ def fourstep_work(direction, b, n1, n2, c, e1, e2, d, limbs_in, limbs_out, n_dia
     return macs, io + tables
 
 
-def hybrid_work(direction, b, n1, n2, nb, c, e1, e2, d, n_diag, operands=1) -> tuple:
+def hybrid_work(direction, b, n1, n2, nb, c, e1, e2, d, n_diag, operands=1, limbs=2) -> tuple:
     """(int8 MACs, bytes) of the nb block transforms of size n1·n2 of a
     stage-split hybrid over c channels: the MACs of nb four-steps; operands
-    and results once ((lo, hi) limbs of [c, B, nb·n1·n2]); the per-block
+    and results once (`limbs` u32 limbs of [c, B, nb·n1·n2]: (lo, hi), or 1 in
+    32 bits); the per-block
     column operator and diagonals nb times, the shared row operator once."""
     n = n1 * n2
     k1, k2 = (n1, n2) if direction == "fwd" else (n2, n1)
@@ -436,7 +505,7 @@ def hybrid_work(direction, b, n1, n2, nb, c, e1, e2, d, n_diag, operands=1) -> t
     blk, sh = ((e1, k1), (e2, k2)) if direction == "fwd" else ((e2, k2), (e1, k1))
     tables = c * (nb * (d * blk[0] * blk[1] ** 2 + 4 * d * blk[1] + 4 * n_diag * n)
                   + d * sh[0] * sh[1] ** 2 + 4 * d * sh[1])
-    io = 4 * b * nb * n * c * 2 * (operands + 1)
+    io = 4 * b * nb * n * c * limbs * (operands + 1)
     return macs, io + tables
 
 
@@ -487,7 +556,7 @@ def main() -> int:
         cuda_build, mxu32, mxu32_cuda, mxu64, mxu64_cuda, ntt_dispatch, stagesplit)
     from concrete_ntt_tpu_torch.ops.u32 import (
         limbs_to_np_u64, mont_mul, mont_mul64, mont_neginv, mont_neginv64, to_i64, to_u32)
-    from concrete_ntt_tpu_torch.tables import GOLDILOCKS, NATIVE128_PRIMES, PRIMES52
+    from concrete_ntt_tpu_torch.tables import GOLDILOCKS, NATIVE128_PRIMES, PRIMES52, primes32_ext
     from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
     from concrete_ntt_tpu_torch.utils.prime import (
         largest_prime_in_arithmetic_progression64 as prime_in_ap)
@@ -510,6 +579,15 @@ def main() -> int:
         "p63": prime_in_ap(1 << 18, 1, 1 << 62, 1 << 63),
         "p64": prime_in_ap(1 << 18, 1, 1 << 63, (1 << 64) - 1),
     }
+
+    # the three prime32 regimes with 2^18 | p - 1, and the ten 30-bit channel
+    # primes of the native plans above 2^15
+    BIG32 = {
+        "lt30": prime_in_ap(1 << 18, 1, 1 << 29, 1 << 30),
+        "lt31": prime_in_ap(1 << 18, 1, 1 << 30, 1 << 31),
+        "generic": prime_in_ap(1 << 18, 1, 1 << 31, 1 << 32),
+    }
+    EXT = tuple(primes32_ext())
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -536,6 +614,10 @@ def main() -> int:
     def counts() -> dict:
         return {**mxu32_cuda.LAUNCHES, **{f"butterfly32_{k}": v for k, v in bcu.LAUNCHES.items()},
                 **mxu64_cuda.LAUNCHES}
+
+    def nz(d: dict) -> dict:
+        """The non-zero entries of a launch-count dict, for the printed lines."""
+        return {k: v for k, v in d.items() if v}
 
     def reset_counts() -> None:
         mxu32_cuda.reset_launch_counts()
@@ -822,6 +904,150 @@ def main() -> int:
           f"{checks['pass_matmod_u128']} at n in {K3_SIZES}, B in {K3_BATCHES}, p in "
           f"{tuple(BENCH_PRIMES.values())}, in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # n = 2^16 and 2^17 (n1 = 256): the direct 32-bit kernels over the channel
+    # primes of those sizes and per regime; full-range u32 limbs everywhere
+    def scale32(n, p):
+        return pow(n, p - 2, p) * pow(2, 32, p) % p
+
+    t0 = time.perf_counter()
+    base = dict(checks)
+    p5, p2e = EXT[:5], EXT[:2]
+    for n, b in K1_BIG_SHAPES:
+        limbs = tuple(u32((b, n)) for _ in range(4))
+        for ch in ((10, 5) if n == N16 else (5,)):
+            for nl in (1, 2, 4):
+                compare("fwd_wide_multi_u128" if nl == 4 else "fwd_wide_multi",
+                        mxu32_cuda.fwd_wide_multi(limbs[:nl], EXT[:ch]),
+                        mxu32_cuda.fwd_wide_multi_plain(limbs[:nl], EXT[:ch]),
+                        f"n={n} B={b} limbs={nl} channels={ch}")
+        x = u32((5, b, n))
+        scs = tuple(scale32(n, p) for p in p5)
+        compare("inv_multi", mxu32_cuda.inv_multi(x, p5, scs),
+                mxu32_cuda.inv_multi_plain(x, p5, scs), f"n={n} B={b} scaled")
+        xs = (u32((2, b, n)), u32((2, b, n)))
+        compare("fwd_multi_perchannel", mxu32_cuda.fwd_multi_perchannel(xs[0], p2e),
+                mxu32_cuda.fwd_multi_perchannel_plain(xs[:1], p2e), f"n={n} B={b} limbs=1")
+        compare("fwd_multi_perchannel", mxu32_cuda.fwd_wide_multi_perchannel(*xs, p2e),
+                mxu32_cuda.fwd_multi_perchannel_plain(xs, p2e), f"n={n} B={b} limbs=2")
+        compare("pointwise_inv_multi", mxu32_cuda.pointwise_inv_multi(*xs, p2e, scs[:2]),
+                mxu32_cuda.pointwise_inv_multi_plain(*xs, p2e, scs[:2]), f"n={n} B={b}")
+    k1_big = {k: checks[k] - base[k] for k in ("fwd_wide_multi", "fwd_wide_multi_u128",
+                                               "inv_multi", "fwd_multi_perchannel",
+                                               "pointwise_inv_multi")}
+    print(f"parity: n = 2^16, 2^17: K1a / K1a-u128 / K1b / K1c / K1d {k1_big} checks exact at "
+          f"(n, B) in {K1_BIG_SHAPES} (K1a over 10 and 5 channels at {N16}, 5 at {N17}; 1, 2 and "
+          f"4 limbs; K1b over 5), channel primes {EXT}, in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    base = dict(checks)
+    for p in BIG32.values():
+        for n, b in K2_BIG_SHAPES:
+            limbs = tuple(u32((b, n)) for _ in range(4))
+            compare("fwd", mxu32_cuda.fwd(limbs[0], n=n, p=p),
+                    mxu32_cuda.fwd_plain(limbs[0], n=n, p=p), f"p={p} n={n} B={b}")
+            for nl in (2, 4):
+                compare("fwd_u128" if nl == 4 else "fwd", mxu32_cuda.fwd_wide(limbs[:nl], n=n, p=p),
+                        mxu32_cuda.fwd_wide_plain(limbs[:nl], n=n, p=p),
+                        f"p={p} n={n} B={b} {nl} limbs")
+            for s in (1, scale32(n, p)):
+                compare("inv", mxu32_cuda.inv(limbs[1], n=n, p=p, scale=s),
+                        mxu32_cuda.inv_plain(limbs[1], n=n, p=p, scale=s),
+                        f"p={p} n={n} B={b} scale={s}")
+        tbl = mxu32._mxu_tables(N16, p)
+        d = tuple(torch.from_numpy(a).to(dev) for a in tbl["d"])  # [n2, n1]
+        for b in K3_BATCHES:
+            xa = tuple(u32((b, tbl["n2"], tbl["n1"])) for _ in range(4))  # 16 x 256 = 4096 rows
+            kw = dict(n=N16, p=p, which="A", diag_slices=d, n_limbs=4)
+            compare("pass_matmod_u128", mxu32_cuda.pass_matmod(xa, **kw),
+                    mxu32_cuda.pass_matmod_plain(xa, **kw), f"p={p} n={N16} B={b} A 4 limbs")
+    k2_big = {k: checks[k] - base[k] for k in ("fwd", "fwd_u128", "inv", "pass_matmod_u128")}
+    print(f"parity: n = 2^16, 2^17: K2 fwd (1, 2 limbs) / fwd_wide 4 limbs / inv (plain, scaled) / "
+          f"K3 A 4 limbs at {N16} (the 4096 contraction) {k2_big} checks exact at (n, B) in "
+          f"{K2_BIG_SHAPES}, p in {tuple(BIG32.values())}, in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # the 32-bit hybrid's block tables: K2 per regime, K1b / K1c / K1d over three
+    # channel primes; and each whole hybrid against the direct kernel at the same n
+    t0 = time.perf_counter()
+    hyb32_build = []
+    for rname, p in BIG32.items():
+        for n, b in HYB32_SHAPES:
+            t1 = time.perf_counter()  # the host build: operators, block proof, digit planes
+            stagesplit._dev32(n, p, N_H)
+            hyb32_build.append(f"{n} {rname} {time.perf_counter() - t1:.1f} s")
+            x = u32((b, n))
+            s = scale32(n, p)
+            kw = dict(n=n, p=p, n_h=N_H)
+            what = f"p={p} n={n} B={b}"
+            compare("fwd_hyb", mxu32_cuda.fwd_hyb(x, **kw), mxu32_cuda.fwd_hyb_plain(x, **kw), what)
+            compare("inv_hyb", mxu32_cuda.inv_hyb(x, scale=s, **kw),
+                    mxu32_cuda.inv_hyb_plain(x, scale=s, **kw), what + " scaled")
+            compare("fwd_hyb", stagesplit.engine32_fused.fwd(x, n=n, p=p),
+                    mxu32_cuda.fwd(x, n=n, p=p), what + " hybrid vs direct K2")
+            compare("inv_hyb", stagesplit.engine32_fused.inv(x, n=n, p=p, scale=s),
+                    mxu32_cuda.inv(x, n=n, p=p, scale=s), what + " scaled hybrid vs direct K2")
+    print(f"parity: K2 with block tables (K2h) fwd {checks['fwd_hyb']}, inv {checks['inv_hyb']} "
+          f"checks exact at (n, B) in {HYB32_SHAPES}, n_h={N_H}, p in {tuple(BIG32.values())}: "
+          f"against the plain versions, and the whole 32-bit hybrid == direct K2, in "
+          f"{time.perf_counter() - t0:.1f} s; host build of the block tables: "
+          f"{', '.join(hyb32_build)}", flush=True)
+
+    t0 = time.perf_counter()
+    for n, b in K1H_SHAPES:
+        p3 = (PRIMES if n <= 1 << 15 else EXT)[:3]
+        scs = tuple(scale32(n, p) for p in p3)
+        x, y = u32((3, b, n)), u32((3, b, n))
+        what = f"n={n} B={b} n_h={N_H}"
+        compare("fwd_multi_perchannel_hyb", mxu32_cuda.fwd_multi_perchannel(x, p3, n_h=N_H),
+                mxu32_cuda.fwd_multi_perchannel_plain((x,), p3, N_H), what + " limbs=1")
+        compare("fwd_multi_perchannel_hyb",
+                mxu32_cuda.fwd_wide_multi_perchannel(x, y, p3, n_h=N_H),
+                mxu32_cuda.fwd_multi_perchannel_plain((x, y), p3, N_H), what + " limbs=2")
+        compare("inv_multi_hyb", mxu32_cuda.inv_multi(x, p3, scs, n_h=N_H),
+                mxu32_cuda.inv_multi_plain(x, p3, scs, N_H), what)
+        compare("pointwise_inv_multi_hyb", mxu32_cuda.pointwise_inv_multi(x, y, p3, scs, n_h=N_H),
+                mxu32_cuda.pointwise_inv_multi_plain(x, y, p3, scs, N_H), what)
+        for limbs in ((x[0],), (x[0], y[0])):
+            compare("fwd_multi_perchannel_hyb",
+                    stagesplit.fwd_wide_multi_hybrid32(limbs, p3, n=n),
+                    mxu32_cuda.fwd_wide_multi(limbs, p3),
+                    what + f" hybrid vs K1a direct, {len(limbs)} limbs")
+        compare("fwd_multi_perchannel_hyb", stagesplit.fwd_perchannel_multi_hybrid32(x, p3, n=n),
+                mxu32_cuda.fwd_multi_perchannel(x, p3), what + " hybrid vs K1c direct")
+        compare("inv_multi_hyb", stagesplit.inv_multi_hybrid32(x, p3, scs, n=n),
+                mxu32_cuda.inv_multi(x, p3, scs), what + " hybrid vs K1b direct")
+        compare("pointwise_inv_multi_hyb",
+                stagesplit.pointwise_inv_multi_hybrid32(x, y, p3, scs, n=n),
+                mxu32_cuda.pointwise_inv_multi(x, y, p3, scs), what + " hybrid vs K1d direct")
+    print(f"parity: the channel grid with block tables: K1c {checks['fwd_multi_perchannel_hyb']} "
+          f"(1 and 2 limbs), K1b {checks['inv_multi_hyb']}, K1d "
+          f"{checks['pointwise_inv_multi_hyb']} checks exact at (n, B) in {K1H_SHAPES}, "
+          f"n_h={N_H}, over {PRIMES[:3]} at 32768 and {EXT[:3]} at 65536: against the plain "
+          f"versions, and the four channel-grid hybrids == K1a / K1c / K1b / K1d direct, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # K1e (the operand as int8 digit planes) == K1b; K5 fwd with four limbs
+    t0 = time.perf_counter()
+    for n, b in K1E_SHAPES:
+        pr = PRIMES if n <= 1 << 15 else p5
+        scs = tuple(scale32(n, p) for p in pr)
+        x = u32((5, b, n))
+        xd = mxu32_cuda.digit_planes32(x)
+        got = mxu32_cuda.inv_multi_presplit(xd, pr, scs)
+        compare("inv_multi_presplit", got, mxu32_cuda.inv_multi_presplit_plain(xd, pr, scs),
+                f"n={n} B={b}")
+        compare("inv_multi_presplit", got, mxu32_cuda.inv_multi(x, pr, scs),
+                f"n={n} B={b} vs K1b on the values")
+    for rname, p in PRIMES64.items():
+        for n, b in W464_SHAPES:
+            x = tuple(u32((b, n)) for _ in range(4))
+            compare_pair("fwd64_u128", mxu64_cuda.fwd(x, n=n, p=p),
+                         mxu64_cuda.fwd_plain(x, n=n, p=p), f"p={p} n={n} B={b} 4 limbs")
+    print(f"parity: K1e inv_multi_presplit {checks['inv_multi_presplit']} checks exact (== its "
+          f"plain version == K1b) at (n, B) in {K1E_SHAPES}; K5 fwd with four limbs "
+          f"{checks['fwd64_u128']} checks exact at (n, B) in {W464_SHAPES} x five regime primes, "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- 4. main paths ------------------------------------------------------------
     plan = native64.Plan32.try_new(N_MAIN)
     operands = [
@@ -854,13 +1080,13 @@ def main() -> int:
         require(np.array_equal(got[0], negacyclic_convolution_wrapping_np(a[0], b[0])),
                 f"main: call {i} row 0 differs from the numpy wrapping oracle")
     print(f"main: 3 x Plan32({N_MAIN}).negacyclic_polymul B={B_MAIN} on {kind} == CPU plain "
-          f"path == numpy oracle (row 0); launches {launches}", flush=True)
+          f"path == numpy oracle (row 0); launches {nz(launches)}", flush=True)
 
     def expect_delta(before: dict, want: dict, what: str) -> None:
         after = counts()
         delta = {k: after[k] - before[k] for k in after}
         require(all(delta[k] == want.get(k, 0) for k in delta),
-                f"main: {what} moved the launch counters by {delta}, expected {want}")
+                f"main: {what} moved the launch counters by {nz(delta)}, expected {want}")
 
     # the device rule: a default-constructed plan moves numpy input to the card
     require(plan.device == "cuda", f"main: default plan device is {plan.device!r}, not the card")
@@ -935,7 +1161,7 @@ def main() -> int:
     print(f"main: prime32 polymuls on {kind}: Plan({N32}, p) B={B32} for p in "
           f"{tuple(BENCH_PRIMES.values())} == CPU plain path, inv(fwd(x)) == n·x; "
           f"Plan(4096) == CPU; Plan(1024) == CPU == schoolbook oracle (row 0); README "
-          f"vector round trip; launches {launches32}", flush=True)
+          f"vector round trip; launches {nz(launches32)}", flush=True)
 
     n_sh = 4096
     sharded = []
@@ -966,7 +1192,7 @@ def main() -> int:
     launches["pass_matmod"] = launches_k3["pass_matmod"]
     print(f"main: rank-local passes on {kind}: fwd and inv at n={n_sh} B={B32}, R={RANKS} "
           f"ranks, for p in {tuple(BENCH_PRIMES.values())} == CPU plain path, "
-          f"inv(fwd(x)) == n·x; launches {launches_k3}", flush=True)
+          f"inv(fwd(x)) == n·x; launches {nz(launches_k3)}", flush=True)
 
     f1, f2 = PRIMES[0], PRIMES[1]
     pplan = product.Plan.new(N_PROD, f1 * f2, (f1, f2))
@@ -1053,7 +1279,7 @@ def main() -> int:
           f"Accumulate, Bounded b={BOUND}, fwd(bounded), inv == CPU plain path; Plan("
           f"{N_PROD_SMALL}) polymul == CPU == schoolbook oracle (row 0); PBS loop of "
           f"{PBS_TERMS} terms == CPU; Plan({N_PROD}, {K2_PAIR}) polymul via K2 == CPU; "
-          f"launches {launches_prod}", flush=True)
+          f"launches {nz(launches_prod)}", flush=True)
 
     # prime64: K5 through the plan, per regime
     p64_cases = []
@@ -1100,7 +1326,7 @@ def main() -> int:
     print(f"main: prime64 polymuls on {kind}: Plan({N64}, p) B={B64} for p in "
           f"{tuple(PRIMES64.values())} == CPU plain path, inv(fwd(x)) == n·x; Plan(1024, "
           f"{small64.p}) through the stage engine == CPU == schoolbook oracle (row 0); "
-          f"launches {launches64}", flush=True)
+          f"launches {nz(launches64)}", flush=True)
 
     sharded64 = []
     for p in PRIMES64.values():
@@ -1179,7 +1405,7 @@ def main() -> int:
     launches["inv64"] += launches52["inv64"]
     print(f"main: 2 x Plan52({N64}).negacyclic_polymul B={B52} on {kind} == CPU plain path == "
           f"numpy oracle (row 0) == Plan32 on the same inputs; fwd == CPU, inv(fwd(x)) == n·x; "
-          f"launches {launches52}", flush=True)
+          f"launches {nz(launches52)}", flush=True)
 
     # product with one u32 and one u64 factor: the u64 channel through K5
     mix = (PRIMES[0], prime_in_ap(1 << 15, 1, 1 << 33, 1 << 34))
@@ -1196,7 +1422,7 @@ def main() -> int:
             u64_limbs(ma), u64_limbs(mb))),
         f"main: product {mix} polymul differs from the CPU plain path")
     print(f"main: product Plan({N_PROD}, {mix}) B={B_PROD} polymul (u32 channel K1a / K1b, u64 "
-          f"channel K5) == CPU plain path; launches {counts()}", flush=True)
+          f"channel K5) == CPU plain path; launches {nz(counts())}", flush=True)
 
     # prime64 above 2^15: the stage-split hybrid through default-device plans,
     # numpy uint64 in and out
@@ -1315,7 +1541,7 @@ def main() -> int:
         launches[k] = launches_ch[k]
     print(f"main: channel-grid hybrid on {kind}: n={n15} n_h={N_H} B={B52} primes {P52}: "
           f"polymul == Plan52 direct == CPU plain path (2 rows), inv(fwd(x)) == n·x; K7c / K7b "
-          f"round trip at n={N64} == x; launches {launches_ch}", flush=True)
+          f"round trip at n={N64} == x; launches {nz(launches_ch)}", flush=True)
 
     # the other native families: widths 32, 64 and 128, both tiers
     def limbs_np(width, shape, binary=False):
@@ -1343,7 +1569,7 @@ def main() -> int:
         return np.stack([t.cpu().numpy() for t in parts], axis=-1)
 
     def native_counts(pl, binary):
-        """Launches of one polymul, one fwd and one inv of a native plan at 2^11 <= n <= 2^15."""
+        """Launches of one polymul, one fwd and one inv of a native plan at 2^11 <= n <= 2^17."""
         k, nl = len(pl.primes), pl.width // 32
         if pl.tier == "plan32":
             wide = "fwd_wide_multi_u128" if nl == 4 else "fwd_wide_multi"
@@ -1409,7 +1635,7 @@ def main() -> int:
     launches["fwd_wide_multi_u128"] = launches_fam["fwd_wide_multi_u128"]
     print(f"main: native families on {kind}: {[n for n, *_ in fam]} at n={N_MAIN} B={B_MAIN}: "
           f"polymul == CPU plain path == wrapping oracle (row 0; 4 coefficients at width 128), "
-          f"fwd == CPU, inv(fwd(x)) == n·x; launches {launches_fam}; checks "
+          f"fwd == CPU, inv(fwd(x)) == n·x; launches {nz(launches_fam)}; checks "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # below 2^11: no channel route, each channel's prime32 plan (K4)
@@ -1444,7 +1670,7 @@ def main() -> int:
             f"main: {name}({N_PERCH}) polymul row 0 differs from the wrapping oracle")
     print(f"main: per-channel route on {kind}: {[n for n, *_ in perch]} at n={N_PERCH} "
           f"B={B_MAIN}: polymul == CPU plain path == wrapping oracle (4 coefficients of row 0), "
-          f"K4 per channel and no K1 launch; launches {launches_perch}", flush=True)
+          f"K4 per channel and no K1 launch; launches {nz(launches_perch)}", flush=True)
 
     # host formats on a default plan: Python ints ("py128") move to the card
     name, pl128, _, _, a128, b128 = fam[[n for n, *_ in fam].index("native128.Plan32")]
@@ -1458,7 +1684,7 @@ def main() -> int:
     require(isinstance(py_out, list) and py_out == [int(v) for v in planar_row0],
             "main: native128 py128 polymul differs from the planar one")
     print(f"main: device rule: native128.Plan32 default device {pl128.device!r}, a polymul of "
-          f"two lists of {N_MAIN} Python ints launched {counts()} and == the 4-limb planar "
+          f"two lists of {N_MAIN} Python ints launched {nz(counts())} and == the 4-limb planar "
           f"result (row 0)", flush=True)
 
     # a u128 operand through K2 (the per-channel four-step route of the plans'
@@ -1495,7 +1721,284 @@ def main() -> int:
     print(f"main: u128 operands on {kind}: try_fwd32_wide_all over p in "
           f"{tuple(BENCH_PRIMES.values())} at n={N32} B={B32} (K2 with four limbs) and the "
           f"rank-local fwd at n={n_sh} (K3's A pass with four limbs, R={RANKS}) == the CPU "
-          f"transform of value mod p; launches {launches_wide}", flush=True)
+          f"transform of value mod p; launches {nz(launches_wide)}", flush=True)
+
+    # -- this slice's paths: the 32-bit transforms above 2^15, on the direct kernels --
+    ks_of = lambda n: (0, 1, n // 2 + 7, n - 1)
+    launches_n17 = {}
+    t0 = time.perf_counter()
+    big_fam = []
+    for mod, n in (("native128", N16), ("native64", N16), ("native64", N17)):
+        cls = getattr(port, mod).Plan32
+        pl = cls.try_new(n)
+        require(pl is not None and pl.device == "cuda" and pl.primes == EXT[:len(pl.primes)],
+                f"main: {mod}.Plan32({n}) is not a default-device plan over the 2^18 primes")
+        big_fam.append((f"{mod}.Plan32", n, pl, cls.try_new(n, device="cpu"),
+                        limbs_np(pl.width, (B_BIG, n)), limbs_np(pl.width, (B_BIG, n))))
+    torch.cuda.synchronize()
+    reset_counts()
+    big_out = []
+    for name, n, pl, _, a, b in big_fam:
+        poly, fwd_c, inv_c = native_counts(pl, False)
+        la, lb = plan_arg(a, dev), plan_arg(b, dev)
+        before = counts()
+        got = pl.negacyclic_polymul(la, lb)
+        expect_delta(before, poly, f"{name}({n}) polymul")
+        before = counts()
+        f = pl.fwd(la)
+        expect_delta(before, fwd_c, f"{name}({n}) fwd")
+        before = counts()
+        back = pl.inv(f, out_format="planar")
+        expect_delta(before, inv_c, f"{name}({n}) inv")
+        big_out.append((got, f, back))
+    torch.cuda.synchronize()
+    launches_big = counts()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for (name, n, pl, cpu, a, b), (got, f, back) in zip(big_fam, big_out):
+        g = out_limbs(got)
+        require(f.device.type == "cuda" and g.shape == a.shape and np.array_equal(
+            g, out_limbs(cpu.negacyclic_polymul(plan_arg(a, "cpu"), plan_arg(b, "cpu")))),
+            f"main: {name}({n}) polymul differs from the CPU plain path")
+        want = negacyclic_coefficients_wrapping(as_ints(a[0]), as_ints(b[0]), ks_of(n), pl.width)
+        require([int(v) for v in as_ints(g[0])[list(ks_of(n))]] == want,
+                f"main: {name}({n}) polymul row 0 differs from the wrapping oracle at "
+                f"coefficients {ks_of(n)}")
+        require(tuple(f.shape) == (len(pl.primes), B_BIG, n) and torch.equal(
+            f.cpu(), cpu.fwd(plan_arg(a, "cpu"))),
+            f"main: {name}({n}) fwd differs from the CPU plain path")
+        nx = (as_ints(a) * n) & ((1 << pl.width) - 1)
+        require((as_ints(out_limbs(back)) == nx).all(),
+                f"main: {name}({n}) inv(fwd(x)) != n·x (wrapping)")
+    for k in ("fwd_wide_multi", "fwd_wide_multi_u128", "inv_multi"):
+        launches_n17[k] = launches_big[k]
+    print(f"main: native plans above 2^15 on {kind}: {[(nm, n) for nm, n, *_ in big_fam]} at "
+          f"B={B_BIG}, planar input on default plans over the channel primes {EXT}: polymul == "
+          f"CPU plain path (all {B_BIG} rows) == wrapping oracle (4 coefficients of row 0), fwd == "
+          f"CPU (all rows), inv(fwd(x)) == n·x (all rows); launches {nz(launches_big)}; on the card {t_card:.1f} s (tables "
+          f"included), checks {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    big32 = [(rname, prime32.Plan.new(N16, p)) for rname, p in BIG32.items()]
+    big32.append(("lt30", prime32.Plan.new(N17, BIG32["lt30"])))
+    big32 = [(rname, pl, *(rng.integers(0, pl.p, (B32, pl.n), dtype=np.uint32) for _ in range(2)))
+             for rname, pl in big32]
+    torch.cuda.synchronize()
+    reset_counts()
+    big32_out = []
+    for rname, pl, lhs, rhs in big32:
+        require(pl.device == "cuda", f"main: default prime32 plan device is {pl.device!r}")
+        before = counts()
+        got = pl.negacyclic_polymul(lhs, rhs)  # numpy input on a default plan
+        expect_delta(before, {"fwd": 2, "inv": 1}, f"prime32 Plan({pl.n}, {pl.p}) polymul")
+        before = counts()
+        rt = pl.inv(pl.fwd(lhs))
+        expect_delta(before, {"fwd": 1, "inv": 1}, f"prime32 Plan({pl.n}, {pl.p}) round trip")
+        big32_out.append((got, rt))
+    torch.cuda.synchronize()
+    launches_b32 = counts()
+    for (rname, pl, lhs, rhs), (got, rt) in zip(big32, big32_out):
+        n, p = pl.n, pl.p
+        want = prime32.Plan.new(n, p, device="cpu").negacyclic_polymul(lhs, rhs)
+        require(got.device.type == "cuda" and tuple(got.shape) == (B32, n)
+                and torch.equal(got.cpu(), want),
+                f"main: prime32 Plan({n}, {p}) polymul differs from the CPU plain path")
+        require(np.array_equal(rt.cpu().numpy(), (lhs.astype(np.uint64) * n % p).astype(np.uint32)),
+                f"main: prime32 Plan({n}, {p}) inv(fwd(x)) != n·x mod p")
+        ao, bo = lhs[0].astype(object), rhs[0].astype(object)
+        for k in ks_of(n):
+            require(int(got[0, k]) == negacyclic_coeff(ao, bo, k, p),
+                    f"main: prime32 Plan({n}, {p}) polymul coefficient {k} of row 0 differs from "
+                    "its direct sum")
+    for k in ("fwd", "inv"):
+        launches_n17[k] = launches_b32[k]
+    print(f"main: prime32 above 2^15 on {kind}: Plan(n, p) B={B32} numpy input on default plans, "
+          f"(n, regime, p) in {[(pl.n, rn, pl.p) for rn, pl, *_ in big32]}: polymul == CPU plain "
+          f"path (all {B32} rows) == direct sums (4 coefficients of row 0), inv(fwd(x)) == n·x; "
+          f"launches {nz(launches_b32)}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    pplan16 = product.Plan.new(N16, EXT[0] * EXT[1], EXT[:2])
+    m16 = pplan16.modulus
+    qa, qb, qacc = (rand_mod(rng, m16, (B_BIG, N16)) for _ in range(3))
+    qx = centred(rng, m16, (B_BIG, N16))
+    d_qa, d_qb, d_qacc, d_qx = map(card, (qa, qb, qacc, qx))
+    torch.cuda.synchronize()
+    reset_counts()
+    before = counts()
+    q_rep = pplan16.negacyclic_polymul(d_qa, d_qb)
+    expect_delta(before, fused, f"product Plan({N16}) Replace polymul")
+    before = counts()
+    q_bnd = pplan16.negacyclic_polymul(d_qx, d_qb, mode=acc, standard=d_qacc, lhs_fwd_mode=bnd)
+    expect_delta(before, {"fwd_multi_perchannel": 1, "fwd_wide_multi": 1,
+                          "pointwise_inv_multi": 1}, f"product Plan({N16}) Bounded polymul")
+    torch.cuda.synchronize()
+    launches_p16 = counts()
+    lim = u64_limbs
+    require(q_rep.device.type == "cuda" and torch.equal(
+        q_rep.cpu(), pplan16.negacyclic_polymul(lim(qa), lim(qb))),
+        f"main: product Plan({N16}) Replace polymul differs from the CPU plain path")
+    require(torch.equal(q_bnd.cpu(), pplan16.negacyclic_polymul(
+        lim(qx), lim(qb), mode=acc, standard=lim(qacc), lhs_fwd_mode=bnd)),
+        f"main: product Plan({N16}) Bounded polymul differs from the CPU plain path")
+    ao, bo = qa[0].astype(object), qb[0].astype(object)
+    row0 = limbs_to_np_u64(q_rep[0].cpu().numpy())
+    for k in ks_of(N16):
+        require(int(row0[k]) == negacyclic_coeff(ao, bo, k, m16),
+                f"main: product Plan({N16}) polymul coefficient {k} of row 0 differs from its "
+                "direct sum")
+    for k in ("fwd_multi_perchannel", "pointwise_inv_multi"):
+        launches_n17[k] = launches_p16[k]
+    print(f"main: product above 2^15 on {kind}: Plan({N16}, {EXT[0]}·{EXT[1]}) B={B_BIG} polymul "
+          f"Replace and Bounded b={BOUND} == CPU plain path (all rows), Replace == direct sums "
+          f"(4 coefficients of row 0); launches {nz(launches_p16)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # a u128 operand at 2^16 through K2 (x3 primes) and through the rank-local
+    # passes (K3's A pass at the 4096 contraction)
+    t0 = time.perf_counter()
+    wide16 = tuple(prime32.Plan.new(N16, p) for p in BIG32.values())
+    w16 = limbs_np(128, (4, N16))
+    p_rl = BIG32["lt30"]
+    tbl = mxu32._mxu_tables(N16, p_rl)
+    geo16 = dict(n=N16, n1=tbl["n1"], n2=tbl["n2"], p=p_rl)
+    d16 = tuple(torch.from_numpy(a).to(dev) for a in tbl["d"])
+    torch.cuda.synchronize()
+    reset_counts()
+    before = counts()
+    wide16_got = ntt_dispatch.try_fwd32_wide_all(plan_arg(w16, dev), wide16)
+    expect_delta(before, {"fwd_u128": len(wide16)}, f"u128 operand through the K2 route at {N16}")
+    before = counts()
+    rl16 = rank_local_fwd(mxu32_cuda.pass_matmod, plan_arg(w16, dev), d16, **geo16)
+    expect_delta(before, {"pass_matmod_u128": RANKS, "pass_matmod": RANKS},
+                 f"rank-local fwd of a u128 operand n={N16}")
+    torch.cuda.synchronize()
+    launches_w16 = counts()
+    for i, pl in enumerate(wide16):
+        require(torch.equal(wide16_got[i].cpu(),
+                            mxu32_cuda.fwd_plain(residue(w16, pl.p), n=N16, p=pl.p)),
+                f"main: u128 operand through K2 at {N16}, p={pl.p}: differs from the transform "
+                "of value mod p")
+    require(torch.equal(rl16.cpu(), mxu32_cuda.fwd_plain(residue(w16, p_rl), n=N16, p=p_rl)),
+            f"main: rank-local fwd of a u128 operand at {N16}: differs from the transform of "
+            "value mod p")
+    for k in ("fwd_u128", "pass_matmod_u128"):
+        launches_n17[k] = launches_w16[k]
+    print(f"main: u128 operands at n={N16} B=4 on {kind}: try_fwd32_wide_all over p in "
+          f"{tuple(BIG32.values())} (K2 with four limbs) and the rank-local fwd (K3's A pass "
+          f"with four limbs, R={RANKS}, p={p_rl}) == the CPU transform of value mod p; launches "
+          f"{launches_w16}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the 32-bit stage-split hybrid at 2^16 through its entry points (no route
+    # takes it): the engine over K2 with block tables, and the channel-grid
+    # hybrid as a three-channel polymul, held against the direct kernels
+    t0 = time.perf_counter()
+    p_h = BIG32["generic"]
+    xh = rng.integers(0, p_h, (B32, N16), dtype=np.uint32)
+    d_xh = host(xh).to(dev)
+    p3e = EXT[:3]
+    sc3 = tuple(scale32(N16, q) for q in p3e)
+    ninv3 = tuple(pow(N16, q - 2, q) for q in p3e)
+    ha, hb = (limbs_np(64, (B_BIG, N16)) for _ in range(2))
+    l16, r16 = plan_arg(ha, dev), plan_arg(hb, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    before = counts()
+    hf = stagesplit.engine32_fused.fwd(d_xh, n=N16, p=p_h)
+    expect_delta(before, {"fwd_hyb": 1}, "engine32_fused.fwd")
+    before = counts()
+    hi = stagesplit.engine32_fused.inv(hf, n=N16, p=p_h)
+    expect_delta(before, {"inv_hyb": 1}, "engine32_fused.inv")
+    before = counts()
+    fl16 = stagesplit.fwd_wide_multi_hybrid32(l16, p3e, n=N16)
+    fr16 = stagesplit.fwd_wide_multi_hybrid32(r16, p3e, n=N16)
+    res16 = stagesplit.pointwise_inv_multi_hybrid32(fl16, fr16, p3e, sc3, n=N16)
+    expect_delta(before, {"fwd_multi_perchannel_hyb": 2, "pointwise_inv_multi_hyb": 1},
+                 "channel-grid hybrid32 polymul")
+    before = counts()
+    back16 = stagesplit.inv_multi_hybrid32(fl16, p3e, ninv3, n=N16)
+    refwd16 = stagesplit.fwd_perchannel_multi_hybrid32(back16, p3e, n=N16)
+    expect_delta(before, {"inv_multi_hyb": 1, "fwd_multi_perchannel_hyb": 1},
+                 "channel-grid hybrid32 round trip")
+    torch.cuda.synchronize()
+    launches_h32 = counts()
+    require(torch.equal(hf, mxu32_cuda.fwd(d_xh, n=N16, p=p_h)),
+            "main: engine32_fused.fwd differs from the direct K2")
+    require(np.array_equal(hi.cpu().numpy(), (xh.astype(np.uint64) * N16 % p_h).astype(np.uint32)),
+            "main: engine32_fused inv(fwd(x)) != n·x mod p")
+    dl16, dr16 = (mxu32_cuda.fwd_wide_multi(v, p3e) for v in (l16, r16))
+    require(torch.equal(fl16, dl16) and torch.equal(fr16, dr16),
+            "main: fwd_wide_multi_hybrid32 differs from K1a direct")
+    require(torch.equal(res16, mxu32_cuda.pointwise_inv_multi(dl16, dr16, p3e, sc3)),
+            "main: pointwise_inv_multi_hybrid32 differs from K1d direct")
+    for c, q in enumerate(p3e):
+        require(np.array_equal(back16[c].cpu().numpy(), (as_ints(ha) % q).astype(np.uint32)),
+                f"main: inv_multi_hybrid32(fwd, n^-1) != x mod {q}")
+    require(torch.equal(refwd16, fl16), "main: fwd_perchannel_multi_hybrid32 of the residues "
+                                        "differs from the forward of the values")
+    native3 = port.native_binary64.Plan32.try_new(N16)
+    require(native3.primes == p3e, "main: native_binary64.Plan32(65536) has other primes")
+    hyb_poly = native3._lift(res16, (B_BIG,), "planar")
+    require(np.array_equal(out_limbs(hyb_poly), out_limbs(native3.negacyclic_polymul(
+        l16, r16, rhs_binary=False))),
+        "main: the channel-grid hybrid32 polymul differs from the plan's direct route")
+    for k in ("fwd_hyb", "inv_hyb", "fwd_multi_perchannel_hyb", "inv_multi_hyb",
+              "pointwise_inv_multi_hyb"):
+        launches[k] = launches_h32[k]
+    print(f"main: 32-bit hybrid at n={N16} n_h={N_H} on {kind} (no route takes it): "
+          f"engine32_fused fwd / inv B={B32} p={p_h} == direct K2, inv(fwd(x)) == n·x; the "
+          f"channel-grid hybrid B={B_BIG} over {p3e}: fwd x2 + pointwise_inv == K1a x2 + K1d "
+          f"direct == native_binary64.Plan32's polymul after the lift, inv(fwd(x), n^-1) == x "
+          f"mod p, fwd_perchannel of it == fwd; launches {nz(launches_h32)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # K1e and K5 with four limbs through their entry points (no route takes them)
+    t0 = time.perf_counter()
+    e_limbs = limbs_np(64, (B_MAIN, N_MAIN))
+    e_arg = plan_arg(e_limbs, dev)
+    ninv5 = tuple(pow(N_MAIN, q - 2, q) for q in PRIMES)
+    w64 = limbs_np(128, (B64, N64))
+    w64_arg = plan_arg(w64, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    before = counts()
+    e_back = mxu32_cuda.inv_multi_presplit(
+        mxu32_cuda.digit_planes32(mxu32_cuda.fwd_wide_multi(e_arg, PRIMES)), PRIMES, ninv5)
+    expect_delta(before, {"fwd_wide_multi": 1, "inv_multi_presplit": 1}, "K1e round trip")
+    w64_out = []
+    for rname in HYB_BIG:
+        q = PRIMES64[rname]
+        before = counts()
+        w64_out.append(mxu64_cuda.inv(mxu64_cuda.fwd(w64_arg, n=N64, p=q), n=N64, p=q,
+                                      scale=pow(N64, q - 2, q)))
+        expect_delta(before, {"fwd64_u128": 1, "inv64": 1}, f"K5 u128 round trip p={q}")
+    torch.cuda.synchronize()
+    launches_e = counts()
+    for c, q in enumerate(PRIMES):
+        require(np.array_equal(e_back[c].cpu().numpy(), (as_ints(e_limbs) % q).astype(np.uint32)),
+                f"main: K1e(planes of K1a(x), n^-1) != x mod {q}")
+    for rname, out in zip(HYB_BIG, w64_out):
+        q = PRIMES64[rname]
+        got = limbs_to_np_u64(torch.stack([t.cpu() for t in out], dim=-1).numpy())
+        require(np.array_equal(got, (as_ints(w64) % q).astype(np.uint64)),
+                f"main: K5 inv(K5 fwd of a u128 operand, n^-1) != value mod {q}")
+    for k in ("inv_multi_presplit", "fwd64_u128"):
+        launches[k] = launches_e[k]
+    print(f"main: K1e and K5-u128 on {kind}: inv_multi_presplit(digit_planes32(K1a(x)), n^-1) == "
+          f"x mod p at n={N_MAIN} B={B_MAIN} over {PRIMES}; K5 inv(fwd of four limbs, n^-1) == "
+          f"value mod p at n={N64} B={B64} for {HYB_BIG}; launches {nz(launches_e)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def memory_line(when: str) -> None:
+        """Device bytes held and their peak, beside the fill of the 32-bit table caches."""
+        mib = lambda v: f"{v / 2**20:.0f} MiB"
+        print(f"memory: {when}: allocated {mib(torch.cuda.memory_allocated())}, peak "
+              f"{mib(torch.cuda.max_memory_allocated())}, reserved "
+              f"{mib(torch.cuda.memory_reserved())}; mxu32_cuda._kernel_tables "
+              f"{mxu32_cuda._kernel_tables.cache_info()}, _hyb_tables "
+              f"{mxu32_cuda._hyb_tables.cache_info()} | {smi}", flush=True)
+
+    memory_line("after the main paths")
 
     # -- 5. times -----------------------------------------------------------------
     ms, plain_ms = {}, {}
@@ -1761,6 +2264,159 @@ def main() -> int:
         print(f"times: {name} polymul n={N_PERCH} B={B_MAIN} (per-channel route): {t:.4f} ms "
               f"(median of 5) = {B_MAIN / t * 1e3:.1f} products/s | {smi}", flush=True)
 
+    # n = 2^16 and 2^17: the direct kernels at their main-path shapes (the JSON
+    # line's n17 fields), then the block-table variants, K1e and K5 with four limbs
+    big_ms = {}
+
+    def timed_big(key, name, label, kernel, plain):
+        t, tp = median_ms(kernel), median_ms(plain, reps=5, warmup=1)
+        big_ms[key] = (label, t, tp)
+        print(f"times: {name} {label}: kernel {t:.4f} ms, plain {tp:.4f} ms (median of {REPS}; "
+              f"plain of 5) | {smi}", flush=True)
+
+    w4b = tuple(u32((B_BIG, N16)) for _ in range(4))
+    x10b = u32((10, B_BIG, N16))
+    sc10b = tuple(scale32(N16, q) for q in EXT)
+    timed_big("fwd_wide_multi", "K1a fwd_wide_multi", f"n={N16} B={B_BIG} C=5 2 limbs",
+              lambda: mxu32_cuda.fwd_wide_multi(w4b[:2], p5),
+              lambda: mxu32_cuda.fwd_wide_multi_plain(w4b[:2], p5))
+    timed_big("fwd_wide_multi_u128", "K1a fwd_wide_multi", f"n={N16} B={B_BIG} C=10 4 limbs",
+              lambda: mxu32_cuda.fwd_wide_multi(w4b, EXT),
+              lambda: mxu32_cuda.fwd_wide_multi_plain(w4b, EXT))
+    timed_big("inv_multi", "K1b inv_multi", f"n={N16} B={B_BIG} C=10 scaled",
+              lambda: mxu32_cuda.inv_multi(x10b, EXT, sc10b),
+              lambda: mxu32_cuda.inv_multi_plain(x10b, EXT, sc10b))
+    xs2b = (u32((2, B_BIG, N16)), u32((2, B_BIG, N16)))
+    timed_big("fwd_multi_perchannel", "K1c fwd_multi_perchannel", f"n={N16} B={B_BIG} C=2 1 limb",
+              lambda: mxu32_cuda.fwd_multi_perchannel(xs2b[0], p2e),
+              lambda: mxu32_cuda.fwd_multi_perchannel_plain(xs2b[:1], p2e))
+    timed_big("pointwise_inv_multi", "K1d pointwise_inv_multi", f"n={N16} B={B_BIG} C=2 scaled",
+              lambda: mxu32_cuda.pointwise_inv_multi(*xs2b, p2e, sc10b[:2]),
+              lambda: mxu32_cuda.pointwise_inv_multi_plain(*xs2b, p2e, sc10b[:2]))
+    for n, rnames in ((N16, tuple(BIG32)), (N17, ("lt30",))):
+        for rname in rnames:
+            p = BIG32[rname]
+            x = u32((B32, n))
+            s = scale32(n, p)
+            headline = n == N16 and rname == "lt30"
+            for key, name, kernel, plain in (
+                    ("fwd", "K2 fwd", lambda: mxu32_cuda.fwd(x, n=n, p=p),
+                     lambda: mxu32_cuda.fwd_plain(x, n=n, p=p)),
+                    ("inv", "K2 inv scaled", lambda: mxu32_cuda.inv(x, n=n, p=p, scale=s),
+                     lambda: mxu32_cuda.inv_plain(x, n=n, p=p, scale=s))):
+                timed_big(key if headline else f"{key} {n} {rname}", name,
+                          f"n={n} B={B32} p={p} ({rname})", kernel, plain)
+    p = BIG32["lt30"]
+    w4k2b = tuple(u32((B32, N16)) for _ in range(4))
+    timed_big("fwd_u128", "K2 fwd_wide", f"n={N16} B={B32} p={p} 4 limbs",
+              lambda: mxu32_cuda.fwd_wide(w4k2b, n=N16, p=p),
+              lambda: mxu32_cuda.fwd_wide_plain(w4k2b, n=N16, p=p))
+    w4k3b = tuple(u32((B32, geo16["n2"], geo16["n1"])) for _ in range(4))
+    kw = dict(n=N16, p=p, which="A", n_limbs=4, diag_slices=d16)
+    timed_big("pass_matmod_u128", "K3 pass_matmod", f"A scaled n={N16} B={B32} p={p} 4 limbs",
+              lambda: mxu32_cuda.pass_matmod(w4k3b, **kw),
+              lambda: mxu32_cuda.pass_matmod_plain(w4k3b, **kw))
+
+    xh16 = u32((B32, N16))
+    kw = dict(n=N16, p=p, n_h=N_H)
+    sh16 = scale32(N16, p)
+    timed("K2h fwd_hyb", f"n={N16} n_h={N_H} B={B32} p={p} (lt30)",
+          lambda: mxu32_cuda.fwd_hyb(xh16, **kw), lambda: mxu32_cuda.fwd_hyb_plain(xh16, **kw),
+          "fwd_hyb")
+    timed("K2h inv_hyb", f"n={N16} n_h={N_H} B={B32} p={p} (lt30) scaled",
+          lambda: mxu32_cuda.inv_hyb(xh16, scale=sh16, **kw),
+          lambda: mxu32_cuda.inv_hyb_plain(xh16, scale=sh16, **kw), "inv_hyb")
+    x3b, y3b = u32((3, B_BIG, N16)), u32((3, B_BIG, N16))
+    timed("K1c fwd_multi_perchannel with block tables", f"n={N16} n_h={N_H} B={B_BIG} C=3 1 limb",
+          lambda: mxu32_cuda.fwd_multi_perchannel(x3b, p3e, n_h=N_H),
+          lambda: mxu32_cuda.fwd_multi_perchannel_plain((x3b,), p3e, N_H),
+          "fwd_multi_perchannel_hyb")
+    timed("K1b inv_multi with block tables", f"n={N16} n_h={N_H} B={B_BIG} C=3 scaled",
+          lambda: mxu32_cuda.inv_multi(x3b, p3e, sc3, n_h=N_H),
+          lambda: mxu32_cuda.inv_multi_plain(x3b, p3e, sc3, N_H), "inv_multi_hyb")
+    timed("K1d pointwise_inv_multi with block tables", f"n={N16} n_h={N_H} B={B_BIG} C=3 scaled",
+          lambda: mxu32_cuda.pointwise_inv_multi(x3b, y3b, p3e, sc3, n_h=N_H),
+          lambda: mxu32_cuda.pointwise_inv_multi_plain(x3b, y3b, p3e, sc3, N_H),
+          "pointwise_inv_multi_hyb")
+    xe = u32((5, B_MAIN, N_MAIN))
+    xde = mxu32_cuda.digit_planes32(xe)
+    timed("K1e inv_multi_presplit", f"n={N_MAIN} B={B_MAIN} C=5 scaled",
+          lambda: mxu32_cuda.inv_multi_presplit(xde, PRIMES, scaled),
+          lambda: mxu32_cuda.inv_multi_presplit_plain(xde, PRIMES, scaled), "inv_multi_presplit")
+    t_b, t_e, t_s = (median_ms(fn) for fn in (
+        lambda: mxu32_cuda.inv_multi(xe, PRIMES, scaled),
+        lambda: mxu32_cuda.inv_multi_presplit(xde, PRIMES, scaled),
+        lambda: mxu32_cuda.digit_planes32(xe)))
+    print(f"times: K1b vs K1e n={N_MAIN} B={B_MAIN} C=5: K1b {t_b:.4f} ms, K1e {t_e:.4f} ms, "
+          f"digit_planes32 (plain torch) {t_s:.4f} ms (median of {REPS}) | {smi}", flush=True)
+    w4g = tuple(u32((B64, N64)) for _ in range(4))
+    timed("K5 fwd64 with four limbs", f"n={N64} B={B64} p={GOLDILOCKS} (goldilocks)",
+          lambda: mxu64_cuda.fwd(w4g, n=N64, p=GOLDILOCKS),
+          lambda: mxu64_cuda.fwd_plain(w4g, n=N64, p=GOLDILOCKS), "fwd64_u128")
+
+    # the direct 32-bit kernels beside the 32-bit hybrid at 2^15, 2^16 and 2^17,
+    # in turns (direct, hybrid, hybrid, direct); the route stays direct
+    def in_turns(label, direct, hybrid):
+        t = [median_ms(fn) for fn in (direct, hybrid, hybrid, direct)]
+        print(f"times: direct vs 32-bit hybrid {label}: direct {t[0]:.4f} / {t[3]:.4f} ms, hybrid "
+              f"{t[1]:.4f} / {t[2]:.4f} ms (median of {REPS}, in turns) | {smi}", flush=True)
+
+    for n in (N_HYB15, N16, N17):
+        for rname in ("lt30", "generic"):
+            p = BIG32[rname]
+            x = u32((B32, n))
+            s = scale32(n, p)
+            in_turns(f"K2 fwd n={n} B={B32} p={p} ({rname})",
+                     lambda: mxu32_cuda.fwd(x, n=n, p=p),
+                     lambda: stagesplit.engine32_fused.fwd(x, n=n, p=p))
+            in_turns(f"K2 inv scaled n={n} B={B32} p={p} ({rname})",
+                     lambda: mxu32_cuda.inv(x, n=n, p=p, scale=s),
+                     lambda: stagesplit.engine32_fused.inv(x, n=n, p=p, scale=s))
+        dv = stagesplit._dev32(n, BIG32["lt30"], N_H)
+        xi = to_i64(x)
+        pre, suf = (median_ms(lambda: to_u32(stagesplit._prefix32(xi, dv))),
+                    median_ms(lambda: to_u32(stagesplit._suffix32(xi % BIG32["lt30"], dv))))
+        kf, ki = (median_ms(lambda: mxu32_cuda.fwd_hyb(x, n=n, p=BIG32["lt30"], n_h=N_H)),
+                  median_ms(lambda: mxu32_cuda.inv_hyb(x, n=n, p=BIG32["lt30"], n_h=N_H)))
+        print(f"times: 32-bit hybrid split n={n} B={B32} p={BIG32['lt30']} (lt30): prefix stages "
+              f"{pre:.4f} ms, K2h fwd {kf:.4f} ms, K2h inv {ki:.4f} ms, suffix stages {suf:.4f} "
+              f"ms | {smi}", flush=True)
+        p3 = (PRIMES if n <= 1 << 15 else EXT)[:3]
+        scs = tuple(scale32(n, q) for q in p3)
+        lo_hi = (u32((B_BIG, n)), u32((B_BIG, n)))
+        fl, fr = u32((3, B_BIG, n)), u32((3, B_BIG, n))
+        in_turns(f"K1a fwd_wide_multi 2 limbs n={n} B={B_BIG} C=3",
+                 lambda: mxu32_cuda.fwd_wide_multi(lo_hi, p3),
+                 lambda: stagesplit.fwd_wide_multi_hybrid32(lo_hi, p3, n=n))
+        in_turns(f"K1d pointwise_inv_multi n={n} B={B_BIG} C=3",
+                 lambda: mxu32_cuda.pointwise_inv_multi(fl, fr, p3, scs),
+                 lambda: stagesplit.pointwise_inv_multi_hybrid32(fl, fr, p3, scs, n=n))
+
+    # the polymuls above 2^15
+    big_calls = {}
+    for name, n, pl, _, a, b in big_fam:
+        la, lb = plan_arg(a, dev), plan_arg(b, dev)
+        big_calls[f"{name}({n})"] = (lambda pl=pl, la=la, lb=lb: pl.negacyclic_polymul(la, lb))
+        t = median_ms(big_calls[f"{name}({n})"], reps=10)
+        print(f"times: {name} polymul n={n} B={B_BIG} planar: {t:.4f} ms (median of 10) = "
+              f"{B_BIG / t * 1e3:.1f} products/s | {smi}", flush=True)
+    for rname, pl, lhs, rhs in big32:
+        a, b = host(lhs).to(dev), host(rhs).to(dev)
+        big_calls[f"prime32.Plan({pl.n}, {rname})"] = (
+            lambda pl=pl, a=a, b=b: pl.negacyclic_polymul(a, b))
+        tf, ti = median_ms(lambda: pl.fwd(a)), median_ms(lambda: pl.inv(a))
+        t = median_ms(lambda: pl.negacyclic_polymul(a, b))
+        print(f"times: prime32 n={pl.n} B={B32} p={pl.p} ({rname}): fwd {tf:.4f} ms = "
+              f"{B32 / tf * 1e3:.1f} transforms/s, inv {ti:.4f} ms = {B32 / ti * 1e3:.1f} "
+              f"transforms/s, polymul {t:.4f} ms = {B32 / t * 1e3:.1f} products/s (median of "
+              f"{REPS}) | {smi}", flush=True)
+    for what, fn in (("Replace", lambda: pplan16.negacyclic_polymul(d_qa, d_qb)),
+                     ("Bounded", lambda: pplan16.negacyclic_polymul(
+                         d_qx, d_qb, mode=acc, standard=d_qacc, lhs_fwd_mode=bnd))):
+        t = median_ms(fn)
+        print(f"times: product polymul {what} n={N16} B={B_BIG} ({EXT[0]}·{EXT[1]}): {t:.4f} ms "
+              f"(median of {REPS}) = {B_BIG / t * 1e3:.1f} products/s | {smi}", flush=True)
+
     # the bound of each kernel at the shape it was timed at: MACs a pass =
     # B·R·(E·K)·(D·O) from the plane shapes, bytes = operands, results and tables once
     n1m, n2m = mxu32.four_step_factors(N_MAIN)
@@ -1803,8 +2459,44 @@ def main() -> int:
         "fwd_u128": fourstep_work("fwd", B32, n1m, n2m, 1, 16, 4, 4, 4, 1, 4),
         "pass_matmod_u128": (B32 * n2k * 16 * n1k * 4 * n1k,
                              4 * B32 * 4096 * 5 + 64 * n1k * n1k + 16 * n1k + 16 * 4096),
+        # the 32-bit block tables at 2^16: 4 blocks of 2^14, one u32 limb
+        "fwd_hyb": hybrid_work("fwd", B32, n1m, n2m, 4, 1, 4, 4, 4, 4, limbs=1),
+        "inv_hyb": hybrid_work("inv", B32, n1m, n2m, 4, 1, 4, 4, 4, 4, limbs=1),
+        "fwd_multi_perchannel_hyb": hybrid_work("fwd", B_BIG, n1m, n2m, 4, 3, 4, 4, 4, 4, limbs=1),
+        "inv_multi_hyb": hybrid_work("inv", B_BIG, n1m, n2m, 4, 3, 4, 4, 4, 4, limbs=1),
+        "pointwise_inv_multi_hyb": hybrid_work("inv", B_BIG, n1m, n2m, 4, 3, 4, 4, 4, 4,
+                                               operands=2, limbs=1),
+        # K1e: K1b's work with the operand as four int8 planes (the same bytes)
+        "inv_multi_presplit": fourstep_work("inv", B_MAIN, n1m, n2m, 5, 4, 4, 4, 1, 1, 4),
+        # K5 fwd with four limbs: 16 operand planes in the column pass
+        "fwd64_u128": fourstep_work("fwd", B64, n1m, n2m, 1, 16, 8, d_gl, 4, 2, 2),
     }
     bounds = {k: gemm_bound(*w) for k, w in work.items()}
+    # the direct 32-bit kernels at n = 2^16 (n1 = n2 = 256), the shapes of `big_ms`
+    nb1, nb2 = mxu32.four_step_factors(N16)
+    big_work = {
+        "fwd_wide_multi": fourstep_work("fwd", B_BIG, nb1, nb2, 5, 8, 4, 4, 2, 1, 4,
+                                        shared_operand=True),
+        "fwd_wide_multi_u128": fourstep_work("fwd", B_BIG, nb1, nb2, 10, 16, 4, 4, 4, 1, 4,
+                                             shared_operand=True),
+        "inv_multi": fourstep_work("inv", B_BIG, nb1, nb2, 10, 4, 4, 4, 1, 1, 4),
+        "fwd_multi_perchannel": fourstep_work("fwd", B_BIG, nb1, nb2, 2, 4, 4, 4, 1, 1, 4),
+        "pointwise_inv_multi": fourstep_work("inv", B_BIG, nb1, nb2, 2, 4, 4, 4, 1, 1, 4,
+                                             operands=2),
+        "fwd": fourstep_work("fwd", B32, nb1, nb2, 1, 4, 4, 4, 1, 1, 4),
+        "inv": fourstep_work("inv", B32, nb1, nb2, 1, 4, 4, 4, 1, 1, 4),
+        "fwd_u128": fourstep_work("fwd", B32, nb1, nb2, 1, 16, 4, 4, 4, 1, 4),
+        "pass_matmod_u128": (B32 * nb2 * 16 * nb1 * 4 * nb1,
+                             4 * B32 * N16 * 5 + 64 * nb1 * nb1 + 16 * nb1 + 16 * N16),
+    }
+    big_rows = {}
+    for k in BIG_ROWS:
+        label, t, tp = big_ms[k]
+        bms, by = gemm_bound(*big_work[k])
+        big_rows[k] = {"shape": label, "launches": launches_n17[k], "ms": t, "plain_ms": tp,
+                       "bound_ms": bms, "bound_by": by}
+        print(f"bound: {k} at {label}: {bms:.6f} ms by {by} (kernel {t:.4f} ms = "
+              f"{t / bms:.1f} x the bound)", flush=True)
     # K4 at (1024, 16): B·(n/2)·log2 n butterflies of about 12 integer operations
     # on the CUDA cores; operand, result and two twiddle tables once
     bfly_ops = B32 * 512 * 10 * 12
@@ -1815,6 +2507,7 @@ def main() -> int:
     for k in KERNELS:
         print(f"bound: {k}: {bounds[k][0]:.6f} ms by {bounds[k][1]} (kernel {ms[k]:.4f} ms = "
               f"{ms[k] / bounds[k][0]:.1f} x the bound)", flush=True)
+    memory_line("after the times")
 
     if args.profile:
         prof_cases = [(f"n={N32} ({name})", pl, lhs, rhs) for name, pl, lhs, rhs in p32_cases]
@@ -1873,11 +2566,18 @@ def main() -> int:
                   f"polymul (10 polymuls); by CUDA events: prefix {pre:.4f} ms x2, K5h fwd "
                   f"{kf:.4f} ms x2, K5h inv {ki:.4f} ms, suffix {suf:.4f} ms | {smi}", flush=True)
 
+        for name, fn in big_calls.items():
+            r = profile_polymul(fn, reps=5)
+            print(f"profile: {name} polymul above 2^15: host clock {r['host_ms']:.4f} ms, device "
+                  f"busy {r['busy_ms']:.4f} ms ({100 * r['busy_share']:.1f} %), GEMM passes "
+                  f"{r['kernel_ms']:.4f} ms, {r['device_events']:.0f} device events and "
+                  f"{r['aten_ops']:.0f} aten ops a polymul (5 polymuls) | {smi}", flush=True)
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": max_err[k], "ms": ms[k],
          "plain_ms": plain_ms[k], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-         "library_ms": None}
+         "library_ms": None, **({"n17": big_rows[k]} if k in big_rows else {})}
         for k, (src, rep) in KERNELS.items()
     ]}))
     print(smi)

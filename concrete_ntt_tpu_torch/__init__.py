@@ -13,7 +13,7 @@ Ported so far:
     tier (1, 2 or 3 50-bit channels). Values are uint32 tensors (width 32),
     planar `(lo, hi)` uint32 limbs, numpy uint64 or `[..., n, 2]` limb
     tensors (width 64), planar 4-limb tuples, `[..., n, 4]` limb tensors or
-    lists of Python ints (width 128). Plan32 at 2^11 <= n <= 2^15 runs the
+    lists of Python ints (width 128). Plan32 at 2^11 <= n <= 2^17 runs the
     channel-grid four-step kernels K1a (`fwd_wide_multi`, the value ->
     residue split folded in as 4, 8 or 16 operand digit planes: 1, 2 or 4
     operand limbs) and K1b (`inv_multi`) of `ops/mxu32_cuda.py` +
@@ -24,7 +24,7 @@ Ported so far:
     grid does not apply, the stage engine below 2^11;
   * the single-prime plan `prime32.Plan(n, p)` (fwd, inv, the elementwise
     ops and the polymul) in the lt30, lt31 and generic regimes: the
-    four-step kernel K2 of `csrc/mxu32_pass.cu` for 2^11 <= n <= 2^15 where
+    four-step kernel K2 of `csrc/mxu32_pass.cu` for 2^11 <= n <= 2^17 where
     `mxu32.applicable` holds (odd p >= 2^26), the butterfly kernel K4
     (`ops/butterfly32_cuda.py` + `csrc/butterfly32.cu`) otherwise, 2 <= n
     <= 2^15 on the card; `ops/ntt_dispatch.py` picks the tier. K3 (one
@@ -33,7 +33,7 @@ Ported so far:
     integration layer: Generic and Bounded fwd,
     Replace and Accumulate inv, the mixed-radix lift, the elementwise ops
     and the fused polymul): on the channel grid K1a-K1d for 30-bit primes
-    at 2^11 <= n <= 2^15 (K1c `fwd_multi_perchannel` for the Bounded fwd,
+    at 2^11 <= n <= 2^17 (K1c `fwd_multi_perchannel` for the Bounded fwd,
     K1d `pointwise_inv_multi` for the polymul), K2 once per channel for
     other primes >= 2^26, each channel's prime32 plan otherwise; factors
     >= 2^32 are prime64 channels through `prime64.Plan`;
@@ -45,6 +45,11 @@ Ported so far:
     stage engine (`ops/butterflies64.py`) otherwise; K6 (one pass, same
     source) is the sharded prime64 four-step's per-rank pass; K7b / K7c
     and block tables for K7 serve the channel-grid hybrid;
+  * the 32-bit stage-split hybrid (`ops/stagesplit.py`: `engine32_fused`,
+    the four `*_hybrid32` functions, around K2 / K1b / K1c / K1d with block
+    tables), the presplit inverse K1e (`mxu32_cuda.inv_multi_presplit`) and
+    K5's forward of a u128 operand: as in the JAX package's default routing
+    no plan takes them (K1 / K2 serve 2^16 and 2^17 directly);
   * beside them `ops/mxu32.py` and `ops/mxu64.py` (the host tables, the
     64-bit ones through `csrc/hostmath64.cpp`; plain four-steps),
     `ops/butterflies32.py` and `ops/engine.py` (plain stage engine),
@@ -57,9 +62,8 @@ Every plan has a device, given at construction and by default the card
 the device it is on; the CPU is what a caller asks for (`device="cpu"`). The
 CUDA sources are built with nvcc at first use. CUDA tensors go through the
 kernels, CPU tensors through the plain versions. Everything else (the
-32-bit transforms at n = 2^16 and 2^17 on the card, the sharded paths, the
-32-bit stage-split hybrid and the remaining Pallas kernel variants) is
-listed in ROADMAP.md, in the order it will be ported.
+sharded paths, tooling) is listed in ROADMAP.md, in the order it will be
+ported.
 """
 
 from . import (

@@ -19,7 +19,7 @@ Data conventions (the JAX package's, so that tests compare like with like):
   * Plan32 NTT-domain residues: uint32 tensors [k, ..., n], channel-leading;
   * Plan52 NTT-domain residues: uint32 tensors [k, ..., n, 2].
 
-Routes. Plan32 channels at 2^11 <= n <= 2^15 take the channel grid (K1a /
+Routes. Plan32 channels at 2^11 <= n <= 2^17 take the channel grid (K1a /
 K1b, the residue split folded into K1a's column matmul as 4, 8 or 16
 operand digit planes); where `ntt_dispatch.route32` has no route, below
 2^11, the plan splits explicitly (`ops/crt.py`) and runs each channel's
@@ -44,7 +44,7 @@ import torch
 
 from . import prime32, prime64
 from .ops import crt as crt_ops
-from .ops import mxu32_cuda, ntt_dispatch
+from .ops import ntt_dispatch
 from .ops.u32 import (
     DEFAULT_DEVICE,
     input_tensor,
@@ -213,30 +213,27 @@ class NativePlanBase:
 
     # -- plan32: the channel routes (K1 / K2), else each channel's plan (K4) ----
 
-    def _route32(self, dev: torch.device) -> str | None:
+    def _route32(self) -> str | None:
         """`ntt_dispatch.route32` for this plan; None is the per-channel
-        route, which on the card ends at 2^15 like the channel routes."""
-        route = ntt_dispatch.route32(self.n, self.primes)
-        if route is None and self.n > mxu32_cuda.MAX_N and dev.type != "cpu":
-            raise ntt_dispatch.no_route32(self.n, self.primes)
-        return route
+        route (below 2^11)."""
+        return ntt_dispatch.route32(self.n, self.primes)
 
     def _fwd32(self, parts, binary: bool = False):
         """Limb tuple of [B, n] → [k, B, n] NTT-domain residues."""
-        if self._route32(parts[0].device) is not None:
+        if self._route32() is not None:
             return ntt_dispatch.try_fwd32_wide_all(parts[:1] if binary else parts, self.plans)
         res = self._split_binary(parts) if binary else self._split(parts)
         return torch.stack([pl.fwd(r) for pl, r in zip(self.plans, res)])
 
     def _inv32(self, arr):
-        if self._route32(arr.device) is not None:
+        if self._route32() is not None:
             return ntt_dispatch.try_inv32_all(arr, self.plans)
         return torch.stack([pl.inv(arr[i]) for i, pl in enumerate(self.plans)])
 
     def _pointwise_inv32(self, fl, fr):
         """Per-channel pointwise·n^-1 then inverse NTT → standard-order
         residues [k, B, n]."""
-        if self._route32(fl.device) is not None:
+        if self._route32() is not None:
             return ntt_dispatch.try_pointwise_inv32_all(fl, fr, self.plans)
         return torch.stack([pl.inv(pl.mul_assign_normalize(fl[i], fr[i]))
                             for i, pl in enumerate(self.plans)])
@@ -312,7 +309,7 @@ class NativePlanBase:
         parts_r, _, _ = _marshal_in(rhs, self.width, self.n, self.device)
         if self.tier == "plan52":
             stacked = self._pointwise_inv52(self._fwd52(parts_l), self._fwd52(parts_r, rhs_binary))
-        elif self._route32(parts_l[0].device) == "K1":
+        elif self._route32() == "K1":
             stacked = ntt_dispatch.try_polymul32_stacked(parts_l, parts_r, self.plans, rhs_binary)
         else:
             stacked = self._pointwise_inv32(self._fwd32(parts_l), self._fwd32(parts_r, rhs_binary))

@@ -6,7 +6,9 @@
 //
 // The pass computes the JAX package's ops/mxu64.py math for a [rows, K] x
 // [K, O] product mod p per polynomial and channel. The operand is a pair of
-// u32 arrays (lo, hi), any u64 value; each limb word is split into four int8
+// u32 arrays (lo, hi), any u64 value (or, in K5's forward column pass only,
+// the four limbs of a u128 whose residue split folds into the product as 16
+// operand planes: n_limbs = 4); each limb word is split into four int8
 // digits (byte - 128) by one xor and meets host-packed plane words in one
 // __dp4a per output digit: kD = 5..9 int32 accumulators per output (the
 // matrix entries' balanced radix-256 digits; 7 for 50-bit primes, 9 near
@@ -69,13 +71,14 @@ constexpr int kScalWords = 16;
 enum Mode { kShoup = 0, kMontShoup = 1, kMontMont = 2, kGl = 3 };
 
 struct Pass {
-  const uint32_t* x[2];  // operand limbs (lo, hi)
+  const uint32_t* x[4];  // operand limbs (lo, hi; four of a u128: x[l] read only if l < n_limbs)
   const uint32_t* y[2];  // second operand (kPointwise only), same geometry
   long long x_b;         // elements between polynomials of the operand
   long long x_chan;      // elements between channels of the operand (0: shared)
   long long x_blk;       // elements between blocks of the operand
   int nb = 1;            // blocks per channel (grid z = channel * nb + block)
   int planes_blk = 0;    // planes / cvec indexed by z (per block), else by the channel
+  int n_limbs = 2;       // operand limbs contracted (4: K5's forward of a u128 operand)
   int k1;                // contraction words per limb (multiple of kKC)
   int s_k, s_r;          // operand strides of the contraction and the row index
   int rows_per_poly;     // R
@@ -85,7 +88,7 @@ struct Pass {
   long long out_chan;    // elements between channels of the output
   long long out_blk;     // elements between blocks of the output
   int t_r, t_o;          // output strides of the row and the output index
-  const int32_t* planes;  // [C or C * nb][2 * k1][kD * o] packed digit words
+  const int32_t* planes;  // [C or C * nb][n_limbs * k1][kD * o] packed digit words
   const int32_t* cvec;    // [C or C * nb][kD][o]
   const uint32_t* diag;   // [C * nb][8 or 2][R][o] (scaled pass; _scale_tables64 order)
   const uint32_t* scal;   // [C][kScalWords]
@@ -204,7 +207,7 @@ __global__ void __launch_bounds__(kThreads) matmod64_pass(Pass a) {
   const int o0 = blockIdx.y * kTO;
   const int tx = threadIdx.x & 31;
   const int ty = threadIdx.x >> 5;
-  const int kw = 2 * a.k1;
+  const int kw = a.n_limbs * a.k1;
   const int od = kD * a.o;
   const int32_t* planes = a.planes + (size_t)pz * kw * od;
   const Scalars sc = read_scalars(a.scal + kScalWords * c);
@@ -345,7 +348,7 @@ inline void fwd_passes(Pass* col, Pass* row, const void* x_lo, const void* x_hi,
   const int n = n1 * n2;
   const long long poly = (long long)nb * n;  // the parent polynomial
   Pass a{};
-  a.x[0] = a.y[0] = (const uint32_t*)x_lo;
+  a.x[0] = a.x[2] = a.x[3] = a.y[0] = (const uint32_t*)x_lo;  // past n_limbs: not read
   a.x[1] = a.y[1] = (const uint32_t*)x_hi;
   a.x_b = poly;
   a.x_chan = x_chan;
@@ -371,8 +374,9 @@ inline void fwd_passes(Pass* col, Pass* row, const void* x_lo, const void* x_hi,
   a.out[1] = (uint32_t*)scratch_hi;
   *col = a;
   Pass b = a;
-  b.x[0] = b.y[0] = (const uint32_t*)scratch_lo;
+  b.x[0] = b.x[2] = b.x[3] = b.y[0] = (const uint32_t*)scratch_lo;
   b.x[1] = b.y[1] = (const uint32_t*)scratch_hi;
+  b.n_limbs = 2;  // the mid-pass value is a limb pair whatever the operand was
   b.x_b = n;
   b.x_blk = (long long)batch * n;
   b.x_chan = (long long)batch * poly;
@@ -408,7 +412,7 @@ inline void inv_passes(Pass* row, Pass* col, const void* x_lo, const void* x_hi,
   const int n = n1 * n2;
   const long long poly = (long long)nb * n;
   Pass a{};
-  a.x[0] = (const uint32_t*)x_lo;
+  a.x[0] = a.x[2] = a.x[3] = (const uint32_t*)x_lo;
   a.x[1] = (const uint32_t*)x_hi;
   a.y[0] = (const uint32_t*)(y_lo ? y_lo : x_lo);
   a.y[1] = (const uint32_t*)(y_hi ? y_hi : x_hi);
@@ -436,7 +440,7 @@ inline void inv_passes(Pass* row, Pass* col, const void* x_lo, const void* x_hi,
   a.out[1] = (uint32_t*)scratch_hi;
   *row = a;
   Pass b = a;
-  b.x[0] = b.y[0] = (const uint32_t*)scratch_lo;
+  b.x[0] = b.x[2] = b.x[3] = b.y[0] = (const uint32_t*)scratch_lo;
   b.x[1] = b.y[1] = (const uint32_t*)scratch_hi;
   b.x_b = n;
   b.x_blk = (long long)batch * n;

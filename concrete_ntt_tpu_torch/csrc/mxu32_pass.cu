@@ -3,7 +3,10 @@
 // Replaces two TPU kernels of concrete_ntt_tpu/ops/mxu32_pallas.py:
 //   K2  k2_fwd / k2_inv  <- _build_call (kernel :72-107): the whole four-step
 //       transform of one prime, fwd (1, 2 or 4 operand limbs) and inv (scale
-//       folded into A_inv). It serves every 2^11 <= n <= 2^15, so it also
+//       folded into A_inv), and with its hyb argument (:36-44, :61-66) the nb
+//       block transforms of the 32-bit stage-split hybrid (per-block tables,
+//       the block on the grid's z axis, one launch pair for all blocks, one
+//       operand limb). It serves every 2^11 <= n <= 2^17, so it also
 //       takes the sizes the TPU sends through two _build_pass_call passes
 //       (2048 <= n < 2^14): that split exists because the whole transform
 //       outgrows the TPU's VMEM there, and a CUDA launch has no such limit;
@@ -13,7 +16,7 @@
 //       epilogue: the per-rank pass of the sharded four-step.
 // for every prime32 regime with odd p >= 2^26: lt30 (p < 2^30), lt31
 // (p < 2^31) and generic (Montgomery epilogues; 5 matrix digit planes for
-// primes near 2^32), and 2^11 <= n <= 2^15.
+// primes near 2^32), and 2^11 <= n <= 2^17 (n1 <= 256, n2 <= 512).
 //
 // Design. Both are launches of matmod_pass (matmod_pass.cuh, shared with
 // K1a/K1b), instantiated per (digit planes, regime, scaled) and chosen at
@@ -57,32 +60,33 @@ cudaError_t launch_any(const Pass& a, int n_d, int regime, cudaStream_t s) {
 
 }  // namespace
 
-// K2 fwd: x0 (, x1 (, x2, x3)) [B, n] u32 limbs (n_limbs = 1, 2 or 4) -> out
-// [B, n] canonical, bit-reversed.
+// K2 fwd: x0 (, x1 (, x2, x3)) [B, nb * n] u32 limbs (n_limbs = 1, 2 or 4) ->
+// out [B, nb * n] canonical, bit-reversed (nb > 1: the hybrid's blocks).
 extern "C" int k2_fwd(const void* x0, const void* x1, const void* x2, const void* x3,
-                      int n_limbs, int batch, int n1, int n2,
+                      int n_limbs, int batch, int n1, int n2, int nb,
                       const void* planes1, const void* cvec1, const void* planes2,
                       const void* cvec2, const void* diag, const void* scal, int n_d, int regime,
                       void* scratch, void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   Pass col, row;
   const void* const x[4] = {x0, x1, x2, x3};
-  mxu32::fwd_passes(&col, &row, x, n_limbs, batch, n1, n2, planes1, cvec1, planes2, cvec2,
-                    diag, scal, scratch, out);
+  mxu32::fwd_passes(&col, &row, x, n_limbs, 0, batch, n1, n2, nb, planes1, cvec1, planes2,
+                    cvec2, diag, scal, scratch, out);
   cudaError_t e = launch_any<true>(col, n_d, regime, s);
   if (e != cudaSuccess) return (int)e;
   return (int)launch_any<false>(row, n_d, regime, s);
 }
 
-// K2 inv: x [B, n] u32 (any representative) -> out [B, n] canonical, standard order.
-extern "C" int k2_inv(const void* x, int batch, int n1, int n2, const void* planes1,
+// K2 inv: x [B, nb * n] u32 (any representative) -> out [B, nb * n] canonical,
+// standard order within each block.
+extern "C" int k2_inv(const void* x, int batch, int n1, int n2, int nb, const void* planes1,
                       const void* cvec1, const void* planes2, const void* cvec2, const void* diag,
                       const void* scal, int n_d, int regime, void* scratch, void* out,
                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   Pass row, col;
-  mxu32::inv_passes(&row, &col, x, batch, n1, n2, planes1, cvec1, planes2, cvec2, diag, scal,
-                    scratch, out);
+  mxu32::inv_passes(&row, &col, x, batch, n1, n2, nb, planes1, cvec1, planes2, cvec2, diag,
+                    scal, scratch, out);
   cudaError_t e = launch_any<true>(row, n_d, regime, s);
   if (e != cudaSuccess) return (int)e;
   return (int)launch_any<false>(col, n_d, regime, s);
@@ -92,7 +96,8 @@ extern "C" int k2_inv(const void* x, int batch, int n1, int n2, const void* plan
 // contracts x_l[b][j][0..k1) of each limb l < n_limbs (1, 2 or 4) and writes
 // out[b][j][0..o); diag is [4 or 2][rows][o] (scaled only).
 extern "C" int k3_pass(const void* x0, const void* x1, const void* x2, const void* x3,
-                       int n_limbs, int batch, int rows, int k1, int o, const void* planes, const void* cvec, const void* diag,
+                       int n_limbs, int batch, int rows, int k1, int o, const void* planes,
+                       const void* cvec, const void* diag,
                        const void* scal, int n_d, int regime, int scaled, void* out,
                        void* stream) {
   Pass a{};

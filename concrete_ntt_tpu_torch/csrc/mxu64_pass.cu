@@ -97,6 +97,28 @@ extern "C" int k5_fwd(const void* x_lo, const void* x_hi, int batch, int n1, int
   return (int)launch_any<false>(row, n_d, mode, s);
 }
 
+// K5 fwd of a u128 operand: the four limbs x0..x3 [B, n] -> (out_lo, out_hi)
+// [B, n] canonical, bit-reversed: mxu64_pallas.py::_build_call with
+// n_limbs = 4 (:47-49). The column pass contracts 16 operand planes
+// (planes1 [4 * n1][D * n1], mxu64._wide_col_planes); the rest is k5_fwd's.
+extern "C" int k5_fwd_u128(const void* x0, const void* x1, const void* x2, const void* x3,
+                           int batch, int n1, int n2, const void* planes1, const void* cvec1,
+                           const void* planes2, const void* cvec2, const void* diag,
+                           const void* scal, int n_d, int mode, void* scratch_lo,
+                           void* scratch_hi, void* out_lo, void* out_hi, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const Tables t{planes1, cvec1, planes2, cvec2, diag, scal};
+  Pass col, row;
+  mxu64::fwd_passes(&col, &row, x0, x1, 0, batch, n1, n2, 1, t, scratch_lo, scratch_hi, out_lo,
+                    out_hi);
+  col.x[2] = (const uint32_t*)x2;
+  col.x[3] = (const uint32_t*)x3;
+  col.n_limbs = 4;
+  cudaError_t e = launch_any<true>(col, n_d, mode, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_any<false>(row, n_d, mode, s);
+}
+
 // K5 inv: (x_lo, x_hi) [B, nb * n], any u64 -> (out_lo, out_hi) canonical,
 // standard order within each block. planes1 / cvec1 (G), planes2 / cvec2
 // [nb][..] (A_inv,b times the scale), diag [nb][8 or 2][n1][n2].
@@ -122,7 +144,7 @@ extern "C" int k6_pass(const void* x_lo, const void* x_hi, int batch, int rows, 
                        const void* planes, const void* cvec, const void* diag, const void* scal,
                        int n_d, int mode, int scaled, void* out_lo, void* out_hi, void* stream) {
   Pass a{};
-  a.x[0] = a.y[0] = (const uint32_t*)x_lo;
+  a.x[0] = a.x[2] = a.x[3] = a.y[0] = (const uint32_t*)x_lo;
   a.x[1] = a.y[1] = (const uint32_t*)x_hi;
   a.x_b = (long long)rows * k1;
   a.x_chan = 0;

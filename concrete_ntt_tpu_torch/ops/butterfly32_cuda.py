@@ -49,9 +49,10 @@ def check_range(n: int, variant: str) -> None:
     """Raise NotImplementedError outside the range K4 serves on the card."""
     if n & (n - 1) or not 2 <= n <= MAX_N:
         raise NotImplementedError(
-            f"n = {n}: the butterfly kernel serves powers of two in [2, 2^15]; "
-            "larger transforms wait for the larger K1 / K2 range "
-            "(ROADMAP.md Queue 2, row N17)"
+            f"n = {n}: the butterfly kernel K4 serves powers of two in [2, 2^15] (a "
+            "polynomial stays in one block's shared memory); above that the card runs "
+            "only the four-step kernels K1 / K2, which need an odd prime >= 2^26 "
+            "(ROADMAP.md Queue 3)"
         )
     if variant not in _REGIME:
         raise ValueError(f"unknown prime32 regime {variant!r}")

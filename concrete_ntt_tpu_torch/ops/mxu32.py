@@ -4,7 +4,12 @@ Counterpart of `concrete_ntt_tpu/ops/mxu32.py`, in two halves:
 
   * **Host half, bit-for-bit copy (numpy).** The exact stage engine that
     builds the six four-step operators A, F, d, G, e, A_inv from the golden
-    twiddles, the balanced-digit int8 plane packing with its epilogue
+    twiddles (`_build_operators_numpy`: the JAX package's numpy build, kept as
+    what the tests hold the C++ build against; the package itself builds
+    them with `host_build.fourstep_build`, the identity-based build of
+    `csrc/hostmath64.cpp` shared with `ops/mxu64.py`, because the numpy
+    stage engine takes tens of seconds a prime at n = 2^16 and 2^17), the
+    balanced-digit int8 plane packing with its epilogue
     constants (`_prep_matrix`, `off_delta`), the accumulator-exactness
     proof (`assert_accumulator_exact`, run on every table built) and the
     table dicts (`_mxu_tables`, `_wide_col_planes`, `_scaled_ainv_planes`).
@@ -46,6 +51,7 @@ import numpy as np
 import torch
 
 from ..golden.ntt import negacyclic_twiddles
+from . import host_build
 from .table_cache import cached_operators
 from .u32 import (
     MASK32,
@@ -263,14 +269,21 @@ def _reduce_chain(p: int) -> tuple[int, ...]:
 
 @lru_cache(maxsize=64)
 def _operators(n: int, p: int):
-    """The six four-step operators A, F, d, G, e, Ainv (uint64 mod p).
-
-    The JAX package's numpy builder, disk-cached across processes
-    (ops/table_cache.py)."""
+    """The six four-step operators A, F, d, G, e, Ainv (uint64 mod p),
+    disk-cached across processes (ops/table_cache.py)."""
     return cached_operators(n, p, lambda: _build_operators(n, p))
 
 
 def _build_operators(n: int, p: int):
+    """The six operators from the C++ build (`csrc/hostmath64.cpp`, any
+    p < 2^64): the same arrays as `_build_operators_numpy`, in about a second
+    a prime at n = 2^16 where the numpy stage engine takes 16."""
+    twid, inv_twid = negacyclic_twiddles(p, n)
+    return host_build.fourstep_build(n, p, four_step_factors(n)[0], twid, inv_twid)
+
+
+def _build_operators_numpy(n: int, p: int):
+    """The JAX package's numpy build (the exact stage engine above)."""
     n1, n2 = four_step_factors(n)
     twid_t, inv_twid_t = negacyclic_twiddles(p, n)
     twid = np.array(twid_t, dtype=np.uint64)

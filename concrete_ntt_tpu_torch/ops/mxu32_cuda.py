@@ -1,4 +1,4 @@
-"""Four-step prime32 NTT kernels: K1a-K1d (channel grid), K2, K3.
+"""Four-step prime32 NTT kernels: K1a-K1e (channel grid), K2, K3.
 
 Counterpart of `concrete_ntt_tpu/ops/mxu32_pallas.py`:
 
@@ -15,18 +15,35 @@ Counterpart of `concrete_ntt_tpu/ops/mxu32_pallas.py`:
   * K1c `fwd_multi_perchannel` / `fwd_wide_multi_perchannel`: K1a with a
     different operand per channel, [C, B, n] u32 per limb (any values).
     Replaces the builder's `perch_in=True` fwd (:544, :564); the product
-    plan's Bounded forward. No `hyb` argument: the stage-split hybrid is
-    not ported.
+    plan's Bounded forward.
   * K1d `pointwise_inv_multi`: fl, fr [C, B, n] u32 (any representatives)
     -> K1b of their Montgomery product fl*fr*2^-32 (the u32 overflow of the
     REDC sum kept, as `_sc_mont_mul` :505). Replaces the builder's
     `pointwise=True` inv (:637); the product plan's fused polymul.
+  * K1e `inv_multi_presplit`: K1b whose operand arrives as the int8 digit
+    planes of `digit_planes32` ([C, B, n1, 4 * n2], plain torch), the
+    JAX function's `presplit=True` (:331-336, :614). The first pass packs the
+    four plane bytes of a value into its digit word instead of xoring the
+    u32; the result is K1b's bit for bit. No route takes it (off in the
+    reference's 'auto' too): on this card the in-kernel split is one xor.
   * K2 `fwd` / `fwd_wide` / `inv(scale)`: the whole four-step transform of
     one prime, [B, n] -> [B, n]. Replaces `_build_call` (kernel :72-107).
     `passes_engine` (fwd / fwd_wide / inv) names the same functions: the
     TPU splits 2048 <= n < 2^14 into two `_build_pass_call` passes only
     because the whole transform outgrows VMEM there, and K2 serves every
-    2^11 <= n <= 2^15 on the card.
+    2^11 <= n <= 2^17 on the card.
+  * Block tables (the JAX functions' `hyb=(parent_n, blk)` argument, :36-44,
+    :262-289): K2 `fwd_hyb` / `inv_hyb(scale)` and the `n_h=` forms of K1b
+    `inv_multi`, K1c `fwd_multi_perchannel` / `fwd_wide_multi_perchannel`
+    and K1d `pointwise_inv_multi` run the n // n_h block transforms of the
+    32-bit stage-split hybrid (`ops/stagesplit.py`), each of size n_h with
+    the tables of its block of a parent transform of size n (A_b, d_b, e_b,
+    A_inv,b times the scale per block; F, G shared). The TPU launches one
+    kernel a block on slices and concatenates; here the block is a grid
+    axis (z = channel * nb + block): one launch pair transforms all blocks
+    in place in the [.., B, n] arrays. No route of `ntt_dispatch` takes the
+    32-bit hybrid (as the reference's 'auto'); `stagesplit.engine32_fused`
+    and the four `*_hybrid32` functions call these.
   * K3 `pass_matmod`: one exact modular GEMM pass [B, rows, K] -> [B, rows,
     O] (which in A, F, G, Ainv; scaled-lazy epilogue by rank-local diagonal
     slices, or canonical), the per-rank pass of the sharded four-step.
@@ -50,15 +67,18 @@ or raises, a CPU tensor runs the plain torch version (`*_plain`, built on
 `LAUNCHES[name]`; nothing else does. K2's `fwd_wide` is its `fwd` kernel
 with more limbs and counts under "fwd"; a launch with four operand limbs
 (K1a, K2 fwd, K3's A pass) counts under its own name, `*_u128`, and not
-under the plain one.
+under the plain one; a launch with block tables counts under `*_hyb`.
 
 Range: K1 takes channel primes 2^29 < p < 2^30 (as `mxu32_pallas.py:254`)
-and 2^11 <= n <= 2^15 (the TPU serves K1c/K1d only at n >= 2^14, a VMEM
+and 2^11 <= n <= 2^17 (the TPU serves K1c/K1d only at n >= 2^14, a VMEM
 and lane limit; the results are the same bits at every n);
 K2/K3 take every prime32 regime with odd 2^26 <= p < 2^32 (lt30, lt31,
 generic with its Montgomery epilogues and, near 2^32, a fifth matrix digit
-plane); all take powers of two 2^11 <= n <= 2^15 and 1, 2 or 4 operand limbs
-(K1c 1 or 2: no plan has a u128 operand per channel).
+plane); all take powers of two 2^11 <= n <= 2^17 (n1 <= 256, n2 <= 512: the
+range `mxu32.applicable` proves exact, 16 * n1 = 4096 contraction rows with
+four limbs) as the transform (block) size and 1, 2 or 4 operand limbs (K1c 1
+or 2: no plan has a u128 operand per channel; block tables 1, or 2 for
+K1c), and with block tables a parent size that is a larger power of two.
 Outside it both routes raise NotImplementedError. The Mosaic workarounds
 `row_fuse` / `_fused_pass_mat` (mxu32_pallas.py:667-683) are not ported:
 they only kept TPU lanes at least 128 wide.
@@ -77,9 +97,11 @@ from .u32 import MASK32, mont_mul, mont_neginv, to_i64, to_u32
 
 LAUNCHES = {"fwd_wide_multi": 0, "inv_multi": 0, "fwd_multi_perchannel": 0,
             "pointwise_inv_multi": 0, "fwd": 0, "inv": 0, "pass_matmod": 0,
-            "fwd_wide_multi_u128": 0, "fwd_u128": 0, "pass_matmod_u128": 0}
+            "fwd_wide_multi_u128": 0, "fwd_u128": 0, "pass_matmod_u128": 0,
+            "fwd_hyb": 0, "inv_hyb": 0, "inv_multi_hyb": 0, "fwd_multi_perchannel_hyb": 0,
+            "pointwise_inv_multi_hyb": 0, "inv_multi_presplit": 0}
 
-MIN_N, MAX_N = 1 << 11, 1 << 15
+MIN_N, MAX_N = 1 << 11, 1 << 17
 _SCAL_WORDS = 16  # the scalar record of csrc/matmod_pass.cuh
 
 
@@ -91,10 +113,10 @@ def reset_launch_counts() -> None:
 def _check_n_limbs(n: int, n_limbs: int, what: str) -> None:
     if n & (n - 1) or not MIN_N <= n <= MAX_N:
         raise NotImplementedError(
-            f"n = {n}: the {what} serve powers of two in [2^11, 2^15]; a prime32 "
+            f"n = {n}: the {what} serve powers of two in [2^11, 2^17]; a prime32 "
             "plan takes the butterfly kernel K4 below and a native plan each "
-            "channel's prime32 plan; n = 2^16, 2^17 wait for the larger K1 / K2 "
-            "range (ROADMAP.md Queue 2, row N17)"
+            "channel's prime32 plan; above 2^17 the int8 accumulators are not "
+            "proven exact (mxu32.applicable)"
         )
     if n_limbs not in (1, 2, 4):
         raise NotImplementedError(
@@ -110,7 +132,7 @@ def check_range(n: int, primes: tuple, n_limbs: int = 1) -> None:
         raise NotImplementedError(
             "the channel-grid kernels need 30-bit channel primes "
             "(2^29 < p < 2^30), as the JAX package's; other primes take the "
-            "single-prime kernels K2/K3 one at a time (ROADMAP.md Queue 2)"
+            "single-prime kernels K2/K3 one at a time (ntt_dispatch.route32)"
         )
 
 
@@ -121,8 +143,34 @@ def check_single_range(n: int, p: int, n_limbs: int = 1) -> None:
         raise NotImplementedError(
             f"p = {p}: the four-step kernels need an odd 2^26 <= p < 2^32; "
             "smaller primes take the butterfly kernel K4 "
-            "(ops/butterfly32_cuda.py, ROADMAP.md Queue 1 item 6)"
+            "(ops/butterfly32_cuda.py, n <= 2^15)"
         )
+
+
+def _check_parent(n: int, n_h: int) -> None:
+    if n & (n - 1) or n <= n_h:
+        raise NotImplementedError(
+            f"n = {n}, n_h = {n_h}: block tables need a parent size that is a power of two "
+            "above the block size"
+        )
+
+
+def check_hyb_range(n: int, n_h: int, p: int) -> None:
+    """Raise NotImplementedError outside the range K2 serves with block
+    tables: a block size K2 takes and a parent size above it."""
+    check_single_range(n_h, p)
+    _check_parent(n, n_h)
+
+
+def _check_multi(n: int, primes: tuple, n_limbs: int, n_h: int | None) -> None:
+    """The range of the channel grid for an operand of last axis n: direct,
+    or n_h-blocks of a parent transform of size n (1 or 2 limbs)."""
+    if n_h is None:
+        return check_range(n, primes, n_limbs)
+    check_range(n_h, primes, n_limbs)
+    _check_parent(n, n_h)
+    if n_limbs == 4:
+        raise NotImplementedError("a u128 operand keeps the direct path: no block tables")
 
 
 def regime(p: int) -> int:
@@ -148,32 +196,56 @@ def scalar_record(p: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _multi_tables(n: int, primes: tuple, n_limbs: int, scales: tuple):
+def _block_mats(n: int, p: int, n_limbs: int, scale: int, hyb: int | None):
+    """(block table dicts, their first-pass forward matrices A_b, their
+    second-pass inverse matrices A_inv,b times `scale`) of one prime: the one
+    direct transform of size n, or with `hyb` = N the N // n blocks of the
+    stage-split hybrid of a parent transform of size N."""
+    if hyb is None:
+        blocks = (mxu32._mxu_tables(n, p),)
+        a = (mxu32._wide_col_planes(n, p, n_limbs) if n_limbs > 1 else blocks[0]["A"],)
+        ainv = (blocks[0]["Ainv"] if scale == 1 else mxu32._scaled_ainv_planes(n, p, scale),)
+        return blocks, a, ainv
+    from . import stagesplit
+
+    blocks = stagesplit._dev32(hyb, p, n)["blocks"]
+    if n_limbs > 1:
+        a = tuple(stagesplit._wide_block_planes32(hyb, p, n, i, n_limbs)
+                  for i in range(len(blocks)))
+    else:
+        a = tuple(t["A"] for t in blocks)
+    ainv = (tuple(t["Ainv"] for t in blocks) if scale == 1
+            else stagesplit._scaled_ainv_blocks32(hyb, p, n, scale))
+    return blocks, a, ainv
+
+
+def _multi_tables(n: int, primes: tuple, n_limbs: int, scales: tuple, hyb: int | None = None):
     """Stacked per-channel tables for the channel-grid kernels (numpy; the
-    JAX package's `_multi_tables` without its stage-split hybrid branch)."""
+    JAX package's `_multi_tables`) for transforms of size n. With `hyb` = N,
+    the size of a parent transform, they are the block tables of the
+    stage-split hybrid for its nb = N // n blocks: what differs per block
+    (A_b and d_b forward, e_b and A_inv,b times the scale inverse) gains a
+    block axis after the channel's, [C, nb, ...]; F and G stay per channel."""
     n1, n2 = mxu32.four_step_factors(n)
+    stack = lambda xs: np.ascontiguousarray(np.stack(xs, axis=0))
+    per_block = stack if hyb is not None else (lambda xs: xs[0])
     p1f, c1f, p2f, c2f, dgf = [], [], [], [], []
     p1i, c1i, p2i, c2i, dgi = [], [], [], [], []
     for ch, p in enumerate(primes):
         assert (1 << 29) < p < (1 << 30), "channel-grid kernels need 30-bit primes"
-        tbl = mxu32._mxu_tables(n, p)
-        mat1 = mxu32._wide_col_planes(n, p, n_limbs) if n_limbs > 1 else tbl["A"]
+        blocks, mat1, mat2 = _block_mats(n, p, n_limbs, scales[ch] % p, hyb)
+        tbl = blocks[0]  # F, G and the scalars are one for all blocks
         assert tbl["chain"] == (4 * p, 2 * p, p), "unexpected reduction chain"
-        p1f.append(mat1[0])
-        c1f.append(mat1[1])
+        p1f.append(per_block([m[0] for m in mat1]))
+        c1f.append(per_block([m[1] for m in mat1]))
         p2f.append(tbl["F"][0])
         c2f.append(tbl["F"][1])
-        dgf.append(tbl["d"])
+        dgf.append([per_block([t["d"][j] for t in blocks]) for j in range(len(tbl["d"]))])
         p1i.append(tbl["G"][0])
         c1i.append(tbl["G"][1])
-        if scales[ch] == 1:
-            mat2 = tbl["Ainv"]
-        else:
-            mat2 = mxu32._scaled_ainv_planes(n, p, scales[ch] % p)
-        p2i.append(mat2[0])
-        c2i.append(mat2[1])
-        dgi.append(tbl["e"])
-    stack = lambda xs: np.ascontiguousarray(np.stack(xs, axis=0))
+        p2i.append(per_block([m[0] for m in mat2]))
+        c2i.append(per_block([m[1] for m in mat2]))
+        dgi.append([per_block([t["e"][j] for t in blocks]) for j in range(len(tbl["e"]))])
     n_dg = len(dgf[0])  # 4 scale-table arrays per channel
     return {
         "n1": n1,
@@ -209,22 +281,57 @@ def pack_planes(planes: np.ndarray, k: int) -> np.ndarray:
     return np.ascontiguousarray(w).view(np.int32).reshape(c, n_limbs * k, do)
 
 
-@lru_cache(maxsize=32)
+def _flat_blocks(a: np.ndarray, lead: int) -> np.ndarray:
+    """Merge the first `lead` axes ([C, nb, ...] -> [C * nb, ...])."""
+    return a.reshape(-1, *a.shape[lead:])
+
+
+def _to_dev(a: np.ndarray, device: str) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+@lru_cache(maxsize=64)
 def _kernel_tables(n: int, primes: tuple, n_limbs: int, scales: tuple,
-                   direction: str, device: str):
-    """The kernel's tables for one direction, as tensors on `device`."""
-    tabs = _multi_tables(n, primes, n_limbs, scales)
+                   direction: str, device: str, hyb: int | None = None):
+    """The kernel's tables for one direction, as tensors on `device`. With
+    `hyb` (a parent size) the per-block tables are indexed by
+    z = channel * nb + block, the shared ones by the channel."""
+    tabs = _multi_tables(n, primes, n_limbs, scales, hyb)
     n1, n2 = tabs["n1"], tabs["n2"]
     planes1, cvec1, planes2, cvec2, diag = tabs[direction]
-    k1 = n1 if direction == "fwd" else n2  # contraction per limb, first pass
-    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    k1, k2 = (n1, n2) if direction == "fwd" else (n2, n1)  # contraction per limb
+    lead = 1 if hyb is None else 2
+    l1, l2 = (lead, 1) if direction == "fwd" else (1, lead)  # A_b / Ainv_b are per block
     return {
-        "planes1": to_dev(pack_planes(planes1, k1)),
-        "cvec1": to_dev(cvec1),
-        "planes2": to_dev(pack_planes(planes2, n2 if direction == "fwd" else n1)),
-        "cvec2": to_dev(cvec2),
-        "diag": to_dev(np.stack(diag, axis=1).view(np.int32)),  # [C, 4, R, O]
-        "scal": to_dev(np.stack([scalar_record(p) for p in primes]).view(np.int32)),
+        "planes1": _to_dev(pack_planes(_flat_blocks(planes1, l1), k1), device),
+        "cvec1": _to_dev(_flat_blocks(cvec1, l1), device),
+        "planes2": _to_dev(pack_planes(_flat_blocks(planes2, l2), k2), device),
+        "cvec2": _to_dev(_flat_blocks(cvec2, l2), device),
+        # [C * nb, 4, R, O]
+        "diag": _to_dev(np.stack([_flat_blocks(d, lead) for d in diag], axis=1).view(np.int32),
+                        device),
+        "scal": _to_dev(np.stack([scalar_record(p) for p in primes]).view(np.int32), device),
+    }
+
+
+@lru_cache(maxsize=32)
+def _hyb_tables(n: int, p: int, n_h: int, scale: int, direction: str, device: str):
+    """K2's block tables for one direction of the hybrid of (n, p, n_h): the
+    per-block pass (A_b forward, A_inv,b times the scale inverse) and the
+    per-block diagonal stacked over the block, the shared pass (F, G) and the
+    scalar record once."""
+    blocks, a, ainv = _block_mats(n_h, p, 1, scale, n)
+    n1, n2 = mxu32.four_step_factors(n_h)  # the column operators contract n1, the row ones n2
+    per_block, shared, diag = (a, blocks[0]["F"], "d") if direction == "fwd" else (
+        ainv, blocks[0]["G"], "e")
+    return {
+        "planes_blk": _to_dev(pack_planes(np.stack([m[0] for m in per_block]), n1), device),
+        "cvec_blk": _to_dev(np.stack([m[1] for m in per_block]), device),
+        "planes_sh": _to_dev(pack_planes(shared[0][None], n2), device),
+        "cvec_sh": _to_dev(shared[1], device),
+        "diag": _to_dev(np.stack([np.stack(t[diag]) for t in blocks]), device),  # [nb, 4|2, R, O]
+        "scal": _to_dev(scalar_record(p).view(np.int32), device),
+        "n_d": shared[1].shape[0],
     }
 
 
@@ -243,11 +350,10 @@ def _pass_tables(n: int, p: int, which: str, n_limbs: int, scale: int, device: s
     """One pass's packed planes, cvec and scalar record on `device`."""
     planes, cvec = _pass_mat(n, p, which, n_limbs, scale)
     k = planes.shape[0] // (4 * n_limbs)
-    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return {
-        "planes": to_dev(pack_planes(planes[None], k)),
-        "cvec": to_dev(cvec),
-        "scal": to_dev(scalar_record(p).view(np.int32)),
+        "planes": _to_dev(pack_planes(planes[None], k), device),
+        "cvec": _to_dev(cvec, device),
+        "scal": _to_dev(scalar_record(p).view(np.int32), device),
         "k": k,
         "o": cvec.shape[1],
         "n_d": cvec.shape[0],
@@ -257,8 +363,7 @@ def _pass_tables(n: int, p: int, which: str, n_limbs: int, scale: int, device: s
 @lru_cache(maxsize=64)
 def _diag_tables(n: int, p: int, name: str, device: str) -> torch.Tensor:
     """The full diagonal d ([n2, n1]) or e ([n1, n2]) as [4 or 2, R, O] uint32."""
-    diag = np.ascontiguousarray(np.stack(mxu32._mxu_tables(n, p)[name]))
-    return torch.from_numpy(diag).to(device)
+    return _to_dev(np.stack(mxu32._mxu_tables(n, p)[name]), device)
 
 
 # ---------------------------------------------------------------------------
@@ -266,16 +371,30 @@ def _diag_tables(n: int, p: int, name: str, device: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _fwd_channels_plain(chan_limbs: list, primes: tuple) -> torch.Tensor:
+def _fwd_blocks(xs: tuple, p: int, n_h: int | None):
+    """Four-step forward of carrier limbs [B, n] mod p: direct, or with `n_h`
+    the n // n_h block transforms against the hybrid's block tables."""
+    size, hyb = _tabs_args(xs[0].shape[-1], n_h)
+    blocks, mat1, _ = _block_mats(size, p, len(xs), 1, hyb)
+    outs = [mxu32._fwd_core(tuple(a[:, i * size:(i + 1) * size] for a in xs), tbl, m, p=p)
+            for i, (tbl, m) in enumerate(zip(blocks, mat1))]
+    return outs[0] if hyb is None else torch.cat(outs, dim=-1)
+
+
+def _inv_blocks(x, p: int, scale: int, n_h: int | None):
+    """Four-step inverse of a carrier [B, n] mod p times `scale`: direct, or
+    the block inverses against the hybrid's block tables."""
+    size, hyb = _tabs_args(x.shape[-1], n_h)
+    blocks, _, mat2 = _block_mats(size, p, 1, scale % p, hyb)
+    outs = [mxu32._inv_core(x[:, i * size:(i + 1) * size], tbl, m, p=p)
+            for i, (tbl, m) in enumerate(zip(blocks, mat2))]
+    return outs[0] if hyb is None else torch.cat(outs, dim=-1)
+
+
+def _fwd_channels_plain(chan_limbs: list, primes: tuple, n_h: int | None = None) -> torch.Tensor:
     """Per channel, the single-channel four-step of ops/mxu32.py on that
-    channel's u32-carrier limb tuple [B, n]."""
-    outs = []
-    for xs, p in zip(chan_limbs, primes):
-        n = xs[0].shape[-1]
-        tbl = mxu32._mxu_tables(n, p)
-        mat1 = mxu32._wide_col_planes(n, p, len(xs)) if len(xs) > 1 else tbl["A"]
-        outs.append(mxu32._fwd_core(xs, tbl, mat1, p=p))
-    return to_u32(torch.stack(outs))
+    channel's u32-carrier limb tuple [B, n] (per block with `n_h`)."""
+    return to_u32(torch.stack([_fwd_blocks(xs, p, n_h) for xs, p in zip(chan_limbs, primes)]))
 
 
 def fwd_wide_multi_plain(limbs: tuple, primes: tuple) -> torch.Tensor:
@@ -285,39 +404,62 @@ def fwd_wide_multi_plain(limbs: tuple, primes: tuple) -> torch.Tensor:
     return _fwd_channels_plain([xs] * len(primes), primes)
 
 
-def fwd_multi_perchannel_plain(limbs: tuple, primes: tuple) -> torch.Tensor:
+def fwd_multi_perchannel_plain(limbs: tuple, primes: tuple,
+                               n_h: int | None = None) -> torch.Tensor:
     """Plain twin of K1c on the device of `limbs`: [C, B, n] per limb, channel
-    c transforms its own operand limbs[...][c]."""
-    check_range(limbs[0].shape[-1], primes, len(limbs))
+    c transforms its own operand limbs[...][c]; with `n_h`, per block against
+    the hybrid's block tables."""
+    _check_multi(limbs[0].shape[-1], primes, len(limbs), n_h)
     xs = tuple(to_i64(a) for a in limbs)
-    return _fwd_channels_plain([tuple(x[ch] for x in xs) for ch in range(len(primes))], primes)
+    return _fwd_channels_plain([tuple(x[ch] for x in xs) for ch in range(len(primes))], primes,
+                               n_h)
 
 
-def inv_multi_plain(x: torch.Tensor, primes: tuple, scales: tuple) -> torch.Tensor:
-    """Plain twin of K1b on the device of `x`."""
-    n = x.shape[-1]
-    check_range(n, primes)
+def inv_multi_plain(x: torch.Tensor, primes: tuple, scales: tuple,
+                    n_h: int | None = None) -> torch.Tensor:
+    """Plain twin of K1b on the device of `x` (per block with `n_h`)."""
+    _check_multi(x.shape[-1], primes, 1, n_h)
     xi = to_i64(x)
-    outs = []
-    for ch, p in enumerate(primes):
-        tbl = mxu32._mxu_tables(n, p)
-        if scales[ch] == 1:
-            mat2 = tbl["Ainv"]
-        else:
-            mat2 = mxu32._scaled_ainv_planes(n, p, scales[ch] % p)
-        outs.append(mxu32._inv_core(xi[ch], tbl, mat2, p=p))
-    return to_u32(torch.stack(outs))
+    return to_u32(torch.stack([_inv_blocks(xi[ch], p, scales[ch], n_h)
+                               for ch, p in enumerate(primes)]))
 
 
 def pointwise_inv_multi_plain(fl: torch.Tensor, fr: torch.Tensor, primes: tuple,
-                              scales: tuple) -> torch.Tensor:
+                              scales: tuple, n_h: int | None = None) -> torch.Tensor:
     """Plain twin of K1d: per channel the Montgomery product of ops/u32.py
     (any u32 operands; the u32 overflow of the REDC sum is kept), then K1b's
-    plain twin."""
-    check_range(fl.shape[-1], primes)
+    plain twin (per block with `n_h`: the product is elementwise, so it
+    commutes with the block cut)."""
+    _check_multi(fl.shape[-1], primes, 1, n_h)
     a, b = to_i64(fl), to_i64(fr)
     prod = torch.stack([mont_mul(a[ch], b[ch], p, mont_neginv(p)) for ch, p in enumerate(primes)])
-    return inv_multi_plain(to_u32(prod), primes, scales)
+    return inv_multi_plain(to_u32(prod), primes, scales, n_h)
+
+
+def digit_planes32(x: torch.Tensor) -> torch.Tensor:
+    """[..., B, n] uint32 (any representatives) -> [..., B, n1, 4 * n2] int8:
+    the four xor-128 digit planes of each value of the [n1, n2] view,
+    plane-major in the last axis (`mxu32_pallas.digit_planes32` :602). Plain
+    torch on the device of x; the bytes are the kernel's digit words split
+    over four planes, the same 4 bytes a value."""
+    n = x.shape[-1]
+    n1, n2 = mxu32.four_step_factors(n)
+    v = to_i64(x).reshape(*x.shape[:-1], n1, n2)
+    planes = [(((v >> (8 * e)) & 255) ^ 128).to(torch.uint8).view(torch.int8) for e in range(4)]
+    return torch.cat(planes, dim=-1)
+
+
+def _planes_to_u32(xd: torch.Tensor) -> torch.Tensor:
+    """The u32 values [..., B, n] whose `digit_planes32` is xd."""
+    n1, n2 = xd.shape[-2], xd.shape[-1] // 4
+    d = (xd.view(torch.uint8).to(torch.int64) ^ 128).reshape(*xd.shape[:-1], 4, n2)
+    v = d[..., 0, :] | (d[..., 1, :] << 8) | (d[..., 2, :] << 16) | (d[..., 3, :] << 24)
+    return to_u32(v.reshape(*xd.shape[:-2], n1 * n2))
+
+
+def inv_multi_presplit_plain(xd: torch.Tensor, primes: tuple, scales: tuple) -> torch.Tensor:
+    """Plain twin of K1e: K1b's plain twin on the planes put back together."""
+    return inv_multi_plain(_planes_to_u32(xd), primes, scales)
 
 
 def fwd_plain(x: torch.Tensor, *, n: int, p: int) -> torch.Tensor:
@@ -337,6 +479,21 @@ def inv_plain(x: torch.Tensor, *, n: int, p: int, scale: int = 1) -> torch.Tenso
     """Plain twin of K2 inv (scale folded into A_inv)."""
     check_single_range(n, p)
     return mxu32.inv(x, n=n, p=p, scale=scale)
+
+
+def fwd_hyb_plain(x: torch.Tensor, *, n: int, p: int, n_h: int) -> torch.Tensor:
+    """Plain twin of K2 with block tables, forward: the hybrid's n // n_h
+    block transforms of [B, n], each `mxu32._fwd_core` against its block's
+    tables."""
+    check_hyb_range(n, n_h, p)
+    return to_u32(_fwd_blocks((to_i64(x),), p, n_h))
+
+
+def inv_hyb_plain(x: torch.Tensor, *, n: int, p: int, n_h: int, scale: int = 1) -> torch.Tensor:
+    """Plain twin of K2 with block tables, inverse (scale folded into each
+    block's A_inv)."""
+    check_hyb_range(n, n_h, p)
+    return to_u32(_inv_blocks(to_i64(x), p, scale, n_h))
 
 
 def pass_matmod_plain(x, *, n: int, p: int, which: str, diag_slices=(),
@@ -369,11 +526,13 @@ def _lib() -> ctypes.CDLL:
     if not lib.k1a_fwd_wide_multi.argtypes:
         lib.k1a_fwd_wide_multi.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, *[_P] * 9]
         lib.k1a_fwd_wide_multi.restype = ctypes.c_int
-        lib.k1b_inv_multi.argtypes = [_P, _I, _I, _I, _I, *[_P] * 9]
+        lib.k1b_inv_multi.argtypes = [_P, _I, _I, _I, _I, _I, *[_P] * 9]
         lib.k1b_inv_multi.restype = ctypes.c_int
-        lib.k1c_fwd_multi_perchannel.argtypes = [_P, _P, _I, _I, _I, _I, _I, *[_P] * 9]
+        lib.k1e_inv_multi_presplit.argtypes = [_P, _I, _I, _I, _I, *[_P] * 9]
+        lib.k1e_inv_multi_presplit.restype = ctypes.c_int
+        lib.k1c_fwd_multi_perchannel.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, *[_P] * 9]
         lib.k1c_fwd_multi_perchannel.restype = ctypes.c_int
-        lib.k1d_pointwise_inv_multi.argtypes = [_P, _P, _I, _I, _I, _I, *[_P] * 9]
+        lib.k1d_pointwise_inv_multi.argtypes = [_P, _P, _I, _I, _I, _I, _I, *[_P] * 9]
         lib.k1d_pointwise_inv_multi.restype = ctypes.c_int
     return lib
 
@@ -381,9 +540,9 @@ def _lib() -> ctypes.CDLL:
 def _pass_lib() -> ctypes.CDLL:
     lib = cuda_build.load("mxu32_pass")
     if not lib.k2_fwd.argtypes:
-        lib.k2_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, *[_P] * 6, _I, _I, _P, _P, _P]
+        lib.k2_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, *[_P] * 6, _I, _I, _P, _P, _P]
         lib.k2_fwd.restype = ctypes.c_int
-        lib.k2_inv.argtypes = [_P, _I, _I, _I, *[_P] * 6, _I, _I, _P, _P, _P]
+        lib.k2_inv.argtypes = [_P, _I, _I, _I, _I, *[_P] * 6, _I, _I, _P, _P, _P]
         lib.k2_inv.restype = ctypes.c_int
         lib.k3_pass.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, *[_P] * 4, _I, _I, _I,
                                 _P, _P]
@@ -452,30 +611,72 @@ def fwd_wide_multi(limbs: tuple, primes: tuple) -> torch.Tensor:
     return out
 
 
-def inv_multi(x: torch.Tensor, primes: tuple, scales: tuple) -> torch.Tensor:
+def _tabs_args(n: int, n_h: int | None) -> tuple:
+    """(transform size, hyb) of the table functions for an operand of last
+    axis n: direct, or n_h-blocks of a parent transform of size n."""
+    return (n, None) if n_h is None else (n_h, n)
+
+
+def _hyb_name(name: str, n_h: int | None) -> str:
+    return name if n_h is None else name + "_hyb"
+
+
+def inv_multi(x: torch.Tensor, primes: tuple, scales: tuple,
+              n_h: int | None = None) -> torch.Tensor:
     """K1b: all channels' scaled inverse NTTs. [C, B, n] uint32 (any
-    representatives) -> [C, B, n] uint32 canonical, standard order."""
+    representatives) -> [C, B, n] uint32 canonical, standard order. With
+    `n_h`, the n // n_h block inverses of the stage-split hybrid of a parent
+    transform of size n: the result is the input of its suffix stages."""
     dev = _check_operands((x,), 3)
     primes, scales = tuple(primes), tuple(scales)
     if x.shape[0] != len(primes) or len(scales) != len(primes):
         raise ValueError(f"expected {len(primes)} channels, got {x.shape[0]}")
     if dev.type == "cpu":
-        return inv_multi_plain(x, primes, scales)
+        return inv_multi_plain(x, primes, scales, n_h)
     _, b, n = x.shape
-    check_range(n, primes)
-    tabs = _kernel_tables(n, primes, 1, scales, "inv", str(dev))
-    n1, n2 = mxu32.four_step_factors(n)
+    _check_multi(n, primes, 1, n_h)
+    size, hyb = _tabs_args(n, n_h)
+    tabs = _kernel_tables(size, primes, 1, scales, "inv", str(dev), hyb)
+    n1, n2 = mxu32.four_step_factors(size)
     out = torch.empty_like(x)
     scratch = torch.empty_like(x)
     ptrs = _ptrs(x, tabs["planes1"], tabs["cvec1"], tabs["planes2"],
                  tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.k1b_inv_multi(ptrs[0], b, n1, n2, len(primes), *ptrs[1:], stream)
-    LAUNCHES["inv_multi"] += 1
+    err = _call(dev, _lib().k1b_inv_multi, ptrs[0], b, n1, n2, n // size, len(primes), *ptrs[1:])
+    LAUNCHES[_hyb_name("inv_multi", n_h)] += 1
     if err != 0:
         raise RuntimeError(f"K1b inv_multi launch failed: CUDA error {err}")
+    return out
+
+
+def inv_multi_presplit(xd: torch.Tensor, primes: tuple, scales: tuple) -> torch.Tensor:
+    """K1e: K1b from pre-split digit planes. xd [C, B, n1, 4 * n2] int8 (the
+    output of `digit_planes32`) -> [C, B, n] uint32 canonical, standard
+    order: bit-identical to `inv_multi(x)` for xd = digit_planes32(x)."""
+    if not isinstance(xd, torch.Tensor) or xd.dtype != torch.int8 or xd.dim() != 4:
+        raise TypeError("expected int8 digit planes [C, B, n1, 4 * n2]")
+    if xd.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no route for tensors on {xd.device}: use cuda or cpu")
+    primes, scales = tuple(primes), tuple(scales)
+    c, b, n1, four_n2 = xd.shape
+    n = n1 * (four_n2 // 4)
+    if four_n2 % 4 or (n1, four_n2 // 4) != mxu32.four_step_factors(n):
+        raise ValueError(f"planes {tuple(xd.shape)} are not [C, B, n1, 4 * n2] of a four-step split")
+    if c != len(primes) or len(scales) != len(primes):
+        raise ValueError(f"expected {len(primes)} channels and scales, got {c}, {len(scales)}")
+    if xd.device.type == "cpu":
+        return inv_multi_presplit_plain(xd, primes, scales)
+    check_range(n, primes)
+    dev = xd.device
+    tabs = _kernel_tables(n, primes, 1, scales, "inv", str(dev))
+    out = torch.empty((c, b, n), dtype=torch.uint32, device=dev)
+    scratch = torch.empty_like(out)
+    ptrs = _ptrs(xd, tabs["planes1"], tabs["cvec1"], tabs["planes2"],
+                 tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
+    err = _call(dev, _lib().k1e_inv_multi_presplit, ptrs[0], b, n1, four_n2 // 4, c, *ptrs[1:])
+    LAUNCHES["inv_multi_presplit"] += 1
+    if err != 0:
+        raise RuntimeError(f"K1e inv_multi_presplit launch failed: CUDA error {err}")
     return out
 
 
@@ -490,65 +691,74 @@ def _check_channels(x: torch.Tensor, primes: tuple) -> None:
         raise ValueError(f"expected {len(primes)} channels, got {tuple(x.shape)}")
 
 
-def fwd_multi_perchannel(x: torch.Tensor, primes: tuple) -> torch.Tensor:
+def fwd_multi_perchannel(x: torch.Tensor, primes: tuple,
+                         n_h: int | None = None) -> torch.Tensor:
     """K1c: all channels' forward NTTs of per-channel operands. x [C, B, n]
-    uint32 (any values) -> [C, B, n] canonical, bit-reversed order."""
-    return _fwd_perchannel((x,), tuple(primes))
+    uint32 (any values) -> [C, B, n] canonical, bit-reversed order. With
+    `n_h`, n is a parent transform's size and the n // n_h blocks take the
+    stage-split hybrid's block tables: the operand is the hybrid's
+    per-channel prefix output, the result the forward NTT of size n."""
+    return _fwd_perchannel((x,), tuple(primes), n_h)
 
 
 def fwd_wide_multi_perchannel(x_lo: torch.Tensor, x_hi: torch.Tensor,
-                              primes: tuple) -> torch.Tensor:
+                              primes: tuple, n_h: int | None = None) -> torch.Tensor:
     """K1c with two limbs: (lo, hi) [C, B, n] u64 values per channel ->
     [C, B, n] canonical NTT-domain residues (value mod p folded into the
-    column matmul, as K1a's)."""
-    return _fwd_perchannel((x_lo, x_hi), tuple(primes))
+    column matmul, as K1a's). With `n_h`, the hybrid's blocks (the wide A_b
+    of `stagesplit._wide_block_planes32`)."""
+    return _fwd_perchannel((x_lo, x_hi), tuple(primes), n_h)
 
 
-def _fwd_perchannel(limbs: tuple, primes: tuple) -> torch.Tensor:
+def _fwd_perchannel(limbs: tuple, primes: tuple, n_h: int | None) -> torch.Tensor:
     dev = _check_operands(limbs, 3)
     _check_channels(limbs[0], primes)
     if dev.type == "cpu":
-        return fwd_multi_perchannel_plain(limbs, primes)
+        return fwd_multi_perchannel_plain(limbs, primes, n_h)
     c, b, n = limbs[0].shape
-    check_range(n, primes, len(limbs))
-    tabs = _kernel_tables(n, primes, len(limbs), (1,) * c, "fwd", str(dev))
-    n1, n2 = mxu32.four_step_factors(n)
+    _check_multi(n, primes, len(limbs), n_h)
+    size, hyb = _tabs_args(n, n_h)
+    tabs = _kernel_tables(size, primes, len(limbs), (1,) * c, "fwd", str(dev), hyb)
+    n1, n2 = mxu32.four_step_factors(size)
     out = torch.empty((c, b, n), dtype=torch.uint32, device=dev)
     scratch = torch.empty_like(out)
     x1 = limbs[1] if len(limbs) > 1 else limbs[0]
     ptrs = _ptrs(limbs[0], x1, tabs["planes1"], tabs["cvec1"], tabs["planes2"],
                  tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
     err = _call(dev, _lib().k1c_fwd_multi_perchannel, ptrs[0], ptrs[1], len(limbs), b, n1, n2,
-                c, *ptrs[2:])
-    LAUNCHES["fwd_multi_perchannel"] += 1
+                n // size, c, *ptrs[2:])
+    LAUNCHES[_hyb_name("fwd_multi_perchannel", n_h)] += 1
     if err != 0:
         raise RuntimeError(f"K1c fwd_multi_perchannel launch failed: CUDA error {err}")
     return out
 
 
 def pointwise_inv_multi(fl: torch.Tensor, fr: torch.Tensor, primes: tuple,
-                        scales: tuple) -> torch.Tensor:
+                        scales: tuple, n_h: int | None = None) -> torch.Tensor:
     """K1d: all channels' Montgomery product fl*fr*2^-32 mod p (fl, fr
     [C, B, n] uint32, any representatives) and scaled inverse NTT in one
     kernel -> [C, B, n] canonical, standard order. With scale n^-1 * 2^32
-    mod p the result is the normalized inverse of the product."""
+    mod p the result is the normalized inverse of the product. With `n_h`,
+    the block inverses of the stage-split hybrid."""
     dev = _check_operands((fl, fr), 3)
     primes, scales = tuple(primes), tuple(scales)
     _check_channels(fl, primes)
     if len(scales) != len(primes):
         raise ValueError(f"expected {len(primes)} scales, got {len(scales)}")
     if dev.type == "cpu":
-        return pointwise_inv_multi_plain(fl, fr, primes, scales)
+        return pointwise_inv_multi_plain(fl, fr, primes, scales, n_h)
     c, b, n = fl.shape
-    check_range(n, primes)
-    tabs = _kernel_tables(n, primes, 1, scales, "inv", str(dev))
-    n1, n2 = mxu32.four_step_factors(n)
+    _check_multi(n, primes, 1, n_h)
+    size, hyb = _tabs_args(n, n_h)
+    tabs = _kernel_tables(size, primes, 1, scales, "inv", str(dev), hyb)
+    n1, n2 = mxu32.four_step_factors(size)
     out = torch.empty_like(fl)
     scratch = torch.empty_like(fl)
     ptrs = _ptrs(fl, fr, tabs["planes1"], tabs["cvec1"], tabs["planes2"], tabs["cvec2"],
                  tabs["diag"], tabs["scal"], scratch, out)
-    err = _call(dev, _lib().k1d_pointwise_inv_multi, ptrs[0], ptrs[1], b, n1, n2, c, *ptrs[2:])
-    LAUNCHES["pointwise_inv_multi"] += 1
+    err = _call(dev, _lib().k1d_pointwise_inv_multi, ptrs[0], ptrs[1], b, n1, n2, n // size, c,
+                *ptrs[2:])
+    LAUNCHES[_hyb_name("pointwise_inv_multi", n_h)] += 1
     if err != 0:
         raise RuntimeError(f"K1d pointwise_inv_multi launch failed: CUDA error {err}")
     return out
@@ -582,7 +792,7 @@ def fwd_wide(limbs: tuple, *, n: int, p: int) -> torch.Tensor:
     scratch = torch.empty_like(out)
     ptrs = _ptrs(t1["planes"], t1["cvec"], t2["planes"], t2["cvec"], diag, t1["scal"],
                  scratch, out)
-    err = _call(dev, _pass_lib().k2_fwd, *_limb_ptrs(limbs), len(limbs), b, n1, n2, *ptrs[:6],
+    err = _call(dev, _pass_lib().k2_fwd, *_limb_ptrs(limbs), len(limbs), b, n1, n2, 1, *ptrs[:6],
                 t1["n_d"], regime(p), ptrs[6], ptrs[7])
     _count("fwd", len(limbs))
     if err != 0:
@@ -613,12 +823,63 @@ def inv(x: torch.Tensor, *, n: int, p: int, scale: int = 1) -> torch.Tensor:
     scratch = torch.empty_like(x)
     ptrs = _ptrs(x, t1["planes"], t1["cvec"], t2["planes"], t2["cvec"], diag, t1["scal"],
                  scratch, out)
-    err = _call(dev, _pass_lib().k2_inv, ptrs[0], b, n1, n2, *ptrs[1:7], t1["n_d"], regime(p),
+    err = _call(dev, _pass_lib().k2_inv, ptrs[0], b, n1, n2, 1, *ptrs[1:7], t1["n_d"], regime(p),
                 ptrs[7], ptrs[8])
     LAUNCHES["inv"] += 1
     if err != 0:
         raise RuntimeError(f"K2 inv launch failed: CUDA error {err}")
     return out
+
+
+def _hyb(name: str, x: torch.Tensor, n: int, p: int, n_h: int, scale: int) -> torch.Tensor:
+    """Launch K2 with block tables in one direction on a checked CUDA
+    operand [B, n]: n // n_h block transforms of size n_h."""
+    fwd_dir = name == "fwd_hyb"
+    t = _hyb_tables(n, p, n_h, scale, "fwd" if fwd_dir else "inv", str(x.device))
+    first, second = ("blk", "sh") if fwd_dir else ("sh", "blk")
+    n1, n2 = mxu32.four_step_factors(n_h)
+    b = x.shape[0]
+    out = torch.empty_like(x)
+    if b == 0:
+        return out
+    scratch = torch.empty_like(x)
+    ptrs = _ptrs(x, t["planes_" + first], t["cvec_" + first], t["planes_" + second],
+                 t["cvec_" + second], t["diag"], t["scal"], scratch, out)
+    tail = (n // n_h, *ptrs[1:7], t["n_d"], regime(p), ptrs[7], ptrs[8])
+    if fwd_dir:
+        err = _call(x.device, _pass_lib().k2_fwd, *_limb_ptrs((x,)), 1, b, n1, n2, *tail)
+    else:
+        err = _call(x.device, _pass_lib().k2_inv, ptrs[0], b, n1, n2, *tail)
+    LAUNCHES[name] += 1
+    if err != 0:
+        raise RuntimeError(f"K2 {name} launch failed: CUDA error {err}")
+    return out
+
+
+def fwd_hyb(x: torch.Tensor, *, n: int, p: int, n_h: int) -> torch.Tensor:
+    """K2 with block tables, forward: the n // n_h block transforms of the
+    32-bit stage-split hybrid of (n, p) in one launch pair. [B, n] uint32,
+    the output of the hybrid's prefix stages (any u32) -> [B, n] canonical:
+    the forward NTT of size n in bit-reversed order."""
+    dev = _check_operands((x,), 2)
+    _check_n(x, n)
+    if dev.type == "cpu":
+        return fwd_hyb_plain(x, n=n, p=p, n_h=n_h)
+    check_hyb_range(n, n_h, p)
+    return _hyb("fwd_hyb", x, n, p, n_h, 1)
+
+
+def inv_hyb(x: torch.Tensor, *, n: int, p: int, n_h: int, scale: int = 1) -> torch.Tensor:
+    """K2 with block tables, inverse: the block inverses of the hybrid of
+    (n, p), `scale` folded into each block's A_inv. [B, n] uint32 (any u32,
+    bit-reversed) -> [B, n] canonical: the input of the hybrid's suffix
+    stages."""
+    dev = _check_operands((x,), 2)
+    _check_n(x, n)
+    if dev.type == "cpu":
+        return inv_hyb_plain(x, n=n, p=p, n_h=n_h, scale=scale)
+    check_hyb_range(n, n_h, p)
+    return _hyb("inv_hyb", x, n, p, n_h, scale % p)
 
 
 def pass_matmod(x, *, n: int, p: int, which: str, diag_slices=(), n_limbs: int = 1,

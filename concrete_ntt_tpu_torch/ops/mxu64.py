@@ -246,6 +246,14 @@ def _scaled_ainv_planes(n: int, p: int, scale: int):
     return _prep64(M, p, _n_eplanes_lazy(p))
 
 
+@lru_cache(maxsize=32)
+def _wide_col_planes(n: int, p: int, n_limbs: int):
+    """Column-pass planes consuming u{32*n_limbs} limb tuples directly: the
+    residue split (value mod p) folds into the matmul as 4 * n_limbs operand
+    digit planes (16 for a u128 operand, contraction 16 * n1)."""
+    return _prep64(_operators(n, p)["A"].T, p, 4 * n_limbs)
+
+
 _SC_FIELDS = ("p", "c64", "c64_shoup", "p_neginv", "barrett", "two_p")
 _SCAL_WORDS = 16
 
@@ -478,8 +486,10 @@ def _pair_u32(pair):
 
 def fwd(limbs: tuple, *, n: int, p: int):
     """Forward negacyclic NTT of (lo, hi) uint32 [B, n] (any u64 values) ->
-    (lo, hi) canonical [0, p), bit-reversed order."""
-    return _pair_u32(_fwd_core(tuple(to_i64(a) for a in limbs), _tables(n, p)))
+    (lo, hi) canonical [0, p), bit-reversed order. Four limbs are a u128
+    operand: its residue split folds into the column matmul."""
+    mat1 = None if len(limbs) == 2 else _wide_col_planes(n, p, len(limbs))
+    return _pair_u32(_fwd_core(tuple(to_i64(a) for a in limbs), _tables(n, p), mat1))
 
 
 def inv(limbs: tuple, *, n: int, p: int, scale: int = 1):

@@ -40,8 +40,10 @@ pairs: a tuple `(lo, hi)` of uint32 tensors of one shape.
   block tables (the `hyb` argument of `_build_multi_call64`, :524), z = channel · nb +
   block on the grid.
 
-K5's wide forward (`n_limbs = 4`) has no default route and is not ported yet
-(ROADMAP.md Queue 2, row W4-64).
+K5's `fwd` also takes the four limbs of a u128 operand (`_build_call` with
+`n_limbs = 4`, :47-49): the residue split folds into the column pass as 16
+operand digit planes (`mxu64._wide_col_planes`), a launch counts under
+"fwd64_u128". No route calls it, as in the reference.
 
 All are CUDA C++ for sm_90a built with nvcc at first use (ops/cuda_build.py)
 and called through ctypes: K5/K6 in `csrc/mxu64_pass.cu`, K7 in
@@ -79,7 +81,7 @@ from .mxu32_cuda import _call, _check_operands, _ptrs, pack_planes
 from .u32 import to_i64, to_u32
 
 LAUNCHES = dict.fromkeys(
-    ("fwd64", "inv64", "fwd64_hyb", "inv64_hyb", "pass_matmod64", "fwd_multi64",
+    ("fwd64", "fwd64_u128", "inv64", "fwd64_hyb", "inv64_hyb", "pass_matmod64", "fwd_multi64",
      "fwd_multi_perchannel64", "inv_multi64", "pointwise_inv_multi64",
      "fwd_multi_perchannel64_hyb", "inv_multi64_hyb", "pointwise_inv_multi64_hyb"), 0)
 
@@ -273,7 +275,8 @@ def _hyb_tables(n: int, p: int, n_h: int, scale: int, direction: str, device: st
 
 
 def fwd_plain(limbs: tuple, *, n: int, p: int) -> tuple:
-    """Plain twin of K5 fwd: ops/mxu64.py's four-step on the device of limbs."""
+    """Plain twin of K5 fwd (2 limbs, or the 4 of a u128 operand):
+    ops/mxu64.py's four-step on the device of limbs."""
     check_single_range(n, p)
     return mxu64.fwd(tuple(limbs), n=n, p=p)
 
@@ -412,6 +415,8 @@ def _pass_lib() -> ctypes.CDLL:
         for fn in (lib.k5_fwd, lib.k5_inv):
             fn.argtypes = [_P, _P, _I, _I, _I, _I, *[_P] * 6, _I, _I, *[_P] * 5]
             fn.restype = ctypes.c_int
+        lib.k5_fwd_u128.argtypes = [*[_P] * 4, _I, _I, _I, *[_P] * 6, _I, _I, *[_P] * 5]
+        lib.k5_fwd_u128.restype = ctypes.c_int
         lib.k6_pass.argtypes = [_P, _P, _I, _I, _I, _I, *[_P] * 4, _I, _I, _I, _P, _P, _P]
         lib.k6_pass.restype = ctypes.c_int
     return lib
@@ -467,13 +472,50 @@ def _direct(name: str, limbs: tuple, dev, n: int, p: int, scale: int) -> tuple:
 
 def fwd(limbs: tuple, *, n: int, p: int) -> tuple:
     """K5 fwd: one prime's forward NTT of (lo, hi) [B, n] uint32 (any u64
-    values) -> (lo, hi) [B, n] canonical, bit-reversed order."""
+    values) -> (lo, hi) [B, n] canonical, bit-reversed order. Four limbs are
+    a u128 operand (any values; the residue split is part of the column
+    pass)."""
+    limbs = tuple(limbs)
+    if len(limbs) == 4:
+        return _fwd_u128(limbs, n, p)
     limbs, dev = _check_pair(limbs, 2)
     _check_last(limbs[0], n)
     if dev.type == "cpu":
         return fwd_plain(limbs, n=n, p=p)
     check_single_range(n, p)
     return _direct("fwd64", limbs, dev, n, p, 1)
+
+
+@lru_cache(maxsize=16)
+def _wide_tables(n: int, p: int, device: str):
+    """The u128 column pass's packed planes (16 operand planes) and cvec."""
+    planes, cvec = mxu64._wide_col_planes(n, p, 4)
+    n1 = mxu64.four_step_factors(n)[0]
+    return _to_dev(pack_planes(planes[None], n1), device), _to_dev(cvec, device)
+
+
+def _fwd_u128(limbs: tuple, n: int, p: int) -> tuple:
+    dev = _check_operands(limbs, 2)
+    _check_last(limbs[0], n)
+    if dev.type == "cpu":
+        return fwd_plain(limbs, n=n, p=p)
+    check_single_range(n, p)
+    _, t2, diag = _single_tables(n, p, 1, "fwd", str(dev))
+    planes1, cvec1 = _wide_tables(n, p, str(dev))
+    n1, n2 = mxu64.four_step_factors(n)
+    b = limbs[0].shape[0]
+    out = tuple(torch.empty((b, n), dtype=torch.uint32, device=dev) for _ in range(2))
+    if b == 0:
+        return out
+    scratch = tuple(torch.empty_like(o) for o in out)
+    ptrs = _ptrs(*limbs, planes1, cvec1, t2["planes"], t2["cvec"], diag, t2["scal"], *scratch,
+                 *out)
+    err = _call(dev, _pass_lib().k5_fwd_u128, *ptrs[:4], b, n1, n2, *ptrs[4:10], t2["n_d"],
+                mode(p), *ptrs[10:])
+    LAUNCHES["fwd64_u128"] += 1
+    if err != 0:
+        raise RuntimeError(f"K5 fwd64_u128 launch failed: CUDA error {err}")
+    return out
 
 
 def inv(limbs: tuple, *, n: int, p: int, scale: int = 1) -> tuple:

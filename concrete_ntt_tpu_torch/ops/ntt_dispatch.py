@@ -4,8 +4,8 @@ Counterpart of `concrete_ntt_tpu/ops/ntt_dispatch.py`, four parts of it:
 
   * the single-prime tiers `fwd32` / `inv32` (:502-549) that
     `prime32.Plan.fwd/inv` call: `tier32` picks the four-step kernel K2
-    where `mxu32.applicable` holds (odd p >= 2^26, n >= 2048), else the
-    butterfly kernel K4. The TPU's third tier, two `pass_matmod` passes
+    where `mxu32.applicable` holds (odd p >= 2^26, 2^11 <= n <= 2^17), else
+    the butterfly kernel K4 (n <= 2^15 on the card). The TPU's third tier, two `pass_matmod` passes
     for 2048 <= n < 2^14 (`passes_engine`, :60-77), is cut there by VMEM
     (`mxu32_pallas.fused_applicable`); K2 serves those sizes whole on the
     card, so they take K2 here;
@@ -38,8 +38,10 @@ The JAX package routes on the backend and environment knobs; here the route
 is the device of the operand, inside the kernel modules: a CUDA tensor
 launches the kernel or raises, a CPU tensor runs its plain torch twin, so
 the CPU takes the same tier as the card at every n. There is no knob. The
-32-bit hybrid and the presplit inverse (both off in the reference's 'auto')
-are not ported. Where the JAX functions
+32-bit hybrid (`stagesplit.engine32_fused`, the `*_hybrid32` functions) and
+the presplit inverse (`mxu32_cuda.inv_multi_presplit`) are ported and, as in
+the reference's 'auto' (:81-122), no route here takes them: K1 / K2 serve
+n = 2^16 and 2^17 directly. Where the JAX functions
 return None for "not applicable", the 32-bit ones raise NotImplementedError
 naming the ROADMAP row (a caller that has another path asks `route32`
 first: `product.py` its prime32 plans, the native plans their per-channel
@@ -74,9 +76,9 @@ def _primes(plans) -> tuple:
 def route32(n: int, primes: tuple) -> str | None:
     """The channel route of a CRT plan's prime32 channels, decided before
     any launch and the same on the CPU as on the card: "K1" (the channel
-    grid: every prime 2^29 < p < 2^30, 2^11 <= n <= 2^15), "K2" (the
+    grid: every prime 2^29 < p < 2^30, 2^11 <= n <= 2^17), "K2" (the
     four-step once per channel, where `mxu32.applicable` holds for every
-    prime and n <= 2^15), or None (no channel route: a caller with another
+    prime: odd p >= 2^26, the same sizes), or None (no channel route: a caller with another
     path takes it, as `product.py` its prime32 plans)."""
     if not primes or n & (n - 1) or not mxu32_cuda.MIN_N <= n <= mxu32_cuda.MAX_N:
         return None
@@ -93,10 +95,8 @@ def no_route32(n: int, primes: tuple) -> NotImplementedError:
     return NotImplementedError(
         f"n = {n}, primes {primes}: no prime32 channel route (the channel grid "
         "K1 takes 30-bit primes, the per-channel four-step K2 odd p >= 2^26, "
-        "both at 2^11 <= n <= 2^15; the 64-bit routes K7 / K5 are `route64`'s); "
-        "below 2^11 a native plan runs each channel's prime32 plan itself, and "
-        "n = 2^16, 2^17 wait for the larger K1 / K2 range (ROADMAP.md Queue 2, "
-        "row N17)"
+        "both at 2^11 <= n <= 2^17; the 64-bit routes K7 / K5 are `route64`'s); "
+        "below 2^11 a native plan runs each channel's prime32 plan itself"
     )
 
 
@@ -195,19 +195,19 @@ def try_polymul32_stacked(parts_l, parts_r, plans, rhs_binary=False):
     return mxu32_cuda.inv_multi(to_u32(t), primes, _pointwise_scales(n, primes))
 
 
-def tier32(n: int, p: int, variant: str, device: torch.device) -> str:
-    """The prime32 tier for (n, p) on `device`: "K2" or "K4"."""
-    if mxu32.applicable(n, p, variant) and (
-        n <= mxu32_cuda.MAX_N or torch.device(device).type != "cpu"
-    ):
-        return "K2"
-    return "K4"
+def tier32(n: int, p: int, variant: str) -> str:
+    """The prime32 tier for (n, p): "K2" (the four-step kernel, or its plain
+    twin on the CPU) where `mxu32.applicable` holds, else "K4" (the
+    butterfly kernel; on the card it ends at n = 2^15, so a prime below 2^26
+    above that size raises there). Decided before any launch from (n, p)
+    alone, so the same on every device."""
+    return "K2" if mxu32.applicable(n, p, variant) else "K4"
 
 
 def fwd32(x, tbl, *, p, variant, p_neginv):
     """Forward NTT of one prime: [B, n] uint32 -> bit-reversed [0, p)."""
     n = x.shape[-1]
-    if tier32(n, p, variant, x.device) == "K2":
+    if tier32(n, p, variant) == "K2":
         return mxu32_cuda.fwd(x, n=n, p=p)
     return butterfly32_cuda.try_fwd(x, tbl, p=p, variant=variant, p_neginv=p_neginv)
 
@@ -216,7 +216,7 @@ def inv32(x, tbl, *, p, variant, p_neginv):
     """Unnormalized inverse NTT of one prime: [B, n] uint32 bit-reversed ->
     standard order [0, p)."""
     n = x.shape[-1]
-    if tier32(n, p, variant, x.device) == "K2":
+    if tier32(n, p, variant) == "K2":
         return mxu32_cuda.inv(x, n=n, p=p)
     return butterfly32_cuda.try_inv(x, tbl, p=p, variant=variant, p_neginv=p_neginv)
 

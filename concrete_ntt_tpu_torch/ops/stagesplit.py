@@ -1,11 +1,16 @@
-"""Stage-split hybrid NTT engine, 64-bit: butterfly prefix + blockwise four-steps.
+"""Stage-split hybrid NTT engine: butterfly prefix + blockwise four-steps.
 
-Counterpart of the 64-bit half of `concrete_ntt_tpu/ops/stagesplit.py`
-(:1-545; its 32-bit half is not ported). The four-step kernels K5 / K7 serve
-one transform of up to 2^15 points. Above that this engine runs
-l = log2(n / n_h) Cooley-Tukey stages as plain torch butterfly layers and
-then 2^l independent size-n_h four-step transforms (n_h = 2^14), so that
-`prime64.Plan(n, p)` reaches n = 2^16 and 2^17 on the card.
+Counterpart of `concrete_ntt_tpu/ops/stagesplit.py`, both halves. The 64-bit
+four-step kernels K5 / K7 serve one transform of up to 2^15 points. Above
+that this engine runs l = log2(n / n_h) Cooley-Tukey stages as plain torch
+butterfly layers and then 2^l independent size-n_h four-step transforms
+(n_h = 2^14), so that `prime64.Plan(n, p)` reaches n = 2^16 and 2^17 on the
+card. The 32-bit half (:548-942 of the JAX module) is the same engine around
+K2 / K1b-K1d with block tables. The 32-bit kernels serve n = 2^16 and 2^17
+directly, so no route of `ops/ntt_dispatch.py` takes it (as the reference's
+'auto'): it is the other way to the same bits, reached through
+`engine32_fused` and the four `*_hybrid32` functions, and each holds the
+other on the card.
 
 Correctness is by construction plus a complete structural proof, with no new
 twiddle algebra:
@@ -62,18 +67,23 @@ import numpy as np
 import torch
 
 from ..golden.ntt import negacyclic_twiddles
-from . import mxu64, mxu64_cuda
+from . import mxu32, mxu32_cuda, mxu64, mxu64_cuda
 from .mxu32 import _dev
 from .table_cache import cached_arrays
 from .u32 import (
+    MASK32,
     add64,
     add64c,
+    add_mod,
     add_mod64,
     cond_sub64,
     const64_like,
+    mont_mul,
     mont_mul64,
+    mont_neginv,
     mont_neginv64,
     select64,
+    shoup_mul_lazy,
     shoup_mul_lazy64,
     sub64,
     sub64b,
@@ -496,3 +506,276 @@ def pointwise_inv_multi_hybrid64(fl, fr, primes: tuple, scales: tuple, *,
         tuple(fl), tuple(fr), tuple(primes), tuple(scales), n_h=n_h
     )
     return _suffix_inv_per_channel64(lo, hi, primes, n, n_h)
+
+
+# ---------------------------------------------------------------------------
+# 32-bit hybrid (prime32): same host build, u32 stage butterflies on int64
+# carriers
+# ---------------------------------------------------------------------------
+
+
+def applicable32(n: int, p: int, variant: str, n_h: int = N_H) -> bool:
+    return n > n_h and (n & (n - 1)) == 0 and mxu32.applicable(n_h, p, variant)
+
+
+def _stage_tabs32(tw: np.ndarray, p: int, mont: bool):
+    """Per-stage twiddle tables, stage s the entries [2^s, 2^(s+1)) shaped
+    [1, m, 1]: Shoup pairs for p < 2^31, W * 2^32 mod p for mont."""
+    l = tw.shape[0].bit_length() - 1
+    tabs = []
+    for s in range(l):
+        w = [int(x) for x in tw[1 << s : 2 << s]]
+        shape = (1, 1 << s, 1)
+        if mont:
+            tabs.append((np.array([(x << 32) % p for x in w], np.uint32).reshape(shape),))
+        else:
+            tabs.append((
+                np.array(w, np.uint32).reshape(shape),
+                np.array([(x << 32) // p for x in w], np.uint32).reshape(shape),
+            ))
+    return tabs
+
+
+def _add_rep32(a, b, c32: int):
+    """a + b as a valid u32 representative for ANY representatives (each
+    2^32 wrap compensated by + 2^32 mod p; c32 < 2^31, so at most two). In
+    int64 carriers the wrap is bit 32 of the exact sum."""
+    s = a + b
+    s2 = (s & MASK32) + (s >> 32) * c32
+    return ((s2 & MASK32) + (s2 >> 32) * c32) & MASK32
+
+
+def _sub_rep32(a, b, c32: int):
+    """a - b as a valid u32 representative for ANY representatives: each
+    borrow (a negative exact difference) is compensated by - 2^32 mod p."""
+    d = a - b
+    d2 = (d & MASK32) - (d < 0).to(torch.int64) * c32
+    return ((d2 & MASK32) - (d2 < 0).to(torch.int64) * c32) & MASK32
+
+
+def _stage_fwd32(x, w_tab, sc):
+    """One forward CT stage on a [B, n] carrier; any-representative in and
+    out (Shoup lazy below 2^31, Montgomery above)."""
+    b, n = x.shape
+    w_tab = tuple(_dev(a, x.device) for a in w_tab)
+    m = w_tab[0].shape[1]
+    t = n // (2 * m)
+    v = x.reshape(b, m, 2, t)
+    z0, z1 = v[:, :, 0, :], v[:, :, 1, :]
+    if sc["mont"]:
+        wz1 = mont_mul(z1, w_tab[0], sc["p"], sc["neginv"])
+    else:
+        wz1 = shoup_mul_lazy(z1, w_tab[0], w_tab[1], sc["p"])
+    top = _add_rep32(z0, wz1, sc["c32"])
+    bot = _sub_rep32(z0, wz1, sc["c32"])
+    return torch.stack([top, bot], dim=2).reshape(b, n)
+
+
+def _stage_inv32(x, w_tab, sc):
+    """One inverse GS stage; canonical [0, p) in and out."""
+    b, n = x.shape
+    w_tab = tuple(_dev(a, x.device) for a in w_tab)
+    m = w_tab[0].shape[1]
+    t = n // (2 * m)
+    p = sc["p"]
+    v = x.reshape(b, m, 2, t)
+    y0, y1 = v[:, :, 0, :], v[:, :, 1, :]
+    top = add_mod(y0, y1, p)
+    d = torch.where(y0 >= y1, y0 - y1, (y0 - y1 + p) & MASK32)
+    if sc["mont"]:
+        bot = mont_mul(d, w_tab[0], p, sc["neginv"])
+    else:
+        tl = shoup_mul_lazy(d, w_tab[0], w_tab[1], p)
+        bot = torch.where(tl >= p, tl - p, tl)
+    return torch.stack([top, bot], dim=2).reshape(b, n)
+
+
+@lru_cache(maxsize=32)
+def _dev32(n: int, p: int, n_h: int):
+    ops = _hybrid_ops(n, p, n_h)
+    l = (n // n_h).bit_length() - 1
+    nb = 1 << l
+    n1h, n2 = mxu32.four_step_factors(n_h)
+    mont = p >= (1 << 31)
+    blocks = tuple(
+        mxu32._mxu_tables_from_ops(
+            n1h,
+            n2,
+            p,
+            {
+                "A": ops[f"A{b}"],
+                "F": ops["F"],
+                "d": ops[f"d{b}"],
+                "G": ops["G"],
+                "e": ops[f"e{b}"],
+                "Ainv": ops[f"Ainv{b}"],
+            },
+        )
+        for b in range(nb)
+    )
+    sc = {"p": p, "mont": mont, "neginv": mont_neginv(p), "c32": (1 << 32) % p}
+    return {
+        "l": l,
+        "blocks": blocks,
+        "sc": sc,
+        "fwd_tw": _stage_tabs32(ops["tw"], p, mont),
+        "inv_tw": _stage_tabs32(ops["itw"], p, mont),
+    }
+
+
+@lru_cache(maxsize=64)
+def _scaled_ainv_blocks32(n: int, p: int, n_h: int, scale: int):
+    ops = _hybrid_ops(n, p, n_h)
+    out = []
+    for b in range(n // n_h):
+        M = (ops[f"Ainv{b}"].T.astype(object) * scale % p).astype(np.uint64)
+        out.append(mxu32._prep(M, p))
+    return tuple(out)
+
+
+def _prefix32(x, dv):
+    for s in range(dv["l"]):
+        x = _stage_fwd32(x, dv["fwd_tw"][s], dv["sc"])
+    return x
+
+
+def _suffix32(x, dv):
+    for s in range(dv["l"] - 1, -1, -1):
+        x = _stage_inv32(x, dv["inv_tw"][s], dv["sc"])
+    return x
+
+
+def fwd32(x, *, n: int, p: int, n_h: int = N_H):
+    """Hybrid forward, plain torch: l butterfly stages + 2^l blockwise
+    four-steps. [B, n] uint32 -> the bits of `mxu32.fwd`."""
+    dv = _dev32(n, p, n_h)
+    return to_u32(mxu32_cuda._fwd_blocks((_prefix32(to_i64(x), dv),), p, n_h))
+
+
+def inv32(x, *, n: int, p: int, scale: int = 1, n_h: int = N_H):
+    """Hybrid inverse, plain torch: blockwise four-steps + l canonical
+    suffix stages. The bits of `mxu32.inv` (optional folded scale)."""
+    dv = _dev32(n, p, n_h)
+    return to_u32(_suffix32(mxu32_cuda._inv_blocks(to_i64(x), p, scale, n_h), dv))
+
+
+def fwd32_fused(x, *, n: int, p: int, n_h: int = N_H):
+    """Hybrid forward with the blocks on K2 with block tables."""
+    dv = _dev32(n, p, n_h)
+    return mxu32_cuda.fwd_hyb(to_u32(_prefix32(to_i64(x), dv)), n=n, p=p, n_h=n_h)
+
+
+def inv32_fused(x, *, n: int, p: int, scale: int = 1, n_h: int = N_H):
+    """Hybrid inverse with the blocks on K2 with block tables."""
+    dv = _dev32(n, p, n_h)
+    y = mxu32_cuda.inv_hyb(x, n=n, p=p, n_h=n_h, scale=scale)
+    return to_u32(_suffix32(to_i64(y), dv))
+
+
+class _Engine32:
+    """Dispatch shim with the mxu32 engine surface (single u32 arrays)."""
+
+    def __init__(self, fused: bool):
+        self._fused = fused
+
+    def fwd(self, x, *, n, p):
+        return (fwd32_fused if self._fused else fwd32)(x, n=n, p=p)
+
+    def inv(self, x, *, n, p, scale=1):
+        return (inv32_fused if self._fused else inv32)(x, n=n, p=p, scale=scale)
+
+
+engine32_fused = _Engine32(fused=True)
+engine32_xla = _Engine32(fused=False)  # the JAX module's name: the plain engine
+
+
+# ---------------------------------------------------------------------------
+# 32-bit channel-grid hybrid (native-plan prime32 channels above the block
+# size): per-channel prefix stages + K1c / K1b / K1d with block tables
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=64)
+def _wide_block_planes32(n: int, p: int, n_h: int, block: int, n_limbs: int):
+    """Per-block column planes consuming u{32*n_limbs} limb tuples (the
+    fused residue split, 4 * n_limbs operand planes)."""
+    ops = _hybrid_ops(n, p, n_h)
+    return mxu32._prep(ops[f"A{block}"].T, p, n_eplanes=4 * n_limbs)
+
+
+@lru_cache(maxsize=32)
+def _dev32w(n: int, p: int, n_h: int):
+    """u64-limb-pair prefix-stage tables for a 30-bit channel prime: the
+    prefix butterflies run in 64-bit limb algebra mod p (Shoup lazy: any
+    p < 2^62), so the residue split stays fused into the block matmuls."""
+    ops = _hybrid_ops(n, p, n_h)
+    sc = {"p": p, "mont": False, "neginv": 0, "c64": const64_like((1 << 64) % p)}
+    return {"sc": sc, "fwd_tw": _stage_tabs(ops["tw"], p, False)}
+
+
+def multi_hybrid_applicable32(n: int, primes, n_h: int = N_H) -> bool:
+    return (
+        n > n_h
+        and (n & (n - 1)) == 0
+        and mxu32_cuda.MIN_N <= n_h <= mxu32_cuda.MAX_N
+        and all((1 << 29) < p < (1 << 30) for p in primes)
+    )
+
+
+def _prefix_fwd_channels32(x_per_ch, primes, n, n_h):
+    """l u32 forward stages per channel on per-channel residue arrays
+    (uint32 [B, n] each) -> uint32 [C, B, n]."""
+    outs = [_prefix32(to_i64(x), _dev32(n, p, n_h)) for x, p in zip(x_per_ch, primes)]
+    return to_u32(torch.stack(outs, dim=0))
+
+
+def fwd_wide_multi_hybrid32(limbs: tuple, primes: tuple, *, n: int, n_h: int = N_H):
+    """Hybrid channel-grid forward for native plans: shared limb tuple
+    (1 = u32 values, 2 = u64) of [B, n] uint32 -> [C, B, n] canonical
+    NTT-domain residues (the bits of `mxu32_cuda.fwd_wide_multi`)."""
+    primes = tuple(primes)
+    if len(limbs) == 1:
+        # u32 values are valid residue representatives for every channel
+        x = _prefix_fwd_channels32([limbs[0]] * len(primes), primes, n, n_h)
+        return mxu32_cuda.fwd_multi_perchannel(x, primes, n_h=n_h)
+    if len(limbs) != 2:
+        raise NotImplementedError("u128 operands keep the direct path")
+    xs = _carriers(limbs)
+    parts = []
+    for p in primes:
+        dv = _dev32w(n, p, n_h)
+        y = xs
+        for tab in dv["fwd_tw"]:
+            y = _stage_fwd64(y, tab, dv["sc"])
+        parts.append(y)
+    lo, hi = (to_u32(torch.stack([c[j] for c in parts], dim=0)) for j in range(2))
+    return mxu32_cuda.fwd_wide_multi_perchannel(lo, hi, primes, n_h=n_h)
+
+
+def fwd_perchannel_multi_hybrid32(x, primes: tuple, *, n: int, n_h: int = N_H):
+    """Hybrid per-channel-input forward (the Bounded product path): x
+    [C, B, n] uint32 -> [C, B, n] canonical NTT-domain residues."""
+    primes = tuple(primes)
+    xc = _prefix_fwd_channels32([x[ch] for ch in range(len(primes))], primes, n, n_h)
+    return mxu32_cuda.fwd_multi_perchannel(xc, primes, n_h=n_h)
+
+
+def _suffix_inv_channels32(x, primes, n, n_h):
+    outs = [_suffix32(to_i64(x[ch]), _dev32(n, p, n_h)) for ch, p in enumerate(primes)]
+    return to_u32(torch.stack(outs, dim=0))
+
+
+def inv_multi_hybrid32(x, primes: tuple, scales: tuple, *, n: int, n_h: int = N_H):
+    """Hybrid channel-grid scaled inverse (the bits of
+    `mxu32_cuda.inv_multi`)."""
+    y = mxu32_cuda.inv_multi(x, tuple(primes), tuple(scales), n_h=n_h)
+    return _suffix_inv_channels32(y, primes, n, n_h)
+
+
+def pointwise_inv_multi_hybrid32(fl, fr, primes: tuple, scales: tuple, *, n: int,
+                                 n_h: int = N_H):
+    """Hybrid pointwise-Montgomery + scaled inverse (the bits of
+    `mxu32_cuda.pointwise_inv_multi`): the product is elementwise in the NTT
+    domain, so it runs inside the block kernel's load."""
+    y = mxu32_cuda.pointwise_inv_multi(fl, fr, tuple(primes), tuple(scales), n_h=n_h)
+    return _suffix_inv_channels32(y, primes, n, n_h)

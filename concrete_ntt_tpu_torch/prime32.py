@@ -13,8 +13,8 @@ and defaults to the card ("cuda"): a numpy array is moved to it, a tensor
 computes on the device it is on. With the default and no GPU a numpy call
 raises; the CPU is what a caller asks for with `device="cpu"`.
 `ops/ntt_dispatch.fwd32/inv32` choose the tier: the four-step kernel K2
-for 2^11 <= n <= 2^15 where `mxu32.applicable` holds (odd p >= 2^26), else
-the butterfly kernel K4 (K3 is only the sharded four-step's per-rank
+for 2^11 <= n <= 2^17 where `mxu32.applicable` holds (odd p >= 2^26), else
+the butterfly kernel K4 (n <= 2^15 on the card; K3 is only the sharded four-step's per-rank
 pass). A CUDA tensor launches the kernel; a CPU tensor runs its plain
 torch twin. Outputs are canonical and equal the JAX package's bit for bit:
 fwd = standard order -> bit-reversed NTT values in [0, p); inv =

@@ -17,11 +17,11 @@ Modes (product.rs:10-20):
 
 Routes of the u32 channels (`ops/ntt_dispatch.route32`, decided from n and
 the primes before any launch, the same on the CPU as on the card):
-  * "K1", every prime 2^29 < p < 2^30 and 2^11 <= n <= 2^15: the channel
+  * "K1", every prime 2^29 < p < 2^30 and 2^11 <= n <= 2^17: the channel
     grid — K1a (generic fwd, the u64 -> residue split folded in), K1c
     (Bounded fwd), K1b (inv) and K1d (the polymul's pointwise product +
     normalized inverse in one kernel);
-  * "K2", every prime odd and >= 2^26 at 2^11 <= n <= 2^15: the four-step
+  * "K2", every prime odd and >= 2^26 at 2^11 <= n <= 2^17: the four-step
     kernel once per channel (the pointwise product plain torch);
   * otherwise the generic path: the residue split in plain torch and each
     channel's `prime32.Plan` (K2 or K4).

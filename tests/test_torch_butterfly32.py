@@ -10,6 +10,7 @@ the fixture of tests/test_pallas_interpret.py. The kernel itself runs in
 tests/test_torch_cuda.py. Tolerance: exact equality (modular integers).
 """
 
+import inspect
 import itertools
 
 import jax.numpy as jnp
@@ -162,17 +163,23 @@ def test_k4_routes_by_device_and_range(rng):
         (2048, REGIMES["generic"], "K2", "K2"),
         (1024, REGIMES["lt30"], "K4", "K4"),
         (1 << 14, 67043329, "K4", "K4"),
-        (1 << 16, REGIMES["lt30"], "K4", "K2"),
-        (1 << 17, REGIMES["generic"], "K4", "K2"),
+        (1 << 16, REGIMES["lt30"], "K2", "K2"),
+        (1 << 17, REGIMES["generic"], "K2", "K2"),
+        (1 << 16, 67043329, "K4", "K4"),
+        (1 << 18, REGIMES["lt30"], "K4", "K4"),
     ],
 )
 def test_tier_choice(n, p, cpu, cuda):
-    """K2 for 2048 <= n (p >= 2^26; the TPU's two-pass tier below 2^14 is
-    K2 here), else K4; the CPU runs the stage engine (K4's twin) above
-    2^15, where the card raises."""
+    """K2 for 2^11 <= n <= 2^17 (p >= 2^26; the TPU's two-pass tier below
+    2^14 is K2 here), else K4: the CPU and the card take the same tier at
+    every row. Above 2^15 K4 runs only as its plain twin (the card raises
+    there)."""
     variant = tp32._variant(p)
-    assert ntt_dispatch.tier32(n, p, variant, torch.device("cpu")) == cpu
-    assert ntt_dispatch.tier32(n, p, variant, torch.device("cuda")) == cuda
-    if cuda == "K2" and n > mxu32_cuda.MAX_N:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mxu32_cuda.check_single_range(n, p)
+    # the tier is a function of (n, p) alone: no device enters the decision
+    assert list(inspect.signature(ntt_dispatch.tier32).parameters) == ["n", "p", "variant"]
+    assert ntt_dispatch.tier32(n, p, variant) == cpu == cuda
+    if cuda == "K2":
+        mxu32_cuda.check_single_range(n, p)
+    elif n > tcu4.MAX_N:
+        with pytest.raises(NotImplementedError, match="K4"):
+            tcu4.check_range(n, variant)

@@ -1,7 +1,8 @@
-"""Card tests of the port: each kernel (K1a-K1d, K2, K3, K4, K5, K5 with
-block tables, K6, K7a-K7d direct and with block tables; K1a, K2 fwd and K3's
-A pass also with the four limbs of a u128 operand) against its plain torch
-twin, and the native64 Plan32 and Plan52, prime32, prime64 (direct and
+"""Card tests of the port: each kernel (K1a-K1e, K2, K3, K4, K5, K5 with
+block tables, K6, K7a-K7d direct and with block tables; K1a, K2 fwd, K3's A
+pass and K5 fwd also with the four limbs of a u128 operand; K1 / K2 / K3 at
+n = 2^16 and 2^17; K2 and K1b-K1d with the 32-bit hybrid's block tables)
+against its plain torch twin, and the native64 Plan32 and Plan52, prime32, prime64 (direct and
 through the stage-split hybrid at 2^16), product and the other native plans'
 polymuls (widths 32, 64 and 128, both tiers, the channel routes and the
 per-channel route below 2^11) through the kernels against the CPU plain
@@ -422,7 +423,186 @@ def test_native128_host_formats_on_default_plan(gen, cuda_device):
 
 
 def test_native_plan_above_2_15_raises_on_card(gen, cuda_device):
-    plan = native64.Plan32.try_new(1 << 16)
-    x = tuple(_u32(gen, (1, 1 << 16), cuda_device) for _ in range(2))
-    with pytest.raises(NotImplementedError, match="N17"):
-        plan.fwd(x)
+    """Kept under its old name: above 2^15 a native plan now computes on the
+    card (K1a / K1b at n = 2^16) and equals the CPU plain path."""
+    n = 1 << 16
+    plan, cpu_plan = _plan_pair(native64, "Plan32", n)
+    x, y = (tuple(_u32(gen, (1, n), "cpu") for _ in range(2)) for _ in range(2))
+    on_card = lambda limbs: tuple(t.to(cuda_device) for t in limbs)
+    mxu32_cuda.reset_launch_counts()
+    got = plan.negacyclic_polymul(on_card(x), on_card(y))
+    assert mxu32_cuda.LAUNCHES == {**dict.fromkeys(mxu32_cuda.LAUNCHES, 0),
+                                   "fwd_wide_multi": 2, "inv_multi": 1}
+    _same_pair(got, cpu_plan.negacyclic_polymul(x, y))
+    _same(plan.fwd(on_card(x)), cpu_plan.fwd(x))
+
+
+# -- n = 2^16 and 2^17, block tables, the presplit inverse, K5's u128 operand ----
+
+# the three prime32 regimes with 2^18 | p - 1: NTT primes up to n = 2^17
+BIG32 = {
+    "lt30": _lp(1 << 18, 1, 1 << 29, 1 << 30),
+    "lt31": _lp(1 << 18, 1, 1 << 30, 1 << 31),
+    "generic": _lp(1 << 18, 1, 1 << 31, 1 << 32),
+}
+
+
+def _scale32(n, p):
+    return pow(n, p - 2, p) * pow(2, 32, p) % p
+
+
+@pytest.mark.parametrize("n,b", [(1 << 16, 3), (1 << 17, 2)])
+def test_k1_matches_plain_above_2_15_on_card(gen, cuda_device, n, b):
+    from concrete_ntt_tpu_torch.tables import primes32_ext
+
+    primes = primes32_ext()[:5]
+    limbs = tuple(_u32(gen, (b, n), cuda_device) for _ in range(4))
+    for nl in (1, 2, 4):
+        _same(mxu32_cuda.fwd_wide_multi(limbs[:nl], primes),
+              mxu32_cuda.fwd_wide_multi_plain(limbs[:nl], primes))
+    p3 = primes[:3]
+    xs = (_u32(gen, (3, b, n), cuda_device), _u32(gen, (3, b, n), cuda_device))
+    scales = tuple(_scale32(n, p) for p in p3)
+    _same(mxu32_cuda.inv_multi(xs[0], p3, scales), mxu32_cuda.inv_multi_plain(xs[0], p3, scales))
+    _same(mxu32_cuda.fwd_multi_perchannel(xs[0], p3),
+          mxu32_cuda.fwd_multi_perchannel_plain(xs[:1], p3))
+    _same(mxu32_cuda.fwd_wide_multi_perchannel(*xs, p3),
+          mxu32_cuda.fwd_multi_perchannel_plain(xs, p3))
+    _same(mxu32_cuda.pointwise_inv_multi(*xs, p3, scales),
+          mxu32_cuda.pointwise_inv_multi_plain(*xs, p3, scales))
+
+
+@pytest.mark.parametrize("regime", list(BIG32))
+@pytest.mark.parametrize("n,b", [(1 << 16, 3), (1 << 17, 2)])
+def test_k2_k3_match_plain_above_2_15_on_card(gen, cuda_device, regime, n, b):
+    p = BIG32[regime]
+    xs = tuple(_u32(gen, (b, n), cuda_device) for _ in range(4))
+    _same(mxu32_cuda.fwd(xs[0], n=n, p=p), mxu32_cuda.fwd_plain(xs[0], n=n, p=p))
+    for nl in (2, 4):
+        _same(mxu32_cuda.fwd_wide(xs[:nl], n=n, p=p), mxu32_cuda.fwd_wide_plain(xs[:nl], n=n, p=p))
+    for s in (1, _scale32(n, p)):
+        _same(mxu32_cuda.inv(xs[0], n=n, p=p, scale=s),
+              mxu32_cuda.inv_plain(xs[0], n=n, p=p, scale=s))
+    tbl = mxu32._mxu_tables(n, p)
+    n1, n2 = tbl["n1"], tbl["n2"]
+    d = tuple(torch.from_numpy(a[: n2 // 4]).to(cuda_device) for a in tbl["d"])
+    xa = tuple(_u32(gen, (b, n2 // 4, n1), cuda_device) for _ in range(4))  # 4096 contraction rows
+    kw = dict(n=n, p=p, which="A", diag_slices=d, n_limbs=4)
+    _same(mxu32_cuda.pass_matmod(xa, **kw), mxu32_cuda.pass_matmod_plain(xa, **kw))
+
+
+@pytest.mark.parametrize("regime", list(BIG32))
+@pytest.mark.parametrize("n,b", [(1 << 15, 3), (1 << 16, 3), (1 << 17, 2)])
+def test_k2_block_tables_match_plain_and_direct_on_card(gen, cuda_device, regime, n, b):
+    """K2 with block tables (n_h = 2^14): the block transforms against their
+    plain version, and the whole 32-bit hybrid against the direct kernel at
+    the same n on full-range u32 operands."""
+    p, n_h = BIG32[regime], 1 << 14
+    x = _u32(gen, (b, n), cuda_device)
+    s = _scale32(n, p)
+    mxu32_cuda.reset_launch_counts()
+    _same(mxu32_cuda.fwd_hyb(x, n=n, p=p, n_h=n_h), mxu32_cuda.fwd_hyb_plain(x, n=n, p=p, n_h=n_h))
+    _same(mxu32_cuda.inv_hyb(x, n=n, p=p, n_h=n_h, scale=s),
+          mxu32_cuda.inv_hyb_plain(x, n=n, p=p, n_h=n_h, scale=s))
+    _same(stagesplit.engine32_fused.fwd(x, n=n, p=p), mxu32_cuda.fwd(x, n=n, p=p))
+    _same(stagesplit.engine32_fused.inv(x, n=n, p=p, scale=s), mxu32_cuda.inv(x, n=n, p=p, scale=s))
+    assert mxu32_cuda.LAUNCHES == {**dict.fromkeys(mxu32_cuda.LAUNCHES, 0), "fwd_hyb": 2,
+                                   "inv_hyb": 2, "fwd": 1, "inv": 1}
+
+
+@pytest.mark.parametrize("n,b", [(1 << 15, 3), (1 << 16, 2)])
+def test_k1_block_tables_match_plain_and_direct_on_card(gen, cuda_device, n, b):
+    """K1c (1 and 2 limbs) / K1b / K1d with block tables against their plain
+    versions, and the four channel-grid hybrids against K1a / K1c / K1b / K1d
+    direct."""
+    from concrete_ntt_tpu_torch.tables import primes32_ext
+
+    primes = (PRIMES if n <= 1 << 15 else primes32_ext())[:3]
+    n_h = 1 << 14
+    scales = tuple(_scale32(n, p) for p in primes)
+    x, y = (_u32(gen, (3, b, n), cuda_device) for _ in range(2))
+    _same(mxu32_cuda.fwd_multi_perchannel(x, primes, n_h=n_h),
+          mxu32_cuda.fwd_multi_perchannel_plain((x,), primes, n_h))
+    _same(mxu32_cuda.fwd_wide_multi_perchannel(x, y, primes, n_h=n_h),
+          mxu32_cuda.fwd_multi_perchannel_plain((x, y), primes, n_h))
+    _same(mxu32_cuda.inv_multi(x, primes, scales, n_h=n_h),
+          mxu32_cuda.inv_multi_plain(x, primes, scales, n_h))
+    _same(mxu32_cuda.pointwise_inv_multi(x, y, primes, scales, n_h=n_h),
+          mxu32_cuda.pointwise_inv_multi_plain(x, y, primes, scales, n_h))
+    mxu32_cuda.reset_launch_counts()
+    for limbs in ((x[0],), (x[0], y[0])):
+        _same(stagesplit.fwd_wide_multi_hybrid32(limbs, primes, n=n),
+              mxu32_cuda.fwd_wide_multi(limbs, primes))
+    _same(stagesplit.fwd_perchannel_multi_hybrid32(x, primes, n=n),
+          mxu32_cuda.fwd_multi_perchannel(x, primes))
+    _same(stagesplit.inv_multi_hybrid32(x, primes, scales, n=n),
+          mxu32_cuda.inv_multi(x, primes, scales))
+    _same(stagesplit.pointwise_inv_multi_hybrid32(x, y, primes, scales, n=n),
+          mxu32_cuda.pointwise_inv_multi(x, y, primes, scales))
+    assert mxu32_cuda.LAUNCHES == {**dict.fromkeys(mxu32_cuda.LAUNCHES, 0),
+                                   "fwd_multi_perchannel_hyb": 3, "inv_multi_hyb": 1,
+                                   "pointwise_inv_multi_hyb": 1, "fwd_wide_multi": 2,
+                                   "fwd_multi_perchannel": 1, "inv_multi": 1,
+                                   "pointwise_inv_multi": 1}
+
+
+@pytest.mark.parametrize("n,b", [(1 << 11, 3), (1 << 14, 5), (1 << 16, 2)])
+def test_k1e_presplit_matches_k1b_on_card(gen, cuda_device, n, b):
+    from concrete_ntt_tpu_torch.tables import primes32_ext
+
+    primes = (PRIMES if n <= 1 << 15 else primes32_ext())[:5]
+    scales = tuple(_scale32(n, p) for p in primes)
+    x = _u32(gen, (5, b, n), cuda_device)
+    xd = mxu32_cuda.digit_planes32(x)
+    mxu32_cuda.reset_launch_counts()
+    got = mxu32_cuda.inv_multi_presplit(xd, primes, scales)
+    assert mxu32_cuda.LAUNCHES == {**dict.fromkeys(mxu32_cuda.LAUNCHES, 0),
+                                   "inv_multi_presplit": 1}
+    _same(got, mxu32_cuda.inv_multi_presplit_plain(xd, primes, scales))
+    _same(got, mxu32_cuda.inv_multi(x, primes, scales))
+
+
+@pytest.mark.parametrize("regime", list(REGIMES64))
+@pytest.mark.parametrize("n,b", [(1 << 14, 3), (1 << 11, 3)])
+def test_k5_u128_matches_plain_on_card(gen, cuda_device, regime, n, b):
+    p = REGIMES64[regime]
+    x = tuple(_u32(gen, (b, n), cuda_device) for _ in range(4))
+    mxu64_cuda.reset_launch_counts()
+    got = mxu64_cuda.fwd(x, n=n, p=p)
+    assert mxu64_cuda.LAUNCHES == {**dict.fromkeys(mxu64_cuda.LAUNCHES, 0), "fwd64_u128": 1}
+    _same_pair(got, mxu64_cuda.fwd_plain(x, n=n, p=p))
+
+
+@pytest.mark.parametrize("module,n", [(native128, 1 << 16), (native64, 1 << 17),
+                                      (native_binary32, 1 << 16)],
+                         ids=["native128-2^16", "native64-2^17", "native_binary32-2^16"])
+def test_native_plan32_above_2_15_on_card_matches_cpu(gen, cuda_device, module, n):
+    plan, cpu_plan = _plan_pair(module, "Plan32", n)
+    nl = plan.width // 32
+    binary = "binary" in module.__name__
+    lhs = tuple(_u32(gen, (1, n), "cpu") for _ in range(nl))
+    rhs = tuple(_u32(gen, (1, n), "cpu", 2 if binary else 1 << 32) for _ in range(nl))
+    as_arg = lambda limbs, dev: limbs[0].to(dev) if nl == 1 else tuple(t.to(dev) for t in limbs)
+    as_tuple = lambda out: (out,) if nl == 1 else out
+    got = as_tuple(plan.negacyclic_polymul(as_arg(lhs, cuda_device), as_arg(rhs, cuda_device)))
+    want = as_tuple(cpu_plan.negacyclic_polymul(as_arg(lhs, "cpu"), as_arg(rhs, "cpu")))
+    _same_pair(got, want)
+
+
+@pytest.mark.parametrize("regime", list(BIG32))
+@pytest.mark.parametrize("n", [1 << 16, 1 << 17])
+def test_prime32_polymul_above_2_15_on_card_matches_cpu(gen, cuda_device, regime, n):
+    p = BIG32[regime]
+    lhs, rhs = (gen.integers(0, p, (2, n), dtype=np.uint32) for _ in range(2))
+    mxu32_cuda.reset_launch_counts()
+    got = prime32.Plan.new(n, p).negacyclic_polymul(lhs, rhs)  # numpy input, default device
+    assert mxu32_cuda.LAUNCHES == {**dict.fromkeys(mxu32_cuda.LAUNCHES, 0), "fwd": 2, "inv": 1}
+    _same(got, prime32.Plan.new(n, p, device="cpu").negacyclic_polymul(lhs, rhs))
+
+
+def test_small_prime_above_2_15_raises_on_card(gen, cuda_device):
+    """A prime below 2^26 has no four-step kernel, and K4 ends at 2^15."""
+    n, p = 1 << 16, _lp(1 << 17, 1, 0, 1 << 26)
+    x = _u32(gen, (1, n), cuda_device, p)
+    with pytest.raises(NotImplementedError, match="K4"):
+        prime32.Plan.new(n, p).fwd(x)

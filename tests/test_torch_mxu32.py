@@ -113,7 +113,7 @@ def test_k1c_k1d_wrappers_check_operands(rng):
         tcu.pointwise_inv_multi(x, x, primes, (1,))
     with pytest.raises(ValueError, match="one shape"):
         tcu.fwd_wide_multi_perchannel(x, x[:, :2], primes)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="powers of two in \\[2\\^11, 2\\^17\\]"):
         tcu.fwd_multi_perchannel(x[..., :1024], primes)
     before = dict(tcu.LAUNCHES)
     tcu.fwd_multi_perchannel(x, primes)
@@ -193,13 +193,13 @@ def test_wrappers_route_by_device_and_range(rng):
     with pytest.raises(TypeError):
         tcu.fwd_wide_multi((x.to(torch.int64),), PRIMES)
     small = torch.from_numpy(_u32(rng, (2, 1024)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="powers of two in \\[2\\^11, 2\\^17\\]"):
         tcu.fwd_wide_multi((small,), PRIMES)
     with pytest.raises(NotImplementedError, match="3 operand limbs"):
         tcu.fwd_wide_multi((x, x, x), PRIMES)
     tcu._check_n_limbs(2048, 4, "kernels")  # a u128 operand is served
     assert tcu.fwd_wide_multi((x, x, x, x), PRIMES).shape == (len(PRIMES), 2, 2048)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="30-bit channel primes"):
         tcu.fwd_wide_multi((x,), (4293918721,))
     before = dict(tcu.LAUNCHES)
     tcu.fwd_wide_multi((x,), PRIMES)
@@ -306,7 +306,7 @@ def test_single_wrappers_check_shapes(rng):
         tcu.pass_matmod(x.reshape(2, 32, 64), n=n, p=p, which="B")
     with pytest.raises(ValueError, match="n_limbs"):
         tcu.pass_matmod(x.reshape(2, 32, 64), n=n, p=p, which="A", n_limbs=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="powers of two in \\[2\\^11, 2\\^17\\]"):
         tcu.fwd(torch.from_numpy(_u32(rng, (2, 1024))), n=1024, p=p)
     eng = tcu.passes_engine
     assert (eng.fwd, eng.fwd_wide, eng.inv) == (tcu.fwd, tcu.fwd_wide, tcu.inv)
@@ -383,3 +383,122 @@ def test_accumulator_exact_with_four_limbs(n, primes):
     bad = np.full((1 << 14, planes.shape[1]), 127, dtype=np.int8)  # past the edge
     with pytest.raises(AssertionError, match="may wrap"):
         tmx.assert_accumulator_exact(bad, cvec)
+
+
+# -- n = 2^16 and 2^17: the C++ operator build, the proof's edge, K2 plain, K1e ----
+
+# the three prime32 regimes with 2^18 | p - 1: NTT primes up to n = 2^17
+BIG = {
+    "lt30": largest_prime_in_arithmetic_progression64(1 << 18, 1, 1 << 29, 1 << 30),
+    "lt31": largest_prime_in_arithmetic_progression64(1 << 18, 1, 1 << 30, 1 << 31),
+    "generic": largest_prime_in_arithmetic_progression64(1 << 18, 1, 1 << 31, 1 << 32),
+}
+N16 = 1 << 16
+
+
+def _same_ops(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("regime", list(BIG))
+@pytest.mark.parametrize("n", [2048, 4096, 8192])
+def test_cpp_operators_match_numpy_build(n, regime):
+    """The six operators from the C++ build (what the package uses) are the
+    numpy stage engine's (the JAX package's own build) bit for bit, so the
+    table cache's format is unchanged."""
+    p = BIG[regime]
+    _same_ops(tmx._build_operators(n, p), tmx._build_operators_numpy(n, p))
+
+
+def test_operators_and_k2_plain_match_jax_at_2_16(rng):
+    """At n = 2^16 (n1 = n2 = 256): the C++-built operators equal the JAX
+    package's, and K2's plain twin (fwd, fwd_wide with four limbs: the 4096
+    contraction, inv scaled) equals the JAX XLA engine on any-u32 operands."""
+    p, b = BIG["lt31"], 2
+    assert tmx.applicable(N16, p, "lt31") and tmx.four_step_factors(N16) == (256, 256)
+    _same_ops(tmx._build_operators(N16, p), jmx._operators(N16, p))
+    t = torch.from_numpy
+    limbs = tuple(_u32(rng, (b, N16)) for _ in range(4))
+    before = dict(tcu.LAUNCHES)
+    got = tcu.fwd(t(limbs[0]), n=N16, p=p)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jmx.fwd(jnp.asarray(limbs[0]), n=N16, p=p)))
+    got = tcu.fwd_wide(tuple(map(t, limbs)), n=N16, p=p)
+    want = jmx.fwd_wide(tuple(map(jnp.asarray, limbs)), n=N16, p=p)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    s = _scale(N16, p)
+    got = tcu.inv(t(limbs[1]), n=N16, p=p, scale=s)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jmx.inv(jnp.asarray(limbs[1]), n=N16, p=p, scale=s)))
+    assert tcu.LAUNCHES == before  # the CPU route launches nothing
+
+
+def _edge_primes():
+    from concrete_ntt_tpu_torch.tables import primes32_ext
+
+    return tuple(primes32_ext()) + tuple(BIG.values())
+
+
+@pytest.mark.parametrize("n,which", [
+    (N16, slice(None)), (1 << 17, slice(0, 13, 4)),
+    pytest.param(1 << 17, slice(None), marks=pytest.mark.slow),  # 5 s of operators a prime
+], ids=["65536-all", "131072-four", "131072-all"])
+def test_accumulator_exact_at_the_proof_edge(n, which):
+    """n1 = 256 with the four limbs of a u128 operand is the widest
+    contraction the int32 accumulators are proven for, 16 x 256 = 4096 rows:
+    the build's assertion holds for the ten channel primes of the sizes above
+    2^15 and for the three regime primes with 2^18 | p - 1, and the proof is
+    run again here on the planes it returned."""
+    primes = _edge_primes()
+    assert len(primes) == 13
+    for p in primes[which]:
+        assert tmx.applicable(n, p, "generic" if p >= 1 << 31 else "lt31")
+        planes, cvec = tmx._wide_col_planes(n, p, 4)
+        assert planes.shape[0] == 4096 and planes.dtype == np.int8
+        tmx.assert_accumulator_exact(planes, cvec)
+        tmx._operators.cache_clear(), tmx._wide_col_planes.cache_clear()  # 4 MiB a prime
+
+
+def test_ranges_reach_2_17():
+    from concrete_ntt_tpu_torch.tables import primes32_ext
+
+    assert (tcu.MIN_N, tcu.MAX_N) == (1 << 11, 1 << 17)
+    ext = primes32_ext()
+    for n in (N16, 1 << 17):
+        tcu.check_range(n, ext, 4)
+        tcu.check_single_range(n, BIG["generic"], 4)
+    with pytest.raises(NotImplementedError, match="2\\^17"):
+        tcu.check_range(1 << 18, ext)
+    with pytest.raises(NotImplementedError, match="K4"):
+        tcu.check_single_range(N16, 67043329)
+
+
+@pytest.mark.parametrize("n,b", [(2048, 5), (N_BIG, 2)])
+def test_k1e_presplit_plain_matches_pallas_interpret(rng, interpret, n, b):
+    """`digit_planes32` gives the JAX function's int8 planes, and K1e's plain
+    twin on them the bits of the JAX presplit kernel (interpret mode) and of
+    K1b on the values themselves."""
+    primes = PRIMES[:3]
+    scales = tuple(_scale(n, p) for p in primes)
+    x = _u32(rng, (3, b, n))
+    x[:, 0, :4] = (0, 0x80, 0xFFFFFFFF, 0x7F7F7F7F)
+    xd = tcu.digit_planes32(torch.from_numpy(x))
+    n1, n2 = tmx.four_step_factors(n)
+    assert xd.dtype == torch.int8 and tuple(xd.shape) == (3, b, n1, 4 * n2)
+    jd = jpal.digit_planes32(jnp.asarray(x))
+    np.testing.assert_array_equal(xd.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(tcu._planes_to_u32(xd).numpy(), x)
+    before = dict(tcu.LAUNCHES)
+    got = tcu.inv_multi_presplit(xd, primes, scales)
+    assert tcu.LAUNCHES == before  # the CPU route launches nothing
+    assert got.dtype == torch.uint32 and tuple(got.shape) == (3, b, n)
+    np.testing.assert_array_equal(got.numpy(), tcu.inv_multi(torch.from_numpy(x), primes, scales).numpy())
+    if n == N_BIG:  # the size the JAX channel grid serves
+        want = jpal.inv_multi_presplit(jd, primes, scales)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(TypeError, match="int8"):
+        tcu.inv_multi_presplit(torch.from_numpy(x), primes, scales)
+    with pytest.raises(ValueError, match="four-step"):
+        tcu.inv_multi_presplit(xd.reshape(3, b, n1 // 2, 8 * n2), primes, scales)

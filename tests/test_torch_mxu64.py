@@ -263,3 +263,44 @@ def test_wrappers_check_operands(rng):
     tcu.fwd_multi(x, P3)
     assert tcu.LAUNCHES == before  # the CPU route launches nothing
     assert {"mxu64_pass", "mxu64_multi"} <= set(cuda_build.SOURCES)
+
+
+# -- the u128 operand of K5: four limbs, 16 operand digit planes -----------------
+
+
+@pytest.mark.parametrize("regime", list(REGIMES))
+def test_k5_u128_plain_matches_xla_engine(rng, regime):
+    """K5 `fwd` with the four limbs of a u128 operand (full-range u32 limbs,
+    all-ones in front) against the JAX `mxu64.fwd` with four limbs at
+    n = 2048: the transform of value mod p. The table build's accumulator
+    assertion holds in every regime at 16 operand planes (16 * n1 <= 2048
+    rows at the sizes K5 serves), so no regime raises."""
+    p, n, b = REGIMES[regime], 2048, 3
+    limbs = tuple(_u32(rng, (b, n)) for _ in range(4))
+    for a in limbs:
+        a[0, :4] = 0xFFFFFFFF
+    planes, cvec = tmx._wide_col_planes(n, p, 4)
+    jplanes, jcvec = jmx._wide_col_planes(n, p, 4)
+    n1 = tmx.four_step_factors(n)[0]
+    assert planes.shape == (16 * n1, tmx._n_dplanes(p) * n1)
+    np.testing.assert_array_equal(planes, jplanes)
+    np.testing.assert_array_equal(cvec, jcvec)
+    before = dict(tcu.LAUNCHES)
+    got = tcu.fwd(_t(limbs), n=n, p=p)
+    assert tcu.LAUNCHES == before and "fwd64_u128" in tcu.LAUNCHES  # the CPU launches nothing
+    _same(got, jmx.fwd(_j(limbs), n=n, p=p), (b, n))
+    # == the two-limb transform of the residue
+    v = sum(a.astype(object) << (32 * k) for k, a in enumerate(limbs)) % p
+    res = ((v & 0xFFFFFFFF).astype(np.uint32), (v >> 32).astype(np.uint32))
+    _same(got, tcu.fwd(_t(res), n=n, p=p), (b, n))
+
+
+def test_k5_u128_wrapper_checks_operands(rng):
+    p, n = REGIMES["p50"], 2048
+    limbs = _t(tuple(_u32(rng, (2, n)) for _ in range(4)))
+    with pytest.raises((ValueError, TypeError, NotImplementedError)):
+        tcu.fwd(limbs[:3], n=n, p=p)
+    with pytest.raises(ValueError):
+        tcu.fwd(limbs, n=4096, p=p)
+    with pytest.raises(NotImplementedError):
+        tcu.fwd(_t(tuple(_u32(rng, (2, 1024)) for _ in range(4))), n=1024, p=p)

@@ -229,3 +229,30 @@ def test_polymul_matches_jax_at_main_size(rng, module, tier, width, k):
     got = tplan.negacyclic_polymul(_arg(lhs, fmt, "torch"), _arg(rhs, fmt, "torch"))
     want = jplan.negacyclic_polymul(_arg(lhs, fmt, "jax"), _arg(rhs, fmt, "jax"))
     assert (_out_ints(got, fmt, (2, n)) == _out_ints(want, fmt, (2, n))).all()
+
+
+@pytest.mark.parametrize("module,width,n", [
+    ("native_binary32", 32, 1 << 16),
+    pytest.param("native64", 64, 1 << 17, marks=pytest.mark.slow),  # five primes' tables
+    pytest.param("native128", 128, 1 << 16, marks=pytest.mark.slow),  # ten primes' tables
+], ids=["native_binary32-2^16", "native64-2^17", "native128-2^16"])
+def test_plan32_above_2_15_matches_jax(rng, module, width, n):
+    """Above 2^15 the Plan32 tiers keep the channel grid (K1a / K1b, the ten
+    30-bit primes with 2^18 | p - 1) on the CPU as on the card: the plain
+    twins against the JAX plan, and four coefficients against the oracle."""
+    tplan, jplan = _plans(module, "Plan32", n)
+    assert tplan.primes == jplan.primes and ntt_dispatch.route32(n, tplan.primes) == "K1"
+    fmt = "u32" if width == 32 else "planar"
+    lhs = _limbs(rng, width, (1, n))
+    rhs = _limbs(rng, width, (1, n), binary="binary" in module)
+    before = dict(mxu32_cuda.LAUNCHES)
+    got = tplan.negacyclic_polymul(_arg(lhs, fmt, "torch"), _arg(rhs, fmt, "torch"))
+    assert mxu32_cuda.LAUNCHES == before  # the CPU route launches nothing
+    want = jplan.negacyclic_polymul(_arg(lhs, fmt, "jax"), _arg(rhs, fmt, "jax"))
+    g = _out_ints(got, fmt, (1, n))
+    assert (g == _out_ints(want, fmt, (1, n))).all()
+    ks = (0, 1, n // 3, n - 1)
+    assert [g[0][i] for i in ks] == negacyclic_coefficients_wrapping(
+        _ints(lhs)[0], _ints(rhs)[0], ks, width)
+    f = tplan.fwd(_arg(lhs, fmt, "torch"))
+    np.testing.assert_array_equal(f.numpy(), np.asarray(jplan.fwd(_arg(lhs, fmt, "jax"))))

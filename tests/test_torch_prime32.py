@@ -22,7 +22,7 @@ from concrete_ntt_tpu.ops import pallas32 as jpal32
 from concrete_ntt_tpu_torch import prime32 as tp32
 from concrete_ntt_tpu_torch.golden import polymul as tgold
 from concrete_ntt_tpu_torch.ops import mxu32 as tmx
-from concrete_ntt_tpu_torch.ops import mxu32_cuda
+from concrete_ntt_tpu_torch.ops import mxu32_cuda, ntt_dispatch
 
 PRIMES = {"lt30": 1073479681, "lt31": 2147352577, "generic": 4293918721, "small": 67043329}
 SIZES = [2, 32, 256, 1024, 2048, 4096]
@@ -78,10 +78,16 @@ def test_plan_at_the_k2_size(rng, name):
 
 
 def test_plan_above_the_kernel_range_runs_the_stage_engine(rng):
+    """Kept under its old name: n = 2^16 is inside the four-step range now, so
+    the CPU runs K2's plain twin there (as the card runs K2), against the JAX
+    plan."""
     p, n = PRIMES["lt30"], 1 << 16
     tplan, jplan = tp32.Plan.new(n, p, device="cpu"), jp32.Plan.new(n, p)
+    assert ntt_dispatch.tier32(n, p, tplan.variant) == "K2"
     x = rng.integers(0, p, (1, n), dtype=np.uint32)
-    np.testing.assert_array_equal(tplan.fwd(x).numpy(), np.asarray(jplan.fwd(x)))
+    f = tplan.fwd(x)
+    np.testing.assert_array_equal(f.numpy(), np.asarray(jplan.fwd(x)))
+    np.testing.assert_array_equal(tplan.inv(f).numpy(), np.asarray(jplan.inv(np.asarray(f))))
 
 
 def test_polymul_matches_golden(rng):
@@ -162,7 +168,9 @@ def test_single_range_and_scalar_record():
         want = 2 if tbl["mont_regime"] else 0 if tbl["lazy4"] else 1
         assert mxu32_cuda.regime(p) == want
     assert len(tmx._reduce_chain(tmx._MIN_P + 1)) == 6  # the longest chain K2/K3 meet
-    for n, p in ((1024, PRIMES["lt30"]), (1 << 16, PRIMES["lt30"]), (4096, PRIMES["small"]),
+    mxu32_cuda.check_single_range(1 << 16, PRIMES["lt30"])
+    mxu32_cuda.check_single_range(1 << 17, PRIMES["generic"], 4)
+    for n, p in ((1024, PRIMES["lt30"]), (1 << 18, PRIMES["lt30"]), (4096, PRIMES["small"]),
                  (4096, 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="four-step kernels"):
             mxu32_cuda.check_single_range(n, p)
