@@ -83,7 +83,11 @@ failure:
                power limit.
   2. build   — compiles every kernel source from the checkout with nvcc, one
                process per source, all started together; prints ptxas's
-               lines.
+               lines (registers, spills), the GEMM pass's dynamic shared
+               memory and, from `cuobjdump -sass`, each library's GMMA
+               (warpgroup tensor-core products), IMMA (int8 mma.sync) and
+               IDP.4A (dp4a) instructions: the two 32-bit sources must hold
+               GMMA and no IDP.4A.
   3. parity  — each kernel against its plain torch version on the card,
                exact equality: K1a/K1b at (n, B) = (2^14, 8), (2^14, 5),
                (2^11, 3), (2^15, 2); K2 fwd, fwd_wide, inv (unscaled and
@@ -126,7 +130,10 @@ failure:
                (2^15, 8), (2^16, 8), each against its plain version and each
                whole hybrid against the direct kernel. K1e == K1b at
                (2^14, 8), (2^11, 3), (2^16, 2); K5 fwd with four limbs at
-               (2^14, 16), (2^11, 3) in five regime primes.
+               (2^14, 16), (2^11, 3) in five regime primes. The tensor-core
+               pass at small and ragged shapes, (n, B) in (2^11, 1),
+               (2^11, 3), (2^12, 2), (2^13, 5): K1a with 1, 2, 4 limbs, K1b,
+               K2 fwd / fwd_wide / inv in lt30 and with a five-plane prime.
   4. main    — native64: three polymuls on the card == CPU plain path ==
                numpy wrapping oracle (row 0); K1a +2, K1b +1 per call.
                prime32: Plan(2^14, p) polymul at B = 16 for each bench prime
@@ -187,7 +194,10 @@ failure:
                three-channel polymul (K1c-hyb +2, K1d-hyb +1) == K1a x2 + K1d
                direct == native_binary64.Plan32's polymul, K1b-hyb +1 and
                K1c-hyb +1 a round trip. K1e and K5-u128 round trips == the
-               operand's residues. Each path's launch
+               operand's residues. The prime32 "stage" tier: Plan(2^16, p)
+               with p < 2^26 (no four-step, no K4 above 2^15) from numpy
+               input on a default plan: polymul, fwd == CPU plain path,
+               inv(fwd(x)) == n·x, no kernel launched. Each path's launch
                counters are set to 0 just before it and read just after.
   5. times   — CUDA events, warm-up then the median of reps, each kernel
                beside its plain version (K1d also beside plain mont_mul +
@@ -207,10 +217,18 @@ failure:
                2^16 (and K2 at 2^17), K2h and K1 with block tables at 2^16,
                K1e beside K1b, K5 with four limbs; K2 and K1a / K1d direct
                beside the 32-bit hybrid at 2^15, 2^16 and 2^17, in turns, with
-               the hybrid's split; the polymuls above 2^15.
+               the hybrid's split; the polymuls above 2^15. Each 32-bit row
+               (the kernels of csrc/matmod_pass.cuh) also gets its device
+               time: the matmod_pass launches of a call by torch.profiler,
+               median of 20 calls, beside torch._int_mm (by the same
+               profiler) on int8 matrices of the shapes of the same passes,
+               one GEMM per channel, block and pass: the yardstick of the
+               mainloop, which the port never calls.
 Then one JSON line of kernel summaries (each with its launches on its main
 path, error, ms, plain ms, and, for the direct 32-bit kernels, the same
-numbers at their shape above 2^15 under `n17`; and the bound: the larger of its bytes over
+numbers at their shape above 2^15 under `n17`; the 32-bit rows and their
+`n17` entries also `device_ms` and `gemm_ms`, the two profiler times above;
+and the bound: the larger of its bytes over
 3.35 TB/s and its int8 operations over 1,979 TOP/s, the H100 SXM data-sheet
 rates; `library_ms` is null for all: no single PyTorch call computes an
 exact modular transform), the nvidia-smi line, and last
@@ -238,6 +256,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -333,6 +352,16 @@ K1H_SHAPES = ((1 << 15, 8), (N16, 8))
 K1E_SHAPES = ((1 << 14, 8), (1 << 11, 3), (N16, 2))
 W464_SHAPES = ((1 << 14, 16), (1 << 11, 3))
 B_BIG = 8      # batch of the native plans' polymuls at 2^16 and 2^17 (all rows are checked)
+# the tensor-core pass at its smallest contraction (one ring stage at 2^11) and
+# batches that leave ragged row tiles; the prime32 "stage" tier's batch
+TC_SHAPES = ((1 << 11, 1), (1 << 11, 3), (1 << 12, 2), (1 << 13, 5))
+B_STAGE = 2
+# the 32-bit rows (kernels of csrc/matmod_pass.cuh): their JSON rows carry
+# `device_ms` and `gemm_ms`
+ROWS32 = ("fwd_wide_multi", "inv_multi", "fwd_multi_perchannel", "pointwise_inv_multi", "fwd",
+          "inv", "pass_matmod", "fwd_wide_multi_u128", "fwd_u128", "pass_matmod_u128", "fwd_hyb",
+          "inv_hyb", "fwd_multi_perchannel_hyb", "inv_multi_hyb", "pointwise_inv_multi_hyb",
+          "inv_multi_presplit")
 
 
 class PhaseError(RuntimeError):
@@ -359,6 +388,92 @@ def median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def is_kernel(name: str) -> bool:
+    return not name.startswith(("Memcpy", "Memset"))
+
+
+def is_pass(name: str) -> bool:
+    return "matmod_pass" in name
+
+
+def gemm_pairs(dev, direction: str, n1: int, n2: int, b: int, c: int, e1: int, n_d: int = 4,
+               nb: int = 1, passes: int = 2) -> list:
+    """int8 matrices of the shapes of a four-step transform's digit GEMMs,
+    per channel and block: pass 1 [B·R, E1·K1] x [E1·K1, D·K1] and pass 2
+    [B·K1, 4·R] x [4·R, D·R] (K1 = n1 forward, n2 inverse; R the other
+    factor), the right factor K-major (column-major), the layout the int8
+    tensor cores take. Random values: an int8 GEMM's time does not depend on
+    them. `passes` = 1: the first pass alone (K3)."""
+    k1, r = (n1, n2) if direction == "fwd" else (n2, n1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    mat = lambda rows, cols: torch.randint(-128, 128, (rows, cols), dtype=torch.int8, device=dev,
+                                           generator=gen)
+    pairs = []
+    for _ in range(c * nb):
+        pairs.append((mat(b * r, e1 * k1), mat(n_d * k1, e1 * k1).t()))
+        if passes == 2:
+            pairs.append((mat(b * k1, 4 * r), mat(n_d * r, 4 * r).t()))
+    return pairs
+
+
+def bind_now(fn):
+    """fn with the current values of its free variables: the timing phase
+    reuses names for the next shape, and a queued call must keep its own."""
+    if not fn.__closure__:
+        return fn
+    cells = tuple(types.CellType(c.cell_contents) for c in fn.__closure__)
+    return types.FunctionType(fn.__code__, fn.__globals__, fn.__name__, fn.__defaults__, cells)
+
+
+def device_times(tasks: list, reps: int = REPS) -> dict:
+    """Device time of a call, median of `reps` calls, for each task = (key,
+    make, per_call): make() -> (fn, match). All tasks run in ONE
+    torch.profiler session; a spin kernel (torch.cuda._sleep) before and
+    after each task's calls splits the device trace into their segments. A
+    call's time is the sum of its kernels whose name matches, the calls being
+    consecutive groups of per_call such kernels (None: as many as there are
+    per call). A key whose segment does not split so, or a trace that lost
+    its markers, maps to None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        matches = []
+        for _, make, _ in tasks:
+            fn, match = make()
+            fn()  # warm, outside the segment
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            matches.append(match)
+            del fn
+    evs = sorted((ev.time_range.start, ev.time_range.elapsed_us(), ev.name) for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+    segments, seg = [], None
+    for _, us, name in evs:
+        if "spin_kernel" in name:
+            if seg is None:
+                seg = []
+            else:
+                segments.append(seg)
+                seg = None
+        elif seg is not None:
+            seg.append((us, name))
+    out = {key: None for key, _, _ in tasks}
+    if len(segments) != len(tasks):
+        print(f"profile: {len(segments)} marked segments for {len(tasks)} tasks: device times "
+              "not measured", flush=True)
+        return out
+    for (key, _, per_call), match, seg in zip(tasks, matches, segments):
+        us = [t for t, name in seg if match(name)]
+        k = per_call or len(us) // reps
+        if k and len(us) == k * reps:
+            out[key] = statistics.median(sum(us[i * k:(i + 1) * k]) for i in range(reps)) / 1e3
+    return out
 
 
 def profile_polymul(fn, reps: int = 10) -> dict:
@@ -610,6 +725,24 @@ def main() -> int:
             ptxas = [ln.strip() for ln in f
                      if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
         print(f"build: {os.path.relpath(so)}: " + " | ".join(ptxas), flush=True)
+    smem = {d: mxu32_cuda._pass_lib().k_pass_smem_bytes(d) for d in (4, 5)}
+    print(f"build: matmod_pass dynamic shared memory a block: {smem[4]} B with 4 digit planes, "
+          f"{smem[5]} B with 5 (the ring of operand and plane stages)", flush=True)
+    # the 32-bit GEMM pass contracts on the int8 tensor cores (wgmma: IGMMA)
+    # and no longer with dp4a (IDP.4A); the 64-bit pass keeps dp4a
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        for so in sos:
+            sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
+                                  check=True).stdout
+            n_gmma, n_imma, n_idp = (sass.count(op) for op in ("GMMA", "IMMA", "IDP.4A"))
+            print(f"build: {os.path.basename(so)} SASS: {n_gmma} GMMA, {n_imma} IMMA, "
+                  f"{n_idp} IDP.4A", flush=True)
+            if os.path.basename(so).startswith("mxu32_"):
+                require(n_gmma > 0 and n_idp == 0,
+                        f"build: {os.path.basename(so)} does not contract on the tensor cores")
+    else:
+        print(f"build: no cuobjdump at {cuobjdump}: SASS not inspected", flush=True)
 
     def counts() -> dict:
         return {**mxu32_cuda.LAUNCHES, **{f"butterfly32_{k}": v for k, v in bcu.LAUNCHES.items()},
@@ -687,6 +820,37 @@ def main() -> int:
                         f"p={p} n={n} B={b} scale={s}")
     print(f"parity: K2 fwd {checks['fwd']}, inv {checks['inv']} checks exact at (n, B) in "
           f"{K2_SHAPES} x p in {tuple(BENCH_PRIMES.values())} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the tensor-core pass at its smallest contraction (32 words: one ring
+    # stage) and with ragged row tiles: K1a with 1, 2, 4 limbs, K1b, K2 fwd /
+    # fwd_wide / inv in lt30 and with five digit planes (kD = 5)
+    t0 = time.perf_counter()
+    base = dict(checks)
+    p5d = prime_in_ap(1 << 14, 1, 1 << 31, 1 << 32)
+    require(mxu32._n_dplanes32(p5d) == 5, f"parity: {p5d} should take five digit planes")
+    for n, b in TC_SHAPES:
+        w = tuple(u32((b, n)) for _ in range(4))
+        for nl, key, pr in ((1, "fwd_wide_multi", PRIMES), (2, "fwd_wide_multi", PRIMES),
+                            (4, "fwd_wide_multi_u128", NATIVE128_PRIMES)):
+            compare(key, mxu32_cuda.fwd_wide_multi(w[:nl], pr),
+                    mxu32_cuda.fwd_wide_multi_plain(w[:nl], pr), f"n={n} B={b} limbs={nl}")
+        x = u32((len(PRIMES), b, n))
+        scs = tuple(pow(n, p - 2, p) * pow(2, 32, p) % p for p in PRIMES)
+        compare("inv_multi", mxu32_cuda.inv_multi(x, PRIMES, scs),
+                mxu32_cuda.inv_multi_plain(x, PRIMES, scs), f"n={n} B={b} scaled")
+        for p in (BENCH_PRIMES["lt30"], p5d):
+            compare("fwd", mxu32_cuda.fwd(w[0], n=n, p=p), mxu32_cuda.fwd_plain(w[0], n=n, p=p),
+                    f"p={p} n={n} B={b}")
+            compare("fwd", mxu32_cuda.fwd_wide(w[:2], n=n, p=p),
+                    mxu32_cuda.fwd_wide_plain(w[:2], n=n, p=p), f"p={p} n={n} B={b} 2 limbs")
+            s_inv = pow(n, p - 2, p) * pow(2, 32, p) % p
+            compare("inv", mxu32_cuda.inv(w[1], n=n, p=p, scale=s_inv),
+                    mxu32_cuda.inv_plain(w[1], n=n, p=p, scale=s_inv), f"p={p} n={n} B={b} scaled")
+    tc = {k: checks[k] - base[k] for k in ("fwd_wide_multi", "fwd_wide_multi_u128", "inv_multi",
+                                          "fwd", "inv") if checks[k] > base[k]}
+    print(f"parity: tensor-core pass at small and ragged shapes: {tc} checks exact at (n, B) in "
+          f"{TC_SHAPES}; K2 in lt30 and with five digit planes (p = {p5d}) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
@@ -1817,6 +1981,35 @@ def main() -> int:
           f"path (all {B32} rows) == direct sums (4 coefficients of row 0), inv(fwd(x)) == n·x; "
           f"launches {nz(launches_b32)}; {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # the prime32 "stage" tier: a prime below 2^26 above 2^15 has no four-step
+    # (p too small) and no K4 (n too large); the plan runs the stage engine on
+    # the card, as the reference runs its XLA stage engine, and launches nothing
+    t0 = time.perf_counter()
+    p_st = prime_in_ap(2 * N16, 1, 0, 1 << 26)
+    st_plan, st_cpu = prime32.Plan.new(N16, p_st), prime32.Plan.new(N16, p_st, device="cpu")
+    require(ntt_dispatch.tier32(N16, p_st, st_plan.variant) == "stage",
+            f"main: prime32 Plan({N16}, {p_st}) should take the stage tier")
+    st_l, st_r = (rng.integers(0, p_st, (B_STAGE, N16), dtype=np.uint32) for _ in range(2))
+    torch.cuda.synchronize()
+    reset_counts()
+    st_out = (st_plan.negacyclic_polymul(st_l, st_r), st_plan.fwd(st_l),
+              st_plan.inv(st_plan.fwd(st_l)))  # numpy input on a default plan
+    torch.cuda.synchronize()
+    launches_st = counts()
+    require(not any(launches_st.values()), f"main: the stage tier launched {nz(launches_st)}")
+    require(all(o.device.type == "cuda" for o in st_out), "main: the stage tier left the card")
+    require(torch.equal(st_out[0].cpu(), st_cpu.negacyclic_polymul(st_l, st_r)),
+            f"main: prime32 Plan({N16}, {p_st}) polymul differs from the CPU plain path")
+    require(torch.equal(st_out[1].cpu(), st_cpu.fwd(st_l)),
+            f"main: prime32 Plan({N16}, {p_st}) fwd differs from the CPU plain path")
+    require(np.array_equal(st_out[2].cpu().numpy(),
+                           (st_l.astype(np.uint64) * N16 % p_st).astype(np.uint32)),
+            f"main: prime32 Plan({N16}, {p_st}) inv(fwd(x)) != n·x mod p")
+    print(f"main: prime32 stage tier on {kind}: Plan({N16}, {p_st}) (p < 2^26) B={B_STAGE} numpy "
+          f"input on a default plan: polymul, fwd == CPU plain path, inv(fwd(x)) == n·x; "
+          f"launches {nz(launches_st)} (K4's count unmoved: it ends at 2^15); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     t0 = time.perf_counter()
     pplan16 = product.Plan.new(N16, EXT[0] * EXT[1], EXT[:2])
     m16 = pplan16.modulus
@@ -2010,6 +2203,31 @@ def main() -> int:
     plain_ms["fwd_wide_multi"] = median_ms(
         lambda: mxu32_cuda.fwd_wide_multi_plain(limbs, PRIMES))
     plain_ms["inv_multi"] = median_ms(lambda: mxu32_cuda.inv_multi_plain(x, PRIMES, scaled))
+    # the 32-bit rows' device time (the matmod_pass launches of a call) beside
+    # torch._int_mm on int8 matrices of the same passes' shapes
+    dev_ms, int_mm_ms = {}, {}
+    dev_tasks = []  # read in one profiler session after the times (device_times)
+    dev_into = {}   # id -> the dict a task's result goes to
+
+    def dev_times(key, kernel, per_call, pairs, into=(dev_ms, int_mm_ms)):
+        """Queue the 32-bit row `key`: its kernel's matmod_pass launches and
+        torch._int_mm over int8 pairs of the same passes' shapes."""
+        kernel, pairs = bind_now(kernel), bind_now(pairs)
+
+        def gemm():
+            mats = pairs()
+            return (lambda: [torch._int_mm(a, p) for a, p in mats]), is_kernel
+
+        for d in into:
+            dev_into[id(d)] = d
+        dev_tasks.append(((id(into[0]), key), lambda: (kernel, is_pass), per_call))
+        dev_tasks.append(((id(into[1]), key), gemm, None))
+
+    n1m, n2m = mxu32.four_step_factors(N_MAIN)
+    dev_times("fwd_wide_multi", lambda: mxu32_cuda.fwd_wide_multi(limbs, PRIMES), 2,
+              lambda: gemm_pairs(dev, "fwd", n1m, n2m, B_MAIN, len(PRIMES), 8))
+    dev_times("inv_multi", lambda: mxu32_cuda.inv_multi(x, PRIMES, scaled), 2,
+              lambda: gemm_pairs(dev, "inv", n1m, n2m, B_MAIN, len(PRIMES), 4))
     lhs, rhs = on_card[0]
     poly_ms = median_ms(lambda: plan.negacyclic_polymul(lhs, rhs))
     shape = {"fwd_wide_multi": "2 limbs", "inv_multi": "scaled"}
@@ -2019,22 +2237,28 @@ def main() -> int:
     print(f"times: native64 polymul n={N_MAIN} B={B_MAIN} planar: {poly_ms:.4f} ms (median of "
           f"{REPS}) = {B_MAIN / poly_ms * 1e3:.1f} products/s | {smi}", flush=True)
 
-    def timed(name, label, kernel, plain, key=None):
+    def timed(name, label, kernel, plain, key=None, gemm=None):
+        """`gemm` = (matmod_pass launches a call, the int8 pairs of its
+        passes) for a 32-bit row: its device time and torch._int_mm's."""
         t, tp = median_ms(kernel), median_ms(plain)
         if key:
             ms[key], plain_ms[key] = t, tp
         print(f"times: {name} {label}: kernel {t:.4f} ms, plain {tp:.4f} ms "
               f"(median of {REPS}) | {smi}", flush=True)
+        if key and gemm:
+            dev_times(key, kernel, *gemm)
 
     for rname, p in BENCH_PRIMES.items():
         x = u32((B32, N32), p)
         headline = rname == "lt30"
         timed("K2 fwd", f"n={N32} B={B32} p={p} ({rname})",
               lambda: mxu32_cuda.fwd(x, n=N32, p=p), lambda: mxu32_cuda.fwd_plain(x, n=N32, p=p),
-              "fwd" if headline else None)
+              "fwd" if headline else None,
+              (2, lambda: gemm_pairs(dev, "fwd", n1m, n2m, B32, 1, 4)))
         timed("K2 inv", f"n={N32} B={B32} p={p} ({rname})",
               lambda: mxu32_cuda.inv(x, n=N32, p=p), lambda: mxu32_cuda.inv_plain(x, n=N32, p=p),
-              "inv" if headline else None)
+              "inv" if headline else None,
+              (2, lambda: gemm_pairs(dev, "inv", n1m, n2m, B32, 1, 4)))
     p = BENCH_PRIMES["lt30"]
     tbl = mxu32._mxu_tables(4096, p)
     dg = tuple(torch.from_numpy(a).to(dev) for a in tbl["d"])
@@ -2042,7 +2266,8 @@ def main() -> int:
     kw = dict(n=4096, p=p, which="A", diag_slices=dg)
     timed("K3 pass_matmod", f"A scaled n=4096 B={B32} p={p}",
           lambda: mxu32_cuda.pass_matmod(xa, **kw), lambda: mxu32_cuda.pass_matmod_plain(xa, **kw),
-          "pass_matmod")
+          "pass_matmod",
+          (1, lambda: gemm_pairs(dev, "fwd", tbl["n1"], tbl["n2"], B32, 1, 4, passes=1)))
     x = u32((B32, 4096), p)
     timed("K2 fwd (passes_engine)", f"n=4096 B={B32} p={p}",
           lambda: mxu32_cuda.passes_engine.fwd(x, n=4096, p=p),
@@ -2066,10 +2291,12 @@ def main() -> int:
     sc2 = tuple(pow(N_PROD, p - 2, p) * pow(2, 32, p) % p for p in p2)
     timed("K1c fwd_multi_perchannel", f"n={N_PROD} B={B_PROD} C=2 1 limb",
           lambda: mxu32_cuda.fwd_multi_perchannel(xs[0], p2),
-          lambda: mxu32_cuda.fwd_multi_perchannel_plain(xs[:1], p2), "fwd_multi_perchannel")
+          lambda: mxu32_cuda.fwd_multi_perchannel_plain(xs[:1], p2), "fwd_multi_perchannel",
+          (2, lambda: gemm_pairs(dev, "fwd", n1m, n2m, B_PROD, 2, 4)))
     timed("K1d pointwise_inv_multi", f"n={N_PROD} B={B_PROD} C=2 scaled",
           lambda: mxu32_cuda.pointwise_inv_multi(*xs, p2, sc2),
-          lambda: mxu32_cuda.pointwise_inv_multi_plain(*xs, p2, sc2), "pointwise_inv_multi")
+          lambda: mxu32_cuda.pointwise_inv_multi_plain(*xs, p2, sc2), "pointwise_inv_multi",
+          (2, lambda: gemm_pairs(dev, "inv", n1m, n2m, B_PROD, 2, 4)))
 
     def mont_then_k1b():
         a, b = to_i64(xs[0]), to_i64(xs[1])
@@ -2232,7 +2459,8 @@ def main() -> int:
         timed("K1a fwd_wide_multi", f"n={N_MAIN} B={B_MAIN} C={ch} 4 limbs",
               lambda: mxu32_cuda.fwd_wide_multi(w4, pr),
               lambda: mxu32_cuda.fwd_wide_multi_plain(w4, pr),
-              "fwd_wide_multi_u128" if ch == 10 else None)
+              "fwd_wide_multi_u128" if ch == 10 else None,
+              (2, lambda: gemm_pairs(dev, "fwd", n1m, n2m, B_MAIN, ch, 16)))
     x10 = u32((10, B_MAIN, N_MAIN))
     sc10 = tuple(pow(N_MAIN, p - 2, p) * pow(2, 32, p) % p for p in NATIVE128_PRIMES)
     timed("K1b inv_multi", f"n={N_MAIN} B={B_MAIN} C=10 scaled",
@@ -2242,14 +2470,16 @@ def main() -> int:
     w4k2 = tuple(u32((B32, N32)) for _ in range(4))
     timed("K2 fwd_wide", f"n={N32} B={B32} p={p} 4 limbs",
           lambda: mxu32_cuda.fwd_wide(w4k2, n=N32, p=p),
-          lambda: mxu32_cuda.fwd_wide_plain(w4k2, n=N32, p=p), "fwd_u128")
+          lambda: mxu32_cuda.fwd_wide_plain(w4k2, n=N32, p=p), "fwd_u128",
+          (2, lambda: gemm_pairs(dev, "fwd", n1m, n2m, B32, 1, 16)))
     tbl = mxu32._mxu_tables(4096, p)
     w4k3 = tuple(u32((B32, tbl["n2"], tbl["n1"])) for _ in range(4))
     kw = dict(n=4096, p=p, which="A", n_limbs=4,
               diag_slices=tuple(torch.from_numpy(a).to(dev) for a in tbl["d"]))
     timed("K3 pass_matmod", f"A scaled n=4096 B={B32} p={p} 4 limbs",
           lambda: mxu32_cuda.pass_matmod(w4k3, **kw),
-          lambda: mxu32_cuda.pass_matmod_plain(w4k3, **kw), "pass_matmod_u128")
+          lambda: mxu32_cuda.pass_matmod_plain(w4k3, **kw), "pass_matmod_u128",
+          (1, lambda: gemm_pairs(dev, "fwd", tbl["n1"], tbl["n2"], B32, 1, 16, passes=1)))
     fam_calls = {}
     for name, pl, _, binary, a, b in fam:
         la, lb = plan_arg(a, dev), plan_arg(b, dev)
@@ -2266,33 +2496,41 @@ def main() -> int:
 
     # n = 2^16 and 2^17: the direct kernels at their main-path shapes (the JSON
     # line's n17 fields), then the block-table variants, K1e and K5 with four limbs
-    big_ms = {}
+    big_ms, big_dev, big_int_mm = {}, {}, {}
+    nb1, nb2 = mxu32.four_step_factors(N16)
 
-    def timed_big(key, name, label, kernel, plain):
+    def timed_big(key, name, label, kernel, plain, gemm=None):
         t, tp = median_ms(kernel), median_ms(plain, reps=5, warmup=1)
         big_ms[key] = (label, t, tp)
         print(f"times: {name} {label}: kernel {t:.4f} ms, plain {tp:.4f} ms (median of {REPS}; "
               f"plain of 5) | {smi}", flush=True)
+        if gemm:
+            dev_times(key, kernel, *gemm, into=(big_dev, big_int_mm))
 
     w4b = tuple(u32((B_BIG, N16)) for _ in range(4))
     x10b = u32((10, B_BIG, N16))
     sc10b = tuple(scale32(N16, q) for q in EXT)
     timed_big("fwd_wide_multi", "K1a fwd_wide_multi", f"n={N16} B={B_BIG} C=5 2 limbs",
               lambda: mxu32_cuda.fwd_wide_multi(w4b[:2], p5),
-              lambda: mxu32_cuda.fwd_wide_multi_plain(w4b[:2], p5))
+              lambda: mxu32_cuda.fwd_wide_multi_plain(w4b[:2], p5),
+              (2, lambda: gemm_pairs(dev, "fwd", nb1, nb2, B_BIG, 5, 8)))
     timed_big("fwd_wide_multi_u128", "K1a fwd_wide_multi", f"n={N16} B={B_BIG} C=10 4 limbs",
               lambda: mxu32_cuda.fwd_wide_multi(w4b, EXT),
-              lambda: mxu32_cuda.fwd_wide_multi_plain(w4b, EXT))
+              lambda: mxu32_cuda.fwd_wide_multi_plain(w4b, EXT),
+              (2, lambda: gemm_pairs(dev, "fwd", nb1, nb2, B_BIG, 10, 16)))
     timed_big("inv_multi", "K1b inv_multi", f"n={N16} B={B_BIG} C=10 scaled",
               lambda: mxu32_cuda.inv_multi(x10b, EXT, sc10b),
-              lambda: mxu32_cuda.inv_multi_plain(x10b, EXT, sc10b))
+              lambda: mxu32_cuda.inv_multi_plain(x10b, EXT, sc10b),
+              (2, lambda: gemm_pairs(dev, "inv", nb1, nb2, B_BIG, 10, 4)))
     xs2b = (u32((2, B_BIG, N16)), u32((2, B_BIG, N16)))
     timed_big("fwd_multi_perchannel", "K1c fwd_multi_perchannel", f"n={N16} B={B_BIG} C=2 1 limb",
               lambda: mxu32_cuda.fwd_multi_perchannel(xs2b[0], p2e),
-              lambda: mxu32_cuda.fwd_multi_perchannel_plain(xs2b[:1], p2e))
+              lambda: mxu32_cuda.fwd_multi_perchannel_plain(xs2b[:1], p2e),
+              (2, lambda: gemm_pairs(dev, "fwd", nb1, nb2, B_BIG, 2, 4)))
     timed_big("pointwise_inv_multi", "K1d pointwise_inv_multi", f"n={N16} B={B_BIG} C=2 scaled",
               lambda: mxu32_cuda.pointwise_inv_multi(*xs2b, p2e, sc10b[:2]),
-              lambda: mxu32_cuda.pointwise_inv_multi_plain(*xs2b, p2e, sc10b[:2]))
+              lambda: mxu32_cuda.pointwise_inv_multi_plain(*xs2b, p2e, sc10b[:2]),
+              (2, lambda: gemm_pairs(dev, "inv", nb1, nb2, B_BIG, 2, 4)))
     for n, rnames in ((N16, tuple(BIG32)), (N17, ("lt30",))):
         for rname in rnames:
             p = BIG32[rname]
@@ -2305,44 +2543,51 @@ def main() -> int:
                     ("inv", "K2 inv scaled", lambda: mxu32_cuda.inv(x, n=n, p=p, scale=s),
                      lambda: mxu32_cuda.inv_plain(x, n=n, p=p, scale=s))):
                 timed_big(key if headline else f"{key} {n} {rname}", name,
-                          f"n={n} B={B32} p={p} ({rname})", kernel, plain)
+                          f"n={n} B={B32} p={p} ({rname})", kernel, plain,
+                          (2, lambda: gemm_pairs(dev, key, nb1, nb2, B32, 1, 4)) if headline
+                          else None)
     p = BIG32["lt30"]
     w4k2b = tuple(u32((B32, N16)) for _ in range(4))
     timed_big("fwd_u128", "K2 fwd_wide", f"n={N16} B={B32} p={p} 4 limbs",
               lambda: mxu32_cuda.fwd_wide(w4k2b, n=N16, p=p),
-              lambda: mxu32_cuda.fwd_wide_plain(w4k2b, n=N16, p=p))
+              lambda: mxu32_cuda.fwd_wide_plain(w4k2b, n=N16, p=p),
+              (2, lambda: gemm_pairs(dev, "fwd", nb1, nb2, B32, 1, 16)))
     w4k3b = tuple(u32((B32, geo16["n2"], geo16["n1"])) for _ in range(4))
     kw = dict(n=N16, p=p, which="A", n_limbs=4, diag_slices=d16)
     timed_big("pass_matmod_u128", "K3 pass_matmod", f"A scaled n={N16} B={B32} p={p} 4 limbs",
               lambda: mxu32_cuda.pass_matmod(w4k3b, **kw),
-              lambda: mxu32_cuda.pass_matmod_plain(w4k3b, **kw))
+              lambda: mxu32_cuda.pass_matmod_plain(w4k3b, **kw),
+              (1, lambda: gemm_pairs(dev, "fwd", nb1, nb2, B32, 1, 16, passes=1)))
 
     xh16 = u32((B32, N16))
     kw = dict(n=N16, p=p, n_h=N_H)
     sh16 = scale32(N16, p)
     timed("K2h fwd_hyb", f"n={N16} n_h={N_H} B={B32} p={p} (lt30)",
           lambda: mxu32_cuda.fwd_hyb(xh16, **kw), lambda: mxu32_cuda.fwd_hyb_plain(xh16, **kw),
-          "fwd_hyb")
+          "fwd_hyb", (2, lambda: gemm_pairs(dev, "fwd", n1m, n2m, B32, 1, 4, nb=4)))
     timed("K2h inv_hyb", f"n={N16} n_h={N_H} B={B32} p={p} (lt30) scaled",
           lambda: mxu32_cuda.inv_hyb(xh16, scale=sh16, **kw),
-          lambda: mxu32_cuda.inv_hyb_plain(xh16, scale=sh16, **kw), "inv_hyb")
+          lambda: mxu32_cuda.inv_hyb_plain(xh16, scale=sh16, **kw), "inv_hyb",
+          (2, lambda: gemm_pairs(dev, "inv", n1m, n2m, B32, 1, 4, nb=4)))
     x3b, y3b = u32((3, B_BIG, N16)), u32((3, B_BIG, N16))
     timed("K1c fwd_multi_perchannel with block tables", f"n={N16} n_h={N_H} B={B_BIG} C=3 1 limb",
           lambda: mxu32_cuda.fwd_multi_perchannel(x3b, p3e, n_h=N_H),
           lambda: mxu32_cuda.fwd_multi_perchannel_plain((x3b,), p3e, N_H),
-          "fwd_multi_perchannel_hyb")
+          "fwd_multi_perchannel_hyb", (2, lambda: gemm_pairs(dev, "fwd", n1m, n2m, B_BIG, 3, 4, nb=4)))
     timed("K1b inv_multi with block tables", f"n={N16} n_h={N_H} B={B_BIG} C=3 scaled",
           lambda: mxu32_cuda.inv_multi(x3b, p3e, sc3, n_h=N_H),
-          lambda: mxu32_cuda.inv_multi_plain(x3b, p3e, sc3, N_H), "inv_multi_hyb")
+          lambda: mxu32_cuda.inv_multi_plain(x3b, p3e, sc3, N_H), "inv_multi_hyb",
+          (2, lambda: gemm_pairs(dev, "inv", n1m, n2m, B_BIG, 3, 4, nb=4)))
     timed("K1d pointwise_inv_multi with block tables", f"n={N16} n_h={N_H} B={B_BIG} C=3 scaled",
           lambda: mxu32_cuda.pointwise_inv_multi(x3b, y3b, p3e, sc3, n_h=N_H),
           lambda: mxu32_cuda.pointwise_inv_multi_plain(x3b, y3b, p3e, sc3, N_H),
-          "pointwise_inv_multi_hyb")
+          "pointwise_inv_multi_hyb", (2, lambda: gemm_pairs(dev, "inv", n1m, n2m, B_BIG, 3, 4, nb=4)))
     xe = u32((5, B_MAIN, N_MAIN))
     xde = mxu32_cuda.digit_planes32(xe)
     timed("K1e inv_multi_presplit", f"n={N_MAIN} B={B_MAIN} C=5 scaled",
           lambda: mxu32_cuda.inv_multi_presplit(xde, PRIMES, scaled),
-          lambda: mxu32_cuda.inv_multi_presplit_plain(xde, PRIMES, scaled), "inv_multi_presplit")
+          lambda: mxu32_cuda.inv_multi_presplit_plain(xde, PRIMES, scaled), "inv_multi_presplit",
+          (2, lambda: gemm_pairs(dev, "inv", n1m, n2m, B_MAIN, 5, 4)))
     t_b, t_e, t_s = (median_ms(fn) for fn in (
         lambda: mxu32_cuda.inv_multi(xe, PRIMES, scaled),
         lambda: mxu32_cuda.inv_multi_presplit(xde, PRIMES, scaled),
@@ -2416,6 +2661,19 @@ def main() -> int:
         t = median_ms(fn)
         print(f"times: product polymul {what} n={N16} B={B_BIG} ({EXT[0]}·{EXT[1]}): {t:.4f} ms "
               f"(median of {REPS}) = {B_BIG / t * 1e3:.1f} products/s | {smi}", flush=True)
+
+    # the 32-bit rows' device time (their matmod_pass launches a call) beside
+    # torch._int_mm on the same passes' shapes, from one profiler session
+    t0 = time.perf_counter()
+    for (did, key), v in device_times(dev_tasks).items():
+        dev_into[did][key] = v
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    for key in ROWS32:
+        print(f"times: {key} device {fmt(dev_ms.get(key))}, torch._int_mm on the same shapes "
+              f"{fmt(int_mm_ms.get(key))}; above 2^15 device {fmt(big_dev.get(key))}, "
+              f"torch._int_mm {fmt(big_int_mm.get(key))} (torch.profiler, median of {REPS}) | "
+              f"{smi}", flush=True)
+    print(f"times: device-time session {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the bound of each kernel at the shape it was timed at: MACs a pass =
     # B·R·(E·K)·(D·O) from the plane shapes, bytes = operands, results and tables once
@@ -2494,7 +2752,8 @@ def main() -> int:
         label, t, tp = big_ms[k]
         bms, by = gemm_bound(*big_work[k])
         big_rows[k] = {"shape": label, "launches": launches_n17[k], "ms": t, "plain_ms": tp,
-                       "bound_ms": bms, "bound_by": by}
+                       "bound_ms": bms, "bound_by": by, "device_ms": big_dev.get(k),
+                       "gemm_ms": big_int_mm.get(k)}
         print(f"bound: {k} at {label}: {bms:.6f} ms by {by} (kernel {t:.4f} ms = "
               f"{t / bms:.1f} x the bound)", flush=True)
     # K4 at (1024, 16): B·(n/2)·log2 n butterflies of about 12 integer operations
@@ -2577,7 +2836,9 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": max_err[k], "ms": ms[k],
          "plain_ms": plain_ms[k], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-         "library_ms": None, **({"n17": big_rows[k]} if k in big_rows else {})}
+         "library_ms": None,
+         **({"device_ms": dev_ms.get(k), "gemm_ms": int_mm_ms.get(k)} if k in ROWS32 else {}),
+         **({"n17": big_rows[k]} if k in big_rows else {})}
         for k, (src, rep) in KERNELS.items()
     ]}))
     print(smi)

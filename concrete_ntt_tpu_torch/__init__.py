@@ -26,8 +26,9 @@ Ported so far:
     ops and the polymul) in the lt30, lt31 and generic regimes: the
     four-step kernel K2 of `csrc/mxu32_pass.cu` for 2^11 <= n <= 2^17 where
     `mxu32.applicable` holds (odd p >= 2^26), the butterfly kernel K4
-    (`ops/butterfly32_cuda.py` + `csrc/butterfly32.cu`) otherwise, 2 <= n
-    <= 2^15 on the card; `ops/ntt_dispatch.py` picks the tier. K3 (one
+    (`ops/butterfly32_cuda.py` + `csrc/butterfly32.cu`) otherwise up to
+    n = 2^15, above it the plain stage engine on the operand's device (the
+    reference's XLA route); `ops/ntt_dispatch.py` picks the tier. K3 (one
     GEMM pass, same source) is only the sharded four-step's per-rank pass;
   * the product plan `product.Plan(n, modulus, factors)` (the tfhe-rs
     integration layer: Generic and Bounded fwd,

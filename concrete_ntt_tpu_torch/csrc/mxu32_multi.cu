@@ -41,28 +41,29 @@
 //        K1e saves nothing; it is ported because the reference has it.
 //
 // Design. Each product is one launch of matmod_pass (matmod_pass.cuh, shared
-// with K2/K3): a tiled GEMM with the digit split in the operand load and the
+// with K2/K3): a tiled int8 tensor-core GEMM (wgmma m64nNk32, s8 x s8 ->
+// s32) with the digit split as one xor where the A fragment is read and the
 // combine + reduction in the epilogue, here instantiated with four matrix
 // digit planes and the lt30 epilogues (every channel prime is below 2^30).
-// The [n2, n1]
-// intermediate goes through global memory (the wrapper's scratch tensor);
-// the mid-pass transpose is only a stride of the second pass's loads. Grid
-// = (row tiles over batch x rows, output tiles, channel); rows past the
-// batch edge are masked, so any batch size works. Both launches of a
-// kernel go on the caller's stream; the C entry point returns
+// The [n2, n1] intermediate goes through global memory (the wrapper's
+// scratch tensor); the mid-pass transpose is only a stride of the second
+// pass's loads. Grid = (row tiles over batch x rows, output tiles, channel);
+// rows past the batch edge are masked, so any batch size works. Both
+// launches of a kernel go on the caller's stream; the C entry point returns
 // cudaGetLastError() after them. K1c is K1a's launches with a channel
 // stride on the operand; K1d's first pass is the one pointwise instance of
 // the template (kPointwise), so K1a/K1b/K2/K3 keep their instances.
 //
-// Bound at n = 2^14, B = 8, five channels: K1a (two limbs) needs 1.0e9
-// dp4a (4.0e9 int8 MACs; K1b 0.67e9 dp4a) and moves about 12 MiB (operand,
-// scratch written and read back, result, and the 3.75 MiB of operator
-// tables, which L2 holds). At 3.35 TB/s the bytes take a few microseconds;
-// the dp4a issue takes tens, so the kernel is bound by the integer pipes,
-// not by memory. K1d adds one 32x32 multiply-high chain per operand value
-// to the load (n values per polynomial against n * n1 dp4a), and two
-// operand reads instead of one. This first kernel uses dp4a on the CUDA
-// cores and leaves int8 tensor-core tiles (mma.sync / wgmma) to later work.
+// Bound at n = 2^14, B = 8, five channels: K1a (two limbs) is 4.0e9 int8
+// MACs (K1b 2.7e9) against about 12 MiB moved (operand, scratch written and
+// read back, result, the 3.75 MiB of operator tables, which L2 holds); at
+// (2^16, 8) 3.2e10 MACs against about 60 MiB. At the int8 tensor-core rate
+// (989 TMAC/s dense) and 3.35 TB/s the MACs and the bytes take a few
+// microseconds each at 2^14 and 10-30 at 2^16, so the kernel is bound by how
+// close the contraction comes to the tensor cores' rate (measured in
+// PERF.md section 6). K1d adds one 32x32
+// multiply-high chain per operand value to the load (n values per
+// polynomial against n * n1 MACs), and two operand reads instead of one.
 
 #include "matmod_pass.cuh"
 

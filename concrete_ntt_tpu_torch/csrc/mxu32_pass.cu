@@ -19,18 +19,20 @@
 // primes near 2^32), and 2^11 <= n <= 2^17 (n1 <= 256, n2 <= 512).
 //
 // Design. Both are launches of matmod_pass (matmod_pass.cuh, shared with
-// K1a/K1b), instantiated per (digit planes, regime, scaled) and chosen at
-// run time from the host's n_d and regime. K2 is K1a/K1b's two-pass
+// K1a-K1e: int8 tensor cores through wgmma m64nNk32, a three-stage cp.async
+// ring), instantiated per (digit planes, regime, scaled) and chosen
+// at run time from the host's n_d and regime. K2 is K1a/K1b's two-pass
 // structure over one channel: the [n2, n1] intermediate goes through the
 // wrapper's scratch tensor and the mid-pass transpose is a stride of the
 // second pass's loads. The reduction chain of the canonical epilogue (one to
 // six multiples of p for p >= 2^26) is read from the scalar record.
 //
-// Bound at n = 2^14, B = 16, one prime: a transform needs 0.27e9 dp4a (four
-// planes; 0.34e9 with five) against about 4 MiB of memory traffic (operand,
-// scratch both ways, result, 0.75 MiB of operator tables held by L2), so
-// like K1 it is bound by integer-pipe throughput. Its grid (128 blocks a pass)
-// is 2.5x smaller than K1's at B = 8 over five channels.
+// Bound at n = 2^14, B = 16, one prime: a transform is 1.1e9 int8 MACs
+// (four planes; 1.3e9 with five) against about 4 MiB of memory traffic
+// (operand, scratch both ways, result, 0.75 MiB of operator tables held by
+// L2), so like K1 it is bound by the contraction's rate. Its grid (64 blocks
+// a pass of 128 rows x 32 outputs) is smaller than the card's 132 SMs: the
+// tiles are K1's, not redesigned for one channel.
 
 #include "matmod_pass.cuh"
 
@@ -123,4 +125,10 @@ extern "C" int k3_pass(const void* x0, const void* x1, const void* x2, const voi
   a.out = (uint32_t*)out;
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(scaled ? launch_any<true>(a, n_d, regime, s) : launch_any<false>(a, n_d, regime, s));
+}
+
+// Dynamic shared memory of one pass block with n_d matrix digit planes (the
+// ring of operand and plane stages), for the build report.
+extern "C" int k_pass_smem_bytes(int n_d) {
+  return n_d == 5 ? mxu32::smem_bytes(5) : mxu32::smem_bytes(4);
 }

@@ -20,8 +20,9 @@ Routing is by the device of the operand: a CUDA tensor launches the kernel
 or raises (2 <= n <= 2^15), a CPU tensor runs the plain twin, the stage
 engine of ops/engine.py, at any n. Every launch adds one to
 `LAUNCHES["fwd"]` or `LAUNCHES["inv"]`. Where the JAX functions return None
-for "not applicable", these raise NotImplementedError naming the ROADMAP
-item.
+for "not applicable", these raise NotImplementedError; no route of
+`ntt_dispatch.tier32` sends a larger n here (it takes the stage engine,
+`fwd_plain` / `inv_plain`, on the operand's device above 2^15).
 """
 
 from __future__ import annotations
@@ -50,9 +51,9 @@ def check_range(n: int, variant: str) -> None:
     if n & (n - 1) or not 2 <= n <= MAX_N:
         raise NotImplementedError(
             f"n = {n}: the butterfly kernel K4 serves powers of two in [2, 2^15] (a "
-            "polynomial stays in one block's shared memory); above that the card runs "
-            "only the four-step kernels K1 / K2, which need an odd prime >= 2^26 "
-            "(ROADMAP.md Queue 3)"
+            "polynomial stays in one block's shared memory); above that a prime32 plan "
+            "takes the four-step kernel K2 (odd p >= 2^26) or the stage engine "
+            "(ntt_dispatch.tier32)"
         )
     if variant not in _REGIME:
         raise ValueError(f"unknown prime32 regime {variant!r}")

@@ -52,14 +52,19 @@ Counterpart of `concrete_ntt_tpu/ops/mxu32_pallas.py`:
 All are CUDA C++ for sm_90a built with nvcc at first use (ops/cuda_build.py)
 and called through ctypes: K1 in `csrc/mxu32_multi.cu`, K2/K3 in
 `csrc/mxu32_pass.cu`, both launching the one GEMM pass of
-`csrc/matmod_pass.cuh`. What bounds them on the H100 at n = 2^14: K1a with
-two limbs at B = 8 needs 1.0e9 dp4a (4.0e9 int8 MACs), K2 fwd at B = 16
-0.27e9, against a few MiB of memory traffic, so they are bound by
-integer-pipe throughput, not by bytes. The simple design does the digit split as
-one xor in the operand load, contracts four digits per __dp4a against
-host-packed plane words, keeps the operator tables in L2 and puts the
-mid-pass transpose in the second pass's load strides; int8 tensor-core
-tiles are later work.
+`csrc/matmod_pass.cuh`. What bounds them on the H100: the int8 digit
+products (K1a with two limbs at (2^14, 8) over five channels 4.0e9 int8
+MACs, at (2^16, 8) 3.2e10) against a few MiB of memory traffic, so the
+contraction's rate decides. The pass contracts on the int8 tensor cores
+with Hopper's warpgroup product (`wgmma` m64nNk32, s8 x s8 -> s32, exact):
+the operand word xored with 0x80808080 is one A register, so the digit
+split stays one xor, and the planes come K-major from shared memory in
+per-block tiles that `pack_planes_kmajor` lays out on the host as the
+descriptor reads them. Loads run through a three-stage cp.async ring in
+shared memory; the operator tables stay in L2 and the mid-pass transpose
+is a stride of the second pass's loads. Every operand,
+table and output pointer a kernel reads 16 bytes at a time must be
+16-byte aligned (`_ptrs16` checks).
 
 Routing is by the device of the operand: a CUDA tensor launches the kernel
 or raises, a CPU tensor runs the plain torch version (`*_plain`, built on
@@ -281,6 +286,33 @@ def pack_planes(planes: np.ndarray, k: int) -> np.ndarray:
     return np.ascontiguousarray(w).view(np.int32).reshape(c, n_limbs * k, do)
 
 
+# the GEMM pass's tile (csrc/matmod_pass.cuh): outputs a block, contraction
+# words a ring stage
+_TILE_O, _STAGE_K = 32, 32
+
+
+def pack_planes_kmajor(planes: np.ndarray, k: int, n_d: int) -> np.ndarray:
+    """[C, 4L*k, D*O] int8 planes -> [C, O/32, L*k/32, D*32*32] int32 words,
+    the tiles of the 32-bit GEMM pass (`csrc/matmod_pass.cuh`) in the order
+    its wgmma reads them from shared memory: for output tile ot and stage kt,
+    tile row (N) r = d*32 + j is column d*O + 32*ot + j of the plane words
+    of `pack_planes` (word (l*k + i, col): the four plane rows that meet the
+    four digits of operand value i of limb l), and its 32 words are k-words
+    32*kt .. + 31, K-major: 8-row groups of eight 16-byte chunks (four words)
+    of eight rows, the core matrices of a descriptor without swizzle. Same
+    values as the JAX package's planes, in another order."""
+    words = pack_planes(planes, k)  # [C, L*k, D*O]
+    c, kw, do = words.shape
+    o = do // n_d
+    assert n_d * o == do and o % _TILE_O == 0 and kw % _STAGE_K == 0, "untileable planes"
+    w = words.reshape(c, kw // _STAGE_K, 8, 4, n_d, o // _TILE_O, _TILE_O // 8, 8)
+    # axes: C, stage, chunk, word, digit, output tile, 8-row group, row -> C,
+    # output tile, stage, digit, 8-row group, chunk, row, word
+    w = w.transpose(0, 5, 1, 4, 6, 2, 7, 3)
+    return np.ascontiguousarray(w).reshape(c, o // _TILE_O, kw // _STAGE_K,
+                                          n_d * _TILE_O * _STAGE_K)
+
+
 def _flat_blocks(a: np.ndarray, lead: int) -> np.ndarray:
     """Merge the first `lead` axes ([C, nb, ...] -> [C * nb, ...])."""
     return a.reshape(-1, *a.shape[lead:])
@@ -303,9 +335,9 @@ def _kernel_tables(n: int, primes: tuple, n_limbs: int, scales: tuple,
     lead = 1 if hyb is None else 2
     l1, l2 = (lead, 1) if direction == "fwd" else (1, lead)  # A_b / Ainv_b are per block
     return {
-        "planes1": _to_dev(pack_planes(_flat_blocks(planes1, l1), k1), device),
+        "planes1": _to_dev(pack_planes_kmajor(_flat_blocks(planes1, l1), k1, 4), device),
         "cvec1": _to_dev(_flat_blocks(cvec1, l1), device),
-        "planes2": _to_dev(pack_planes(_flat_blocks(planes2, l2), k2), device),
+        "planes2": _to_dev(pack_planes_kmajor(_flat_blocks(planes2, l2), k2, 4), device),
         "cvec2": _to_dev(_flat_blocks(cvec2, l2), device),
         # [C * nb, 4, R, O]
         "diag": _to_dev(np.stack([_flat_blocks(d, lead) for d in diag], axis=1).view(np.int32),
@@ -324,14 +356,16 @@ def _hyb_tables(n: int, p: int, n_h: int, scale: int, direction: str, device: st
     n1, n2 = mxu32.four_step_factors(n_h)  # the column operators contract n1, the row ones n2
     per_block, shared, diag = (a, blocks[0]["F"], "d") if direction == "fwd" else (
         ainv, blocks[0]["G"], "e")
+    n_d = shared[1].shape[0]
     return {
-        "planes_blk": _to_dev(pack_planes(np.stack([m[0] for m in per_block]), n1), device),
+        "planes_blk": _to_dev(pack_planes_kmajor(np.stack([m[0] for m in per_block]), n1, n_d),
+                              device),
         "cvec_blk": _to_dev(np.stack([m[1] for m in per_block]), device),
-        "planes_sh": _to_dev(pack_planes(shared[0][None], n2), device),
+        "planes_sh": _to_dev(pack_planes_kmajor(shared[0][None], n2, n_d), device),
         "cvec_sh": _to_dev(shared[1], device),
         "diag": _to_dev(np.stack([np.stack(t[diag]) for t in blocks]), device),  # [nb, 4|2, R, O]
         "scal": _to_dev(scalar_record(p).view(np.int32), device),
-        "n_d": shared[1].shape[0],
+        "n_d": n_d,
     }
 
 
@@ -351,7 +385,7 @@ def _pass_tables(n: int, p: int, which: str, n_limbs: int, scale: int, device: s
     planes, cvec = _pass_mat(n, p, which, n_limbs, scale)
     k = planes.shape[0] // (4 * n_limbs)
     return {
-        "planes": _to_dev(pack_planes(planes[None], k), device),
+        "planes": _to_dev(pack_planes_kmajor(planes[None], k, cvec.shape[0]), device),
         "cvec": _to_dev(cvec, device),
         "scal": _to_dev(scalar_record(p).view(np.int32), device),
         "k": k,
@@ -547,6 +581,8 @@ def _pass_lib() -> ctypes.CDLL:
         lib.k3_pass.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, *[_P] * 4, _I, _I, _I,
                                 _P, _P]
         lib.k3_pass.restype = ctypes.c_int
+        lib.k_pass_smem_bytes.argtypes = [_I]
+        lib.k_pass_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -576,10 +612,18 @@ def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
 
 
+def _ptrs16(*tensors):
+    """`_ptrs` for the 32-bit GEMM pass, which copies 16-byte chunks."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("kernel operands must start on a 16-byte boundary (the GEMM pass "
+                         "copies 16-byte chunks): pass a fresh or cloned tensor")
+    return _ptrs(*tensors)
+
+
 def _limb_ptrs(limbs: tuple) -> list:
     """Four limb pointers for the kernels' entry points: those past the
     operand's limbs alias limb 0 and are not read."""
-    return _ptrs(*limbs) + [limbs[0].data_ptr()] * (4 - len(limbs))
+    return _ptrs16(*limbs) + [limbs[0].data_ptr()] * (4 - len(limbs))
 
 
 def _count(name: str, n_limbs: int) -> None:
@@ -601,8 +645,8 @@ def fwd_wide_multi(limbs: tuple, primes: tuple) -> torch.Tensor:
     n1, n2 = mxu32.four_step_factors(n)
     out = torch.empty((len(primes), b, n), dtype=torch.uint32, device=dev)
     scratch = torch.empty_like(out)
-    ptrs = _ptrs(tabs["planes1"], tabs["cvec1"], tabs["planes2"],
-                 tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
+    ptrs = _ptrs16(tabs["planes1"], tabs["cvec1"], tabs["planes2"],
+                   tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
     err = _call(dev, _lib().k1a_fwd_wide_multi, *_limb_ptrs(limbs), len(limbs), b, n1, n2,
                 len(primes), *ptrs)
     _count("fwd_wide_multi", len(limbs))
@@ -640,8 +684,8 @@ def inv_multi(x: torch.Tensor, primes: tuple, scales: tuple,
     n1, n2 = mxu32.four_step_factors(size)
     out = torch.empty_like(x)
     scratch = torch.empty_like(x)
-    ptrs = _ptrs(x, tabs["planes1"], tabs["cvec1"], tabs["planes2"],
-                 tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
+    ptrs = _ptrs16(x, tabs["planes1"], tabs["cvec1"], tabs["planes2"],
+                   tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
     err = _call(dev, _lib().k1b_inv_multi, ptrs[0], b, n1, n2, n // size, len(primes), *ptrs[1:])
     LAUNCHES[_hyb_name("inv_multi", n_h)] += 1
     if err != 0:
@@ -671,8 +715,8 @@ def inv_multi_presplit(xd: torch.Tensor, primes: tuple, scales: tuple) -> torch.
     tabs = _kernel_tables(n, primes, 1, scales, "inv", str(dev))
     out = torch.empty((c, b, n), dtype=torch.uint32, device=dev)
     scratch = torch.empty_like(out)
-    ptrs = _ptrs(xd, tabs["planes1"], tabs["cvec1"], tabs["planes2"],
-                 tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
+    ptrs = _ptrs16(xd, tabs["planes1"], tabs["cvec1"], tabs["planes2"],
+                   tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
     err = _call(dev, _lib().k1e_inv_multi_presplit, ptrs[0], b, n1, four_n2 // 4, c, *ptrs[1:])
     LAUNCHES["inv_multi_presplit"] += 1
     if err != 0:
@@ -723,8 +767,8 @@ def _fwd_perchannel(limbs: tuple, primes: tuple, n_h: int | None) -> torch.Tenso
     out = torch.empty((c, b, n), dtype=torch.uint32, device=dev)
     scratch = torch.empty_like(out)
     x1 = limbs[1] if len(limbs) > 1 else limbs[0]
-    ptrs = _ptrs(limbs[0], x1, tabs["planes1"], tabs["cvec1"], tabs["planes2"],
-                 tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
+    ptrs = _ptrs16(limbs[0], x1, tabs["planes1"], tabs["cvec1"], tabs["planes2"],
+                   tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
     err = _call(dev, _lib().k1c_fwd_multi_perchannel, ptrs[0], ptrs[1], len(limbs), b, n1, n2,
                 n // size, c, *ptrs[2:])
     LAUNCHES[_hyb_name("fwd_multi_perchannel", n_h)] += 1
@@ -754,8 +798,8 @@ def pointwise_inv_multi(fl: torch.Tensor, fr: torch.Tensor, primes: tuple,
     n1, n2 = mxu32.four_step_factors(size)
     out = torch.empty_like(fl)
     scratch = torch.empty_like(fl)
-    ptrs = _ptrs(fl, fr, tabs["planes1"], tabs["cvec1"], tabs["planes2"], tabs["cvec2"],
-                 tabs["diag"], tabs["scal"], scratch, out)
+    ptrs = _ptrs16(fl, fr, tabs["planes1"], tabs["cvec1"], tabs["planes2"], tabs["cvec2"],
+                   tabs["diag"], tabs["scal"], scratch, out)
     err = _call(dev, _lib().k1d_pointwise_inv_multi, ptrs[0], ptrs[1], b, n1, n2, n // size, c,
                 *ptrs[2:])
     LAUNCHES[_hyb_name("pointwise_inv_multi", n_h)] += 1
@@ -790,8 +834,8 @@ def fwd_wide(limbs: tuple, *, n: int, p: int) -> torch.Tensor:
     if b == 0:
         return out
     scratch = torch.empty_like(out)
-    ptrs = _ptrs(t1["planes"], t1["cvec"], t2["planes"], t2["cvec"], diag, t1["scal"],
-                 scratch, out)
+    ptrs = _ptrs16(t1["planes"], t1["cvec"], t2["planes"], t2["cvec"], diag, t1["scal"],
+                   scratch, out)
     err = _call(dev, _pass_lib().k2_fwd, *_limb_ptrs(limbs), len(limbs), b, n1, n2, 1, *ptrs[:6],
                 t1["n_d"], regime(p), ptrs[6], ptrs[7])
     _count("fwd", len(limbs))
@@ -821,8 +865,8 @@ def inv(x: torch.Tensor, *, n: int, p: int, scale: int = 1) -> torch.Tensor:
     if b == 0:
         return out
     scratch = torch.empty_like(x)
-    ptrs = _ptrs(x, t1["planes"], t1["cvec"], t2["planes"], t2["cvec"], diag, t1["scal"],
-                 scratch, out)
+    ptrs = _ptrs16(x, t1["planes"], t1["cvec"], t2["planes"], t2["cvec"], diag, t1["scal"],
+                   scratch, out)
     err = _call(dev, _pass_lib().k2_inv, ptrs[0], b, n1, n2, 1, *ptrs[1:7], t1["n_d"], regime(p),
                 ptrs[7], ptrs[8])
     LAUNCHES["inv"] += 1
@@ -843,8 +887,8 @@ def _hyb(name: str, x: torch.Tensor, n: int, p: int, n_h: int, scale: int) -> to
     if b == 0:
         return out
     scratch = torch.empty_like(x)
-    ptrs = _ptrs(x, t["planes_" + first], t["cvec_" + first], t["planes_" + second],
-                 t["cvec_" + second], t["diag"], t["scal"], scratch, out)
+    ptrs = _ptrs16(x, t["planes_" + first], t["cvec_" + first], t["planes_" + second],
+                   t["cvec_" + second], t["diag"], t["scal"], scratch, out)
     tail = (n // n_h, *ptrs[1:7], t["n_d"], regime(p), ptrs[7], ptrs[8])
     if fwd_dir:
         err = _call(x.device, _pass_lib().k2_fwd, *_limb_ptrs((x,)), 1, b, n1, n2, *tail)
@@ -922,7 +966,7 @@ def pass_matmod(x, *, n: int, p: int, which: str, diag_slices=(), n_limbs: int =
     if b == 0 or rows == 0:
         return out  # nothing to compute; an empty grid is not a valid launch
     dg = diag if diag is not None else tabs["scal"]  # not read by a canonical pass
-    ptrs = _ptrs(tabs["planes"], tabs["cvec"], dg, tabs["scal"], out)
+    ptrs = _ptrs16(tabs["planes"], tabs["cvec"], dg, tabs["scal"], out)
     err = _call(dev, _pass_lib().k3_pass, *_limb_ptrs(xs), len(xs), b, rows, k, tabs["o"],
                 *ptrs[:4], tabs["n_d"], regime(p), int(diag is not None), ptrs[4])
     _count("pass_matmod", len(xs))

@@ -5,7 +5,9 @@ Counterpart of `concrete_ntt_tpu/ops/ntt_dispatch.py`, four parts of it:
   * the single-prime tiers `fwd32` / `inv32` (:502-549) that
     `prime32.Plan.fwd/inv` call: `tier32` picks the four-step kernel K2
     where `mxu32.applicable` holds (odd p >= 2^26, 2^11 <= n <= 2^17), else
-    the butterfly kernel K4 (n <= 2^15 on the card). The TPU's third tier, two `pass_matmod` passes
+    the butterfly kernel K4 up to 2^15, above it the stage engine on the
+    operand's device ("stage", the reference's `_fwd_xla` / `_inv_xla`
+    route: neither has a kernel there). The TPU's two-pass tier, two `pass_matmod` passes
     for 2048 <= n < 2^14 (`passes_engine`, :60-77), is cut there by VMEM
     (`mxu32_pallas.fused_applicable`); K2 serves those sizes whole on the
     card, so they take K2 here;
@@ -197,28 +199,36 @@ def try_polymul32_stacked(parts_l, parts_r, plans, rhs_binary=False):
 
 def tier32(n: int, p: int, variant: str) -> str:
     """The prime32 tier for (n, p): "K2" (the four-step kernel, or its plain
-    twin on the CPU) where `mxu32.applicable` holds, else "K4" (the
-    butterfly kernel; on the card it ends at n = 2^15, so a prime below 2^26
-    above that size raises there). Decided before any launch from (n, p)
-    alone, so the same on every device."""
-    return "K2" if mxu32.applicable(n, p, variant) else "K4"
+    twin on the CPU) where `mxu32.applicable` holds; else "K4" (the butterfly
+    kernel) up to `butterfly32_cuda.MAX_N` = 2^15, and above it "stage": the
+    stage engine in plain torch on the operand's device, the reference's
+    `prime32._fwd_xla` / `_inv_xla` route, which has no kernel there either.
+    Decided before any launch from (n, p) alone, so the same on every
+    device."""
+    if mxu32.applicable(n, p, variant):
+        return "K2"
+    return "K4" if n <= butterfly32_cuda.MAX_N else "stage"
 
 
 def fwd32(x, tbl, *, p, variant, p_neginv):
     """Forward NTT of one prime: [B, n] uint32 -> bit-reversed [0, p)."""
     n = x.shape[-1]
-    if tier32(n, p, variant) == "K2":
+    tier = tier32(n, p, variant)
+    if tier == "K2":
         return mxu32_cuda.fwd(x, n=n, p=p)
-    return butterfly32_cuda.try_fwd(x, tbl, p=p, variant=variant, p_neginv=p_neginv)
+    run = butterfly32_cuda.try_fwd if tier == "K4" else butterfly32_cuda.fwd_plain
+    return run(x, tbl, p=p, variant=variant, p_neginv=p_neginv)
 
 
 def inv32(x, tbl, *, p, variant, p_neginv):
     """Unnormalized inverse NTT of one prime: [B, n] uint32 bit-reversed ->
     standard order [0, p)."""
     n = x.shape[-1]
-    if tier32(n, p, variant) == "K2":
+    tier = tier32(n, p, variant)
+    if tier == "K2":
         return mxu32_cuda.inv(x, n=n, p=p)
-    return butterfly32_cuda.try_inv(x, tbl, p=p, variant=variant, p_neginv=p_neginv)
+    run = butterfly32_cuda.try_inv if tier == "K4" else butterfly32_cuda.inv_plain
+    return run(x, tbl, p=p, variant=variant, p_neginv=p_neginv)
 
 
 # ---------------------------------------------------------------------------

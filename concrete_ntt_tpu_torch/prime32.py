@@ -14,9 +14,11 @@ computes on the device it is on. With the default and no GPU a numpy call
 raises; the CPU is what a caller asks for with `device="cpu"`.
 `ops/ntt_dispatch.fwd32/inv32` choose the tier: the four-step kernel K2
 for 2^11 <= n <= 2^17 where `mxu32.applicable` holds (odd p >= 2^26), else
-the butterfly kernel K4 (n <= 2^15 on the card; K3 is only the sharded four-step's per-rank
-pass). A CUDA tensor launches the kernel; a CPU tensor runs its plain
-torch twin. Outputs are canonical and equal the JAX package's bit for bit:
+the butterfly kernel K4 up to n = 2^15, and above that the stage engine
+in plain torch on the operand's device (tier "stage", the reference's XLA
+route: neither has a kernel there). K3 is only the sharded four-step's
+per-rank pass. A CUDA tensor launches the kernel; a CPU tensor runs its
+plain torch twin. Outputs are canonical and equal the JAX package's bit for bit:
 fwd = standard order -> bit-reversed NTT values in [0, p); inv =
 bit-reversed -> standard order, unnormalized (inv(fwd(x)) == n·x mod p).
 

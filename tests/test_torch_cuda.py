@@ -601,8 +601,72 @@ def test_prime32_polymul_above_2_15_on_card_matches_cpu(gen, cuda_device, regime
 
 
 def test_small_prime_above_2_15_raises_on_card(gen, cuda_device):
-    """A prime below 2^26 has no four-step kernel, and K4 ends at 2^15."""
+    """Kept under its old name: a prime below 2^26 above 2^15 has no kernel
+    (no four-step, and K4 ends at 2^15); the plan takes the stage engine on the card (tier "stage", the
+    reference's XLA route) and no longer raises: fwd, inv and the polymul
+    equal the CPU, and no kernel launches."""
     n, p = 1 << 16, _lp(1 << 17, 1, 0, 1 << 26)
+    plan, cpu = prime32.Plan.new(n, p), prime32.Plan.new(n, p, device="cpu")
     x = _u32(gen, (1, n), cuda_device, p)
-    with pytest.raises(NotImplementedError, match="K4"):
-        prime32.Plan.new(n, p).fwd(x)
+    lhs, rhs = (gen.integers(0, p, (1, n), dtype=np.uint32) for _ in range(2))
+    butterfly32_cuda.reset_launch_counts()
+    mxu32_cuda.reset_launch_counts()
+    _same(plan.fwd(x), cpu.fwd(x.cpu()))
+    _same(plan.inv(x), cpu.inv(x.cpu()))
+    _same(plan.negacyclic_polymul(lhs, rhs), cpu.negacyclic_polymul(lhs, rhs))
+    assert not any(butterfly32_cuda.LAUNCHES.values()) and not any(mxu32_cuda.LAUNCHES.values())
+    with pytest.raises(NotImplementedError, match="K4"):  # K4's own range is unchanged
+        butterfly32_cuda.try_fwd(x, plan._tbl, p=p, variant=plan.variant, p_neginv=plan.p_neginv)
+
+
+@pytest.mark.parametrize("n,b", [(1 << 11, 1), (1 << 11, 2), (1 << 12, 3), (1 << 13, 5)])
+def test_tensor_core_pass_small_and_ragged_shapes_on_card(gen, cuda_device, n, b):
+    """The tensor-core pass at its smallest contraction (n = 2^11: 32 words,
+    one ring stage) and batches that leave a ragged last row tile: K1a with
+    1, 2 and 4 limbs, K1b, K2 fwd / fwd_wide / inv in lt30 and with five
+    digit planes, K3 on a row slice."""
+    limbs = tuple(_u32(gen, (b, n), cuda_device) for _ in range(4))
+    for nl in (1, 2, 4):
+        _same(mxu32_cuda.fwd_wide_multi(limbs[:nl], PRIMES),
+              mxu32_cuda.fwd_wide_multi_plain(limbs[:nl], PRIMES))
+    x = _u32(gen, (len(PRIMES), b, n), cuda_device)
+    sc = tuple(pow(n, p - 2, p) * pow(2, 32, p) % p for p in PRIMES)
+    _same(mxu32_cuda.inv_multi(x, PRIMES, sc), mxu32_cuda.inv_multi_plain(x, PRIMES, sc))
+    for p in (BENCH["lt30"], BENCH["generic"]):
+        _same(mxu32_cuda.fwd(limbs[0], n=n, p=p), mxu32_cuda.fwd_plain(limbs[0], n=n, p=p))
+        _same(mxu32_cuda.fwd_wide(limbs, n=n, p=p), mxu32_cuda.fwd_wide_plain(limbs, n=n, p=p))
+        _same(mxu32_cuda.inv(limbs[1], n=n, p=p, scale=3),
+              mxu32_cuda.inv_plain(limbs[1], n=n, p=p, scale=3))
+        tbl = mxu32._mxu_tables(n, p)
+        n1, n2 = tbl["n1"], tbl["n2"]
+        d = tuple(torch.from_numpy(a[n2 // 4: n2 // 4 + n2 // 2]).to(cuda_device) for a in tbl["d"])
+        xa = _u32(gen, (b, n2 // 2, n1), cuda_device)
+        kw = dict(n=n, p=p, which="A", diag_slices=d)
+        _same(mxu32_cuda.pass_matmod(xa, **kw), mxu32_cuda.pass_matmod_plain(xa, **kw))
+
+
+def test_k2_five_digit_planes_on_card(gen, cuda_device):
+    """A prime near 2^32 takes a fifth matrix digit plane (kD = 5: a wider N
+    axis of the tensor-core tile and the bit-32 add of the combine)."""
+    p = 4294828033  # 0xfffde001, 2^13 | p - 1
+    assert mxu32._n_dplanes32(p) == 5
+    for n, b in ((1 << 11, 3), (1 << 12, 2)):
+        xs = tuple(_u32(gen, (b, n), cuda_device) for _ in range(2))
+        _same(mxu32_cuda.fwd_wide(xs, n=n, p=p), mxu32_cuda.fwd_wide_plain(xs, n=n, p=p))
+        s = pow(n, p - 2, p) * pow(2, 32, p) % p
+        _same(mxu32_cuda.inv(xs[0], n=n, p=p, scale=s),
+              mxu32_cuda.inv_plain(xs[0], n=n, p=p, scale=s))
+
+
+def test_misaligned_operand_raises_on_card(gen, cuda_device):
+    """The pass copies 16-byte chunks: an operand that starts off a 16-byte
+    boundary raises instead of launching."""
+    n = 1 << 11
+    base = _u32(gen, (2 * n + 1,), cuda_device)
+    x = base[1:1 + 2 * n].view(2, n)  # contiguous, 4 bytes past an aligned start
+    before = dict(mxu32_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        mxu32_cuda.fwd(x, n=n, p=BENCH["lt30"])
+    assert mxu32_cuda.LAUNCHES == before
+    _same(mxu32_cuda.fwd(x.clone(), n=n, p=BENCH["lt30"]),
+          mxu32_cuda.fwd_plain(x, n=n, p=BENCH["lt30"]))

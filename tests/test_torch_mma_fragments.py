@@ -1,0 +1,177 @@
+"""A numpy model of the tensor-core GEMM pass of the port
+(`concrete_ntt_tpu_torch/csrc/matmod_pass.cuh`) against the dense digit GEMM
+of the JAX package's math.
+
+The CUDA kernel runs only on the card (tests/test_torch_cuda.py). What can be
+checked here is its data layout: which operand word each lane hands to
+`wgmma.mma_async.sync.aligned.m64nNk32.s32.s8.s8` as its A registers, where
+the descriptor finds each byte of B in the K-major plane tile that
+`mxu32_cuda.pack_planes_kmajor` packs and the kernel copies as it is, and
+which (row, output, digit) each accumulator register becomes in the
+epilogue. The model follows the kernel's tiling (128 rows x 32 outputs a
+block, two warpgroups of 64 rows, N = 32 * D columns: digit d of output j
+at column 32 d + j, the same offset in every digit; k-steps of 8 words,
+four a stage) and the PTX layouts of m64nNk32 s8 (g = lane / 4, t = lane %
+4; warp w of a group: A registers rows 16w + g / + 8, words t / t + 4; D
+register 4i + q row 16w + g + 8 (q / 2), column 8i + 2t + q % 2; B byte
+(column n, byte k) at start + (n / 8) SBO + (k / 16) LBO + (n % 8) 16 +
+k % 16 without swizzle). Driven over the port's packed tables at n = 2^11
+and 2^12 it must reproduce the int8 digit GEMM of ops/mxu32.py exactly; the
+packed tiles must unpack to the JAX package's planes, and the
+shared-memory reads of both operand layouts must fall on 32 different
+banks. Tolerance: exact equality.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from concrete_ntt_tpu.ops import mxu32 as jmx
+from concrete_ntt_tpu_torch.ops import mxu32 as tmx
+from concrete_ntt_tpu_torch.ops import mxu32_cuda as tcu
+from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
+
+# the kernel's tile constants (csrc/matmod_pass.cuh)
+TM, TO, KC = 128, 32, 32
+A_ROW, A_WORD = KC + 4, TM + 8  # word strides of the two operand layouts
+LBO, SBO = 128, 1024            # the plane descriptor's byte offsets (K, N)
+XOR = np.uint32(0x80808080)
+GENERIC = 4293918721  # five matrix digit planes
+LANES = np.arange(32)
+G, T = LANES // 4, LANES % 4
+
+
+def _bytes(words: np.ndarray) -> np.ndarray:
+    """int32 / uint32 words [...] -> their four bytes as int64 [..., 4]."""
+    return np.ascontiguousarray(words).view(np.int8).reshape(*words.shape, 4).astype(np.int64)
+
+
+# A of m64nNk32 s8 from registers: A[16w + row, k] is byte k % 4 of register
+# (row >= 8) + 2 (k >= 16) of lane (row % 8) * 4 + (k % 16) // 4 of warp w
+_ROW, _K = np.meshgrid(np.arange(16), np.arange(32), indexing="ij")
+A_LANE, A_REG = (_ROW % 8) * 4 + (_K % 16) // 4, (_ROW >= 8) + 2 * (_K >= 16)
+A_BYTE = _K % 4
+
+
+def _b_offsets(n: int) -> np.ndarray:
+    """[n, 32] byte offsets of B (column, byte k of a k-step) from the
+    descriptor's start, K-major without swizzle."""
+    col, k = np.meshgrid(np.arange(n), np.arange(32), indexing="ij")
+    return (col // 8) * SBO + (k // 16) * LBO + (col % 8) * 16 + k % 16
+
+
+def _model_pass(x: np.ndarray, tiles: np.ndarray, n_d: int) -> np.ndarray:
+    """The kernel's contraction of one channel: operand words x [rows, kw]
+    (limb-major u32 values), packed plane tiles [O/32, kw/32, n_d*32*32]
+    -> accumulators [rows, n_d * O] (digit d of output j at column d * O +
+    j), through the registers each lane holds."""
+    rows, kw = x.shape
+    n_ot = tiles.shape[0]
+    n = n_d * TO
+    pad = -rows % TM
+    xp = np.concatenate([x, np.zeros((pad, kw), np.uint32)])  # zero-filled rows past the edge
+    acc = np.zeros((rows + pad, n_d * TO * n_ot), np.int64)
+    boff = _b_offsets(n)
+    for r0 in range(0, rows + pad, TM):
+        for ot in range(n_ot):
+            tile_bytes = tiles[ot].view(np.int8).reshape(kw // KC, -1).astype(np.int64)
+            for wg in range(2):
+                d = np.zeros((4, 32, n // 2), np.int64)  # [warp][lane][register]
+                for kt in range(kw // KC):
+                    for ks in range(KC // 8):
+                        k8 = kt * KC + 8 * ks
+                        r = r0 + wg * 64 + 16 * np.arange(4)[:, None] + G  # [warp, lane]
+                        regs = np.stack([xp[r, k8 + T], xp[r + 8, k8 + T], xp[r, k8 + T + 4],
+                                         xp[r + 8, k8 + T + 4]], axis=-1) ^ XOR
+                        a = _bytes(regs)[:, A_LANE, A_REG, A_BYTE].reshape(64, 32)
+                        b = tile_bytes[kt][64 * 4 * ks + boff]  # start: 256 bytes a k-step
+                        prod = a @ b.T                           # [64, n]
+                        for q in range(4):
+                            rr = 16 * np.arange(4)[:, None] + G + 8 * (q // 2)
+                            cc = 8 * np.arange(n // 8)[None, :] + (2 * T + q % 2)[:, None]
+                            d[:, :, q::4] += prod[rr[:, :, None], cc[None]]
+                # the epilogue's map: register 4 (4 dd + jj) + 2 hr + cc of lane (g,
+                # t) is row 16w + g + 8 hr, output 8 jj + 2t + cc, digit dd
+                for w in range(4):
+                    for dd in range(n_d):
+                        for jj in range(TO // 8):
+                            for q in range(4):
+                                rr = r0 + wg * 64 + 16 * w + G + 8 * (q // 2)
+                                oo = ot * TO + 8 * jj + 2 * T + q % 2
+                                acc[rr, dd * TO * n_ot + oo] = d[w, :, 4 * (4 * dd + jj) + q]
+    return acc[:rows]
+
+
+def _dense(x: np.ndarray, planes: np.ndarray, n_limbs: int) -> np.ndarray:
+    """ops/mxu32.py's digit GEMM: digit planes of the limbs @ int8 planes."""
+    k = x.shape[1] // n_limbs
+    limbs = tuple(torch.from_numpy(x[:, l * k:(l + 1) * k].astype(np.int64)) for l in range(n_limbs))
+    digits = tmx._digit_cat(limbs if n_limbs > 1 else limbs[0])
+    return digits.numpy().astype(np.int64) @ planes.astype(np.int64)
+
+
+def _unpack(words: np.ndarray, k: int) -> np.ndarray:
+    """Inverse of `pack_planes`: [C, L*k, D*O] int32 -> [C, 4L*k, D*O] int8."""
+    c, lk, do = words.shape
+    b = words.view(np.int8).reshape(c, lk // k, k, do, 4)
+    return np.ascontiguousarray(b.transpose(0, 1, 4, 2, 3)).reshape(c, 4 * lk, do)
+
+
+@pytest.mark.parametrize("n", [1 << 11, 1 << 12])
+@pytest.mark.parametrize("case", ["col-2limbs", "row", "generic-col"])
+def test_fragment_model_reproduces_the_digit_gemm(rng, n, case):
+    """Both passes' shapes (the column operator with two limbs, the row
+    operator, five digit planes), a batch whose rows end in a ragged tile."""
+    n1, n2 = tmx.four_step_factors(n)
+    if case == "generic-col":
+        planes, _ = tmx._mxu_tables(n, GENERIC)["A"]
+        n_limbs, k, rows, n_d = 1, n1, 3 * n2, 5
+    else:
+        n_limbs = 2 if case == "col-2limbs" else 1
+        tabs = tcu._multi_tables(n, PRIMES[:1], n_limbs, (1,))
+        planes = tabs["fwd"][0 if case == "col-2limbs" else 2][0]
+        k, rows, n_d = (n1, 3 * n2, 4) if case == "col-2limbs" else (n2, 3 * n1, 4)
+    tiles = tcu.pack_planes_kmajor(planes[None], k, n_d)[0]
+    o = planes.shape[1] // n_d
+    assert tiles.shape == (o // TO, n_limbs * k // KC, n_d * TO * KC)
+    x = rng.integers(0, 1 << 32, (rows, n_limbs * k), dtype=np.uint32)
+    x[0] = 0xFFFFFFFF  # digits at both ends of the int8 range
+    x[1] = 0
+    np.testing.assert_array_equal(_model_pass(x, tiles, n_d), _dense(x, planes, n_limbs))
+
+
+@pytest.mark.parametrize("n_limbs", [1, 2, 4])
+def test_packed_tiles_round_trip_to_the_jax_planes(rng, n_limbs):
+    """Each byte of a packed tile sits where the B descriptor reads it:
+    byte k of k-step ks of column col (= 32 d + j) in tile (ot, kt) is
+    contraction byte 128 kt + 32 ks + k, i.e. digit e of value i of limb l,
+    plane row (4l + e) n1 + i, of column d O + 32 ot + j; unpacking the
+    tiles gives the JAX package's planes."""
+    n, p, n_d = 1 << 11, PRIMES[0], 4
+    n1, _ = tmx.four_step_factors(n)
+    ref = jmx._wide_col_planes(n, p, n_limbs)[0] if n_limbs > 1 else jmx._mxu_tables(n, p)["A"][0]
+    ref = np.asarray(ref)
+    o = ref.shape[1] // n_d
+    tiles = tcu.pack_planes_kmajor(ref[None], n1, n_d)[0]  # [O/32, L*n1/32, D*32*32]
+    n_ot, nk = tiles.shape[:2]
+    words = tiles.reshape(n_ot, nk, n_d, 4, 8, 8, 4).transpose(1, 4, 6, 2, 0, 3, 5)
+    words = np.ascontiguousarray(words).reshape(1, nk * KC, n_d * o)
+    np.testing.assert_array_equal(_unpack(words, n1)[0], ref)
+    tb = tiles.view(np.int8).reshape(n_ot, nk, -1)
+    boff = _b_offsets(n_d * TO)
+    for _ in range(256):
+        ot, kt, ks, col, k = (int(rng.integers(0, m)) for m in (n_ot, nk, 4, n_d * TO, 32))
+        kbyte = 128 * kt + 32 * ks + k
+        l, i = divmod(kbyte // 4, n1)
+        assert tb[ot, kt, 256 * ks + boff[col, k]] == ref[(4 * l + kbyte % 4) * n1 + i,
+                                                         (col // TO) * o + TO * ot + col % TO]
+
+
+def test_shared_memory_fragment_reads_hit_32_banks():
+    """Word offsets of one A register over the 32 lanes, in the
+    contiguous-row operand layout [row][KC + 4] and the strided one
+    [word][TM + 8]: 32 banks, no conflict."""
+    for rs, ws in ((A_ROW, 1), (1, A_WORD)):
+        for dr, dw in ((0, 0), (8, 0), (0, 4), (8, 4)):
+            banks = ((G + dr) * rs + (T + dw) * ws) % 32
+            assert len(set(banks.tolist())) == 32

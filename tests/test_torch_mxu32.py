@@ -275,6 +275,15 @@ def test_k2_plain_matches_pallas_interpret(rng, interpret, case, regime):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _tile_words(tiles: np.ndarray, n_d: int) -> np.ndarray:
+    """The plane words [k, n_d * o] of `pack_planes` from the K-major tiles
+    [o / 32, k / 32, n_d * 32 * 32] of `pack_planes_kmajor` (digit, 8-row
+    group, 16-byte chunk, row, word)."""
+    n_ot, nk = tiles.shape[:2]
+    w = tiles.reshape(n_ot, nk, n_d, 4, 8, 8, 4).transpose(1, 4, 6, 2, 0, 3, 5)
+    return w.reshape(nk * 32, n_d * n_ot * 32)
+
+
 @pytest.mark.parametrize("regime", ["lt31", "generic"])
 def test_packed_planes_dp4a_emulation_single(rng, regime):
     """The K2/K3 plane words (five digit planes for 4293918721) contracted
@@ -284,11 +293,13 @@ def test_packed_planes_dp4a_emulation_single(rng, regime):
     planes, _ = tmx._mxu_tables(n, p)["F"]
     k, o, n_d = tabs["k"], tabs["o"], tabs["n_d"]
     assert n_d == (5 if regime == "generic" else 4)
-    words = tabs["planes"].numpy()
-    assert words.shape == (1, k, n_d * o) and words.dtype == np.int32
+    tiles = tabs["planes"].numpy()  # the K-major tiles of pack_planes_kmajor
+    assert tiles.shape == (1, o // 32, k // 32, n_d * 32 * 32) and tiles.dtype == np.int32
+    words = _tile_words(tiles[0], n_d)
+    assert words.shape == (k, n_d * o)
     x = _u32(rng, (5, k))
     xb = (x ^ np.uint32(0x80808080)).view(np.int8).reshape(5, k, 4)
-    wb = words.view(np.int8).reshape(k, n_d * o, 4)
+    wb = np.ascontiguousarray(words).view(np.int8).reshape(k, n_d * o, 4)
     dp4a = np.einsum("rke,koe->ro", xb.astype(np.int64), wb.astype(np.int64))
     ref = torch._int_mm(tmx._digit_cat(torch.from_numpy(x.astype(np.int64))),
                         torch.from_numpy(planes)).numpy()

@@ -23,6 +23,7 @@ from concrete_ntt_tpu_torch import prime32 as tp32
 from concrete_ntt_tpu_torch.golden import polymul as tgold
 from concrete_ntt_tpu_torch.ops import mxu32 as tmx
 from concrete_ntt_tpu_torch.ops import mxu32_cuda, ntt_dispatch
+from concrete_ntt_tpu_torch.utils.prime import largest_prime_in_arithmetic_progression64
 
 PRIMES = {"lt30": 1073479681, "lt31": 2147352577, "generic": 4293918721, "small": 67043329}
 SIZES = [2, 32, 256, 1024, 2048, 4096]
@@ -88,6 +89,23 @@ def test_plan_above_the_kernel_range_runs_the_stage_engine(rng):
     f = tplan.fwd(x)
     np.testing.assert_array_equal(f.numpy(), np.asarray(jplan.fwd(x)))
     np.testing.assert_array_equal(tplan.inv(f).numpy(), np.asarray(jplan.inv(np.asarray(f))))
+
+
+def test_small_prime_above_2_15_takes_the_stage_tier(rng):
+    """p < 2^26 at n = 2^16: no four-step (p too small) and no K4 (n too
+    large), so the plan takes tier "stage", the plain stage engine on the
+    operand's device, as the JAX plan takes its XLA stage engine: fwd and the
+    polymul at B = 1 equal the JAX plan's bit for bit, launching nothing."""
+    n = 1 << 16
+    p = largest_prime_in_arithmetic_progression64(2 * n, 1, 0, 1 << 26)
+    tplan, jplan = tp32.Plan.new(n, p, device="cpu"), jp32.Plan.new(n, p)
+    assert ntt_dispatch.tier32(n, p, tplan.variant) == "stage"
+    x, y = (rng.integers(0, p, (1, n), dtype=np.uint32) for _ in range(2))
+    before = dict(mxu32_cuda.LAUNCHES)
+    np.testing.assert_array_equal(tplan.fwd(x).numpy(), np.asarray(jplan.fwd(x)))
+    np.testing.assert_array_equal(tplan.negacyclic_polymul(x, y).numpy(),
+                                  np.asarray(jplan.negacyclic_polymul(x, y)))
+    assert mxu32_cuda.LAUNCHES == before
 
 
 def test_polymul_matches_golden(rng):

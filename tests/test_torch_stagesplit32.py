@@ -267,8 +267,10 @@ def test_multi_tables_block_axis(n_limbs):
                 np.testing.assert_array_equal(d[:, i], r)
     kt = tcu._kernel_tables(n_h, P3, n_limbs, scales, "fwd", "cpu", n)
     n1, n2 = tabs["n1"], tabs["n2"]
-    assert kt["planes1"].shape == (3 * nb, n_limbs * n1, 4 * n1)
-    assert kt["planes2"].shape == (3, n2, 4 * n2) and kt["diag"].shape == (3 * nb, 4, n2, n1)
+    # K-major tiles of the GEMM pass: [z][output tile][stage of 32 words][4 * 32 * 32]
+    assert kt["planes1"].shape == (3 * nb, n1 // 32, n_limbs * n1 // 32, 4 * 32 * 32)
+    assert kt["planes2"].shape == (3, n2 // 32, n2 // 32, 4 * 32 * 32)
+    assert kt["diag"].shape == (3 * nb, 4, n2, n1)
     z = 2 * nb + 1  # channel 2, block 1
     np.testing.assert_array_equal(kt["cvec1"][z].numpy(), tabs["fwd"][1][2, 1])
     np.testing.assert_array_equal(kt["diag"][z, 3].numpy().view(np.uint32), tabs["fwd"][4][3][2, 1])
