@@ -83,11 +83,13 @@ failure:
                power limit.
   2. build   — compiles every kernel source from the checkout with nvcc, one
                process per source, all started together; prints ptxas's
-               lines (registers, spills), the GEMM pass's dynamic shared
-               memory and, from `cuobjdump -sass`, each library's GMMA
-               (warpgroup tensor-core products), IMMA (int8 mma.sync) and
-               IDP.4A (dp4a) instructions: the two 32-bit sources must hold
-               GMMA and no IDP.4A.
+               lines and each GEMM pass instance's (digit planes, regime,
+               epilogue) registers and spills, both GEMM passes' dynamic
+               shared memory and, from `cuobjdump -sass`, each library's
+               GMMA (warpgroup tensor-core products), IMMA (int8 mma.sync)
+               and IDP.4A (dp4a) instructions: the four GEMM libraries
+               (mxu32_*, mxu64_*) must hold GMMA and no IDP.4A, no instance
+               of the 64-bit pass may spill, and a missing cuobjdump fails.
   3. parity  — each kernel against its plain torch version on the card,
                exact equality: K1a/K1b at (n, B) = (2^14, 8), (2^14, 5),
                (2^11, 3), (2^15, 2); K2 fwd, fwd_wide, inv (unscaled and
@@ -134,6 +136,10 @@ failure:
                pass at small and ragged shapes, (n, B) in (2^11, 1),
                (2^11, 3), (2^12, 2), (2^13, 5): K1a with 1, 2, 4 limbs, K1b,
                K2 fwd / fwd_wide / inv in lt30 and with a five-plane prime.
+               The eight (digit planes, regime) instances of the 64-bit
+               pass, one prime each: K5 fwd, inv (plain, scaled) at (2^11,
+               3) (ragged row tiles) and (2^14, 3), K6 A scaled on a row
+               slice and F canonical at (2^11, 3).
   4. main    — native64: three polymuls on the card == CPU plain path ==
                numpy wrapping oracle (row 0); K1a +2, K1b +1 per call.
                prime32: Plan(2^14, p) polymul at B = 16 for each bench prime
@@ -217,17 +223,18 @@ failure:
                2^16 (and K2 at 2^17), K2h and K1 with block tables at 2^16,
                K1e beside K1b, K5 with four limbs; K2 and K1a / K1d direct
                beside the 32-bit hybrid at 2^15, 2^16 and 2^17, in turns, with
-               the hybrid's split; the polymuls above 2^15. Each 32-bit row
-               (the kernels of csrc/matmod_pass.cuh) also gets its device
-               time: the matmod_pass launches of a call by torch.profiler,
-               median of 20 calls, beside torch._int_mm (by the same
-               profiler) on int8 matrices of the shapes of the same passes,
-               one GEMM per channel, block and pass: the yardstick of the
-               mainloop, which the port never calls.
+               the hybrid's split; the polymuls above 2^15. Each row of a
+               GEMM pass's kernel (csrc/matmod_pass.cuh, 32-bit, and
+               csrc/matmod64_pass.cuh, 64-bit: K5, K5h, K6, K7a-K7d, W4-64)
+               also gets its device time: the pass launches of a call by
+               torch.profiler, median of 20 calls, beside torch._int_mm (by
+               the same profiler) on int8 matrices of the shapes of the same
+               passes, one GEMM per channel, block and pass: the yardstick
+               of the mainloop, which the port never calls.
 Then one JSON line of kernel summaries (each with its launches on its main
 path, error, ms, plain ms, and, for the direct 32-bit kernels, the same
-numbers at their shape above 2^15 under `n17`; the 32-bit rows and their
-`n17` entries also `device_ms` and `gemm_ms`, the two profiler times above;
+numbers at their shape above 2^15 under `n17`; the rows of both GEMM passes
+and the `n17` entries also `device_ms` and `gemm_ms`, the two profiler times;
 and the bound: the larger of its bytes over
 3.35 TB/s and its int8 operations over 1,979 TOP/s, the H100 SXM data-sheet
 rates; `library_ms` is null for all: no single PyTorch call computes an
@@ -252,6 +259,7 @@ import argparse
 import concurrent.futures
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -351,17 +359,24 @@ HYB32_SHAPES = ((1 << 15, 16), (N16, 16), (N17, 4))
 K1H_SHAPES = ((1 << 15, 8), (N16, 8))
 K1E_SHAPES = ((1 << 14, 8), (1 << 11, 3), (N16, 2))
 W464_SHAPES = ((1 << 14, 16), (1 << 11, 3))
+# the eight instances of the 64-bit pass: at 2^11 B = 3 leaves ragged row
+# tiles (96 and 192 rows); at 2^14 the main paths' contraction
+INST64_SHAPES = ((1 << 11, 3), (1 << 14, 3))
 B_BIG = 8      # batch of the native plans' polymuls at 2^16 and 2^17 (all rows are checked)
 # the tensor-core pass at its smallest contraction (one ring stage at 2^11) and
 # batches that leave ragged row tiles; the prime32 "stage" tier's batch
 TC_SHAPES = ((1 << 11, 1), (1 << 11, 3), (1 << 12, 2), (1 << 13, 5))
 B_STAGE = 2
-# the 32-bit rows (kernels of csrc/matmod_pass.cuh): their JSON rows carry
-# `device_ms` and `gemm_ms`
-ROWS32 = ("fwd_wide_multi", "inv_multi", "fwd_multi_perchannel", "pointwise_inv_multi", "fwd",
-          "inv", "pass_matmod", "fwd_wide_multi_u128", "fwd_u128", "pass_matmod_u128", "fwd_hyb",
-          "inv_hyb", "fwd_multi_perchannel_hyb", "inv_multi_hyb", "pointwise_inv_multi_hyb",
-          "inv_multi_presplit")
+# the rows of the GEMM passes' kernels (csrc/matmod_pass.cuh, 32-bit, then
+# csrc/matmod64_pass.cuh, 64-bit): their JSON rows carry `device_ms` and `gemm_ms`
+GEMM_ROWS = ("fwd_wide_multi", "inv_multi", "fwd_multi_perchannel", "pointwise_inv_multi", "fwd",
+             "inv", "pass_matmod", "fwd_wide_multi_u128", "fwd_u128", "pass_matmod_u128",
+             "fwd_hyb", "inv_hyb", "fwd_multi_perchannel_hyb", "inv_multi_hyb",
+             "pointwise_inv_multi_hyb", "inv_multi_presplit",
+             "fwd64", "inv64", "pass_matmod64", "fwd_multi64", "pointwise_inv_multi64",
+             "fwd64_hyb", "inv64_hyb", "fwd_multi_perchannel64", "inv_multi64",
+             "fwd_multi_perchannel64_hyb", "inv_multi64_hyb", "pointwise_inv_multi64_hyb",
+             "fwd64_u128")
 
 
 class PhaseError(RuntimeError):
@@ -390,22 +405,52 @@ def median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def ptxas_entries(log: str) -> list:
+    """(entry, registers, spill store bytes, spill load bytes) of each kernel
+    in an `nvcc -Xptxas -v` log."""
+    out, entry, spill = [], None, (0, 0)
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", ln):
+            entry, spill = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", ln)) and entry:
+            out.append((entry, int(m.group(1)), *spill))
+            entry = None
+    return out
+
+
+def pass_instance(entry: str) -> str:
+    """'kD/regime/epilogue' of a mangled GEMM pass instance: matmod64_pass<kD,
+    kMode, kScaled, kPointwise> or matmod_pass<kD, kRegime, kScaled, ...>."""
+    m = re.search(r"matmod(64)?_passILi(\d)ELi(\d)ELb(\d)ELb(\d)E(?:Lb(\d)E)?", entry)
+    if not m:
+        return entry
+    wide, d, mode, scaled, pw, presplit = m.groups()
+    regime = (("shoup", "montshoup", "montmont", "gl") if wide else
+              ("lt30", "lt31", "generic"))[int(mode)]
+    form = ("scaled" if scaled == "1" else "canonical") + (
+        "+pointwise" if pw == "1" else "+presplit" if presplit == "1" else "")
+    return f"{d}/{regime}/{form}"
+
+
 def is_kernel(name: str) -> bool:
     return not name.startswith(("Memcpy", "Memset"))
 
 
 def is_pass(name: str) -> bool:
-    return "matmod_pass" in name
+    return "matmod_pass" in name or "matmod64_pass" in name
 
 
 def gemm_pairs(dev, direction: str, n1: int, n2: int, b: int, c: int, e1: int, n_d: int = 4,
-               nb: int = 1, passes: int = 2) -> list:
+               nb: int = 1, passes: int = 2, e2: int = 4) -> list:
     """int8 matrices of the shapes of a four-step transform's digit GEMMs,
     per channel and block: pass 1 [B·R, E1·K1] x [E1·K1, D·K1] and pass 2
-    [B·K1, 4·R] x [4·R, D·R] (K1 = n1 forward, n2 inverse; R the other
-    factor), the right factor K-major (column-major), the layout the int8
-    tensor cores take. Random values: an int8 GEMM's time does not depend on
-    them. `passes` = 1: the first pass alone (K3)."""
+    [B·K1, E2·R] x [E2·R, D·R] (K1 = n1 forward, n2 inverse; R the other
+    factor; E2 = 4 for a u32 mid-pass operand, 8 for a u64 one), the right
+    factor K-major (column-major), the layout the int8 tensor cores take.
+    Random values: an int8 GEMM's time does not depend on them. `passes` =
+    1: the first pass alone (K3, K6)."""
     k1, r = (n1, n2) if direction == "fwd" else (n2, n1)
     gen = torch.Generator(device=dev).manual_seed(1)
     mat = lambda rows, cols: torch.randint(-128, 128, (rows, cols), dtype=torch.int8, device=dev,
@@ -414,8 +459,89 @@ def gemm_pairs(dev, direction: str, n1: int, n2: int, b: int, c: int, e1: int, n
     for _ in range(c * nb):
         pairs.append((mat(b * r, e1 * k1), mat(n_d * k1, e1 * k1).t()))
         if passes == 2:
-            pairs.append((mat(b * k1, 4 * r), mat(n_d * r, 4 * r).t()))
+            pairs.append((mat(b * k1, e2 * r), mat(n_d * r, e2 * r).t()))
     return pairs
+
+
+def gemm64_rows(dev, u32) -> list:
+    """The rows of the 64-bit GEMM pass's kernels (csrc/matmod64_pass.cuh) at
+    the shapes their JSON rows report, from the port first on sys.path:
+    (key, name, label, kernel call, plain call, matmod64_pass launches a
+    call, int8 pairs of the same passes' shapes) for `median_ms` and
+    `device_times`. The pass contracts 8 operand planes (7 with a zero
+    eighth, or 16 of a u128 operand in K5's column pass) against D matrix
+    planes. u32(shape) makes random uint32 operands on dev."""
+    from concrete_ntt_tpu_torch.ops import mxu32, mxu64
+    from concrete_ntt_tpu_torch.ops import mxu64_cuda as m
+    from concrete_ntt_tpu_torch.tables import GOLDILOCKS, PRIMES52
+
+    gl, p52, p50, n15 = GOLDILOCKS, PRIMES52[:3], PRIMES52[0], 1 << 15
+    d_gl, d50 = mxu64._n_dplanes(gl), mxu64._n_dplanes(p50)
+    n1, n2 = mxu32.four_step_factors(N64)
+    n1k, n2k = mxu32.four_step_factors(4096)
+    scale = lambda n, p: pow(n, p - 2, p) * pow(2, 64, p) % p
+    pair = lambda shape: (u32(shape), u32(shape))
+    x, x52, xc = pair((B64, N64)), pair((B52, N64)), pair((3, B52, N64))
+    fl, fr = pair((3, B52, N64)), pair((3, B52, N64))
+    xh, x3, y3 = pair((B_HYB, 1 << 16)), pair((3, B52, n15)), pair((3, B52, n15))
+    w4 = tuple(u32((B64, N64)) for _ in range(4))
+    tbl = mxu64._tables(4096, p50)
+    xa = pair((B64, tbl["n2"], tbl["n1"]))
+    k6 = dict(n=4096, p=p50, which="A",
+              diag_slices=tuple(torch.from_numpy(a).to(dev) for a in tbl["d"]))
+    sg, s52, s15 = scale(N64, gl), tuple(scale(N64, q) for q in p52), \
+        tuple(scale(n15, q) for q in p52)
+    hyb = dict(n=1 << 16, p=gl, n_h=N_H)
+    sh = scale(1 << 16, gl)
+    pairs = lambda direction, b, c, e1, n_d, **kw: (
+        lambda: gemm_pairs(dev, direction, n1, n2, b, c, e1, n_d, e2=8, **kw))
+    return [
+        ("fwd64", "K5 fwd64", f"n={N64} B={B64} p={gl} (goldilocks)",
+         lambda: m.fwd(x, n=N64, p=gl), lambda: m.fwd_plain(x, n=N64, p=gl), 2,
+         pairs("fwd", B64, 1, 8, d_gl)),
+        ("inv64", "K5 inv64", f"n={N64} B={B64} p={gl} (goldilocks) scaled",
+         lambda: m.inv(x, n=N64, p=gl, scale=sg), lambda: m.inv_plain(x, n=N64, p=gl, scale=sg),
+         2, pairs("inv", B64, 1, 8, d_gl)),
+        ("pass_matmod64", "K6 pass_matmod64", f"A scaled n=4096 B={B64} p={p50}",
+         lambda: m.pass_matmod64(xa, **k6), lambda: m.pass_matmod64_plain(xa, **k6), 1,
+         lambda: gemm_pairs(dev, "fwd", n1k, n2k, B64, 1, 8, d50, passes=1)),
+        ("fwd_multi64", "K7a fwd_multi64", f"n={N64} B={B52} C=3",
+         lambda: m.fwd_multi(x52, p52), lambda: m.fwd_multi_plain(x52, p52), 2,
+         pairs("fwd", B52, 3, 8, d50)),
+        ("pointwise_inv_multi64", "K7d pointwise_inv_multi64", f"n={N64} B={B52} C=3 scaled",
+         lambda: m.pointwise_inv_multi(fl, fr, p52, s52),
+         lambda: m.pointwise_inv_multi_plain(fl, fr, p52, s52), 2, pairs("inv", B52, 3, 8, d50)),
+        ("fwd64_hyb", "K5h fwd64_hyb", f"n={1 << 16} n_h={N_H} B={B_HYB} p={gl} (goldilocks)",
+         lambda: m.fwd_hyb(xh, **hyb), lambda: m.fwd_hyb_plain(xh, **hyb), 2,
+         pairs("fwd", B_HYB, 1, 8, d_gl, nb=4)),
+        ("inv64_hyb", "K5h inv64_hyb",
+         f"n={1 << 16} n_h={N_H} B={B_HYB} p={gl} (goldilocks) scaled",
+         lambda: m.inv_hyb(xh, scale=sh, **hyb), lambda: m.inv_hyb_plain(xh, scale=sh, **hyb),
+         2, pairs("inv", B_HYB, 1, 8, d_gl, nb=4)),
+        ("fwd_multi_perchannel64", "K7c fwd_multi_perchannel64", f"n={N64} B={B52} C=3",
+         lambda: m.fwd_multi_perchannel64(*xc, p52),
+         lambda: m.fwd_multi_perchannel64_plain(xc, p52), 2, pairs("fwd", B52, 3, 8, d50)),
+        ("inv_multi64", "K7b inv_multi64", f"n={N64} B={B52} C=3 scaled",
+         lambda: m.inv_multi(*xc, p52, s52), lambda: m.inv_multi_plain(xc, p52, s52), 2,
+         pairs("inv", B52, 3, 8, d50)),
+        ("fwd_multi_perchannel64_hyb", "K7c fwd_multi_perchannel64 with block tables",
+         f"n={n15} n_h={N_H} B={B52} C=3",
+         lambda: m.fwd_multi_perchannel64(*x3, p52, n_h=N_H),
+         lambda: m.fwd_multi_perchannel64_plain(x3, p52, N_H), 2,
+         pairs("fwd", B52, 3, 8, d50, nb=2)),
+        ("inv_multi64_hyb", "K7b inv_multi64 with block tables",
+         f"n={n15} n_h={N_H} B={B52} C=3 scaled",
+         lambda: m.inv_multi(*x3, p52, s15, n_h=N_H),
+         lambda: m.inv_multi_plain(x3, p52, s15, N_H), 2, pairs("inv", B52, 3, 8, d50, nb=2)),
+        ("pointwise_inv_multi64_hyb", "K7d pointwise_inv_multi64 with block tables",
+         f"n={n15} n_h={N_H} B={B52} C=3 scaled",
+         lambda: m.pointwise_inv_multi(x3, y3, p52, s15, n_h=N_H),
+         lambda: m.pointwise_inv_multi_plain(x3, y3, p52, s15, N_H), 2,
+         pairs("inv", B52, 3, 8, d50, nb=2)),
+        ("fwd64_u128", "K5 fwd64 with four limbs", f"n={N64} B={B64} p={gl} (goldilocks)",
+         lambda: m.fwd(w4, n=N64, p=gl), lambda: m.fwd_plain(w4, n=N64, p=gl), 2,
+         pairs("fwd", B64, 1, 16, d_gl)),
+    ]
 
 
 def bind_now(fn):
@@ -695,6 +821,20 @@ def main() -> int:
         "p64": prime_in_ap(1 << 18, 1, 1 << 63, (1 << 64) - 1),
     }
 
+    # one prime for each of the eight (digit planes, epilogue regime)
+    # instances of the 64-bit GEMM pass (csrc/mxu64_pass.cu launch_any; K7
+    # runs the four shoup ones); 2^16 | p - 1
+    INSTANCES64 = {
+        (5, "shoup"): prime_in_ap(1 << 16, 1, 1 << 33, 1 << 39),
+        (6, "shoup"): prime_in_ap(1 << 16, 1, 1 << 40, 1 << 47),
+        (7, "shoup"): PRIMES52[0],
+        (8, "shoup"): prime_in_ap(1 << 16, 1, 1 << 61, 1 << 62),
+        (8, "montshoup"): prime_in_ap(1 << 16, 1, 1 << 62, 1 << 63),
+        (8, "montmont"): prime_in_ap(1 << 16, 1, 1 << 63, 3 << 62),
+        (9, "montmont"): prime_in_ap(1 << 16, 1, 1 << 63, (1 << 64) - 1),
+        (9, "gl"): GOLDILOCKS,
+    }
+
     # the three prime32 regimes with 2^18 | p - 1, and the ten 30-bit channel
     # primes of the native plans above 2^15
     BIG32 = {
@@ -722,27 +862,39 @@ def main() -> int:
     print(f"build: {len(sos)} sources in {time.perf_counter() - t0:.1f} s", flush=True)
     for so in sos:
         with open(so[:-3] + ".log") as f:
-            ptxas = [ln.strip() for ln in f
-                     if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
+            log = f.read()
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
         print(f"build: {os.path.relpath(so)}: " + " | ".join(ptxas), flush=True)
+        passes = [e for e in ptxas_entries(log) if "matmod" in e[0]]
+        if passes:
+            print(f"build: {os.path.basename(so)} GEMM pass instances (digit planes, regime, "
+                  "epilogue): " + "; ".join(f"{pass_instance(e)} {r} registers, {st} / {ld} B "
+                                            "spill stores / loads" for e, r, st, ld in passes),
+                  flush=True)
+        if os.path.basename(so).startswith("mxu64_"):
+            require(passes and all(st == ld == 0 for _, _, st, ld in passes),
+                    f"build: {os.path.basename(so)}: a GEMM pass instance spills registers")
     smem = {d: mxu32_cuda._pass_lib().k_pass_smem_bytes(d) for d in (4, 5)}
+    smem64 = {d: mxu64_cuda._pass_lib().k64_pass_smem_bytes(d) for d in range(5, 10)}
     print(f"build: matmod_pass dynamic shared memory a block: {smem[4]} B with 4 digit planes, "
-          f"{smem[5]} B with 5 (the ring of operand and plane stages)", flush=True)
-    # the 32-bit GEMM pass contracts on the int8 tensor cores (wgmma: IGMMA)
-    # and no longer with dp4a (IDP.4A); the 64-bit pass keeps dp4a
+          f"{smem[5]} B with 5; matmod64_pass with 5..9 digit planes: "
+          f"{', '.join(f'{v} B' for v in smem64.values())} (the ring of operand and plane "
+          "stages)", flush=True)
+    # both GEMM passes contract on the int8 tensor cores (wgmma: GMMA in the
+    # SASS) and never with dp4a (IDP.4A)
     cuobjdump = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
-    if os.path.exists(cuobjdump):
-        for so in sos:
-            sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
-                                  check=True).stdout
-            n_gmma, n_imma, n_idp = (sass.count(op) for op in ("GMMA", "IMMA", "IDP.4A"))
-            print(f"build: {os.path.basename(so)} SASS: {n_gmma} GMMA, {n_imma} IMMA, "
-                  f"{n_idp} IDP.4A", flush=True)
-            if os.path.basename(so).startswith("mxu32_"):
-                require(n_gmma > 0 and n_idp == 0,
-                        f"build: {os.path.basename(so)} does not contract on the tensor cores")
-    else:
-        print(f"build: no cuobjdump at {cuobjdump}: SASS not inspected", flush=True)
+    require(os.path.exists(cuobjdump), f"build: no cuobjdump at {cuobjdump}: the SASS check "
+                                       "needs the CUDA toolkit's cuobjdump")
+    for so in sos:
+        sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
+                              check=True).stdout
+        n_gmma, n_imma, n_idp = (sass.count(op) for op in ("GMMA", "IMMA", "IDP.4A"))
+        print(f"build: {os.path.basename(so)} SASS: {n_gmma} GMMA, {n_imma} IMMA, "
+              f"{n_idp} IDP.4A", flush=True)
+        if os.path.basename(so).startswith(("mxu32_", "mxu64_")):
+            require(n_gmma > 0 and n_idp == 0,
+                    f"build: {os.path.basename(so)} does not contract on the tensor cores")
 
     def counts() -> dict:
         return {**mxu32_cuda.LAUNCHES, **{f"butterfly32_{k}": v for k, v in bcu.LAUNCHES.items()},
@@ -927,6 +1079,41 @@ def main() -> int:
     print(f"parity: K5 fwd {checks['fwd64']}, inv {checks['inv64']} checks exact at (n, B) in "
           f"{K5_SHAPES} (+ (32768, 2) for goldilocks, p50) x p in {tuple(PRIMES64.values())}, "
           f"full-range limbs, in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # each (digit planes, regime) instance of the 64-bit pass, in its scaled
+    # (the first pass of K5; K6's A) and its canonical form (the second; K6's
+    # F), at 2^11 with ragged row tiles and at 2^14
+    t0 = time.perf_counter()
+    base = dict(checks)
+    regimes64 = ("shoup", "montshoup", "montmont", "gl")
+    for (n_d, regime), p in INSTANCES64.items():
+        require((mxu64._n_dplanes(p), regimes64[mxu64_cuda.mode(p)]) == (n_d, regime),
+                f"parity: {p} is not the ({n_d}, {regime}) instance")
+        for n, b in INST64_SHAPES:
+            x = (u32((b, n)), u32((b, n)))
+            what = f"({n_d}, {regime}) p={p} n={n} B={b}"
+            compare_pair("fwd64", mxu64_cuda.fwd(x, n=n, p=p), mxu64_cuda.fwd_plain(x, n=n, p=p),
+                         what)
+            for sc in (1, scale64(n, p)):
+                compare_pair("inv64", mxu64_cuda.inv(x, n=n, p=p, scale=sc),
+                             mxu64_cuda.inv_plain(x, n=n, p=p, scale=sc),
+                             f"{what} scaled={sc != 1}")
+        n, b = INST64_SHAPES[0]
+        tbl = mxu64._tables(n, p)
+        n1, n2 = tbl["n1"], tbl["n2"]
+        for which, x, dg in (
+                ("A", (u32((b, n2 // 4, n1)), u32((b, n2 // 4, n1))),
+                 tuple(torch.from_numpy(a[n2 // 4: n2 // 2]).to(dev) for a in tbl["d"])),
+                ("F", mid_pair((b, n1, n2), p), ())):
+            kw = dict(n=n, p=p, which=which, diag_slices=dg)
+            compare_pair("pass_matmod64", mxu64_cuda.pass_matmod64(x, **kw),
+                         mxu64_cuda.pass_matmod64_plain(x, **kw),
+                         f"({n_d}, {regime}) p={p} n={n} B={b} {which} rows={x[0].shape[1]}")
+    inst = {k: checks[k] - base[k] for k in ("fwd64", "inv64", "pass_matmod64")}
+    print(f"parity: the eight 64-bit pass instances (digit planes, regime) "
+          f"{tuple(INSTANCES64)}: K5 fwd / inv (plain, scaled) at (n, B) in {INST64_SHAPES} and "
+          f"K6 A scaled on a row slice / F canonical at {INST64_SHAPES[0]}: {inst} checks exact "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     for p in PRIMES64.values():
@@ -2203,14 +2390,14 @@ def main() -> int:
     plain_ms["fwd_wide_multi"] = median_ms(
         lambda: mxu32_cuda.fwd_wide_multi_plain(limbs, PRIMES))
     plain_ms["inv_multi"] = median_ms(lambda: mxu32_cuda.inv_multi_plain(x, PRIMES, scaled))
-    # the 32-bit rows' device time (the matmod_pass launches of a call) beside
+    # the GEMM rows' device time (the pass launches of a call) beside
     # torch._int_mm on int8 matrices of the same passes' shapes
     dev_ms, int_mm_ms = {}, {}
     dev_tasks = []  # read in one profiler session after the times (device_times)
     dev_into = {}   # id -> the dict a task's result goes to
 
     def dev_times(key, kernel, per_call, pairs, into=(dev_ms, int_mm_ms)):
-        """Queue the 32-bit row `key`: its kernel's matmod_pass launches and
+        """Queue the GEMM row `key`: its kernel's pass launches and
         torch._int_mm over int8 pairs of the same passes' shapes."""
         kernel, pairs = bind_now(kernel), bind_now(pairs)
 
@@ -2238,8 +2425,8 @@ def main() -> int:
           f"{REPS}) = {B_MAIN / poly_ms * 1e3:.1f} products/s | {smi}", flush=True)
 
     def timed(name, label, kernel, plain, key=None, gemm=None):
-        """`gemm` = (matmod_pass launches a call, the int8 pairs of its
-        passes) for a 32-bit row: its device time and torch._int_mm's."""
+        """`gemm` = (pass launches a call, the int8 pairs of its passes) for
+        a GEMM row: its device time and torch._int_mm's."""
         t, tp = median_ms(kernel), median_ms(plain)
         if key:
             ms[key], plain_ms[key] = t, tp
@@ -2321,35 +2508,22 @@ def main() -> int:
     print(f"times: PBS loop n={N_PROD} B={B_PROD} {PBS_TERMS} terms: {t:.4f} ms (median of 5) "
           f"= {t / PBS_TERMS:.4f} ms a term | {smi}", flush=True)
 
+    # the 64-bit rows (kernels of csrc/matmod64_pass.cuh) at their JSON shapes,
+    # with their device time and torch._int_mm's; the other regimes beside them
+    for key, name, label, kernel, plain, per_call, pairs in gemm64_rows(dev, u32):
+        timed(name, label, kernel, plain, key, (per_call, pairs))
     for rname, p in PRIMES64.items():
+        if rname == "goldilocks":  # the fwd64 / inv64 rows
+            continue
         x = (u32((B64, N64)), u32((B64, N64)))
         sc = scale64(N64, p)
-        headline = rname == "goldilocks"
         timed("K5 fwd64", f"n={N64} B={B64} p={p} ({rname})",
-              lambda: mxu64_cuda.fwd(x, n=N64, p=p), lambda: mxu64_cuda.fwd_plain(x, n=N64, p=p),
-              "fwd64" if headline else None)
+              lambda: mxu64_cuda.fwd(x, n=N64, p=p), lambda: mxu64_cuda.fwd_plain(x, n=N64, p=p))
         timed("K5 inv64", f"n={N64} B={B64} p={p} ({rname}) scaled",
               lambda: mxu64_cuda.inv(x, n=N64, p=p, scale=sc),
-              lambda: mxu64_cuda.inv_plain(x, n=N64, p=p, scale=sc),
-              "inv64" if headline else None)
-    p = PRIMES64["p50"]
-    tbl64 = mxu64._tables(4096, p)
-    dg64 = tuple(torch.from_numpy(a).to(dev) for a in tbl64["d"])
-    xa64 = (u32((B64, tbl64["n2"], tbl64["n1"])), u32((B64, tbl64["n2"], tbl64["n1"])))
-    kw = dict(n=4096, p=p, which="A", diag_slices=dg64)
-    timed("K6 pass_matmod64", f"A scaled n=4096 B={B64} p={p}",
-          lambda: mxu64_cuda.pass_matmod64(xa64, **kw),
-          lambda: mxu64_cuda.pass_matmod64_plain(xa64, **kw), "pass_matmod64")
-    x52 = (u32((B52, N64)), u32((B52, N64)))
+              lambda: mxu64_cuda.inv_plain(x, n=N64, p=p, scale=sc))
     fl52, fr52 = ((u32((3, B52, N64)), u32((3, B52, N64))) for _ in range(2))
     sc52 = tuple(scale64(N64, q) for q in P52)
-    timed("K7a fwd_multi64", f"n={N64} B={B52} C=3",
-          lambda: mxu64_cuda.fwd_multi(x52, P52), lambda: mxu64_cuda.fwd_multi_plain(x52, P52),
-          "fwd_multi64")
-    timed("K7d pointwise_inv_multi64", f"n={N64} B={B52} C=3 scaled",
-          lambda: mxu64_cuda.pointwise_inv_multi(fl52, fr52, P52, sc52),
-          lambda: mxu64_cuda.pointwise_inv_multi_plain(fl52, fr52, P52, sc52),
-          "pointwise_inv_multi64")
 
     def mont64_then_k5():
         a, b = tuple(map(to_i64, fl52)), tuple(map(to_i64, fr52))
@@ -2381,32 +2555,13 @@ def main() -> int:
             x = (u32((B_HYB, n)), u32((B_HYB, n)))
             sc = scale64(n, p)
             kw = dict(n=n, p=p, n_h=N_H)
-            headline = n == 1 << 16 and rname == "goldilocks"
+            if n == 1 << 16 and rname == "goldilocks":  # the fwd64_hyb / inv64_hyb rows
+                continue
             timed("K5h fwd64_hyb", f"n={n} B={B_HYB} p={p} ({rname})",
-                  lambda: mxu64_cuda.fwd_hyb(x, **kw), lambda: mxu64_cuda.fwd_hyb_plain(x, **kw),
-                  "fwd64_hyb" if headline else None)
+                  lambda: mxu64_cuda.fwd_hyb(x, **kw), lambda: mxu64_cuda.fwd_hyb_plain(x, **kw))
             timed("K5h inv64_hyb", f"n={n} B={B_HYB} p={p} ({rname}) scaled",
                   lambda: mxu64_cuda.inv_hyb(x, scale=sc, **kw),
-                  lambda: mxu64_cuda.inv_hyb_plain(x, scale=sc, **kw),
-                  "inv64_hyb" if headline else None)
-    xc = (u32((3, B52, N64)), u32((3, B52, N64)))
-    timed("K7c fwd_multi_perchannel64", f"n={N64} B={B52} C=3",
-          lambda: mxu64_cuda.fwd_multi_perchannel64(*xc, P52),
-          lambda: mxu64_cuda.fwd_multi_perchannel64_plain(xc, P52), "fwd_multi_perchannel64")
-    timed("K7b inv_multi64", f"n={N64} B={B52} C=3 scaled",
-          lambda: mxu64_cuda.inv_multi(*xc, P52, sc52),
-          lambda: mxu64_cuda.inv_multi_plain(xc, P52, sc52), "inv_multi64")
-    timed("K7c fwd_multi_perchannel64 with block tables", f"n={n15} n_h={N_H} B={B52} C=3",
-          lambda: mxu64_cuda.fwd_multi_perchannel64(*x3, P52, n_h=N_H),
-          lambda: mxu64_cuda.fwd_multi_perchannel64_plain(x3, P52, N_H),
-          "fwd_multi_perchannel64_hyb")
-    timed("K7b inv_multi64 with block tables", f"n={n15} n_h={N_H} B={B52} C=3 scaled",
-          lambda: mxu64_cuda.inv_multi(*x3, P52, sc15, n_h=N_H),
-          lambda: mxu64_cuda.inv_multi_plain(x3, P52, sc15, N_H), "inv_multi64_hyb")
-    timed("K7d pointwise_inv_multi64 with block tables", f"n={n15} n_h={N_H} B={B52} C=3 scaled",
-          lambda: mxu64_cuda.pointwise_inv_multi(x3, y3, P52, sc15, n_h=N_H),
-          lambda: mxu64_cuda.pointwise_inv_multi_plain(x3, y3, P52, sc15, N_H),
-          "pointwise_inv_multi64_hyb")
+                  lambda: mxu64_cuda.inv_hyb_plain(x, scale=sc, **kw))
 
     # the direct kernel beside the hybrid at 2^15, in turns (direct, hybrid, hybrid, direct)
     def split_times(n, p, x, sc):
@@ -2594,10 +2749,6 @@ def main() -> int:
         lambda: mxu32_cuda.digit_planes32(xe)))
     print(f"times: K1b vs K1e n={N_MAIN} B={B_MAIN} C=5: K1b {t_b:.4f} ms, K1e {t_e:.4f} ms, "
           f"digit_planes32 (plain torch) {t_s:.4f} ms (median of {REPS}) | {smi}", flush=True)
-    w4g = tuple(u32((B64, N64)) for _ in range(4))
-    timed("K5 fwd64 with four limbs", f"n={N64} B={B64} p={GOLDILOCKS} (goldilocks)",
-          lambda: mxu64_cuda.fwd(w4g, n=N64, p=GOLDILOCKS),
-          lambda: mxu64_cuda.fwd_plain(w4g, n=N64, p=GOLDILOCKS), "fwd64_u128")
 
     # the direct 32-bit kernels beside the 32-bit hybrid at 2^15, 2^16 and 2^17,
     # in turns (direct, hybrid, hybrid, direct); the route stays direct
@@ -2662,13 +2813,13 @@ def main() -> int:
         print(f"times: product polymul {what} n={N16} B={B_BIG} ({EXT[0]}·{EXT[1]}): {t:.4f} ms "
               f"(median of {REPS}) = {B_BIG / t * 1e3:.1f} products/s | {smi}", flush=True)
 
-    # the 32-bit rows' device time (their matmod_pass launches a call) beside
+    # the GEMM rows' device time (their pass launches a call) beside
     # torch._int_mm on the same passes' shapes, from one profiler session
     t0 = time.perf_counter()
     for (did, key), v in device_times(dev_tasks).items():
         dev_into[did][key] = v
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
-    for key in ROWS32:
+    for key in GEMM_ROWS:
         print(f"times: {key} device {fmt(dev_ms.get(key))}, torch._int_mm on the same shapes "
               f"{fmt(int_mm_ms.get(key))}; above 2^15 device {fmt(big_dev.get(key))}, "
               f"torch._int_mm {fmt(big_int_mm.get(key))} (torch.profiler, median of {REPS}) | "
@@ -2837,7 +2988,8 @@ def main() -> int:
          "launches": launches[k], "max_abs_err": max_err[k], "ms": ms[k],
          "plain_ms": plain_ms[k], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
          "library_ms": None,
-         **({"device_ms": dev_ms.get(k), "gemm_ms": int_mm_ms.get(k)} if k in ROWS32 else {}),
+         **({"device_ms": dev_ms.get(k), "gemm_ms": int_mm_ms.get(k)}
+            if k in GEMM_ROWS else {}),
          **({"n17": big_rows[k]} if k in big_rows else {})}
         for k, (src, rep) in KERNELS.items()
     ]}))

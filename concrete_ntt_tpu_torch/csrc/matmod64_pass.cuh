@@ -1,27 +1,28 @@
 // One exact modular GEMM pass of the four-step prime64 NTT on u64 limb pairs,
 // for every odd prime 2^33 < p < 2^64: the building block of kernels K5 and
 // K6 (mxu64_pass.cu) and K7a-K7d (mxu64_multi.cu), direct and with the
-// stage-split hybrid's block tables. It is the 64-bit sibling of
-// matmod_pass.cuh and shares its tiling and plane packing.
+// stage-split hybrid's block tables. Replaces the GEMM body shared by the TPU
+// kernels of concrete_ntt_tpu/ops/mxu64_pallas.py (_build_call :32,
+// _build_pass_call64 :197, _build_multi_call64 :522). It is the 64-bit
+// sibling of matmod_pass.cuh and shares its mainloop (gemm_sm90.cuh).
 //
 // The pass computes the JAX package's ops/mxu64.py math for a [rows, K] x
 // [K, O] product mod p per polynomial and channel. The operand is a pair of
 // u32 arrays (lo, hi), any u64 value (or, in K5's forward column pass only,
 // the four limbs of a u128 whose residue split folds into the product as 16
 // operand planes: n_limbs = 4); each limb word is split into four int8
-// digits (byte - 128) by one xor and meets host-packed plane words in one
-// __dp4a per output digit: kD = 5..9 int32 accumulators per output (the
-// matrix entries' balanced radix-256 digits; 7 for 50-bit primes, 9 near
-// 2^64). A pass whose operand is bounded below 2^56 (the plane diet's 7
-// operand planes) gets a zero eighth plane row from the host, so every pass
-// contracts 2 x K words. The accumulators plus the epilogue constants
-// combine into the exact three-limb value V = sum_d U_d 2^(8d) (v0, v1, v2;
-// the ninth digit sits at bit 64 and adds into v2), and an epilogue reduces
-// it. Mid-pass results are any-u64 representatives that the next pass
-// digit-splits, so each step gives the bit pattern of the limb-pair code
-// (ops/u32.py, ops/mxu64.py), not just its residue class; native uint64_t,
-// __umul64hi and unsigned __int128 stand in for limb pairs only where the
-// two agree bit for bit.
+// digits (byte - 128) by one xor and meets the balanced-digit int8 operator
+// planes in kD = 5..9 int32 accumulators per output (the matrix entries'
+// radix-256 digits; 7 for 50-bit primes, 9 near 2^64). A pass whose operand
+// is bounded below 2^56 (the plane diet's 7 operand planes) gets a zero
+// eighth plane row from the host, so every pass contracts n_limbs x K words.
+// The accumulators plus the epilogue constants combine into the exact
+// three-limb value V = sum_d U_d 2^(8d) (v0, v1, v2; the ninth digit sits at
+// bit 64 and adds into v2), and an epilogue reduces it. Mid-pass results are
+// any-u64 representatives that the next pass digit-splits, so each step gives
+// the bit pattern of the limb-pair code (ops/u32.py, ops/mxu64.py), not just
+// its residue class; native uint64_t, __umul64hi and unsigned __int128 stand
+// in for limb pairs only where the two agree bit for bit.
 //
 // Epilogue regimes (kMode; ops/mxu64.py _scale_mode and _fold3to2):
 //   kShoup     p < 2^62. scaled: (v0,v1)*W + v2*(2^64 W) as two lazy Shoup
@@ -34,11 +35,40 @@
 //   kGl        Goldilocks 2^64 - 2^32 + 1. Shift/add fold; scaled: 128-bit
 //              product reduced by shifts and adds; canonical: one cond_sub.
 //
-// Tiling: a block owns kTM operand rows x kTO outputs x kD accumulators; 256
-// threads, warp w owns rows w, w+8, ..., lane l output l. Strides of the
-// operand and of the output are fields of the descriptor, so the mid-pass
-// transpose is a stride of the second pass's loads. Grid = (row tiles over
-// batch x rows, output tiles, z); rows past the batch edge are masked.
+// What bounds it on the H100. A pass is an int8 GEMM of B*R rows, 4 *
+// n_limbs * K contraction bytes and kD*O columns, exact in int32 (the JAX
+// package's assert_accumulator_exact), whose operands are a few MiB: at the
+// main paths' shapes (K5 at n = 2^14, B = 16 with nine planes: 4.8e9 int8
+// MACs against about 8 MiB) its int8 operations take longer than its bytes
+// even at the tensor cores' rate, and tens of times longer on the CUDA
+// cores' byte dot products.
+//
+// Design: the 32-bit pass's mainloop (gemm_sm90.cuh, the design of
+// matmod_pass.cuh:33-66) with a tile of half the outputs: Hopper's
+// warpgroup product on the int8 tensor cores, wgmma.mma_async m64nNk32
+// .s32.s8.s8 with N = 16 * kD = 80..144 (every value a valid s8 shape; 32
+// outputs would need N = 288 > 256 at nine planes and 144 accumulators a
+// thread), A = operand words from registers (the digit split stays one xor),
+// B from shared memory in K-major tiles that the host packs as the exact
+// image of the descriptor's core matrices (ops/mxu64_cuda.py pack_planes64 =
+// mxu32_cuda.pack_planes_kmajor with 16-output tiles, after a zero eighth
+// plane row where the operand takes 5-7 planes). The products are exact
+// integers, so the accumulators hold the exact digit sums of ops/mxu64.py
+// bit for bit. The N axis is the kD digit columns of kTO outputs; the n8
+// chunks of digit d sit at the same output offsets for every d, so each
+// thread holds all kD accumulators of its own (row, output) pairs and the
+// combine and every epilogue stay per element.
+//
+// Tiling: a block owns kTM = 128 operand rows x kTO = 16 outputs x kD
+// digits, 8 kD = 40..72 accumulators a thread, at most 128 registers (two
+// blocks an SM; no instance spills). The contraction is n_limbs * K words
+// (2, or 4 for a u128 operand; K % 32 == 0). Dynamic shared memory 84-108
+// KiB (kD 5-9): two blocks an SM. Half-width tiles also double the grid
+// against 32 outputs: K5 at (2^14, 16) runs 16 x 8 = 128 blocks a pass on
+// the 132 SMs. Strides of the operand and of the output are fields of the
+// descriptor, so the mid-pass transpose is a stride of the second pass's
+// loads. Grid = (row tiles over batch x rows, output tiles, z); rows past
+// the batch edge are zero-filled and not stored.
 //
 // The z axis is channel * nb + block. nb = 1 is a direct transform. With the
 // stage-split hybrid's block tables (ops/stagesplit.py) a transform of size
@@ -54,13 +84,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_sm90.cuh"
+
 namespace mxu64 {
 
-constexpr int kTM = 64;        // operand rows per block
-constexpr int kTO = 32;        // outputs per block
-constexpr int kKC = 32;        // contraction words per shared-memory stage
-constexpr int kThreads = 256;  // 8 warps: warp w owns rows w, w+8, ..., w+56
-constexpr int kRowsPerThread = kTM / (kThreads / 32);
+using sm90::kKC;
+using sm90::kTM;
+using sm90::kThreads;
+constexpr int kTO = 16;  // outputs per block (kD digit columns each)
+
+// words of one stage of the plane tile: kD * kTO rows (N) of kKC words (K),
+// in the host-packed order of ops/mxu64_cuda.py pack_planes64 (8-row groups
+// of eight 16-byte chunks of eight rows: wgmma's K-major core matrices
+// without swizzle)
+__host__ __device__ constexpr int plane_stage(int kD) { return sm90::plane_stage(kD, kTO); }
+__host__ __device__ constexpr int smem_bytes(int kD) { return sm90::smem_bytes(kD, kTO); }
 
 // Per-channel scalar record, 16 uint32 words = 8 little-endian u64 values
 // (ops/mxu64.py _scal_vec64, extended by ops/mxu64_cuda.py scalar_record):
@@ -88,7 +126,7 @@ struct Pass {
   long long out_chan;    // elements between channels of the output
   long long out_blk;     // elements between blocks of the output
   int t_r, t_o;          // output strides of the row and the output index
-  const int32_t* planes;  // [C or C * nb][n_limbs * k1][kD * o] packed digit words
+  const int32_t* planes;  // [C or C * nb][o / kTO][n_limbs * k1 / kKC][plane_stage(kD)] words
   const int32_t* cvec;    // [C or C * nb][kD][o]
   const uint32_t* diag;   // [C * nb][8 or 2][R][o] (scaled pass; _scale_tables64 order)
   const uint32_t* scal;   // [C][kScalWords]
@@ -193,139 +231,150 @@ __device__ __forceinline__ uint64_t canonical(uint64_t v01, uint32_t v2, const S
 
 // kPointwise (K7d's first pass): the operand value is the Montgomery product
 // mont_mul(x, y) of two operands read at the same index (both any u64), taken
-// in the load before the digit split.
+// in the load before the digit split, so the operand tile is loaded with
+// plain loads and stores (contiguous rows only); every other pass copies it
+// with cp.async. The mainloop is gemm_sm90.cuh's.
 template <int kD, int kMode, bool kScaled, bool kPointwise = false>
-__global__ void __launch_bounds__(kThreads) matmod64_pass(Pass a) {
+__global__ void __launch_bounds__(kThreads, 2) matmod64_pass(Pass a) {
   static_assert(kD >= 5 && kD <= 9, "5 to 9 matrix digit planes");
-  __shared__ uint32_t xs[kKC][kTM + 1];  // operand digit words, [k][row]
-  __shared__ int32_t ps[kKC][kD * kTO];  // plane words, [k][digit * kTO + out]
+  extern __shared__ __align__(128) uint32_t smem[];
   const int z = blockIdx.z;
-  const int c = z / a.nb;           // channel
-  const int blk = z - c * a.nb;     // block of the channel
+  const int c = z / a.nb;        // channel
+  const int blk = z - c * a.nb;  // block of the channel
   const int pz = a.planes_blk ? z : c;
   const int row0 = blockIdx.x * kTM;
   const int o0 = blockIdx.y * kTO;
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  const int kw = a.n_limbs * a.k1;
-  const int od = kD * a.o;
-  const int32_t* planes = a.planes + (size_t)pz * kw * od;
-  const Scalars sc = read_scalars(a.scal + kScalWords * c);
-
-  int acc[kRowsPerThread][kD];
-#pragma unroll
-  for (int q = 0; q < kRowsPerThread; ++q)
-#pragma unroll
-    for (int d = 0; d < kD; ++d) acc[q][d] = 0;
-
-  for (int k0 = 0; k0 < kw; k0 += kKC) {
-    const int limb = k0 / a.k1;
-    const int i0 = k0 - limb * a.k1;
-    const long long chan = (long long)c * a.x_chan + (long long)blk * a.x_blk;
-    for (int t = threadIdx.x; t < kTM * kKC; t += kThreads) {
-      int r, kk;  // neighbouring threads read neighbouring addresses
-      if (a.s_k == 1) {
-        kk = t % kKC;
-        r = t / kKC;
-      } else {
-        r = t % kTM;
-        kk = t / kTM;
-      }
-      const int m = row0 + r;
-      uint32_t v = 0;
-      if (m < a.total_rows) {
-        const int b = m / a.rows_per_poly;
-        const int j = m - b * a.rows_per_poly;
-        const long long at = chan + (long long)b * a.x_b + (long long)(i0 + kk) * a.s_k +
-                             (long long)j * a.s_r;
-        if constexpr (kPointwise) {
-          const uint64_t prod = mont_mul(pair(a.x[0][at], a.x[1][at]),
-                                         pair(a.y[0][at], a.y[1][at]), sc.p, sc.p_neginv);
-          v = limb ? (uint32_t)(prod >> 32) : (uint32_t)prod;
-        } else {
-          v = a.x[limb][at];
-        }
-      }
-      xs[kk][r] = v ^ 0x80808080u;  // byte e = int8 digit e of v, minus 128
-    }
-    for (int t = threadIdx.x; t < kKC * kD * kTO; t += kThreads) {
-      const int kk = t / (kD * kTO);
-      const int q = t - kk * kD * kTO;
-      const int d = q / kTO;
-      ps[kk][q] = planes[(size_t)(k0 + kk) * od + d * a.o + o0 + (q - d * kTO)];
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < kKC; ++kk) {
-      int w[kD];
-#pragma unroll
-      for (int d = 0; d < kD; ++d) w[d] = ps[kk][d * kTO + tx];
-#pragma unroll
-      for (int q = 0; q < kRowsPerThread; ++q) {
-        const int xv = (int)xs[kk][ty + 8 * q];
-#pragma unroll
-        for (int d = 0; d < kD; ++d) acc[q][d] = __dp4a(xv, w[d], acc[q][d]);
-      }
-    }
-    __syncthreads();
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int wrow = (threadIdx.x >> 5) * 16;  // the warp's first row (as in sm90::mainloop)
+  // this block's plane tiles: [pz][output tile][stage][plane_stage]
+  const int nk = a.n_limbs * a.k1 / kKC;
+  const uint32_t* planes = reinterpret_cast<const uint32_t*>(a.planes) +
+                           ((size_t)pz * (a.o / kTO) + blockIdx.y) * nk * plane_stage(kD);
+  const long long chan = (long long)c * a.x_chan + (long long)blk * a.x_blk;
+  uint64_t pw_p = 0, pw_neginv = 0;  // p and -p^-1 of the channel (kPointwise)
+  if constexpr (kPointwise) {
+    const Scalars sc = read_scalars(a.scal + kScalWords * c);
+    pw_p = sc.p;
+    pw_neginv = sc.p_neginv;
   }
+  // kPointwise: limb `limb` of mont_mul(x, y) at each of the chunk's four values
+  auto load = [&](long long at, int, int limb) {
+    const uint4 xl = *reinterpret_cast<const uint4*>(a.x[0] + at);
+    const uint4 xh = *reinterpret_cast<const uint4*>(a.x[1] + at);
+    const uint4 yl = *reinterpret_cast<const uint4*>(a.y[0] + at);
+    const uint4 yh = *reinterpret_cast<const uint4*>(a.y[1] + at);
+    auto word = [&](uint32_t xlo, uint32_t xhi, uint32_t ylo, uint32_t yhi) {
+      const uint64_t prod = mont_mul(pair(xlo, xhi), pair(ylo, yhi), pw_p, pw_neginv);
+      return limb ? (uint32_t)(prod >> 32) : (uint32_t)prod;
+    };
+    return make_uint4(word(xl.x, xh.x, yl.x, yh.x), word(xl.y, xh.y, yl.y, yh.y),
+                      word(xl.z, xh.z, yl.z, yh.z), word(xl.w, xh.w, yl.w, yh.w));
+  };
+  int acc[kD * kTO / 2];  // the warpgroup's m64 x (kD * kTO) int32 tile, this thread's part
+  sm90::mainloop<kD, kTO, kPointwise>(acc, a, chan, row0, planes, smem, load);
 
-  const int oi = o0 + tx;
-  const int32_t* cv = a.cvec + (size_t)pz * kD * a.o + oi;
-  uint32_t cvr[kD];
+  const Scalars sc = read_scalars(a.scal + kScalWords * c);
+  const int32_t* cvz = a.cvec + (size_t)pz * kD * a.o;
+  const long long out_z = (long long)c * a.out_chan + (long long)blk * a.out_blk;
+  // digit d of output 8 jj + 2t + cc of row g + 8 hr: accumulator
+  // 4 (d * kTO / 8 + jj) + 2 hr + cc (column d * kTO + 8 jj + 2t + cc of the tile)
 #pragma unroll
-  for (int d = 0; d < kD; ++d) cvr[d] = (uint32_t)cv[d * a.o];
-#pragma unroll
-  for (int q = 0; q < kRowsPerThread; ++q) {
-    const int m = row0 + ty + 8 * q;
-    if (m >= a.total_rows) break;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int m = row0 + wrow + 8 * hr + g;
+    if (m >= a.total_rows) continue;
     const int b = m / a.rows_per_poly;
     const int j = m - b * a.rows_per_poly;
-    // _combine8: U_d = acc_d + cvec_d in [0, 2^28); V = sum_d U_d 2^(8d)
-    uint64_t low = 0, mid = 0;
 #pragma unroll
-    for (int d = 0; d < 4; ++d) low += (uint64_t)((uint32_t)acc[q][d] + cvr[d]) << (8 * d);
+    for (int jj = 0; jj < kTO / 8; ++jj) {
+      const int oi0 = o0 + 8 * jj + 2 * t;
+      uint64_t y[2];
 #pragma unroll
-    for (int d = 4; d < (kD < 8 ? kD : 8); ++d)
-      mid += (uint64_t)((uint32_t)acc[q][d] + cvr[d]) << (8 * (d - 4));
-    mid += low >> 32;
-    const uint64_t v01 = (mid << 32) | (uint32_t)low;
-    uint32_t v2 = (uint32_t)(mid >> 32);
-    if constexpr (kD == 9) v2 += (uint32_t)acc[q][8] + cvr[8];  // digit 8 at bit 64
-    uint64_t y;
-    if constexpr (kScaled) {
-      const size_t plane = (size_t)a.rows_per_poly * a.o;
-      const int n_dg = kMode == kShoup ? 8 : 2;
-      const uint32_t* dg = a.diag + (size_t)z * n_dg * plane + (size_t)j * a.o + oi;
-      const uint64_t w = pair(dg[0], dg[plane]);
-      if constexpr (kMode == kShoup) {
-        // _scaled_epilogue: (v0, v1)*W + v2*(2^64 W), each lazy in [0, 2p)
-        const uint64_t w_sh = pair(dg[2 * plane], dg[3 * plane]);
-        const uint64_t w2 = pair(dg[4 * plane], dg[5 * plane]);
-        const uint64_t w2_sh = pair(dg[6 * plane], dg[7 * plane]);
-        y = shoup_lazy(v01, w, w_sh, sc.p) + shoup_lazy_u32(v2, w2, w2_sh, sc.p);
-      } else {
-        const uint64_t rep = fold3to2<kMode>(v01, v2, sc);
-        if constexpr (kMode == kGl) {
-          y = gl_reduce128_lazy(rep * w, __umul64hi(rep, w));
+      for (int cc = 0; cc < 2; ++cc) {
+        const int oi = oi0 + cc;
+        const int q = 2 * hr + cc;
+        uint32_t u[kD];  // _combine8: U_d = acc_d + cvec_d in [0, 2^28); V = sum_d U_d 2^(8d)
+#pragma unroll
+        for (int d = 0; d < kD; ++d)
+          u[d] = (uint32_t)acc[4 * (d * (kTO / 8) + jj) + q] + (uint32_t)cvz[d * a.o + oi];
+        uint64_t low = 0, mid = 0;
+#pragma unroll
+        for (int d = 0; d < 4; ++d) low += (uint64_t)u[d] << (8 * d);
+#pragma unroll
+        for (int d = 4; d < (kD < 8 ? kD : 8); ++d) mid += (uint64_t)u[d] << (8 * (d - 4));
+        mid += low >> 32;
+        const uint64_t v01 = (mid << 32) | (uint32_t)low;
+        uint32_t v2 = (uint32_t)(mid >> 32);
+        if constexpr (kD == 9) v2 += u[8];  // digit 8 at bit 64
+        if constexpr (kScaled) {
+          const size_t plane = (size_t)a.rows_per_poly * a.o;
+          const int n_dg = kMode == kShoup ? 8 : 2;
+          const uint32_t* dg = a.diag + (size_t)z * n_dg * plane + (size_t)j * a.o + oi;
+          const uint64_t w = pair(dg[0], dg[plane]);
+          if constexpr (kMode == kShoup) {
+            // _scaled_epilogue: (v0, v1)*W + v2*(2^64 W), each lazy in [0, 2p)
+            const uint64_t w_sh = pair(dg[2 * plane], dg[3 * plane]);
+            const uint64_t w2 = pair(dg[4 * plane], dg[5 * plane]);
+            const uint64_t w2_sh = pair(dg[6 * plane], dg[7 * plane]);
+            y[cc] = shoup_lazy(v01, w, w_sh, sc.p) + shoup_lazy_u32(v2, w2, w2_sh, sc.p);
+          } else {
+            const uint64_t rep = fold3to2<kMode>(v01, v2, sc);
+            if constexpr (kMode == kGl) {
+              y[cc] = gl_reduce128_lazy(rep * w, __umul64hi(rep, w));
+            } else {
+              y[cc] = mont_mul(rep, w, sc.p, sc.p_neginv);
+            }
+          }
         } else {
-          y = mont_mul(rep, w, sc.p, sc.p_neginv);
+          y[cc] = canonical<kMode>(v01, v2, sc);
         }
       }
-    } else {
-      y = canonical<kMode>(v01, v2, sc);
+      const long long at =
+          out_z + (long long)b * a.out_b + (long long)j * a.t_r + (long long)oi0 * a.t_o;
+      if (a.t_o == 1) {
+        *reinterpret_cast<uint2*>(a.out[0] + at) = make_uint2((uint32_t)y[0], (uint32_t)y[1]);
+        *reinterpret_cast<uint2*>(a.out[1] + at) =
+            make_uint2((uint32_t)(y[0] >> 32), (uint32_t)(y[1] >> 32));
+      } else {
+        a.out[0][at] = (uint32_t)y[0];
+        a.out[0][at + a.t_o] = (uint32_t)y[1];
+        a.out[1][at] = (uint32_t)(y[0] >> 32);
+        a.out[1][at + a.t_o] = (uint32_t)(y[1] >> 32);
+      }
     }
-    const long long at = (long long)c * a.out_chan + (long long)blk * a.out_blk +
-                         (long long)b * a.out_b + (long long)j * a.t_r + (long long)oi * a.t_o;
-    a.out[0][at] = (uint32_t)y;
-    a.out[1][at] = (uint32_t)(y >> 32);
   }
+}
+
+// What the tiles need of a pass: whole stages (k1 % kKC == 0, so a stage
+// never straddles two limbs) and output tiles, operand chunks of 16 aligned
+// bytes in one of the two memory orders (contiguous rows only for the
+// pointwise first pass, which reads x and y 16 bytes at a time), aligned
+// plane tiles, and aligned output pairs where the outputs of a row are
+// contiguous.
+inline bool tiles_fit(const Pass& a, bool pointwise) {
+  if (a.k1 % kKC || a.o % kTO || a.total_rows <= 0 || a.n_limbs < 1 || a.n_limbs > 4)
+    return false;
+  if (a.s_k == 1 ? a.s_r % 4 != 0
+                 : (pointwise || a.s_r != 1 || a.s_k % 4 || a.rows_per_poly % 4))
+    return false;
+  if ((a.x_b | a.x_chan | a.x_blk) % 4) return false;
+  if (a.t_o == 1 && ((a.out_b | a.out_chan | a.out_blk | a.t_r) % 2 ||
+                     (uintptr_t)a.out[0] & 7 || (uintptr_t)a.out[1] & 7))
+    return false;
+  for (int l = 0; l < (pointwise ? 2 : a.n_limbs); ++l)
+    if (!sm90::aligned16(a.x[l])) return false;
+  if (pointwise && !(sm90::aligned16(a.y[0]) && sm90::aligned16(a.y[1]))) return false;
+  return sm90::aligned16(a.planes);
 }
 
 template <int kD, int kMode, bool kScaled, bool kPointwise = false>
 cudaError_t launch(const Pass& a, int channels, cudaStream_t stream) {
+  if (!tiles_fit(a, kPointwise)) return cudaErrorInvalidValue;
+  auto kernel = matmod64_pass<kD, kMode, kScaled, kPointwise>;
+  constexpr int smem = smem_bytes(kD);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid((a.total_rows + kTM - 1) / kTM, a.o / kTO, channels * a.nb);
-  matmod64_pass<kD, kMode, kScaled, kPointwise><<<grid, kThreads, 0, stream>>>(a);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -58,8 +58,9 @@
 // bank-conflict-free for the fragment reads: contiguous rows (s_k == 1, the
 // inverse's row pass and K3) are copied as [row][kKC + 4] words, strided
 // ones (s_r == 1: the column passes and the forward row pass) as
-// [word][kTM + 8], four rows a copy. Dynamic shared memory, 102 KiB with
-// four digits (two blocks an SM), 114 KiB with five. Strides of the operand
+// [word][kTM + 8], four rows a copy. The mainloop is gemm_sm90.cuh's, shared
+// with matmod64_pass.cuh (16 outputs a block there). Dynamic shared memory,
+// 102 KiB with four digits (two blocks an SM), 114 KiB with five. Strides of the operand
 // and of the output are fields of the descriptor, so a mid-pass transpose is
 // a stride of the next pass's loads. Grid = (row tiles over batch x rows,
 // output tiles, z); rows past the batch edge are zero-filled and not stored.
@@ -84,27 +85,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_sm90.cuh"
+
 namespace mxu32 {
 
-constexpr int kTM = 128;       // operand rows per block: two warpgroups of 64
-constexpr int kTO = 32;        // outputs per block (kD digit columns each)
-constexpr int kKC = 32;        // contraction words per ring stage (four k32 steps)
-constexpr int kStages = 3;     // ring depth: loads run kStages - 1 stages ahead
-constexpr int kThreads = 256;  // two warpgroups; warp w of a group owns 16 rows
-constexpr int kARow = kKC + 4;     // words a row, contiguous-row operand layout
-constexpr int kAWord = kTM + 8;    // words a contraction word, strided operand layout
-constexpr int kAStage = kTM * kARow > kKC * kAWord ? kTM * kARow : kKC * kAWord;
-constexpr uint32_t kDigitXor = 0x80808080u;  // byte e of v ^ this = int8 digit e
+using sm90::kKC;
+using sm90::kTM;
+using sm90::kThreads;
+constexpr int kTO = 32;  // outputs per block (kD digit columns each)
 
 // words of one stage of the plane tile: kD * kTO rows (N) of kKC words (K),
 // in the host-packed order of ops/mxu32_cuda.py pack_planes_kmajor: 8-row
 // groups of eight 16-byte chunks of eight rows (wgmma's K-major core
 // matrices without swizzle: next chunk along K 128 bytes on, next 8 rows
 // 1024 bytes on)
-__host__ __device__ constexpr int plane_stage(int kD) { return kD * kTO * kKC; }
-__host__ __device__ constexpr int smem_bytes(int kD) {
-  return 4 * kStages * (plane_stage(kD) + kAStage);
-}
+__host__ __device__ constexpr int plane_stage(int kD) { return sm90::plane_stage(kD, kTO); }
+__host__ __device__ constexpr int smem_bytes(int kD) { return sm90::smem_bytes(kD, kTO); }
 
 // Per-channel scalar record (uint32 words), built by ops/mxu32_cuda.py
 // scalar_record: p, 2^32 mod p, its Shoup companion, -p^-1 mod 2^32,
@@ -168,106 +164,6 @@ __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) 
   return (uint32_t)(s >= p ? s - p : s);
 }
 
-// 16 bytes global -> shared, asynchronous; zero-filled where !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Shared-memory writes of the generic proxy (cp.async) made visible to the
-// async proxy that wgmma reads through
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Matrix descriptor of a K-major plane tile stage without swizzle, at k-step
-// `smem`: start address, leading byte offset 128 (the next 16 contraction
-// bytes), stride byte offset 1024 (the next 8 rows of N), in 16-byte units.
-__device__ __forceinline__ uint64_t plane_desc(const void* smem) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32);
-}
-
-// d += a (64 x 32 int8 of the warpgroup, registers) * b (32 x N int8,
-// K-major in shared memory), int32, N = 32 * kD. Warp w of the group holds
-// rows 16w + g and 16w + g + 8 (g = lane / 4, t = lane % 4): a[0] = words t
-// of row g, a[1] of row g + 8, a[2] / a[3] words t + 4 of the same rows;
-// d[4i + q] = row g + 8 (q / 2), column 8i + 2t + q % 2.
-__device__ __forceinline__ void wgmma_s8(int (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
-        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
-        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
-        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
-        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
-        "+r"(d[62]), "+r"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_s8(int (&d)[80], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
-      "{%80, %81, %82, %83}, %84, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
-        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
-        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
-        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
-        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
-        "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
-        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]),
-        "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
-      : "memory");
-}
-
 // kPointwise (K1d's first pass): the operand value is the Montgomery product
 // mont_mul(x[0][i], x[1][i]) of two operands read at the same index (both
 // any u32, one limb each), taken in the load before the digit split.
@@ -277,146 +173,51 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[80], const uint32_t (&a)[4], u
 template <int kD, int kRegime, bool kScaled, bool kPointwise = false, bool kPresplit = false>
 __global__ void __launch_bounds__(kThreads, kD == 4 ? 2 : 1) matmod_pass(Pass a) {
   static_assert(!(kPointwise && kPresplit), "the presplit operand is one array of planes");
-  constexpr int kPS = plane_stage(kD);
   extern __shared__ __align__(128) uint32_t smem[];
-  uint32_t* ps = smem;                   // [kStages][kPS] plane tiles (the packed image)
-  uint32_t* xs = smem + kStages * kPS;   // [kStages][kAStage] operand words
   const int z = blockIdx.z;
   const int c = z / a.nb;        // channel
   const int blk = z - c * a.nb;  // block of the channel
   const int pz = a.planes_blk ? z : c;
   const int row0 = blockIdx.x * kTM;
   const int o0 = blockIdx.y * kTO;
-  const int tid = threadIdx.x;
-  const int g = (tid & 31) >> 2, t = tid & 3;
-  const int wrow = (tid >> 5) * 16;  // first row of the warp: group (tid / 128) * 64 + 16 w
-  const int kw = a.n_limbs * a.k1;
-  const int nk = kw / kKC;
-  // this block's plane tiles: [pz][output tile][stage][kPS]
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int wrow = (threadIdx.x >> 5) * 16;  // the warp's first row (as in sm90::mainloop)
+  // this block's plane tiles: [pz][output tile][stage][plane_stage]
+  const int nk = a.n_limbs * a.k1 / kKC;
   const uint32_t* planes = reinterpret_cast<const uint32_t*>(a.planes) +
-                           ((size_t)pz * (a.o / kTO) + blockIdx.y) * nk * kPS;
+                           ((size_t)pz * (a.o / kTO) + blockIdx.y) * nk * plane_stage(kD);
   const long long chan = (long long)c * a.x_chan + (long long)blk * a.x_blk;
-  const bool rowmajor = a.s_k == 1;  // each row's contraction words are contiguous
   uint32_t pw_p = 0, pw_neginv = 0;  // p and -p^-1 of the channel (kPointwise)
   if constexpr (kPointwise) {
     pw_p = a.scal[kScalWords * c];
     pw_neginv = a.scal[kScalWords * c + 3];
   }
-
-  // The four 16-byte operand chunks this thread fills in every stage:
-  // contiguous rows, chunk q of row r = tid / 8 + 32 i; strided, rows
-  // 4 (tid % 32) .. + 3 of word tid / 32 + 8 i. x_src is the element offset
-  // of the chunk's first value in the stage of contraction word 0.
-  int x_dst[4];
-  long long x_src[4];
-  unsigned x_ok = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int r, w;
-    if (rowmajor) {
-      r = (tid >> 3) + 32 * i;
-      w = 4 * (tid & 7);
-      x_dst[i] = r * kARow + w;
+  // the operand chunk at `at` of the plain-loading passes
+  auto load = [&](long long at, int i0, int) {
+    if constexpr (kPointwise) {
+      const uint4 l = *reinterpret_cast<const uint4*>(a.x[0] + at);
+      const uint4 r = *reinterpret_cast<const uint4*>(a.x[1] + at);
+      return make_uint4(mont_mul(l.x, r.x, pw_p, pw_neginv), mont_mul(l.y, r.y, pw_p, pw_neginv),
+                        mont_mul(l.z, r.z, pw_p, pw_neginv), mont_mul(l.w, r.w, pw_p, pw_neginv));
     } else {
-      r = 4 * (tid & 31);
-      w = (tid >> 5) + 8 * i;
-      x_dst[i] = w * kAWord + r;
-    }
-    const int m = row0 + r;
-    x_src[i] = 0;
-    if (m < a.total_rows) {
-      const int b = m / a.rows_per_poly;
-      const int j = m - b * a.rows_per_poly;
-      x_src[i] = chan + (long long)b * a.x_b + (long long)j * a.s_r + (long long)w * a.s_k;
-      x_ok |= 1u << i;
-    }
-  }
-
-  auto load_stage = [&](int s, int kt) {
-    const int k0 = kt * kKC;
-    const int limb = k0 / a.k1;  // a stage never straddles two limbs (k1 % kKC == 0)
-    const int i0 = k0 - limb * a.k1;
-    const uint32_t* xl = limb == 0 ? a.x[0] : limb == 1 ? a.x[1] : limb == 2 ? a.x[2] : a.x[3];
-    uint32_t* xd = xs + s * kAStage;
+      // kPresplit: value i0 + w + u of the row that starts at element
+      // at - i0 - w has its digit e at byte 4 * (row start) + e * k1 +
+      // (i0 + w + u) of the plane array; the bytes are the xor-128 pattern
+      // already, so undo the xor the fragment read applies
+      const int w = 4 * (threadIdx.x & 7);
+      const uint8_t* xb =
+          reinterpret_cast<const uint8_t*>(a.x[0]) + 4 * (at - i0 - w) + i0 + w;
+      uint32_t u[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const bool ok = (x_ok >> i) & 1u;
-      if constexpr (kPointwise || kPresplit) {  // contiguous rows (s_k == 1)
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (ok) {
-          const long long at = x_src[i] + i0;
-          if constexpr (kPointwise) {
-            const uint4 l = *reinterpret_cast<const uint4*>(a.x[0] + at);
-            const uint4 r = *reinterpret_cast<const uint4*>(a.x[1] + at);
-            v = make_uint4(mont_mul(l.x, r.x, pw_p, pw_neginv), mont_mul(l.y, r.y, pw_p, pw_neginv),
-                           mont_mul(l.z, r.z, pw_p, pw_neginv), mont_mul(l.w, r.w, pw_p, pw_neginv));
-          } else {
-            // value i0 + w + u of row j has its digit e at byte 4 * (row start)
-            // + e * k1 + (i0 + w + u) of the plane array; the bytes are the
-            // xor-128 pattern already, so undo the xor the fragment read applies
-            const int w = 4 * (tid & 7);
-            const uint8_t* xb =
-                reinterpret_cast<const uint8_t*>(a.x[0]) + 4 * (x_src[i] - w) + i0 + w;
-            uint32_t u[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              u[e] = ((uint32_t)xb[e] | ((uint32_t)xb[a.k1 + e] << 8) |
-                      ((uint32_t)xb[2 * a.k1 + e] << 16) | ((uint32_t)xb[3 * a.k1 + e] << 24)) ^
-                     kDigitXor;
-            v = make_uint4(u[0], u[1], u[2], u[3]);
-          }
-        }
-        *reinterpret_cast<uint4*>(xd + x_dst[i]) = v;
-      } else {
-        cp_async16(xd + x_dst[i], xl + x_src[i] + (long long)i0 * a.s_k, ok);
-      }
+      for (int e = 0; e < 4; ++e)
+        u[e] = ((uint32_t)xb[e] | ((uint32_t)xb[a.k1 + e] << 8) |
+                ((uint32_t)xb[2 * a.k1 + e] << 16) | ((uint32_t)xb[3 * a.k1 + e] << 24)) ^
+               sm90::kDigitXor;
+      return make_uint4(u[0], u[1], u[2], u[3]);
     }
-    // the stage's plane tile is one contiguous packed block: chunk tid + 256 i
-    uint32_t* pd = ps + s * kPS + 4 * tid;
-    const uint32_t* src = planes + (size_t)kt * kPS + 4 * tid;
-#pragma unroll
-    for (int i = 0; i < kD; ++i) cp_async16(pd + 4 * kThreads * i, src + 4 * kThreads * i, true);
   };
-
-  // A fragment addresses: word (row r, word w) at r * rs + w * ws of a stage
-  const int rs = rowmajor ? kARow : 1;
-  const int ws = rowmajor ? 1 : kAWord;
-  const int a_lane = (wrow + g) * rs + t * ws;
-
   int acc[kD * kTO / 2];  // the warpgroup's m64 x (kD * kTO) int32 tile, this thread's part
-#pragma unroll
-  for (int i = 0; i < kD * kTO / 2; ++i) acc[i] = 0;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
-#pragma unroll 1
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();  // this thread's copies of stage kt are in
-    fence_proxy_async();           // and visible to the tensor cores' reads
-    __syncthreads();               // everyone's are, and stage kt - 1 is consumed
-    if (kt + kStages - 1 < nk) load_stage((kt + kStages - 1) % kStages, kt + kStages - 1);
-    cp_async_commit();
-    const int s = kt % kStages;
-    const uint32_t* xa = xs + s * kAStage + a_lane;
-    uint32_t af[kKC / 8][4];  // the four k32 steps' A fragments: operand words, digit split
-#pragma unroll
-    for (int ks = 0; ks < kKC / 8; ++ks) {
-      const uint32_t* xr = xa + 8 * ks * ws;
-      af[ks][0] = xr[0] ^ kDigitXor;
-      af[ks][1] = xr[8 * rs] ^ kDigitXor;
-      af[ks][2] = xr[4 * ws] ^ kDigitXor;
-      af[ks][3] = xr[8 * rs + 4 * ws] ^ kDigitXor;
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < kKC / 8; ++ks)
-      wgmma_s8(acc, af[ks], plane_desc(ps + s * kPS + 64 * ks));  // 2 chunks of 128 B a k-step
-    wgmma_commit();
-    wgmma_wait_all();  // the A registers and this stage's tiles are free again
-  }
+  sm90::mainloop<kD, kTO, kPointwise || kPresplit>(acc, a, chan, row0, planes, smem, load);
 
   const uint32_t* sc = a.scal + kScalWords * c;
   const uint32_t p = sc[0], c32 = sc[1], c32_sh = sc[2], p_neginv = sc[3];
@@ -494,8 +295,6 @@ __global__ void __launch_bounds__(kThreads, kD == 4 ? 2 : 1) matmod_pass(Pass a)
 // and aligned output pairs where the outputs of a row are contiguous. n_x
 // operand pointers are read 16 bytes at a time (the presplit planes byte by
 // byte: none).
-inline bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
-
 inline bool tiles_fit(const Pass& a, bool rows_only, int n_x) {
   if (a.k1 % kKC || a.o % kTO || a.total_rows <= 0) return false;
   if (a.s_k == 1 ? a.s_r % 4 != 0
@@ -505,8 +304,8 @@ inline bool tiles_fit(const Pass& a, bool rows_only, int n_x) {
   if (a.t_o == 1 && ((a.out_b | a.out_chan | a.out_blk | a.t_r) % 2 || (uintptr_t)a.out & 7))
     return false;
   for (int l = 0; l < n_x; ++l)
-    if (!aligned16(a.x[l])) return false;
-  return aligned16(a.planes);
+    if (!sm90::aligned16(a.x[l])) return false;
+  return sm90::aligned16(a.planes);
 }
 
 template <int kD, int kRegime, bool kScaled, bool kPointwise = false, bool kPresplit = false>

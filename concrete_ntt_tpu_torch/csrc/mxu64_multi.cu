@@ -22,23 +22,25 @@
 // [C, B, nb * n] with per-block tables.
 //
 // Design. Each transform is two launches of matmod64_pass (matmod64_pass.cuh,
-// shared with K5/K6) with z = channel * nb + block on blockIdx.z: per-channel
-// planes of the shared row operators and the 16-word scalar record are indexed
-// by the channel, the per-block column operators and diagonals by z; K7a's
-// operand has channel stride 0. All blocks of all channels go in one launch
-// pair, reading and writing their slices in place, where the TPU code
-// launches one kernel a block on sliced copies. K7d's first pass is the
-// pointwise instance of the template (kPointwise): each operand word is a
-// limb of mont_mul(fl, fr) for any u64 fl, fr, with the overflow of the REDC
-// sum kept as the limb-pair code keeps it.
+// shared with K5/K6: int8 tensor cores through wgmma) with z = channel * nb +
+// block on blockIdx.z: per-channel planes of the shared row operators and the
+// 16-word scalar record are indexed by the channel, the per-block column
+// operators and diagonals by z; K7a's operand has channel stride 0. All
+// blocks of all channels go in one launch pair, reading and writing their
+// slices in place, where the TPU code launches one kernel a block on sliced
+// copies. K7d's first pass is the pointwise instance of the template
+// (kPointwise): each operand word is a limb of mont_mul(fl, fr) for any u64
+// fl, fr, with the overflow of the REDC sum kept as the limb-pair code keeps
+// it, computed in the load with plain loads and stores (cp.async cannot).
 //
 // Bound at n = 2^14, B = 8, three 50-bit channels (D = 7, 8 operand planes
 // in the first pass and 7 non-zero ones in the second): K7a needs 3 x 2 x
-// 1024·256·7·128 = 1.4e9 dp4a (5.6e9 int8 MACs) against about 12 MiB of
+// 1024 x (8 x 128) x (7 x 128) = 5.6e9 int8 MACs against about 12 MiB of
 // memory traffic (operand, scratch both ways, result, 5.3 MiB of operator
-// tables that L2 holds): bound by integer-pipe throughput. K7d adds three 64 x 64-bit
-// multiply-high chains per loaded operand word, and recomputes the product
-// for the lo and the hi limb stage and for each of the o / 32 output tiles.
+// tables that L2 holds): bound by the contraction's rate. K7d adds three 64 x
+// 64-bit multiply-high chains per loaded operand word, and recomputes the
+// product for the lo and the hi limb stage and for each of the o / 16 output
+// tiles.
 
 #include "matmod64_pass.cuh"
 

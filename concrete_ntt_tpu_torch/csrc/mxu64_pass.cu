@@ -18,25 +18,26 @@
 // fusion to 128 lanes are not carried over: a CUDA launch has neither limit.
 //
 // Design. Both are launches of matmod64_pass (matmod64_pass.cuh, shared with
-// K7), instantiated per (digit planes, regime, scaled) and chosen at run
-// time from the host's n_d and mode. K5 is two launches: the mid-pass
-// intermediate (any-u64 representatives, a limb pair) goes through the
-// wrapper's two scratch tensors and the transpose is a stride of the second
-// pass's loads. With block tables (nb > 1) the block index is a grid axis
-// (z = block; matmod64_pass.cuh): one launch pair serves all nb blocks, each
-// reading its slice of the [B, nb * n] operand in place and writing its slice
-// of the result, where the TPU code launches one kernel a block on sliced
-// copies and concatenates. The column operators A_b / A_inv,b and the
-// diagonals are stacked over the block, F / G and the scalar record are one.
+// K7: int8 tensor cores through wgmma m64nNk32 with N = 16 x the digit
+// planes, a three-stage cp.async ring), instantiated per (digit planes,
+// regime, scaled) and chosen at run time from the host's n_d and mode. K5 is
+// two launches: the mid-pass intermediate (any-u64 representatives, a limb
+// pair) goes through the wrapper's two scratch tensors and the transpose is a
+// stride of the second pass's loads. With block tables (nb > 1) the block
+// index is a grid axis (z = block; matmod64_pass.cuh): one launch pair serves
+// all nb blocks, each reading its slice of the [B, nb * n] operand in place
+// and writing its slice of the result, where the TPU code launches one kernel
+// a block on sliced copies and concatenates. The column operators A_b /
+// A_inv,b and the diagonals are stacked over the block, F / G and the scalar
+// record are one.
 //
-// Bound at n = 2^14, B = 16: K5 fwd needs 2048·256·D·128 dp4a a pass, 1.2e9
-// for both with D = 9 (Goldilocks; 4.8e9 int8 MACs) and 0.94e9 with D = 7,
+// Bound at n = 2^14, B = 16: K5 fwd is 2048 x (8 x 128) x (D x 128) int8
+// MACs a pass, 4.8e9 for both with D = 9 (Goldilocks) and 3.8e9 with D = 7,
 // against about 8 MiB of memory traffic (operand, scratch both ways, result,
-// and 2 to 2.5 MiB of operator tables that L2 holds): bound by integer-pipe
-// throughput, not by bytes. The epilogue adds three to six 64 x 64-bit
-// multiplies per output value (one output per 2·K dp4a·D). This first kernel
-// contracts with __dp4a on the CUDA cores; int8 tensor-core tiles are later
-// work.
+// and 2 to 2.5 MiB of operator tables that L2 holds): bound by the
+// contraction's rate, not by bytes. The epilogue adds three to six 64 x
+// 64-bit multiplies per output value. A pass of 2048 rows is 16 row tiles x
+// 8 output tiles = 128 blocks of 128 rows x 16 outputs on the card's 132 SMs.
 
 #include "matmod64_pass.cuh"
 
@@ -167,3 +168,7 @@ extern "C" int k6_pass(const void* x_lo, const void* x_hi, int batch, int rows, 
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(scaled ? launch_any<true>(a, n_d, mode, s) : launch_any<false>(a, n_d, mode, s));
 }
+
+// Dynamic shared memory of one pass block with n_d matrix digit planes (the
+// ring of operand and plane stages), for the build report.
+extern "C" int k64_pass_smem_bytes(int n_d) { return mxu64::smem_bytes(n_d); }

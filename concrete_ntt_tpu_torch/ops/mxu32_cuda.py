@@ -291,11 +291,12 @@ def pack_planes(planes: np.ndarray, k: int) -> np.ndarray:
 _TILE_O, _STAGE_K = 32, 32
 
 
-def pack_planes_kmajor(planes: np.ndarray, k: int, n_d: int) -> np.ndarray:
-    """[C, 4L*k, D*O] int8 planes -> [C, O/32, L*k/32, D*32*32] int32 words,
-    the tiles of the 32-bit GEMM pass (`csrc/matmod_pass.cuh`) in the order
+def pack_planes_kmajor(planes: np.ndarray, k: int, n_d: int, tile_o: int = _TILE_O) -> np.ndarray:
+    """[C, 4L*k, D*O] int8 planes -> [C, O/T, L*k/32, D*T*32] int32 words,
+    the tiles of T = `tile_o` outputs of a GEMM pass (32 for
+    `csrc/matmod_pass.cuh`, 16 for `csrc/matmod64_pass.cuh`) in the order
     its wgmma reads them from shared memory: for output tile ot and stage kt,
-    tile row (N) r = d*32 + j is column d*O + 32*ot + j of the plane words
+    tile row (N) r = d*T + j is column d*O + T*ot + j of the plane words
     of `pack_planes` (word (l*k + i, col): the four plane rows that meet the
     four digits of operand value i of limb l), and its 32 words are k-words
     32*kt .. + 31, K-major: 8-row groups of eight 16-byte chunks (four words)
@@ -304,13 +305,13 @@ def pack_planes_kmajor(planes: np.ndarray, k: int, n_d: int) -> np.ndarray:
     words = pack_planes(planes, k)  # [C, L*k, D*O]
     c, kw, do = words.shape
     o = do // n_d
-    assert n_d * o == do and o % _TILE_O == 0 and kw % _STAGE_K == 0, "untileable planes"
-    w = words.reshape(c, kw // _STAGE_K, 8, 4, n_d, o // _TILE_O, _TILE_O // 8, 8)
+    assert n_d * o == do and o % tile_o == 0 and kw % _STAGE_K == 0, "untileable planes"
+    w = words.reshape(c, kw // _STAGE_K, 8, 4, n_d, o // tile_o, tile_o // 8, 8)
     # axes: C, stage, chunk, word, digit, output tile, 8-row group, row -> C,
     # output tile, stage, digit, 8-row group, chunk, row, word
     w = w.transpose(0, 5, 1, 4, 6, 2, 7, 3)
-    return np.ascontiguousarray(w).reshape(c, o // _TILE_O, kw // _STAGE_K,
-                                          n_d * _TILE_O * _STAGE_K)
+    return np.ascontiguousarray(w).reshape(c, o // tile_o, kw // _STAGE_K,
+                                          n_d * tile_o * _STAGE_K)
 
 
 def _flat_blocks(a: np.ndarray, lead: int) -> np.ndarray:
@@ -612,11 +613,14 @@ def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
 
 
-def _ptrs16(*tensors):
-    """`_ptrs` for the 32-bit GEMM pass, which copies 16-byte chunks."""
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("kernel operands must start on a 16-byte boundary (the GEMM pass "
-                         "copies 16-byte chunks): pass a fresh or cloned tensor")
+def _ptrs16(*tensors, names: str = ""):
+    """`_ptrs` for the GEMM passes, which copy 16-byte chunks. `names`, one
+    word a tensor, names the misaligned tensor in the error."""
+    labels = names.split() or ["kernel operands"] * len(tensors)
+    for label, t in zip(labels, tensors, strict=True):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{label} must start on a 16-byte boundary (the GEMM pass "
+                             "copies 16-byte chunks): pass a fresh or cloned tensor")
     return _ptrs(*tensors)
 
 

@@ -48,12 +48,19 @@ operand digit planes (`mxu64._wide_col_planes`), a launch counts under
 All are CUDA C++ for sm_90a built with nvcc at first use (ops/cuda_build.py)
 and called through ctypes: K5/K6 in `csrc/mxu64_pass.cu`, K7 in
 `csrc/mxu64_multi.cu`, both launching the one GEMM pass of
-`csrc/matmod64_pass.cuh` (the 64-bit sibling of `matmod_pass.cuh`: digit
-split as one xor per limb word, four digits per __dp4a against host-packed
-plane words, 5 to 9 int32 accumulators per output, a carry-exact 64-bit
-epilogue in four regimes). A mid-pass operand bounded below 2^56 (the plane
-diet: 7 operand planes for the 50-bit primes) gets a zero eighth plane row
-when the planes are packed, so every pass contracts two words per value.
+`csrc/matmod64_pass.cuh`, the 64-bit sibling of `matmod_pass.cuh`: the int8
+tensor cores through Hopper's warpgroup product (`wgmma` m64nNk32 s8, N = 16
+outputs x 5 to 9 digit planes), the operand word xored with 0x80808080 as
+one A register (the digit split stays one xor), the planes K-major from
+shared memory in tiles of 16 outputs that `pack_planes64` lays out on the
+host as the descriptor reads them, a three-stage cp.async ring, 5 to 9
+int32 accumulators per output and a carry-exact 64-bit epilogue in four
+regimes. A mid-pass operand bounded below 2^56 (the plane diet: 7 operand
+planes for the 50-bit primes) gets a zero eighth plane row when the planes
+are packed, so every pass contracts two words per value (four for a u128
+operand). Every operand, table and output pointer the pass reads or writes
+in 16- or 8-byte pieces must be 16-byte aligned (`_ptrs16` checks and names
+the tensor).
 
 Routing is by the device of the operand: a CUDA tensor launches the kernel
 or raises, a CPU tensor runs the plain torch version (`*_plain`, built on
@@ -77,7 +84,7 @@ import numpy as np
 import torch
 
 from . import cuda_build, mxu64
-from .mxu32_cuda import _call, _check_operands, _ptrs, pack_planes
+from .mxu32_cuda import _STAGE_K, _call, _check_operands, _ptrs16, pack_planes_kmajor
 from .u32 import to_i64, to_u32
 
 LAUNCHES = dict.fromkeys(
@@ -86,6 +93,7 @@ LAUNCHES = dict.fromkeys(
      "fwd_multi_perchannel64_hyb", "inv_multi64_hyb", "pointwise_inv_multi64_hyb"), 0)
 
 MIN_N, MAX_N = 1 << 11, 1 << 15
+TILE_O = 16  # outputs a block of csrc/matmod64_pass.cuh (N = 16 x the digit planes)
 _MODES = {"shoup": 0, "mont": 1, "gl": 3}  # mont with p >= 2^63 is 2
 
 
@@ -161,16 +169,20 @@ def scalar_record(n: int, p: int, tbl: dict | None = None) -> np.ndarray:
     return np.array(words + [c64_mont & 0xFFFFFFFF, c64_mont >> 32, 0, 0], dtype=np.uint32)
 
 
-def pack_planes64(planes: np.ndarray, k: int) -> np.ndarray:
-    """[C, E*k, D*O] int8 planes (E = 7 or 8 operand planes) -> [C, 2*k, D*O]
-    int32 words, `mxu32_cuda.pack_planes` after padding E to 8 with zero
-    rows: the digit that meets them (the top byte of a value < 2^56, xor
-    0x80) is multiplied by 0, and cvec needs no change."""
+def pack_planes64(planes: np.ndarray, k: int, n_d: int) -> np.ndarray:
+    """[C, E*k, D*O] int8 planes (E = 5 to 8 operand planes of a limb pair,
+    or 16 of a u128 operand) -> [C, O/16, L*k/32, D*16*32] int32 words (L =
+    2 or 4 limbs), the K-major tiles of `csrc/matmod64_pass.cuh`:
+    `mxu32_cuda.pack_planes_kmajor` with 16-output tiles after padding E to 8
+    with zero rows (the digit that meets them, the top byte of a value
+    < 2^56 xor 0x80, is multiplied by 0, and cvec needs no change). A ring
+    stage of 32 contraction words must not straddle two limbs: k % 32 == 0."""
     c, ek, do = planes.shape
-    if ek != 8 * k:
+    assert k % _STAGE_K == 0, "a ring stage of 32 words must lie in one limb"
+    if ek < 8 * k:
         assert ek % k == 0 and 4 < ek // k < 8, "5 to 8 operand planes"
         planes = np.concatenate([planes, np.zeros((c, 8 * k - ek, do), np.int8)], axis=1)
-    return pack_planes(planes, k)
+    return pack_planes_kmajor(planes, k, n_d, TILE_O)
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +201,7 @@ def _pass_tables(n: int, p: int, which: str, scale: int, device: str):
     n1, n2 = mxu64.four_step_factors(n)
     k = n1 if which in ("A", "Ainv") else n2
     return {
-        "planes": _to_dev(pack_planes64(planes[None], k), device),
+        "planes": _to_dev(pack_planes64(planes[None], k, cvec.shape[0]), device),
         "cvec": _to_dev(cvec, device),
         "scal": _to_dev(scalar_record(n, p).view(np.int32), device),
         "k": k,
@@ -230,15 +242,16 @@ def _kernel_tables(n: int, primes: tuple, scales: tuple, direction: str, device:
     k1, k2 = (n1, n2) if direction == "fwd" else (n2, n1)
     lead = 1 if hyb is None else 2
     l1, l2 = (lead, 1) if direction == "fwd" else (1, lead)  # A_b / Ainv_b are per block
+    n_d = cvec1.shape[-2]
     return {
-        "planes1": _to_dev(pack_planes64(_flat_blocks(planes1, l1), k1), device),
+        "planes1": _to_dev(pack_planes64(_flat_blocks(planes1, l1), k1, n_d), device),
         "cvec1": _to_dev(_flat_blocks(cvec1, l1), device),
-        "planes2": _to_dev(pack_planes64(_flat_blocks(planes2, l2), k2), device),
+        "planes2": _to_dev(pack_planes64(_flat_blocks(planes2, l2), k2, n_d), device),
         "cvec2": _to_dev(_flat_blocks(cvec2, l2), device),
         # [C * nb, 8, R, O]
         "diag": _to_dev(np.stack([_flat_blocks(d, lead) for d in diag], axis=1), device),
         "scal": _to_dev(tabs["scalars"].view(np.int32), device),
-        "n_d": cvec1.shape[-2],
+        "n_d": n_d,
     }
 
 
@@ -258,14 +271,16 @@ def _hyb_tables(n: int, p: int, n_h: int, scale: int, direction: str, device: st
         per_block = [m if m is not None else t["Ainv"]
                      for m, t in zip(stagesplit._ainv_mats(n, p, n_h, scale), blocks)]
         shared, diag = blocks[0]["G"], "e"
+    n_d = shared[1].shape[0]
     return {
-        "planes_blk": _to_dev(pack_planes64(np.stack([m[0] for m in per_block]), n1), device),
+        "planes_blk": _to_dev(pack_planes64(np.stack([m[0] for m in per_block]), n1, n_d),
+                              device),
         "cvec_blk": _to_dev(np.stack([m[1] for m in per_block]), device),
-        "planes_sh": _to_dev(pack_planes64(shared[0][None], n2), device),
+        "planes_sh": _to_dev(pack_planes64(shared[0][None], n2, n_d), device),
         "cvec_sh": _to_dev(shared[1], device),
         "diag": _to_dev(np.stack([np.stack(t[diag]) for t in blocks]), device),  # [nb, 8|2, R, O]
         "scal": _to_dev(scalar_record(n_h, p, blocks[0]).view(np.int32), device),
-        "n_d": shared[1].shape[0],
+        "n_d": n_d,
     }
 
 
@@ -419,6 +434,8 @@ def _pass_lib() -> ctypes.CDLL:
         lib.k5_fwd_u128.restype = ctypes.c_int
         lib.k6_pass.argtypes = [_P, _P, _I, _I, _I, _I, *[_P] * 4, _I, _I, _I, _P, _P, _P]
         lib.k6_pass.restype = ctypes.c_int
+        lib.k64_pass_smem_bytes.argtypes = [_I]
+        lib.k64_pass_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -430,6 +447,11 @@ def _multi_lib() -> ctypes.CDLL:
         lib.k7_inv_multi.argtypes = [*[_P] * 4, _I, _I, _I, _I, _I, *[_P] * 6, _I, *[_P] * 5]
         lib.k7_inv_multi.restype = ctypes.c_int
     return lib
+
+
+# names of the tensors `_ptrs16` checks, for its error
+_TABS6 = "planes1 cvec1 planes2 cvec2 diag scal"
+_OUTS = "scratch_lo scratch_hi out_lo out_hi"
 
 
 def _check_pair(limbs, ndim: int) -> tuple:
@@ -455,7 +477,7 @@ def _single(name: str, limbs: tuple, dev, n_blk: int, nb: int, tabs6: tuple, n_d
     if b == 0:
         return out
     scratch = tuple(torch.empty_like(o) for o in out)
-    ptrs = _ptrs(*limbs, *tabs6, *scratch, *out)
+    ptrs = _ptrs16(*limbs, *tabs6, *scratch, *out, names=f"x_lo x_hi {_TABS6} {_OUTS}")
     fn = _pass_lib().k5_fwd if name.startswith("fwd") else _pass_lib().k5_inv
     err = _call(dev, fn, ptrs[0], ptrs[1], b, n1, n2, nb, *ptrs[2:8], n_d, mode(p), *ptrs[8:])
     LAUNCHES[name] += 1
@@ -491,7 +513,8 @@ def _wide_tables(n: int, p: int, device: str):
     """The u128 column pass's packed planes (16 operand planes) and cvec."""
     planes, cvec = mxu64._wide_col_planes(n, p, 4)
     n1 = mxu64.four_step_factors(n)[0]
-    return _to_dev(pack_planes(planes[None], n1), device), _to_dev(cvec, device)
+    return (_to_dev(pack_planes64(planes[None], n1, cvec.shape[0]), device),
+            _to_dev(cvec, device))
 
 
 def _fwd_u128(limbs: tuple, n: int, p: int) -> tuple:
@@ -508,8 +531,8 @@ def _fwd_u128(limbs: tuple, n: int, p: int) -> tuple:
     if b == 0:
         return out
     scratch = tuple(torch.empty_like(o) for o in out)
-    ptrs = _ptrs(*limbs, planes1, cvec1, t2["planes"], t2["cvec"], diag, t2["scal"], *scratch,
-                 *out)
+    ptrs = _ptrs16(*limbs, planes1, cvec1, t2["planes"], t2["cvec"], diag, t2["scal"], *scratch,
+                   *out, names=f"x0 x1 x2 x3 {_TABS6} {_OUTS}")
     err = _call(dev, _pass_lib().k5_fwd_u128, *ptrs[:4], b, n1, n2, *ptrs[4:10], t2["n_d"],
                 mode(p), *ptrs[10:])
     LAUNCHES["fwd64_u128"] += 1
@@ -596,7 +619,8 @@ def pass_matmod64(limbs: tuple, *, n: int, p: int, which: str, diag_slices=(),
     if b == 0 or rows == 0:
         return out  # nothing to compute; an empty grid is not a valid launch
     dg = diag if diag is not None else tabs["scal"]  # not read by a canonical pass
-    ptrs = _ptrs(*limbs, tabs["planes"], tabs["cvec"], dg, tabs["scal"], *out)
+    ptrs = _ptrs16(*limbs, tabs["planes"], tabs["cvec"], dg, tabs["scal"], *out,
+                   names="x_lo x_hi planes cvec diag scal out_lo out_hi")
     err = _call(dev, _pass_lib().k6_pass, ptrs[0], ptrs[1], b, rows, k, tabs["o"], *ptrs[2:6],
                 tabs["n_d"], mode(p), int(diag is not None), ptrs[6], ptrs[7])
     LAUNCHES["pass_matmod64"] += 1
@@ -619,15 +643,14 @@ def _multi(name: str, x: tuple, y: tuple | None, perchannel: bool, dev, primes: 
     if b == 0:
         return out
     scratch = tuple(torch.empty_like(o) for o in out)
-    tp = _ptrs(tabs["planes1"], tabs["cvec1"], tabs["planes2"], tabs["cvec2"], tabs["diag"],
-               tabs["scal"])
-    rest = _ptrs(*scratch, *out)
-    xp = _ptrs(*x)
+    tp = _ptrs16(*(tabs[k] for k in _TABS6.split()), names=_TABS6)
+    rest = _ptrs16(*scratch, *out, names=_OUTS)
+    xp = _ptrs16(*x, names="x_lo x_hi")
     if direction == "fwd":
         err = _call(dev, _multi_lib().k7_fwd_multi, *xp, int(perchannel), b, n1, n2, n // size,
                     c, *tp, tabs["n_d"], *rest)
     else:
-        yp = _ptrs(*y) if y is not None else (None, None)
+        yp = _ptrs16(*y, names="y_lo y_hi") if y is not None else (None, None)
         err = _call(dev, _multi_lib().k7_inv_multi, *xp, *yp, b, n1, n2, n // size, c, *tp,
                     tabs["n_d"], *rest)
     LAUNCHES[name + ("_hyb" if n_h is not None else "")] += 1

@@ -40,6 +40,18 @@ REGIMES64 = {
     "p64": _lp(1 << 15, 1, 1 << 63, (1 << 64) - 1),
     "p62": _lp(1 << 16, 1, 1 << 61, 1 << 62),
 }
+# one prime for each of the eight (digit planes, epilogue regime) instances
+# of the 64-bit GEMM pass (csrc/mxu64_pass.cu launch_any); 2^16 | p - 1
+INSTANCES64 = {
+    "shoup-d5": _lp(1 << 16, 1, 1 << 33, 1 << 39),
+    "shoup-d6": _lp(1 << 16, 1, 1 << 40, 1 << 47),
+    "shoup-d7": PRIMES52[0],
+    "shoup-d8": _lp(1 << 16, 1, 1 << 61, 1 << 62),
+    "montshoup-d8": _lp(1 << 16, 1, 1 << 62, 1 << 63),
+    "montmont-d8": _lp(1 << 16, 1, 1 << 63, 3 << 62),
+    "montmont-d9": _lp(1 << 16, 1, 1 << 63, (1 << 64) - 1),
+    "gl-d9": GOLDILOCKS,
+}
 # the same five regimes with 2^18 | p - 1: NTT primes up to n = 2^17
 HYB64 = {
     "goldilocks": GOLDILOCKS,
@@ -193,9 +205,14 @@ def _same_pair(got, want):
         _same(g, w)
 
 
-@pytest.mark.parametrize("regime", list(REGIMES64))
-def test_k5_matches_plain_on_card(gen, cuda_device, regime):
-    p = REGIMES64[regime]
+@pytest.mark.parametrize("instance", list(INSTANCES64))
+def test_k5_matches_plain_on_card(gen, cuda_device, instance):
+    """Each of the eight instances, scaled first pass and canonical second,
+    at 2^14 and at 2^11 with a ragged last row tile (96 and 192 rows)."""
+    p = INSTANCES64[instance]
+    kd, mode = instance.split("-")[1], instance.split("-")[0]
+    assert int(kd[1:]) == mxu64._n_dplanes(p)
+    assert {"shoup": 0, "montshoup": 1, "montmont": 2, "gl": 3}[mode] == mxu64_cuda.mode(p)
     for n, b in ((1 << 14, 3), (1 << 11, 3)):
         x = (_u32(gen, (b, n), cuda_device), _u32(gen, (b, n), cuda_device))
         _same_pair(mxu64_cuda.fwd(x, n=n, p=p), mxu64_cuda.fwd_plain(x, n=n, p=p))
@@ -204,9 +221,9 @@ def test_k5_matches_plain_on_card(gen, cuda_device, regime):
                        mxu64_cuda.inv_plain(x, n=n, p=p, scale=s))
 
 
-@pytest.mark.parametrize("regime", list(REGIMES64))
-def test_k6_matches_plain_on_card(gen, cuda_device, regime):
-    p, n, b = REGIMES64[regime], 4096, 3
+@pytest.mark.parametrize("instance", list(INSTANCES64))
+def test_k6_matches_plain_on_card(gen, cuda_device, instance):
+    p, n, b = INSTANCES64[instance], 4096, 3
     tbl = mxu64._tables(n, p)
     n1, n2 = tbl["n1"], tbl["n2"]
     d = tuple(torch.from_numpy(a[: n2 // 2]).to(cuda_device) for a in tbl["d"])
@@ -562,10 +579,10 @@ def test_k1e_presplit_matches_k1b_on_card(gen, cuda_device, n, b):
     _same(got, mxu32_cuda.inv_multi(x, primes, scales))
 
 
-@pytest.mark.parametrize("regime", list(REGIMES64))
+@pytest.mark.parametrize("instance", list(INSTANCES64))
 @pytest.mark.parametrize("n,b", [(1 << 14, 3), (1 << 11, 3)])
-def test_k5_u128_matches_plain_on_card(gen, cuda_device, regime, n, b):
-    p = REGIMES64[regime]
+def test_k5_u128_matches_plain_on_card(gen, cuda_device, instance, n, b):
+    p = INSTANCES64[instance]
     x = tuple(_u32(gen, (b, n), cuda_device) for _ in range(4))
     mxu64_cuda.reset_launch_counts()
     got = mxu64_cuda.fwd(x, n=n, p=p)
@@ -659,8 +676,8 @@ def test_k2_five_digit_planes_on_card(gen, cuda_device):
 
 
 def test_misaligned_operand_raises_on_card(gen, cuda_device):
-    """The pass copies 16-byte chunks: an operand that starts off a 16-byte
-    boundary raises instead of launching."""
+    """The passes copy 16-byte chunks: an operand that starts off a 16-byte
+    boundary raises instead of launching (the 64-bit wrappers name it)."""
     n = 1 << 11
     base = _u32(gen, (2 * n + 1,), cuda_device)
     x = base[1:1 + 2 * n].view(2, n)  # contiguous, 4 bytes past an aligned start
@@ -670,3 +687,9 @@ def test_misaligned_operand_raises_on_card(gen, cuda_device):
     assert mxu32_cuda.LAUNCHES == before
     _same(mxu32_cuda.fwd(x.clone(), n=n, p=BENCH["lt30"]),
           mxu32_cuda.fwd_plain(x, n=n, p=BENCH["lt30"]))
+    p, lo = PRIMES52[0], _u32(gen, (2, n), cuda_device)
+    before = dict(mxu64_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="x_hi must start on a 16-byte"):
+        mxu64_cuda.fwd((lo, x), n=n, p=p)
+    assert mxu64_cuda.LAUNCHES == before
+    _same_pair(mxu64_cuda.fwd((lo, x.clone()), n=n, p=p), mxu64_cuda.fwd_plain((lo, x), n=n, p=p))

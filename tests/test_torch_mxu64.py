@@ -7,10 +7,11 @@ tests/test_pallas_interpret.py): the whole-transform kernel
 `mxu64_pallas.fwd/inv` (K5), the pass kernel `pass_matmod64` (K6) and the
 channel-grid kernels `fwd_multi` / `pointwise_inv_multi` (K7a, K7d); and
 against the XLA engine `mxu64.fwd/inv(scale)` in all five prime regimes. The
-packed-plane layout the CUDA kernel reads is checked by a numpy dp4a
-emulation with 7, 8 and 9 matrix digit planes and the 7-plane operand diet;
-the kernels themselves run in tests/test_torch_cuda.py. Tolerance: exact
-equality everywhere.
+plane words inside the packed tiles the CUDA kernel reads are checked by a
+numpy emulation of four-digit dot products with 7, 8 and 9 matrix digit
+planes and the 7-plane operand diet (the tensor-core fragments by
+tests/test_torch_mma_fragments.py); the kernels themselves run in
+tests/test_torch_cuda.py. Tolerance: exact equality everywhere.
 """
 
 import jax.numpy as jnp
@@ -194,18 +195,23 @@ def test_k7d_needs_the_overflow_branch(rng, monkeypatch):
 @pytest.mark.parametrize("regime", list(REGIMES))
 @pytest.mark.parametrize("which", ["A", "F"])
 def test_packed_planes_dp4a_emulation(rng, regime, which):
-    """The word layout `pack_planes64` gives the kernel: one __dp4a of the
-    operand word (v ^ 0x80808080) against a plane word sums the four digit
-    products of that value, for 7, 8 and 9 matrix planes; F of a 50-bit
-    prime has 7 operand planes, padded with a zero eighth row."""
+    """The plane words inside the K-major tiles of `pack_planes64`: the
+    four digit products (a dp4a) of the operand word (v ^ 0x80808080) and a
+    plane word sum those of that value, for 7, 8 and 9 matrix planes; F of a
+    50-bit prime has 7 operand planes, padded with a zero eighth row."""
     p, n, b = REGIMES[regime], 2048, 2
     tbl = tmx._tables(n, p)
     planes, cvec = tbl[which]
     k = tbl["n1"] if which == "A" else tbl["n2"]
-    n_e = planes.shape[0] // k
+    n_e, n_d = planes.shape[0] // k, cvec.shape[0]
     assert n_e == (8 if which == "A" else tmx._n_eplanes_lazy(p))
-    words = tcu.pack_planes64(planes[None], k)[0]  # [2k, D*O] int32
-    assert words.shape == (2 * k, planes.shape[1]) and words.dtype == np.int32
+    tiles = tcu.pack_planes64(planes[None], k, n_d)[0]  # [O/16, 2k/32, D*16*32] int32
+    o, nk = planes.shape[1] // n_d, 2 * k // 32
+    assert tiles.shape == (o // 16, nk, n_d * 16 * 32) and tiles.dtype == np.int32
+    # tile axes (output tile, stage, digit, 8-row group, chunk, row, word) -> the
+    # plane words [2k, D*O]: row (stage, chunk, word), column (digit, tile, group, row)
+    words = tiles.reshape(o // 16, nk, n_d, 2, 8, 8, 4).transpose(1, 4, 6, 2, 0, 3, 5)
+    words = np.ascontiguousarray(words).reshape(2 * k, n_d * o)
     bound = 4 * p if (which == "F" and n_e == 7) else 1 << 64
     v = rng.integers(0, min(bound, (1 << 64) - 1), (b, k), dtype=np.uint64, endpoint=True)
     limbs = ((v & np.uint64(0xFFFFFFFF)).astype(np.uint32), (v >> np.uint64(32)).astype(np.uint32))
@@ -230,6 +236,22 @@ def test_scalar_record(rng):
                                              (1 << 64) // p, (2 * p) % (1 << 64)]
         assert int(u64[6]) == ((c64 << 64) % p if p >= (1 << 63) else 0) and int(u64[7]) == 0
         assert list(rec[:12]) == [w & 0xFFFFFFFF for w in jpal._scal_vec64(2048, p)]
+
+
+def test_pointer_check_names_the_misaligned_tensor(rng):
+    """The 64-bit wrappers hand every kernel pointer to `_ptrs16` with a name:
+    one that starts off a 16-byte boundary raises with its name (the GEMM
+    pass copies 16-byte chunks); aligned ones give their data pointers."""
+    from concrete_ntt_tpu_torch.ops.mxu32_cuda import _ptrs16
+
+    base = torch.from_numpy(_u32(rng, (2 * 2048 + 1,)))
+    lo, hi = base[:2048].clone(), base[1:2049]  # hi: 4 bytes past an aligned start
+    assert lo.data_ptr() % 16 == 0 and hi.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="x_hi must start on a 16-byte boundary"):
+        _ptrs16(lo, hi, names="x_lo x_hi")
+    with pytest.raises(ValueError, match="kernel operands must start on a 16-byte"):
+        _ptrs16(lo, hi)  # unnamed, as the 32-bit wrappers call it
+    assert _ptrs16(lo, hi.clone(), names="x_lo x_hi")[0] == lo.data_ptr()
 
 
 def test_wrappers_check_operands(rng):
