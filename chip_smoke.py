@@ -7,8 +7,9 @@ Drives the port's paths through their hand-written CUDA kernels:
     (`inv_multi`) of `csrc/mxu32_multi.cu`;
   * prime32: `prime32.Plan(n, p).negacyclic_polymul` in the three prime
     regimes (lt30, lt31, generic), through K2 (four-step `fwd` / `inv`,
-    2048 <= n <= 2^15, p >= 2^26) of `csrc/mxu32_pass.cu` and K4 (butterfly
-    `fwd` / `inv`, n < 2048 or p < 2^26) of `csrc/butterfly32.cu`;
+    2048 <= n <= 2^17, p >= 2^26; tiles for one channel's small grids) of
+    `csrc/mxu32_pass.cu` and K4 (butterfly `fwd` / `inv`, n < 2048 or
+    p < 2^26, up to 2^17 over a cluster of blocks) of `csrc/butterfly32.cu`;
   * rank-local passes: K3 (`pass_matmod`, `csrc/mxu32_pass.cu`) as the
     sharded four-step's local sections call it (the JAX package's
     `parallel/fourstep_mxu.py`: a column pass with the rank's diagonal
@@ -84,12 +85,16 @@ failure:
   2. build   — compiles every kernel source from the checkout with nvcc, one
                process per source, all started together; prints ptxas's
                lines and each GEMM pass instance's (digit planes, regime,
-               epilogue) registers and spills, both GEMM passes' dynamic
-               shared memory and, from `cuobjdump -sass`, each library's
-               GMMA (warpgroup tensor-core products), IMMA (int8 mma.sync)
-               and IDP.4A (dp4a) instructions: the four GEMM libraries
-               (mxu32_*, mxu64_*) must hold GMMA and no IDP.4A, no instance
-               of the 64-bit pass may spill, and a missing cuobjdump fails.
+               epilogue, tile) registers and spills, both GEMM passes'
+               dynamic shared memory (the 32-bit pass's per tile) and, from
+               `cuobjdump -sass`, each library's GMMA (warpgroup tensor-core
+               products), IMMA (int8 mma.sync) and IDP.4A (dp4a)
+               instructions: the four GEMM libraries (mxu32_*, mxu64_*) must
+               hold GMMA and no IDP.4A, no instance of the 64-bit pass nor of
+               K2's small-grid tiles may spill, and a missing cuobjdump fails;
+               K4's instances' registers and spills, and how many of its
+               clusters the card holds at once (cudaOccupancyMaxActiveClusters:
+               the cluster launch must be accepted at 2^14 and 2^17).
   3. parity  — each kernel against its plain torch version on the card,
                exact equality: K1a/K1b at (n, B) = (2^14, 8), (2^14, 5),
                (2^11, 3), (2^15, 2); K2 fwd, fwd_wide, inv (unscaled and
@@ -99,7 +104,9 @@ failure:
                row slice with rank-local diagonals) at the same mid sizes;
                all of K2/K3 for the three bench primes; K4 fwd / inv at n in
                {2, 32, 256, 1024, 2^14, 2^15}, B in {16, 9}, in each regime,
-               and with p = 67043329 at 2^14 and 2^15; K1c (1 and 2 limbs)
+               with p = 67043329 at 2^14 and 2^15, and at 2^16 and 2^17 (B in
+               {16, 9}) in the three regimes and with a prime below 2^26,
+               all with 2^18 | p - 1; K1c (1 and 2 limbs)
                and K1d (full-range u32 operands) with two 30-bit primes at
                (n, B) = (2^14, 16), (2^14, 5), (2^11, 3), (2^15, 2); K5 fwd,
                inv unscaled and scaled for the five regime primes at
@@ -200,10 +207,11 @@ failure:
                three-channel polymul (K1c-hyb +2, K1d-hyb +1) == K1a x2 + K1d
                direct == native_binary64.Plan32's polymul, K1b-hyb +1 and
                K1c-hyb +1 a round trip. K1e and K5-u128 round trips == the
-               operand's residues. The prime32 "stage" tier: Plan(2^16, p)
-               with p < 2^26 (no four-step, no K4 above 2^15) from numpy
-               input on a default plan: polymul, fwd == CPU plain path,
-               inv(fwd(x)) == n·x, no kernel launched. Each path's launch
+               operand's residues. prime32 with p < 2^26 above 2^15 (no
+               four-step; formerly the plain "stage" tier): Plan(2^16, p)
+               from numpy input on a default plan: polymul, fwd == CPU plain
+               path, inv(fwd(x)) == n·x, K4 +4 fwd +2 inv over clusters of
+               blocks and nothing else. Each path's launch
                counters are set to 0 just before it and read just after.
   5. times   — CUDA events, warm-up then the median of reps, each kernel
                beside its plain version (K1d also beside plain mont_mul +
@@ -221,7 +229,8 @@ failure:
                the polymul of every native family at (2^14, 8) and the
                per-channel route's at 1024; the direct 32-bit kernels at
                2^16 (and K2 at 2^17), K2h and K1 with block tables at 2^16,
-               K1e beside K1b, K5 with four limbs; K2 and K1a / K1d direct
+               K1e beside K1b, K5 with four limbs; K4 at (2^14, 16) and
+               (2^16, 16) with a prime below 2^26 (device time too); K2 and K1a / K1d direct
                beside the 32-bit hybrid at 2^15, 2^16 and 2^17, in turns, with
                the hybrid's split; the polymuls above 2^15. Each row of a
                GEMM pass's kernel (csrc/matmod_pass.cuh, 32-bit, and
@@ -278,7 +287,9 @@ K3_SIZES, K3_BATCHES = (2048, 4096, 8192), (16, 3)
 K2_SHAPES = ((1 << 14, 16), (1 << 14, 3), (1 << 15, 2)) + tuple(
     (n, b) for n in K3_SIZES for b in K3_BATCHES)
 RANKS = 4  # ranks of the rank-local pass path, held on one card
-K4_SIZES, K4_BATCHES = (2, 32, 256, 1024, 1 << 14, 1 << 15), (16, 9)
+K4_SIZES, K4_BATCHES = (2, 32, 256, 512, 1024, 1 << 14, 1 << 15), (16, 9)
+K4_BIG = (1 << 16, 1 << 17)  # K4 over clusters above the reference kernel's 2^15
+K4_PAIR = (1 << 14, 80)  # (n, B) where K4 takes clusters of two blocks, as at n = 512
 BENCH_PRIMES = {"lt30": 1073479681, "lt31": 2147352577, "generic": 4293918721}
 N_PROD, B_PROD, N_PROD_SMALL = 1 << 14, 16, 2048
 BOUND = 1 << 20  # Bounded fwd: |value| < 2^19, a PBS decomposition digit's size
@@ -364,7 +375,7 @@ W464_SHAPES = ((1 << 14, 16), (1 << 11, 3))
 INST64_SHAPES = ((1 << 11, 3), (1 << 14, 3))
 B_BIG = 8      # batch of the native plans' polymuls at 2^16 and 2^17 (all rows are checked)
 # the tensor-core pass at its smallest contraction (one ring stage at 2^11) and
-# batches that leave ragged row tiles; the prime32 "stage" tier's batch
+# batches that leave ragged row tiles; the batch of prime32 with p < 2^26 at 2^16 (K4)
 TC_SHAPES = ((1 << 11, 1), (1 << 11, 3), (1 << 12, 2), (1 << 13, 5))
 B_STAGE = 2
 # the rows of the GEMM passes' kernels (csrc/matmod_pass.cuh, 32-bit, then
@@ -421,17 +432,19 @@ def ptxas_entries(log: str) -> list:
 
 
 def pass_instance(entry: str) -> str:
-    """'kD/regime/epilogue' of a mangled GEMM pass instance: matmod64_pass<kD,
-    kMode, kScaled, kPointwise> or matmod_pass<kD, kRegime, kScaled, ...>."""
-    m = re.search(r"matmod(64)?_passILi(\d)ELi(\d)ELb(\d)ELb(\d)E(?:Lb(\d)E)?", entry)
+    """'kD/regime/epilogue[/tile t]' of a mangled GEMM pass instance:
+    matmod64_pass<kD, kMode, kScaled, kPointwise> or matmod_pass<kD,
+    kRegime, kScaled, kPointwise, kPresplit, kTile> (tile 1: K2's tile for
+    small grids)."""
+    m = re.search(r"matmod(64)?_passILi(\d)ELi(\d)ELb(\d)ELb(\d)E(?:Lb(\d)ELi(\d)E)?", entry)
     if not m:
         return entry
-    wide, d, mode, scaled, pw, presplit = m.groups()
+    wide, d, mode, scaled, pw, presplit, tile = m.groups()
     regime = (("shoup", "montshoup", "montmont", "gl") if wide else
               ("lt30", "lt31", "generic"))[int(mode)]
     form = ("scaled" if scaled == "1" else "canonical") + (
         "+pointwise" if pw == "1" else "+presplit" if presplit == "1" else "")
-    return f"{d}/{regime}/{form}"
+    return f"{d}/{regime}/{form}" + (f"/tile {tile}" if tile and tile != "0" else "")
 
 
 def is_kernel(name: str) -> bool:
@@ -440,6 +453,18 @@ def is_kernel(name: str) -> bool:
 
 def is_pass(name: str) -> bool:
     return "matmod_pass" in name or "matmod64_pass" in name
+
+
+def is_k4(name: str) -> bool:
+    return "ntt_k4" in name
+
+
+def k4_bound(n: int, b: int) -> tuple:
+    """K4's bound at (n, B): B·(n/2)·log2 n butterflies of about 12 integer
+    operations on the CUDA cores; operand, result and two twiddle tables once."""
+    ops = b * (n // 2) * (n.bit_length() - 1) * 12
+    t_b, t_o = 4 * (2 * b * n + 2 * n) / HBM_BYTES_PER_S, ops / CORE_OPS_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
 def gemm_pairs(dev, direction: str, n1: int, n2: int, b: int, c: int, e1: int, n_d: int = 4,
@@ -606,7 +631,7 @@ def profile_polymul(fn, reps: int = 10) -> dict:
     """Per-call breakdown of fn(): host-clock ms (perf_counter around reps
     synchronized calls, no profiler), then under torch.profiler the device
     busy ms (device events: kernels and copies), the device ms of the GEMM
-    passes (matmod_pass, matmod64_pass) and butterfly (ntt_radix2) kernels, and the counts
+    passes (matmod_pass, matmod64_pass) and butterfly (ntt_k4) kernels, and the counts
     of device events and aten ops (nested ones included)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -629,7 +654,7 @@ def profile_polymul(fn, reps: int = 10) -> dict:
             us = ev.time_range.elapsed_us()
             busy += us
             n_dev += 1
-            if "matmod_pass" in ev.name or "matmod64_pass" in ev.name or "ntt_radix2" in ev.name:
+            if "matmod_pass" in ev.name or "matmod64_pass" in ev.name or "ntt_k4" in ev.name:
                 kern += us
         elif ev.name.startswith("aten::"):
             n_aten += 1
@@ -843,6 +868,7 @@ def main() -> int:
         "generic": prime_in_ap(1 << 18, 1, 1 << 31, 1 << 32),
     }
     EXT = tuple(primes32_ext())
+    SMALL18 = prime_in_ap(1 << 18, 1, 0, 1 << 26)  # < 2^26, NTT prime up to 2^17: K4 there
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -875,12 +901,33 @@ def main() -> int:
         if os.path.basename(so).startswith("mxu64_"):
             require(passes and all(st == ld == 0 for _, _, st, ld in passes),
                     f"build: {os.path.basename(so)}: a GEMM pass instance spills registers")
-    smem = {d: mxu32_cuda._pass_lib().k_pass_smem_bytes(d) for d in (4, 5)}
+        # K2's tile for small grids (tile 1): built, and no spill
+        small = [e for e in passes if "/tile " in pass_instance(e[0])]
+        if os.path.basename(so).startswith("mxu32_pass"):
+            require(len(small) == 8 and all(st == ld == 0 for _, _, st, ld in small),
+                    f"build: {os.path.basename(so)}: K2's small-grid tile instances "
+                    f"({len(small)} of 8) missing or spilling registers")
+        k4 = [e for e in ptxas_entries(log) if "ntt_k4" in e[0]]
+        if k4:
+            print(f"build: {os.path.basename(so)} K4 instances: " + "; ".join(
+                f"{r} registers, {st} / {ld} B spill stores / loads" for _, r, st, ld in k4),
+                flush=True)
+    smem = {(d, t): mxu32_cuda._pass_lib().k_pass_smem_bytes(d, t)
+            for t in range(len(mxu32_cuda.TILES)) for d in (4, 5)}
     smem64 = {d: mxu64_cuda._pass_lib().k64_pass_smem_bytes(d) for d in range(5, 10)}
-    print(f"build: matmod_pass dynamic shared memory a block: {smem[4]} B with 4 digit planes, "
-          f"{smem[5]} B with 5; matmod64_pass with 5..9 digit planes: "
-          f"{', '.join(f'{v} B' for v in smem64.values())} (the ring of operand and plane "
-          "stages)", flush=True)
+    print("build: matmod_pass dynamic shared memory a block, 4 / 5 digit planes: " + "; ".join(
+          f"tile {t} {tm} x {to}: {smem[(4, t)]} / {smem[(5, t)]} B"
+          for t, (tm, to) in enumerate(mxu32_cuda.TILES)) + "; matmod64_pass with 5..9 digit "
+          f"planes: {', '.join(f'{v} B' for v in smem64.values())} (the ring of operand and "
+          "plane stages, or the whole contraction of up to four stages)", flush=True)
+    # K4's cluster launch: how many clusters the card holds at once
+    clusters = {(n, c): bcu._lib().k4_max_active_clusters(n.bit_length() - 1, c.bit_length() - 1,
+                                                          bcu.radix_log(n // c))
+                for n, c in ((1 << 14, 8), (1 << 17, 8), (1 << 17, 4))}
+    print("build: K4 clusters the card holds at once (cudaOccupancyMaxActiveClusters): " +
+          "; ".join(f"n={n} c={c}: {v}" for (n, c), v in clusters.items()), flush=True)
+    require(all(v > 0 for v in clusters.values()),
+            f"build: K4's cluster launch is refused: {clusters}")
     # both GEMM passes contract on the int8 tensor cores (wgmma: GMMA in the
     # SASS) and never with dp4a (IDP.4A)
     cuobjdump = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
@@ -1034,18 +1081,27 @@ def main() -> int:
     t0 = time.perf_counter()
     k4_cases = [(p, n) for p in BENCH_PRIMES.values() for n in K4_SIZES]
     k4_cases += [(SMALL_P, 1 << 14), (SMALL_P, 1 << 15)]
-    for p, n in k4_cases:
+    k4_cases += [(p, n) for p in (*BIG32.values(), SMALL18) for n in K4_BIG]
+    k4_cases = [(p, n, K4_BATCHES) for p, n in k4_cases]
+    k4_cases += [(p, K4_PAIR[0], K4_PAIR[1:]) for p in (*BENCH_PRIMES.values(), SMALL_P)]
+    k4_clusters = set()
+    for p, n, batches in k4_cases:
         plan = prime32.Plan.new(n, p)
         kw = dict(p=p, variant=plan.variant, p_neginv=plan.p_neginv)
-        for b in K4_BATCHES:
+        for b in batches:
+            k4_clusters.add(bcu.cluster_size(n, b))
             x = u32((b, n), p)
             compare("butterfly32_fwd", bcu.try_fwd(x, plan._tbl, **kw),
                     bcu.fwd_plain(x, plan._tbl, **kw), f"p={p} n={n} B={b}")
             compare("butterfly32_inv", bcu.try_inv(x, plan._tbl, **kw),
                     bcu.inv_plain(x, plan._tbl, **kw), f"p={p} n={n} B={b}")
     print(f"parity: K4 fwd {checks['butterfly32_fwd']}, inv {checks['butterfly32_inv']} checks "
-          f"exact at n in {K4_SIZES}, B in {K4_BATCHES}, three regimes, and p={SMALL_P} at "
-          f"2^14, 2^15 in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"exact at n in {K4_SIZES}, B in {K4_BATCHES}, three regimes, p={SMALL_P} at 2^14, "
+          f"2^15, at n in {K4_BIG} for p in {(*BIG32.values(), SMALL18)}, and at (n, B) = "
+          f"{K4_PAIR} in three regimes and p={SMALL_P} (clusters of {sorted(k4_clusters)} "
+          f"blocks) in {time.perf_counter() - t0:.1f} s", flush=True)
+    require(k4_clusters == {1, 2, 4, 8}, f"parity: K4 ran clusters of {sorted(k4_clusters)} "
+                                         "blocks, not every size it takes (1, 2, 4, 8)")
 
     def compare_pair(name: str, got, want, what: str) -> None:
         for g, w, limb in zip(got, want, ("lo", "hi")):
@@ -2168,14 +2224,14 @@ def main() -> int:
           f"path (all {B32} rows) == direct sums (4 coefficients of row 0), inv(fwd(x)) == n·x; "
           f"launches {nz(launches_b32)}; {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # the prime32 "stage" tier: a prime below 2^26 above 2^15 has no four-step
-    # (p too small) and no K4 (n too large); the plan runs the stage engine on
-    # the card, as the reference runs its XLA stage engine, and launches nothing
+    # prime32 with a prime below 2^26 above 2^15: no four-step (p too small);
+    # K4 serves it over clusters of blocks (formerly the plain "stage" tier,
+    # as the reference runs its XLA stage engine there)
     t0 = time.perf_counter()
     p_st = prime_in_ap(2 * N16, 1, 0, 1 << 26)
     st_plan, st_cpu = prime32.Plan.new(N16, p_st), prime32.Plan.new(N16, p_st, device="cpu")
-    require(ntt_dispatch.tier32(N16, p_st, st_plan.variant) == "stage",
-            f"main: prime32 Plan({N16}, {p_st}) should take the stage tier")
+    require(ntt_dispatch.tier32(N16, p_st, st_plan.variant) == "K4",
+            f"main: prime32 Plan({N16}, {p_st}) should take K4")
     st_l, st_r = (rng.integers(0, p_st, (B_STAGE, N16), dtype=np.uint32) for _ in range(2))
     torch.cuda.synchronize()
     reset_counts()
@@ -2183,8 +2239,10 @@ def main() -> int:
               st_plan.inv(st_plan.fwd(st_l)))  # numpy input on a default plan
     torch.cuda.synchronize()
     launches_st = counts()
-    require(not any(launches_st.values()), f"main: the stage tier launched {nz(launches_st)}")
-    require(all(o.device.type == "cuda" for o in st_out), "main: the stage tier left the card")
+    require(nz(launches_st) == {"butterfly32_fwd": 4, "butterfly32_inv": 2},
+            f"main: prime32 Plan({N16}, {p_st}) launched {nz(launches_st)}, not K4 +4 fwd "
+            "+2 inv")
+    require(all(o.device.type == "cuda" for o in st_out), "main: the K4 path left the card")
     require(torch.equal(st_out[0].cpu(), st_cpu.negacyclic_polymul(st_l, st_r)),
             f"main: prime32 Plan({N16}, {p_st}) polymul differs from the CPU plain path")
     require(torch.equal(st_out[1].cpu(), st_cpu.fwd(st_l)),
@@ -2192,10 +2250,12 @@ def main() -> int:
     require(np.array_equal(st_out[2].cpu().numpy(),
                            (st_l.astype(np.uint64) * N16 % p_st).astype(np.uint32)),
             f"main: prime32 Plan({N16}, {p_st}) inv(fwd(x)) != n·x mod p")
-    print(f"main: prime32 stage tier on {kind}: Plan({N16}, {p_st}) (p < 2^26) B={B_STAGE} numpy "
-          f"input on a default plan: polymul, fwd == CPU plain path, inv(fwd(x)) == n·x; "
-          f"launches {nz(launches_st)} (K4's count unmoved: it ends at 2^15); "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for k in ("butterfly32_fwd", "butterfly32_inv"):
+        launches_n17[k] = launches_st[k]
+    print(f"main: prime32 K4 above 2^15 on {kind}: Plan({N16}, {p_st}) (p < 2^26) B={B_STAGE} "
+          f"numpy input on a default plan ({bcu.cluster_size(N16, B_STAGE)} blocks a "
+          f"polynomial): polymul, fwd == CPU plain path, inv(fwd(x)) == n·x; launches "
+          f"{nz(launches_st)}; {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     pplan16 = product.Plan.new(N16, EXT[0] * EXT[1], EXT[:2])
@@ -2459,15 +2519,28 @@ def main() -> int:
     timed("K2 fwd (passes_engine)", f"n=4096 B={B32} p={p}",
           lambda: mxu32_cuda.passes_engine.fwd(x, n=4096, p=p),
           lambda: mxu32_cuda.fwd_plain(x, n=4096, p=p))
-    for n, p in ((1024, BENCH_PRIMES["lt30"]), (N32, SMALL_P)):
+    # K4 at the headline (1024, 16), at (2^14, 16) and (2^16, 16) with a
+    # prime below 2^26 (clusters of 8 blocks); each row's device time (its
+    # ntt_k4 launch) from the profiler session
+    k4_dev, k4_rows = {}, {}
+    dev_into[id(k4_dev)] = k4_dev
+    for n, p in ((1024, BENCH_PRIMES["lt30"]), (N32, SMALL_P), (N16, SMALL18)):
         pl = prime32.Plan.new(n, p)
         kw = dict(p=p, variant=pl.variant, p_neginv=pl.p_neginv)
         x = u32((B32, n), p)
-        headline = n == 1024
-        timed("K4 fwd", f"n={n} B={B32} p={p}", lambda: bcu.try_fwd(x, pl._tbl, **kw),
-              lambda: bcu.fwd_plain(x, pl._tbl, **kw), "butterfly32_fwd" if headline else None)
-        timed("K4 inv", f"n={n} B={B32} p={p}", lambda: bcu.try_inv(x, pl._tbl, **kw),
-              lambda: bcu.inv_plain(x, pl._tbl, **kw), "butterfly32_inv" if headline else None)
+        for d, fn, plain in (("fwd", bcu.try_fwd, bcu.fwd_plain),
+                             ("inv", bcu.try_inv, bcu.inv_plain)):
+            key = f"butterfly32_{d}"
+            kernel = bind_now(lambda fn=fn: fn(x, pl._tbl, **kw))
+            t = median_ms(kernel)
+            tp = median_ms(lambda plain=plain: plain(x, pl._tbl, **kw), reps=5, warmup=1)
+            if n == 1024:
+                ms[key], plain_ms[key] = t, tp
+            k4_rows[(key, n)] = (f"n={n} B={B32} p={p} c={bcu.cluster_size(n, B32)}", t, tp)
+            dev_tasks.append(((id(k4_dev), (key, n)), lambda kernel=kernel: (kernel, is_k4), 1))
+            print(f"times: K4 {d} n={n} B={B32} p={p} ({bcu.cluster_size(n, B32)} blocks a "
+                  f"polynomial): kernel {t:.4f} ms, plain {tp:.4f} ms (median of {REPS}; plain "
+                  f"of 5) | {smi}", flush=True)
     for name, pl, lhs, rhs in p32_cases:
         a, b = host(lhs).to(dev), host(rhs).to(dev)
         t = median_ms(lambda: pl.negacyclic_polymul(a, b))
@@ -2824,6 +2897,12 @@ def main() -> int:
               f"{fmt(int_mm_ms.get(key))}; above 2^15 device {fmt(big_dev.get(key))}, "
               f"torch._int_mm {fmt(big_int_mm.get(key))} (torch.profiler, median of {REPS}) | "
               f"{smi}", flush=True)
+    for (key, n), (label, t, _) in k4_rows.items():
+        bms, by = k4_bound(n, B32)
+        print(f"times: {key} {label} device {fmt(k4_dev.get((key, n)))}, kernel {t:.4f} ms "
+              f"(torch.profiler, median of {REPS}) | {smi}", flush=True)
+        print(f"bound: {key} at {label}: {bms:.6f} ms by {by} (kernel {t:.4f} ms = "
+              f"{t / bms:.1f} x the bound, device {fmt(k4_dev.get((key, n)))})", flush=True)
     print(f"times: device-time session {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the bound of each kernel at the shape it was timed at: MACs a pass =
@@ -2907,13 +2986,13 @@ def main() -> int:
                        "gemm_ms": big_int_mm.get(k)}
         print(f"bound: {k} at {label}: {bms:.6f} ms by {by} (kernel {t:.4f} ms = "
               f"{t / bms:.1f} x the bound)", flush=True)
-    # K4 at (1024, 16): B·(n/2)·log2 n butterflies of about 12 integer operations
-    # on the CUDA cores; operand, result and two twiddle tables once
-    bfly_ops = B32 * 512 * 10 * 12
-    bfly_bytes = 4 * (2 * B32 * 1024 + 2 * 1024)
-    t_b, t_o = bfly_bytes / HBM_BYTES_PER_S, bfly_ops / CORE_OPS_PER_S
+    # K4 at (1024, 16), and above 2^15 at (2^16, 16) with a prime below 2^26
     for k in ("butterfly32_fwd", "butterfly32_inv"):
-        bounds[k] = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+        bounds[k] = k4_bound(1024, B32)
+        label, t, tp = k4_rows[(k, N16)]
+        bms, by = k4_bound(N16, B32)
+        big_rows[k] = {"shape": label, "launches": launches_n17[k], "ms": t, "plain_ms": tp,
+                       "bound_ms": bms, "bound_by": by, "device_ms": k4_dev.get((k, N16))}
     for k in KERNELS:
         print(f"bound: {k}: {bounds[k][0]:.6f} ms by {bounds[k][1]} (kernel {ms[k]:.4f} ms = "
               f"{ms[k] / bounds[k][0]:.1f} x the bound)", flush=True)
@@ -2927,7 +3006,7 @@ def main() -> int:
             r = profile_polymul(lambda: pl.negacyclic_polymul(a, b))
             print(f"profile: prime32 polymul {label} B={B32} p={pl.p}: host clock "
                   f"{r['host_ms']:.4f} ms, device busy {r['busy_ms']:.4f} ms "
-                  f"({100 * r['busy_share']:.1f} %), matmod_pass/ntt_radix2 "
+                  f"({100 * r['busy_share']:.1f} %), matmod_pass/ntt_k4 "
                   f"{r['kernel_ms']:.4f} ms, {r['device_events']:.0f} device events and "
                   f"{r['aten_ops']:.0f} aten ops a polymul (10 polymuls) | {smi}", flush=True)
         for what in ("Replace", "Bounded"):
@@ -2990,6 +3069,7 @@ def main() -> int:
          "library_ms": None,
          **({"device_ms": dev_ms.get(k), "gemm_ms": int_mm_ms.get(k)}
             if k in GEMM_ROWS else {}),
+         **({"device_ms": k4_dev.get((k, 1024))} if k.startswith("butterfly32_") else {}),
          **({"n17": big_rows[k]} if k in big_rows else {})}
         for k, (src, rep) in KERNELS.items()
     ]}))

@@ -366,12 +366,14 @@ inline bool tiles_fit(const Pass& a, bool pointwise) {
   return sm90::aligned16(a.planes);
 }
 
+// static: each library keeps its own once-flags (see matmod_pass.cuh launch)
 template <int kD, int kMode, bool kScaled, bool kPointwise = false>
-cudaError_t launch(const Pass& a, int channels, cudaStream_t stream) {
+static cudaError_t launch(const Pass& a, int channels, cudaStream_t stream) {
   if (!tiles_fit(a, kPointwise)) return cudaErrorInvalidValue;
   auto kernel = matmod64_pass<kD, kMode, kScaled, kPointwise>;
   constexpr int smem = smem_bytes(kD);
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static bool smem_set[sm90::kMaxDevices];
+  cudaError_t e = sm90::set_smem_once(kernel, smem, smem_set);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.total_rows + kTM - 1) / kTM, a.o / kTO, channels * a.nb);
   kernel<<<grid, kThreads, smem, stream>>>(a);

@@ -48,7 +48,7 @@
 // offsets for every d, so each thread holds all kD accumulators of its own
 // (row, output) pairs and the combine and both epilogues stay per element.
 //
-// Tiling: a block owns kTM = 128 operand rows x kTO = 32 outputs x kD
+// Tiling (tile 0): a block owns kTM = 128 operand rows x kTO = 32 outputs x kD
 // digits: two warpgroups of 64 rows, each one m64n(32 kD)k32 product a
 // k-step of 8 operand words, 64 (kD 4) or 80 (kD 5) accumulators a thread.
 // The contraction streams through a ring of kStages shared-memory stages of
@@ -64,6 +64,9 @@
 // and of the output are fields of the descriptor, so a mid-pass transpose is
 // a stride of the next pass's loads. Grid = (row tiles over batch x rows,
 // output tiles, z); rows past the batch edge are zero-filled and not stored.
+// K2's entries pick a smaller tile where one channel's grid is small (Tile
+// below): 64 rows (one warpgroup) x 16 outputs (m64n(16 kD)k32, 32 or 40
+// accumulators), with a contraction of up to four stages held whole.
 //
 // The z axis is channel * nb + block. nb = 1 is a direct transform. With the
 // 32-bit stage-split hybrid's block tables (ops/stagesplit.py) a transform of
@@ -90,17 +93,39 @@
 namespace mxu32 {
 
 using sm90::kKC;
-using sm90::kTM;
-using sm90::kThreads;
-constexpr int kTO = 32;  // outputs per block (kD digit columns each)
 
-// words of one stage of the plane tile: kD * kTO rows (N) of kKC words (K),
+// The tiles of a pass, by the code the host passes (ops/mxu32_cuda.py
+// k2_tile): rows and outputs a block, ring stages, and whether a short
+// contraction is held whole (gemm_sm90.cuh's note). Code 0 is K1's, K3's and
+// the block tables' (and K2's where its grid reaches 128 blocks: 2^15 and up
+// at B = 16); code 1 is K2's for one channel's small grids, 64 rows x 16
+// outputs a block (N = 16 kD).
+struct Tile {
+  int rows, outs, ring;
+  bool resident;
+};
+__host__ __device__ constexpr Tile tile(int code) {
+  return code == 0 ? Tile{128, 32, 3, false} : Tile{64, 16, 4, true};
+}
+constexpr int kTiles = 2;
+
+// words of one stage of the plane tile: kD * outs rows (N) of kKC words (K),
 // in the host-packed order of ops/mxu32_cuda.py pack_planes_kmajor: 8-row
 // groups of eight 16-byte chunks of eight rows (wgmma's K-major core
 // matrices without swizzle: next chunk along K 128 bytes on, next 8 rows
 // 1024 bytes on)
-__host__ __device__ constexpr int plane_stage(int kD) { return sm90::plane_stage(kD, kTO); }
-__host__ __device__ constexpr int smem_bytes(int kD) { return sm90::smem_bytes(kD, kTO); }
+__host__ __device__ constexpr int plane_stage(int kD, int code = 0) {
+  return sm90::plane_stage(kD, tile(code).outs);
+}
+__host__ __device__ constexpr int smem_bytes(int kD, int code = 0) {
+  return sm90::smem_bytes(kD, tile(code).outs, tile(code).rows, tile(code).ring);
+}
+// blocks an SM the registers are budgeted for: two (one with five digit
+// planes) for tile 0 as before; tile 1 as many as its shared memory lets in
+// (68 / 76 KiB)
+__host__ __device__ constexpr int min_blocks(int kD, int code) {
+  return code == 0 ? (kD == 4 ? 2 : 1) : (kD == 4 ? 3 : 2);
+}
 
 // Per-channel scalar record (uint32 words), built by ops/mxu32_cuda.py
 // scalar_record: p, 2^32 mod p, its Shoup companion, -p^-1 mod 2^32,
@@ -123,12 +148,12 @@ struct Pass {
   int s_k, s_r;          // operand strides of the contraction and the row index
   int rows_per_poly;     // R
   int total_rows;        // B * R
-  int o;                 // outputs per row (multiple of kTO)
+  int o;                 // outputs per row (multiple of the tile's outputs)
   long long out_b;       // elements between polynomials of the output
   long long out_chan;    // elements between channels of the output
   long long out_blk = 0; // elements between blocks of the output
   int t_r, t_o;          // output strides of the row and the output index
-  const int32_t* planes;  // [C or C * nb][o / kTO][n_limbs * k1 / kKC][plane_stage(kD)] words
+  const int32_t* planes;  // [C or C * nb][o / outs][n_limbs * k1 / kKC][plane_stage] words
   const int32_t* cvec;    // [C or C * nb][kD][o]
   const uint32_t* diag;   // [C * nb][4 or 2][R][o] (scaled pass; see scale_tabs)
   const uint32_t* scal;   // [C][kScalWords]
@@ -164,15 +189,32 @@ __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) 
   return (uint32_t)(s >= p ? s - p : s);
 }
 
+// A table word of the epilogue (cvec, diagonal). K2's small-grid tile reads
+// it through the read-only path (the tables do not change during a launch),
+// which lets the compiler issue every element's table loads ahead of the
+// stores of the elements before it; tile 0 (K1, K3) keeps its plain loads.
+template <int kTile, class T>
+__device__ __forceinline__ T table_word(const T* ptr) {
+  if constexpr (kTile != 0) {
+    return __ldg(ptr);
+  } else {
+    return *ptr;
+  }
+}
+
 // kPointwise (K1d's first pass): the operand value is the Montgomery product
 // mont_mul(x[0][i], x[1][i]) of two operands read at the same index (both
 // any u32, one limb each), taken in the load before the digit split.
 // kPointwise and kPresplit load their operand tile with plain loads and
 // stores (the value is computed or packed on the way); every other pass
 // copies it with cp.async.
-template <int kD, int kRegime, bool kScaled, bool kPointwise = false, bool kPresplit = false>
-__global__ void __launch_bounds__(kThreads, kD == 4 ? 2 : 1) matmod_pass(Pass a) {
+template <int kD, int kRegime, bool kScaled, bool kPointwise = false, bool kPresplit = false,
+          int kTile = 0>
+__global__ void __launch_bounds__(sm90::threads(tile(kTile).rows), min_blocks(kD, kTile))
+    matmod_pass(Pass a) {
   static_assert(!(kPointwise && kPresplit), "the presplit operand is one array of planes");
+  constexpr int kTM = tile(kTile).rows;
+  constexpr int kTO = tile(kTile).outs;
   extern __shared__ __align__(128) uint32_t smem[];
   const int z = blockIdx.z;
   const int c = z / a.nb;        // channel
@@ -185,7 +227,7 @@ __global__ void __launch_bounds__(kThreads, kD == 4 ? 2 : 1) matmod_pass(Pass a)
   // this block's plane tiles: [pz][output tile][stage][plane_stage]
   const int nk = a.n_limbs * a.k1 / kKC;
   const uint32_t* planes = reinterpret_cast<const uint32_t*>(a.planes) +
-                           ((size_t)pz * (a.o / kTO) + blockIdx.y) * nk * plane_stage(kD);
+                           ((size_t)pz * (a.o / kTO) + blockIdx.y) * nk * plane_stage(kD, kTile);
   const long long chan = (long long)c * a.x_chan + (long long)blk * a.x_blk;
   uint32_t pw_p = 0, pw_neginv = 0;  // p and -p^-1 of the channel (kPointwise)
   if constexpr (kPointwise) {
@@ -217,7 +259,8 @@ __global__ void __launch_bounds__(kThreads, kD == 4 ? 2 : 1) matmod_pass(Pass a)
     }
   };
   int acc[kD * kTO / 2];  // the warpgroup's m64 x (kD * kTO) int32 tile, this thread's part
-  sm90::mainloop<kD, kTO, kPointwise || kPresplit>(acc, a, chan, row0, planes, smem, load);
+  sm90::mainloop<kD, kTO, kPointwise || kPresplit, kTM, tile(kTile).ring, tile(kTile).resident>(
+      acc, a, chan, row0, planes, smem, load);
 
   const uint32_t* sc = a.scal + kScalWords * c;
   const uint32_t p = sc[0], c32 = sc[1], c32_sh = sc[2], p_neginv = sc[3];
@@ -228,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, kD == 4 ? 2 : 1) matmod_pass(Pass a)
   const int32_t* cvz = a.cvec + (size_t)pz * kD * a.o;
   uint32_t* outz = a.out + (long long)c * a.out_chan + (long long)blk * a.out_blk;
   // digit d of output 8 jj + 2t + cc of row g + 8 hr: accumulator
-  // 4 (4d + jj) + 2 hr + cc (column d * kTO + 8 jj + 2t + cc of the tile)
+  // 4 (d * kTO / 8 + jj) + 2 hr + cc (column d * kTO + 8 jj + 2t + cc of the tile)
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int m = row0 + wrow + 8 * hr + g;
@@ -247,21 +290,27 @@ __global__ void __launch_bounds__(kThreads, kD == 4 ? 2 : 1) matmod_pass(Pass a)
         uint64_t v = 0;
 #pragma unroll
         for (int d = 0; d < 4; ++d)
-          v += (uint64_t)(uint32_t)(acc[4 * (4 * d + jj) + q] + cvz[d * a.o + oi]) << (8 * d);
+          v += (uint64_t)(uint32_t)(acc[4 * (d * (kTO / 8) + jj) + q] +
+                                    table_word<kTile>(cvz + d * a.o + oi))
+               << (8 * d);
         const uint32_t lo = (uint32_t)v;
         uint32_t hi = (uint32_t)(v >> 32);
-        if constexpr (kD == 5) hi += (uint32_t)(acc[4 * (16 + jj) + q] + cvz[4 * a.o + oi]);
+        if constexpr (kD == 5)
+          hi += (uint32_t)(acc[4 * (4 * (kTO / 8) + jj) + q] +
+                           table_word<kTile>(cvz + 4 * a.o + oi));
         if constexpr (kScaled) {
           // _epilogue_scaled_lazy: lo*W + hi*(2^32 W)
           const size_t plane = (size_t)a.rows_per_poly * a.o;
           const int n_dg = kRegime == kGeneric ? 2 : 4;
           const uint32_t* dg = a.diag + (size_t)z * n_dg * plane + (size_t)j * a.o + oi;
           if (kRegime == kGeneric) {
-            y[cc] = add_mod(mont_mul(lo, dg[0], p, p_neginv),
-                            mont_mul(hi, dg[plane], p, p_neginv), p);
+            y[cc] = add_mod(mont_mul(lo, table_word<kTile>(dg), p, p_neginv),
+                            mont_mul(hi, table_word<kTile>(dg + plane), p, p_neginv), p);
           } else {
-            const uint32_t s0 = shoup_lazy(lo, dg[0], dg[plane], p);              // [0, 2p)
-            const uint32_t s1 = shoup_lazy(hi, dg[2 * plane], dg[3 * plane], p);  // [0, 2p)
+            const uint32_t s0 = shoup_lazy(lo, table_word<kTile>(dg),
+                                           table_word<kTile>(dg + plane), p);  // [0, 2p)
+            const uint32_t s1 = shoup_lazy(hi, table_word<kTile>(dg + 2 * plane),
+                                           table_word<kTile>(dg + 3 * plane), p);  // [0, 2p)
             if (kRegime == kLt30) {
               y[cc] = cond_sub(s0 + s1, two_p);  // s0 + s1 < 4p < 2^32
             } else {
@@ -295,8 +344,8 @@ __global__ void __launch_bounds__(kThreads, kD == 4 ? 2 : 1) matmod_pass(Pass a)
 // and aligned output pairs where the outputs of a row are contiguous. n_x
 // operand pointers are read 16 bytes at a time (the presplit planes byte by
 // byte: none).
-inline bool tiles_fit(const Pass& a, bool rows_only, int n_x) {
-  if (a.k1 % kKC || a.o % kTO || a.total_rows <= 0) return false;
+inline bool tiles_fit(const Pass& a, bool rows_only, int n_x, int outs) {
+  if (a.k1 % kKC || a.o % outs || a.total_rows <= 0) return false;
   if (a.s_k == 1 ? a.s_r % 4 != 0
                  : (rows_only || a.s_r != 1 || a.s_k % 4 || a.rows_per_poly % 4))
     return false;
@@ -308,16 +357,23 @@ inline bool tiles_fit(const Pass& a, bool rows_only, int n_x) {
   return sm90::aligned16(a.planes);
 }
 
-template <int kD, int kRegime, bool kScaled, bool kPointwise = false, bool kPresplit = false>
-cudaError_t launch(const Pass& a, int channels, cudaStream_t stream) {
-  if (!tiles_fit(a, kPointwise || kPresplit, kPresplit ? 0 : kPointwise ? 2 : a.n_limbs))
+// static: each library (.cu) keeps its own instance and its own once-flags,
+// where a shared template instance's local static would be one object in
+// the whole process (GNU unique symbols), though every library's kernel
+// needs its own opt-in
+template <int kD, int kRegime, bool kScaled, bool kPointwise = false, bool kPresplit = false,
+          int kTile = 0>
+static cudaError_t launch(const Pass& a, int channels, cudaStream_t stream) {
+  constexpr Tile kT = tile(kTile);
+  if (!tiles_fit(a, kPointwise || kPresplit, kPresplit ? 0 : kPointwise ? 2 : a.n_limbs, kT.outs))
     return cudaErrorInvalidValue;
-  auto kernel = matmod_pass<kD, kRegime, kScaled, kPointwise, kPresplit>;
-  constexpr int smem = smem_bytes(kD);
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = matmod_pass<kD, kRegime, kScaled, kPointwise, kPresplit, kTile>;
+  constexpr int smem = smem_bytes(kD, kTile);
+  static bool smem_set[sm90::kMaxDevices];
+  cudaError_t e = sm90::set_smem_once(kernel, smem, smem_set);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.total_rows + kTM - 1) / kTM, a.o / kTO, channels * a.nb);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  const dim3 grid((a.total_rows + kT.rows - 1) / kT.rows, a.o / kT.outs, channels * a.nb);
+  kernel<<<grid, sm90::threads(kT.rows), smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -62,9 +62,14 @@ split stays one xor, and the planes come K-major from shared memory in
 per-block tiles that `pack_planes_kmajor` lays out on the host as the
 descriptor reads them. Loads run through a three-stage cp.async ring in
 shared memory; the operator tables stay in L2 and the mid-pass transpose
-is a stride of the second pass's loads. Every operand,
+is a stride of the second pass's loads. K2, one channel, picks its tiles
+per pass from the grid (`k2_tile`: 128 x 32 as K1, or 64 x 16 holding a
+contraction of up to four stages whole) and packs its tables
+for them; its fixed launch arguments (tables, shape, tiles) are built once
+per table set and batch as a `K2Args` record (`_k2_launch`). Every operand,
 table and output pointer a kernel reads 16 bytes at a time must be
-16-byte aligned (`_ptrs16` checks).
+16-byte aligned (`_ptrs16` checks; the tables once, when their record is
+built).
 
 Routing is by the device of the operand: a CUDA tensor launches the kernel
 or raises, a CPU tensor runs the plain torch version (`*_plain`, built on
@@ -289,6 +294,19 @@ def pack_planes(planes: np.ndarray, k: int) -> np.ndarray:
 # the GEMM pass's tile (csrc/matmod_pass.cuh): outputs a block, contraction
 # words a ring stage
 _TILE_O, _STAGE_K = 32, 32
+# (rows, outputs) of the pass's tiles by code (csrc/matmod_pass.cuh `tile`):
+# K1's (also K3's and the block tables'), then K2's for small grids
+TILES = ((128, 32), (64, 16))
+_FILL = 128  # blocks a K2 pass aims for: about one on each of the H100's 132 SMs
+
+
+def k2_tile(rows: int, outs: int) -> int:
+    """The tile code of a K2 pass over `rows` operand rows (batch x rows of
+    a polynomial) with `outs` outputs a row: K1's where its grid has at
+    least 128 blocks, else 64 x 16 (csrc/mxu32_pass.cu lists the choice at
+    each n for B = 16 and the sweep that set the threshold)."""
+    tm, to = TILES[0]
+    return 0 if -(-rows // tm) * (outs // to) >= _FILL else 1
 
 
 def pack_planes_kmajor(planes: np.ndarray, k: int, n_d: int, tile_o: int = _TILE_O) -> np.ndarray:
@@ -381,12 +399,14 @@ def _pass_mat(n: int, p: int, which: str, n_limbs: int, scale: int):
 
 
 @lru_cache(maxsize=64)
-def _pass_tables(n: int, p: int, which: str, n_limbs: int, scale: int, device: str):
-    """One pass's packed planes, cvec and scalar record on `device`."""
+def _pass_tables(n: int, p: int, which: str, n_limbs: int, scale: int, device: str,
+                 tile_o: int = _TILE_O):
+    """One pass's packed planes (tiles of `tile_o` outputs), cvec and
+    scalar record on `device`."""
     planes, cvec = _pass_mat(n, p, which, n_limbs, scale)
     k = planes.shape[0] // (4 * n_limbs)
     return {
-        "planes": _to_dev(pack_planes_kmajor(planes[None], k, cvec.shape[0]), device),
+        "planes": _to_dev(pack_planes_kmajor(planes[None], k, cvec.shape[0], tile_o), device),
         "cvec": _to_dev(cvec, device),
         "scal": _to_dev(scalar_record(p).view(np.int32), device),
         "k": k,
@@ -575,14 +595,14 @@ def _lib() -> ctypes.CDLL:
 def _pass_lib() -> ctypes.CDLL:
     lib = cuda_build.load("mxu32_pass")
     if not lib.k2_fwd.argtypes:
-        lib.k2_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, *[_P] * 6, _I, _I, _P, _P, _P]
+        lib.k2_fwd.argtypes = [_P] * 8
         lib.k2_fwd.restype = ctypes.c_int
-        lib.k2_inv.argtypes = [_P, _I, _I, _I, _I, *[_P] * 6, _I, _I, _P, _P, _P]
+        lib.k2_inv.argtypes = [_P] * 5
         lib.k2_inv.restype = ctypes.c_int
         lib.k3_pass.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, *[_P] * 4, _I, _I, _I,
                                 _P, _P]
         lib.k3_pass.restype = ctypes.c_int
-        lib.k_pass_smem_bytes.argtypes = [_I]
+        lib.k_pass_smem_bytes.argtypes = [_I, _I]
         lib.k_pass_smem_bytes.restype = ctypes.c_int
     return lib
 
@@ -730,8 +750,11 @@ def inv_multi_presplit(xd: torch.Tensor, primes: tuple, scales: tuple) -> torch.
 
 def _call(dev: torch.device, fn, *args) -> int:
     """fn(*args, stream) with `dev` current, on its current stream."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return fn(*args, stream)
     with torch.cuda.device(dev):
-        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        return fn(*args, stream)
 
 
 def _check_channels(x: torch.Tensor, primes: tuple) -> None:
@@ -812,14 +835,48 @@ def pointwise_inv_multi(fl: torch.Tensor, fr: torch.Tensor, primes: tuple,
     return out
 
 
+class K2Args(ctypes.Structure):
+    """The fixed arguments of a K2 launch pair (`K2Args` of
+    csrc/mxu32_pass.cu, the same fields in the same order): tables, shape,
+    digit planes, regime and each pass's tile code."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in ("planes1", "cvec1", "planes2", "cvec2", "diag",
+                                               "scal")] + [
+        (f, ctypes.c_int) for f in ("n_limbs", "batch", "n1", "n2", "nb", "n_d", "regime",
+                                    "tile1", "tile2")]
+
+
+def _k2_record(tabs: tuple, n_d: int, p: int, n_limbs: int, b: int, n: int, nb: int,
+               tiles: tuple) -> tuple:
+    """(address of a K2Args record, the record, the tables it points into)
+    for `_k2_launch` / `_k2h_launch`: the tables are checked once here."""
+    n1, n2 = mxu32.four_step_factors(n)
+    rec = K2Args(*_ptrs16(*tabs), n_limbs, b, n1, n2, nb, n_d, regime(p), *tiles)
+    return ctypes.addressof(rec), rec, tabs
+
+
+def _k2_tiles(b: int, n: int, direction: str) -> tuple:
+    """Tile codes of K2's two passes in launch order: the column pass (B·n2
+    rows, n1 outputs) then the row pass (B·n1 rows, n2 outputs) forward,
+    the other order inverse."""
+    n1, n2 = mxu32.four_step_factors(n)
+    shapes = ((b * n2, n1), (b * n1, n2))
+    return tuple(k2_tile(r, o) for r, o in (shapes if direction == "fwd" else shapes[::-1]))
+
+
 @lru_cache(maxsize=64)
-def _single_tables(n: int, p: int, n_limbs: int, scale: int, direction: str, device: str):
-    """K2's tables for one direction: both passes and the diagonal."""
-    first, second = (("A", "F") if direction == "fwd" else ("G", "Ainv"))
-    t1 = _pass_tables(n, p, first, n_limbs, 1, device)
-    t2 = _pass_tables(n, p, second, 1, scale if direction == "inv" else 1, device)
+def _k2_launch(n: int, p: int, n_limbs: int, scale: int, direction: str, device: str, b: int):
+    """K2's fixed launch arguments for one direction, table set and batch:
+    both passes' tables packed for the tiles `_k2_tiles` picks, the diagonal,
+    and their K2Args record (`_k2_record`)."""
+    first, second = ("A", "F") if direction == "fwd" else ("G", "Ainv")
+    tiles = _k2_tiles(b, n, direction)
+    t1 = _pass_tables(n, p, first, n_limbs, 1, device, TILES[tiles[0]][1])
+    t2 = _pass_tables(n, p, second, 1, scale if direction == "inv" else 1, device,
+                      TILES[tiles[1]][1])
     diag = _diag_tables(n, p, "d" if direction == "fwd" else "e", device)
-    return t1, t2, diag
+    tabs = (t1["planes"], t1["cvec"], t2["planes"], t2["cvec"], diag, t1["scal"])
+    return _k2_record(tabs, t1["n_d"], p, n_limbs, b, n, 1, tiles)
 
 
 def fwd_wide(limbs: tuple, *, n: int, p: int) -> torch.Tensor:
@@ -832,16 +889,13 @@ def fwd_wide(limbs: tuple, *, n: int, p: int) -> torch.Tensor:
         return fwd_wide_plain(limbs, n=n, p=p)
     check_single_range(n, p, len(limbs))
     b = limbs[0].shape[0]
-    t1, t2, diag = _single_tables(n, p, len(limbs), 1, "fwd", str(dev))
-    n1, n2 = mxu32.four_step_factors(n)
     out = torch.empty((b, n), dtype=torch.uint32, device=dev)
     if b == 0:
         return out
-    scratch = torch.empty_like(out)
-    ptrs = _ptrs16(t1["planes"], t1["cvec"], t2["planes"], t2["cvec"], diag, t1["scal"],
-                   scratch, out)
-    err = _call(dev, _pass_lib().k2_fwd, *_limb_ptrs(limbs), len(limbs), b, n1, n2, 1, *ptrs[:6],
-                t1["n_d"], regime(p), ptrs[6], ptrs[7])
+    rec = _k2_launch(n, p, len(limbs), 1, "fwd", str(dev), b)[0]
+    scratch = torch.empty_like(out)  # out and scratch: fresh, so aligned
+    err = _call(dev, _pass_lib().k2_fwd, rec, *_limb_ptrs(limbs), scratch.data_ptr(),
+                out.data_ptr())
     _count("fwd", len(limbs))
     if err != 0:
         raise RuntimeError(f"K2 fwd launch failed: CUDA error {err}")
@@ -863,41 +917,44 @@ def inv(x: torch.Tensor, *, n: int, p: int, scale: int = 1) -> torch.Tensor:
         return inv_plain(x, n=n, p=p, scale=scale)
     check_single_range(n, p)
     b = x.shape[0]
-    t1, t2, diag = _single_tables(n, p, 1, scale % p, "inv", str(dev))
-    n1, n2 = mxu32.four_step_factors(n)
     out = torch.empty_like(x)
     if b == 0:
         return out
+    rec = _k2_launch(n, p, 1, scale % p, "inv", str(dev), b)[0]
     scratch = torch.empty_like(x)
-    ptrs = _ptrs16(x, t1["planes"], t1["cvec"], t2["planes"], t2["cvec"], diag, t1["scal"],
-                   scratch, out)
-    err = _call(dev, _pass_lib().k2_inv, ptrs[0], b, n1, n2, 1, *ptrs[1:7], t1["n_d"], regime(p),
-                ptrs[7], ptrs[8])
+    err = _call(dev, _pass_lib().k2_inv, rec, *_ptrs16(x), scratch.data_ptr(), out.data_ptr())
     LAUNCHES["inv"] += 1
     if err != 0:
         raise RuntimeError(f"K2 inv launch failed: CUDA error {err}")
     return out
 
 
+@lru_cache(maxsize=32)
+def _k2h_launch(n: int, p: int, n_h: int, scale: int, direction: str, device: str, b: int):
+    """K2's fixed launch arguments with block tables (`_hyb_tables`; K1's
+    tile, code 0, for both passes), as `_k2_launch`."""
+    t = _hyb_tables(n, p, n_h, scale, direction, device)
+    first, second = ("blk", "sh") if direction == "fwd" else ("sh", "blk")
+    tabs = (t["planes_" + first], t["cvec_" + first], t["planes_" + second],
+            t["cvec_" + second], t["diag"], t["scal"])
+    return _k2_record(tabs, t["n_d"], p, 1, b, n_h, n // n_h, (0, 0))
+
+
 def _hyb(name: str, x: torch.Tensor, n: int, p: int, n_h: int, scale: int) -> torch.Tensor:
     """Launch K2 with block tables in one direction on a checked CUDA
     operand [B, n]: n // n_h block transforms of size n_h."""
     fwd_dir = name == "fwd_hyb"
-    t = _hyb_tables(n, p, n_h, scale, "fwd" if fwd_dir else "inv", str(x.device))
-    first, second = ("blk", "sh") if fwd_dir else ("sh", "blk")
-    n1, n2 = mxu32.four_step_factors(n_h)
     b = x.shape[0]
     out = torch.empty_like(x)
     if b == 0:
         return out
+    rec = _k2h_launch(n, p, n_h, scale, "fwd" if fwd_dir else "inv", str(x.device), b)[0]
     scratch = torch.empty_like(x)
-    ptrs = _ptrs16(x, t["planes_" + first], t["cvec_" + first], t["planes_" + second],
-                   t["cvec_" + second], t["diag"], t["scal"], scratch, out)
-    tail = (n // n_h, *ptrs[1:7], t["n_d"], regime(p), ptrs[7], ptrs[8])
+    ptrs = (*_ptrs16(x), scratch.data_ptr(), out.data_ptr())
     if fwd_dir:
-        err = _call(x.device, _pass_lib().k2_fwd, *_limb_ptrs((x,)), 1, b, n1, n2, *tail)
+        err = _call(x.device, _pass_lib().k2_fwd, rec, *_limb_ptrs((x,)), *ptrs[1:])
     else:
-        err = _call(x.device, _pass_lib().k2_inv, ptrs[0], b, n1, n2, *tail)
+        err = _call(x.device, _pass_lib().k2_inv, rec, *ptrs)
     LAUNCHES[name] += 1
     if err != 0:
         raise RuntimeError(f"K2 {name} launch failed: CUDA error {err}")

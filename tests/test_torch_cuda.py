@@ -617,11 +617,12 @@ def test_prime32_polymul_above_2_15_on_card_matches_cpu(gen, cuda_device, regime
     _same(got, prime32.Plan.new(n, p, device="cpu").negacyclic_polymul(lhs, rhs))
 
 
-def test_small_prime_above_2_15_raises_on_card(gen, cuda_device):
-    """Kept under its old name: a prime below 2^26 above 2^15 has no kernel
-    (no four-step, and K4 ends at 2^15); the plan takes the stage engine on the card (tier "stage", the
-    reference's XLA route) and no longer raises: fwd, inv and the polymul
-    equal the CPU, and no kernel launches."""
+def test_small_prime_above_2_15_launches_k4_on_card(gen, cuda_device):
+    """Formerly test_small_prime_above_2_15_raises_on_card: a prime below
+    2^26 above 2^15 has no four-step; the plan takes K4 on the card (a
+    cluster of blocks a polynomial; tier "K4" up to 2^17): fwd (K4 fwd +1),
+    inv (inv +1) and the polymul (fwd +2, inv +1) equal the CPU, no
+    four-step kernel launches, and K4's range ends at 2^17."""
     n, p = 1 << 16, _lp(1 << 17, 1, 0, 1 << 26)
     plan, cpu = prime32.Plan.new(n, p), prime32.Plan.new(n, p, device="cpu")
     x = _u32(gen, (1, n), cuda_device, p)
@@ -631,9 +632,61 @@ def test_small_prime_above_2_15_raises_on_card(gen, cuda_device):
     _same(plan.fwd(x), cpu.fwd(x.cpu()))
     _same(plan.inv(x), cpu.inv(x.cpu()))
     _same(plan.negacyclic_polymul(lhs, rhs), cpu.negacyclic_polymul(lhs, rhs))
-    assert not any(butterfly32_cuda.LAUNCHES.values()) and not any(mxu32_cuda.LAUNCHES.values())
-    with pytest.raises(NotImplementedError, match="K4"):  # K4's own range is unchanged
-        butterfly32_cuda.try_fwd(x, plan._tbl, p=p, variant=plan.variant, p_neginv=plan.p_neginv)
+    assert butterfly32_cuda.LAUNCHES == {"fwd": 3, "inv": 2}
+    assert not any(mxu32_cuda.LAUNCHES.values())
+    with pytest.raises(NotImplementedError, match="K4"):
+        butterfly32_cuda.check_range(1 << 18, plan.variant)
+
+
+# the prime32 regimes with 2^18 | p - 1 for K2 up to 2^17: lt30, lt31,
+# generic with four matrix digit planes and with five (a prime near 2^32)
+K2_PRIMES = {"lt30": BIG32["lt30"], "lt31": BIG32["lt31"],
+             "generic": _lp(1 << 18, 1, 1 << 31, 255 << 24), "generic-5planes": 4293918721}
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(11, 18)])
+@pytest.mark.parametrize("regime", list(K2_PRIMES))
+def test_k2_tiles_match_plain_at_every_size_on_card(gen, cuda_device, regime, n):
+    """K2 on its tiles (K1's 128 x 32, or 64 x 16 with the contraction held
+    whole for one channel's small grids: mxu32_cuda.k2_tile) at every size
+    and B in {1, 3, 16}: fwd, fwd with two limbs, scaled inv."""
+    p = K2_PRIMES[regime]
+    assert mxu32._n_dplanes32(p) == (5 if regime == "generic-5planes" else 4)
+    for b in (1, 3, 16):
+        xs = (_u32(gen, (b, n), cuda_device), _u32(gen, (b, n), cuda_device))
+        _same(mxu32_cuda.fwd(xs[0], n=n, p=p), mxu32_cuda.fwd_plain(xs[0], n=n, p=p))
+        _same(mxu32_cuda.fwd_wide(xs, n=n, p=p), mxu32_cuda.fwd_wide_plain(xs, n=n, p=p))
+        s = pow(n, p - 2, p) * pow(2, 32, p) % p
+        _same(mxu32_cuda.inv(xs[1], n=n, p=p, scale=s),
+              mxu32_cuda.inv_plain(xs[1], n=n, p=p, scale=s))
+
+
+# K4's regimes with 2^18 | p - 1, and a prime below 2^26
+K4_PRIMES = {**BIG32, "small": _lp(1 << 18, 1, 0, 1 << 26)}
+
+
+# batches beyond {1, 9, 16} by n: B = 80 at 2^14 (clusters of 2 blocks, as
+# at n = 512), B = 132 at 2^15 and 2^17 (a block of 2^15 values: c = 1, 4)
+K4_MORE_BATCHES = {1 << 14: (80,), 1 << 15: (132,), 1 << 17: (132,)}
+
+
+@pytest.mark.parametrize("n", [2, 32, 512, 1024, 2048, 4096, 1 << 14, 1 << 15, 1 << 16,
+                               1 << 17])
+@pytest.mark.parametrize("regime", list(K4_PRIMES))
+def test_k4_clusters_match_plain_on_card(gen, cuda_device, regime, n):
+    """K4 at B in {1, 9, 16} (c = butterfly32_cuda.cluster_size: one block of
+    whole polynomials below 2^9, clusters of 2 to 8 blocks above; 9 leaves a
+    ragged last block below 1024) and the batches of K4_MORE_BATCHES, so that
+    every cluster size runs in every regime."""
+    p = K4_PRIMES[regime]
+    plan = prime32.Plan.new(n, p)
+    kw = dict(p=p, variant=plan.variant, p_neginv=plan.p_neginv)
+    for b in (1, 9, 16) + K4_MORE_BATCHES.get(n, ()):
+        x = _u32(gen, (b, n), cuda_device, p)
+        _same(butterfly32_cuda.try_fwd(x, plan._tbl, **kw),
+              butterfly32_cuda.fwd_plain(x, plan._tbl, **kw))
+        _same(butterfly32_cuda.try_inv(x, plan._tbl, **kw),
+              butterfly32_cuda.inv_plain(x, plan._tbl, **kw))
 
 
 @pytest.mark.parametrize("n,b", [(1 << 11, 1), (1 << 11, 2), (1 << 12, 3), (1 << 13, 5)])

@@ -22,9 +22,13 @@ at n = 2^11 and 2^12 it must reproduce the int8 digit GEMM exactly: of
 ops/mxu32.py in 32 bits, and of the JAX package's `ops/mxu64.py` planes in
 64 bits, one prime per matrix digit-plane count D = 5..9, with two and four
 operand limbs and the zero plane rows that pad a mid-pass operand's 6 or 7
-planes to 8. The packed tiles must unpack to the JAX package's planes, and
-the shared-memory reads of both operand layouts must fall on 32 different
-banks. Tolerance: exact equality.
+planes to 8; and the single-prime K2's smaller tile (`mxu32_cuda.TILES`
+code 1: 64 rows x 16 outputs a block, N = 64 with four digit planes and 80
+with five) from 2^11 to 2^14, over planes packed by `pack_planes_kmajor(...,
+tile_o=16)`. The packed tiles must unpack to the JAX package's planes, and
+the shared-memory reads of both operand layouts (strided rows at 128 + 8
+and 64 + 8 words) must fall on 32 different banks. Tolerance: exact
+equality.
 """
 
 import jax.numpy as jnp
@@ -75,22 +79,23 @@ def _b_offsets(n: int) -> np.ndarray:
     return (col // 8) * SBO + (k // 16) * LBO + (col % 8) * 16 + k % 16
 
 
-def _model_pass(x: np.ndarray, tiles: np.ndarray, n_d: int, to: int) -> np.ndarray:
+def _model_pass(x: np.ndarray, tiles: np.ndarray, n_d: int, to: int, tm: int = TM) -> np.ndarray:
     """The kernel's contraction of one channel: operand words x [rows, kw]
     (limb-major u32 values), packed plane tiles [O/to, kw/32, n_d*to*32]
     -> accumulators [rows, n_d * O] (digit d of output j at column d * O +
-    j), through the registers each lane holds."""
+    j), through the registers each lane holds; tm rows a block (tm / 64
+    warpgroups)."""
     rows, kw = x.shape
     n_ot = tiles.shape[0]
     n = n_d * to
-    pad = -rows % TM
+    pad = -rows % tm
     xp = np.concatenate([x, np.zeros((pad, kw), np.uint32)])  # zero-filled rows past the edge
     acc = np.zeros((rows + pad, n_d * to * n_ot), np.int64)
     boff = _b_offsets(n)
-    for r0 in range(0, rows + pad, TM):
+    for r0 in range(0, rows + pad, tm):
         for ot in range(n_ot):
             tile_bytes = tiles[ot].view(np.int8).reshape(kw // KC, -1).astype(np.int64)
-            for wg in range(2):
+            for wg in range(tm // 64):
                 d = np.zeros((4, 32, n // 2), np.int64)  # [warp][lane][register]
                 for kt in range(kw // KC):
                     for ks in range(KC // 8):
@@ -192,6 +197,54 @@ def test_fragment_model_reproduces_the_digit_gemm(rng, n, case):
     np.testing.assert_array_equal(_model_pass(x, tiles, n_d, to), dense(x, planes, n_limbs))
 
 
+# K2's passes on its small-grid tile: (operand limbs, pass): the forward column
+# pass (A, one and two limbs), the row pass (F), the inverse's row pass (G)
+# and a five-plane prime's column pass
+K2_CASES = {"A": (1, "A"), "A-2limbs": (2, "A"), "F": (1, "F"), "G": (1, "G"),
+            "generic-A": (1, "A")}
+
+
+@pytest.mark.parametrize("n", [1 << 11, 1 << 12, 1 << 13, 1 << 14])
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_fragment_model_reproduces_the_digit_gemm_on_k2_tiles(rng, case, n):
+    """K2's tile for one channel's small grids (64 rows x 16 outputs a
+    block): N = 16 kD columns, planes packed with tile_o = 16, a batch of
+    3 polynomials (rows end in a ragged tile)."""
+    tm, to = tcu.TILES[1]
+    assert (tm, to) == (64, 16)
+    n_limbs, which = K2_CASES[case]
+    p = GENERIC if case.startswith("generic") else PRIMES[0]
+    n1, n2 = tmx.four_step_factors(n)
+    planes, cvec = (tmx._wide_col_planes(n, p, n_limbs) if n_limbs > 1
+                    else tmx._mxu_tables(n, p)[which])
+    n_d = cvec.shape[0]
+    assert n_d == (5 if p == GENERIC else 4)
+    k, rows = (n1, 3 * n2) if which == "A" else (n2, 3 * n1)
+    tiles = tcu.pack_planes_kmajor(planes[None], k, n_d, tile_o=to)[0]
+    o = planes.shape[1] // n_d
+    assert tiles.shape == (o // to, n_limbs * k // KC, n_d * to * KC)
+    x = rng.integers(0, 1 << 32, (rows, n_limbs * k), dtype=np.uint32)
+    x[0] = 0xFFFFFFFF
+    x[1] = 0
+    np.testing.assert_array_equal(_model_pass(x, tiles, n_d, to, tm), _dense(x, planes, n_limbs))
+
+
+def test_k2_tile_choice():
+    """K1's 128 x 32 tile where its grid has at least 128 blocks, else
+    64 x 16: at B = 16 the grids the source note of csrc/mxu32_pass.cu
+    lists, both passes alike, and from 2^15 up K1's tile as before."""
+    want = {1 << 11: (1, 32), 1 << 12: (1, 64), 1 << 13: (1, 128), 1 << 14: (1, 256),
+            1 << 15: (0, 128), 1 << 16: (0, 256), 1 << 17: (0, 512)}
+    for n, (code, blocks) in want.items():
+        n1, n2 = tmx.four_step_factors(n)
+        for direction in ("fwd", "inv"):
+            assert tcu._k2_tiles(16, n, direction) == (code, code)
+        for rows, o in ((16 * n2, n1), (16 * n1, n2)):
+            tm, to = tcu.TILES[code]
+            assert -(-rows // tm) * (o // to) == blocks
+    assert tcu._k2_tiles(1, 1 << 17, "fwd") == (1, 1)
+
+
 def _unpack(words: np.ndarray, k: int) -> np.ndarray:
     """Inverse of `pack_planes`: [C, L*k, D*O] int32 -> [C, 4L*k, D*O] int8."""
     c, lk, do = words.shape
@@ -251,8 +304,9 @@ def test_packed_tiles_round_trip_to_the_jax_planes(rng, case):
 def test_shared_memory_fragment_reads_hit_32_banks():
     """Word offsets of one A register over the 32 lanes, in the
     contiguous-row operand layout [row][KC + 4] and the strided one
-    [word][TM + 8] that both passes use: 32 banks, no conflict."""
-    for rs, ws in ((A_ROW, 1), (1, A_WORD)):
+    [word][rows + 8] that both passes use (128 rows, and 64 on K2's one
+    warpgroup tile): 32 banks, no conflict."""
+    for rs, ws in ((A_ROW, 1), (1, A_WORD), (1, 64 + 8)):
         for dr, dw in ((0, 0), (8, 0), (0, 4), (8, 4)):
             banks = ((G + dr) * rs + (T + dw) * ws) % 32
             assert len(set(banks.tolist())) == 32

@@ -2,7 +2,7 @@
 
 The port's plan runs its tiers' plain twins here (K2's four-step for
 n >= 2^14, K3's two passes for 2048 <= n < 2^14, K4's stage engine below or
-for p < 2^26); the JAX plan runs its XLA stage engine. Both must give the
+for p < 2^26, up to 2^17); the JAX plan runs its XLA stage engine. Both must give the
 same canonical values bit for bit: fwd, inv, the three elementwise ops and
 the polymul, in the lt30, lt31 and generic regimes and for a p < 2^26
 prime, against the golden schoolbook oracle and the README vector, and the
@@ -22,7 +22,7 @@ from concrete_ntt_tpu.ops import pallas32 as jpal32
 from concrete_ntt_tpu_torch import prime32 as tp32
 from concrete_ntt_tpu_torch.golden import polymul as tgold
 from concrete_ntt_tpu_torch.ops import mxu32 as tmx
-from concrete_ntt_tpu_torch.ops import mxu32_cuda, ntt_dispatch
+from concrete_ntt_tpu_torch.ops import butterfly32_cuda, mxu32_cuda, ntt_dispatch
 from concrete_ntt_tpu_torch.utils.prime import largest_prime_in_arithmetic_progression64
 
 PRIMES = {"lt30": 1073479681, "lt31": 2147352577, "generic": 4293918721, "small": 67043329}
@@ -92,20 +92,24 @@ def test_plan_above_the_kernel_range_runs_the_stage_engine(rng):
 
 
 def test_small_prime_above_2_15_takes_the_stage_tier(rng):
-    """p < 2^26 at n = 2^16: no four-step (p too small) and no K4 (n too
-    large), so the plan takes tier "stage", the plain stage engine on the
-    operand's device, as the JAX plan takes its XLA stage engine: fwd and the
-    polymul at B = 1 equal the JAX plan's bit for bit, launching nothing."""
+    """Kept under its old name: p < 2^26 at n = 2^16 has no four-step (p too
+    small) and takes tier "K4" now (the butterfly kernel over a cluster of
+    blocks on the card, its plain twin, the stage engine, on the CPU), where
+    the JAX plan runs its XLA stage engine: fwd, inv and the polymul at
+    B = 1 equal the JAX plan's bit for bit, and the CPU launches nothing.
+    "stage" remains above 2^17."""
     n = 1 << 16
     p = largest_prime_in_arithmetic_progression64(2 * n, 1, 0, 1 << 26)
     tplan, jplan = tp32.Plan.new(n, p, device="cpu"), jp32.Plan.new(n, p)
-    assert ntt_dispatch.tier32(n, p, tplan.variant) == "stage"
+    assert ntt_dispatch.tier32(n, p, tplan.variant) == "K4"
+    assert ntt_dispatch.tier32(4 * n, p, tplan.variant) == "stage"
     x, y = (rng.integers(0, p, (1, n), dtype=np.uint32) for _ in range(2))
-    before = dict(mxu32_cuda.LAUNCHES)
+    before = (dict(mxu32_cuda.LAUNCHES), dict(butterfly32_cuda.LAUNCHES))
     np.testing.assert_array_equal(tplan.fwd(x).numpy(), np.asarray(jplan.fwd(x)))
+    np.testing.assert_array_equal(tplan.inv(x).numpy(), np.asarray(jplan.inv(x)))
     np.testing.assert_array_equal(tplan.negacyclic_polymul(x, y).numpy(),
                                   np.asarray(jplan.negacyclic_polymul(x, y)))
-    assert mxu32_cuda.LAUNCHES == before
+    assert (mxu32_cuda.LAUNCHES, butterfly32_cuda.LAUNCHES) == before
 
 
 def test_polymul_matches_golden(rng):
