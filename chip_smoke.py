@@ -86,12 +86,14 @@ failure:
                process per source, all started together; prints ptxas's
                lines and each GEMM pass instance's (digit planes, regime,
                epilogue, tile) registers and spills, both GEMM passes'
-               dynamic shared memory (the 32-bit pass's per tile) and, from
+               dynamic shared memory (the 32-bit pass's per tile, and with
+               K1d's second operand) and, from
                `cuobjdump -sass`, each library's GMMA (warpgroup tensor-core
                products), IMMA (int8 mma.sync) and IDP.4A (dp4a)
                instructions: the four GEMM libraries (mxu32_*, mxu64_*) must
                hold GMMA and no IDP.4A, no instance of the 64-bit pass nor of
-               K2's small-grid tiles may spill, and a missing cuobjdump fails;
+               K2's small-grid tiles may spill, K1c / K1d's eight tile
+               instances must be built, and a missing cuobjdump fails;
                K4's instances' registers and spills, and how many of its
                clusters the card holds at once (cudaOccupancyMaxActiveClusters:
                the cluster launch must be accepted at 2^14 and 2^17).
@@ -107,8 +109,13 @@ failure:
                with p = 67043329 at 2^14 and 2^15, and at 2^16 and 2^17 (B in
                {16, 9}) in the three regimes and with a prime below 2^26,
                all with 2^18 | p - 1; K1c (1 and 2 limbs)
-               and K1d (full-range u32 operands) with two 30-bit primes at
-               (n, B) = (2^14, 16), (2^14, 5), (2^11, 3), (2^15, 2); K5 fwd,
+               and K1d (full-range u32 operands) over 2 or 3 channel primes
+               at (n, B, C) = (2^14, 16, 2), (2^14, 16, 3), (2^14, 5, 2),
+               (2^14, 1, 2), (2^11, 3, 2), (2^15, 2, 2), (2^16, 8, 2),
+               (2^16, 8, 3), (2^16, 5, 3), (2^16, 1, 2): the tiles
+               `mxu32_cuda.k1_tile` picks, every one of K1c / K1d's eight
+               tile instances launched (`mxu32_cuda.TILE_LAUNCHES`) or the
+               phase fails; K5 fwd,
                inv unscaled and scaled for the five regime primes at
                (2^14, 16), (2^14, 3), (2^11, 3) and at (2^15, 2) for
                Goldilocks and PRIMES52[0], full-range u32 limbs; K6 (A
@@ -282,7 +289,15 @@ N_MAIN, B_MAIN = 1 << 14, 8
 N32, B32 = 1 << 14, 16
 REPS = 20
 PARITY_SHAPES = ((1 << 14, 8), (1 << 14, 5), (1 << 11, 3), (1 << 15, 2))
-K1CD_SHAPES = ((1 << 14, 16), (1 << 14, 5), (1 << 11, 3), (1 << 15, 2))
+# (n, B, channels) of K1c / K1d's parity: the product plan's (2^14, 16, 2),
+# batch edges, 3 channels, and (2^16, 8): every tile instance k1_tile picks
+K1CD_SHAPES = ((1 << 14, 16, 2), (1 << 14, 16, 3), (1 << 14, 5, 2), (1 << 14, 1, 2),
+               (1 << 11, 3, 2), (1 << 15, 2, 2), (1 << 16, 8, 2), (1 << 16, 8, 3),
+               (1 << 16, 5, 3), (1 << 16, 1, 2))
+# K1c / K1d's pass instances beside K1's own (csrc/mxu32_multi.cu launch_k1):
+# (epilogue of the pass, tile code)
+K1_TILED = (("scaled", 1), ("scaled", 2), ("canonical", 1), ("canonical", 2), ("canonical", 3),
+            ("scaled+pointwise", 1), ("scaled+pointwise", 2), ("scaled+pointwise", 3))
 K3_SIZES, K3_BATCHES = (2048, 4096, 8192), (16, 3)
 K2_SHAPES = ((1 << 14, 16), (1 << 14, 3), (1 << 15, 2)) + tuple(
     (n, b) for n in K3_SIZES for b in K3_BATCHES)
@@ -580,18 +595,19 @@ def bind_now(fn):
 
 def device_times(tasks: list, reps: int = REPS) -> dict:
     """Device time of a call, median of `reps` calls, for each task = (key,
-    make, per_call): make() -> (fn, match). All tasks run in ONE
-    torch.profiler session; a spin kernel (torch.cuda._sleep) before and
-    after each task's calls splits the device trace into their segments. A
-    call's time is the sum of its kernels whose name matches, the calls being
-    consecutive groups of per_call such kernels (None: as many as there are
-    per call). A key whose segment does not split so, or a trace that lost
-    its markers, maps to None."""
+    make, per_call) or (key, make, per_call, pick): make() -> (fn, match).
+    All tasks run in ONE torch.profiler session; a spin kernel
+    (torch.cuda._sleep) before and after each task's calls splits the device
+    trace into their segments. A call's time is the sum of its kernels whose
+    name matches (with `pick`, only its pick-th such kernel, in launch
+    order), the calls being consecutive groups of per_call such kernels
+    (None: as many as there are per call). A key whose segment does not
+    split so, or a trace that lost its markers, maps to None."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         matches = []
-        for _, make, _ in tasks:
+        for _, make, *_ in tasks:
             fn, match = make()
             fn()  # warm, outside the segment
             torch.cuda.synchronize()
@@ -614,16 +630,17 @@ def device_times(tasks: list, reps: int = REPS) -> dict:
                 seg = None
         elif seg is not None:
             seg.append((us, name))
-    out = {key: None for key, _, _ in tasks}
+    out = {task[0]: None for task in tasks}
     if len(segments) != len(tasks):
         print(f"profile: {len(segments)} marked segments for {len(tasks)} tasks: device times "
               "not measured", flush=True)
         return out
-    for (key, _, per_call), match, seg in zip(tasks, matches, segments):
+    for (key, _, per_call, *pick), match, seg in zip(tasks, matches, segments):
         us = [t for t, name in seg if match(name)]
         k = per_call or len(us) // reps
         if k and len(us) == k * reps:
-            out[key] = statistics.median(sum(us[i * k:(i + 1) * k]) for i in range(reps)) / 1e3
+            calls = [us[i * k:(i + 1) * k] for i in range(reps)]
+            out[key] = statistics.median(c[pick[0]] if pick else sum(c) for c in calls) / 1e3
     return out
 
 
@@ -907,6 +924,12 @@ def main() -> int:
             require(len(small) == 8 and all(st == ld == 0 for _, _, st, ld in small),
                     f"build: {os.path.basename(so)}: K2's small-grid tile instances "
                     f"({len(small)} of 8) missing or spilling registers")
+        # K1c / K1d's tile instances: all built
+        if os.path.basename(so).startswith("mxu32_multi"):
+            built = {pass_instance(e[0]) for e in passes}
+            want = {f"4/lt30/{form}/tile {t}" for form, t in K1_TILED}
+            require(want <= built, f"build: {os.path.basename(so)}: K1c / K1d's tile instances "
+                                   f"{sorted(want - built)} missing")
         k4 = [e for e in ptxas_entries(log) if "ntt_k4" in e[0]]
         if k4:
             print(f"build: {os.path.basename(so)} K4 instances: " + "; ".join(
@@ -915,9 +938,12 @@ def main() -> int:
     smem = {(d, t): mxu32_cuda._pass_lib().k_pass_smem_bytes(d, t)
             for t in range(len(mxu32_cuda.TILES)) for d in (4, 5)}
     smem64 = {d: mxu64_cuda._pass_lib().k64_pass_smem_bytes(d) for d in range(5, 10)}
+    smem_pair = {t: mxu32_cuda._lib().k1_smem_bytes(t, 1) for t in (1, 2, 3)}
     print("build: matmod_pass dynamic shared memory a block, 4 / 5 digit planes: " + "; ".join(
           f"tile {t} {tm} x {to}: {smem[(4, t)]} / {smem[(5, t)]} B"
-          for t, (tm, to) in enumerate(mxu32_cuda.TILES)) + "; matmod64_pass with 5..9 digit "
+          for t, (tm, to) in enumerate(mxu32_cuda.TILES)) + "; K1d's pair pass (4 planes): " +
+          ", ".join(f"tile {t} {v} B" for t, v in smem_pair.items()) +
+          "; matmod64_pass with 5..9 digit "
           f"planes: {', '.join(f'{v} B' for v in smem64.values())} (the ring of operand and "
           "plane stages, or the whole contraction of up to four stages)", flush=True)
     # K4's cluster launch: how many clusters the card holds at once
@@ -991,17 +1017,30 @@ def main() -> int:
 
     t0 = time.perf_counter()
     p2 = PRIMES[:2]
-    for n, b in K1CD_SHAPES:
-        xs = (u32((2, b, n)), u32((2, b, n)))  # full-range u32
-        compare("fwd_multi_perchannel", mxu32_cuda.fwd_multi_perchannel(xs[0], p2),
-                mxu32_cuda.fwd_multi_perchannel_plain(xs[:1], p2), f"n={n} B={b} limbs=1")
-        compare("fwd_multi_perchannel", mxu32_cuda.fwd_wide_multi_perchannel(*xs, p2),
-                mxu32_cuda.fwd_multi_perchannel_plain(xs, p2), f"n={n} B={b} limbs=2")
-        scales = tuple(pow(n, p - 2, p) * pow(2, 32, p) % p for p in p2)
-        compare("pointwise_inv_multi", mxu32_cuda.pointwise_inv_multi(*xs, p2, scales),
-                mxu32_cuda.pointwise_inv_multi_plain(*xs, p2, scales), f"n={n} B={b}")
+    reset_counts()
+    for n, b, c in K1CD_SHAPES:
+        pc = (PRIMES if n <= 1 << 15 else EXT)[:c]
+        xs = (u32((c, b, n)), u32((c, b, n)))  # full-range u32
+        what = f"n={n} B={b} C={c}"
+        compare("fwd_multi_perchannel", mxu32_cuda.fwd_multi_perchannel(xs[0], pc),
+                mxu32_cuda.fwd_multi_perchannel_plain(xs[:1], pc), what + " limbs=1")
+        compare("fwd_multi_perchannel", mxu32_cuda.fwd_wide_multi_perchannel(*xs, pc),
+                mxu32_cuda.fwd_multi_perchannel_plain(xs, pc), what + " limbs=2")
+        scales = tuple(pow(n, p - 2, p) * pow(2, 32, p) % p for p in pc)
+        compare("pointwise_inv_multi", mxu32_cuda.pointwise_inv_multi(*xs, pc, scales),
+                mxu32_cuda.pointwise_inv_multi_plain(*xs, pc, scales), what)
+    # every pass instance of K1c / K1d's tiles ran (the first pass's epilogue
+    # is scaled, K1d's with the pointwise pair; the second pass's canonical)
+    ran = set()
+    for (name, t1, t2), v in mxu32_cuda.TILE_LAUNCHES.items():
+        first = "scaled+pointwise" if name.startswith("pointwise") else "scaled"
+        ran |= {(first, t1), ("canonical", t2)}
+    require(set(K1_TILED) <= ran, f"parity: K1c / K1d pass instances {sorted(set(K1_TILED) - ran)} "
+                                  "never ran")
     print(f"parity: K1c {checks['fwd_multi_perchannel']}, K1d {checks['pointwise_inv_multi']} "
-          f"checks exact at (n, B) in {K1CD_SHAPES}, primes {p2}, full-range u32 operands in "
+          f"checks exact at (n, B, C) in {K1CD_SHAPES}, primes {PRIMES[:3]} up to 2^15, "
+          f"{EXT[:3]} above, full-range u32 operands; launches by (kernel, tile codes) "
+          f"{dict(mxu32_cuda.TILE_LAUNCHES)}: every pass instance {K1_TILED} ran, in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()

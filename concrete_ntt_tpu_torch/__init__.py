@@ -27,15 +27,18 @@ Ported so far:
     four-step kernel K2 of `csrc/mxu32_pass.cu` for 2^11 <= n <= 2^17 where
     `mxu32.applicable` holds (odd p >= 2^26), the butterfly kernel K4
     (`ops/butterfly32_cuda.py` + `csrc/butterfly32.cu`) otherwise up to
-    n = 2^15, above it the plain stage engine on the operand's device (the
-    reference's XLA route); `ops/ntt_dispatch.py` picks the tier. K3 (one
+    n = 2^17 (above 2^15 on thread-block clusters of up to 8 blocks a
+    polynomial), only above 2^17 the plain stage engine on the operand's
+    device (the reference's XLA route); `ops/ntt_dispatch.py` picks the
+    tier. K3 (one
     GEMM pass, same source) is only the sharded four-step's per-rank pass;
   * the product plan `product.Plan(n, modulus, factors)` (the tfhe-rs
     integration layer: Generic and Bounded fwd,
     Replace and Accumulate inv, the mixed-radix lift, the elementwise ops
     and the fused polymul): on the channel grid K1a-K1d for 30-bit primes
     at 2^11 <= n <= 2^17 (K1c `fwd_multi_perchannel` for the Bounded fwd,
-    K1d `pointwise_inv_multi` for the polymul), K2 once per channel for
+    K1d `pointwise_inv_multi` for the polymul, each pass on the tile
+    `ops/mxu32_cuda.k1_tile` picks), K2 once per channel for
     other primes >= 2^26, each channel's prime32 plan otherwise; factors
     >= 2^32 are prime64 channels through `prime64.Plan`;
   * the 64-bit single-prime plan `prime64.Plan(n, p)` in its four regimes

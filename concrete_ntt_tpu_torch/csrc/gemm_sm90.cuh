@@ -5,7 +5,8 @@
 // them visible to the tensor cores, wgmma's fence / group / wait, the
 // descriptor of a K-major plane tile, and wgmma.mma_async m64nNk32
 // .s32.s8.s8 with A from registers for every N the passes take: 16 * kD
-// (kD 4-9 digit planes: N = 64..144) and 32 * kD (kD 4 or 5: N = 128, 160).
+// (kD 4-9 digit planes: N = 64..144), 32 * kD (kD 4 or 5: N = 128, 160) and
+// 64 * 4 (N = 256: K1c / K1d's 64-output tile).
 // The products are exact integers accumulated in int32.
 //
 // Tiling (both passes): a block owns kTM = 128 operand rows x kTO outputs x
@@ -34,11 +35,25 @@
 // then each stage's products as its copies land, one wgmma group in flight
 // behind the next (no ring slot is reused, so no barrier waits for the
 // products). A longer contraction runs the ring as above.
+//
+// The channel-grid kernels K1c / K1d take the same resident contraction on
+// K1's 128-row tile too. One wgmma group stays in flight only there: in the
+// ring's rolled loop a group in flight across the loop's back edge gave
+// wrong sums on the card, where the unrolled resident path is exact, so the
+// ring waits for each stage's group.
+//
+// A pair operand (K1d's first pass) is two arrays read at the same
+// index, x[0] and x[1], both copied with cp.async into two operand slots of
+// one layout; the word the digit split takes is pair(l, r) (the Montgomery
+// product), taken where the A fragment is read: each operand word is read
+// by one thread of its warpgroup, once a block.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace sm90 {
 
@@ -61,11 +76,20 @@ __host__ __device__ constexpr int a_stage(int tm) {
 
 // words of one stage of a plane tile: kD * kTO rows (N) of kKC words (K)
 __host__ __device__ constexpr int plane_stage(int kD, int kTO) { return kD * kTO * kKC; }
-// dynamic shared memory of a block: the ring of plane and operand stages
+// dynamic shared memory of a block: the ring of plane and operand stages,
+// and with a pair operand a second operand slot a stage
 __host__ __device__ constexpr int smem_bytes(int kD, int kTO, int tm = kTM,
-                                             int stages = kStages) {
-  return 4 * stages * (plane_stage(kD, kTO) + a_stage(tm));
+                                             int stages = kStages, bool pair = false) {
+  return 4 * stages * (plane_stage(kD, kTO) + (pair ? 2 : 1) * a_stage(tm));
 }
+// blocks of `bytes` of dynamic shared memory an SM holds: 228 KiB, less
+// 1 KiB the runtime reserves for each block
+__host__ __device__ constexpr int blocks_per_sm(int bytes) {
+  return 233472 / (bytes + 1024) > 0 ? 233472 / (bytes + 1024) : 1;
+}
+
+// The operand of a pass that is one array (or the limbs of one): no pair.
+struct NoPair {};
 
 inline bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
 
@@ -301,6 +325,42 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[80], const uint32_t (&a)[4], u
       : "memory");
 }
 
+__device__ __forceinline__ void wgmma_s8(int (&d)[128], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, "
+      "%73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, "
+      "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, "
+      "%107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}"
+      ", {%128, %129, %130, %131}, %132, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]),
+        "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]),
+        "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]),
+        "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]),
+        "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+      : "memory");
+}
+
 // The mainloop of a pass block: acc (this thread's part of its warpgroup's
 // m64 x (kD * kTO) int32 tile; d[4i + q] = row g + 8 (q / 2), column 8i +
 // 2t + q % 2) = the digit products of the block's kRows operand rows from
@@ -313,14 +373,18 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[80], const uint32_t (&a)[4], u
 // `at` of limb `limb`, in the stage that starts at contraction word i0 of
 // the limb, computed or packed on the way. kRows = 128 (two warpgroups) or
 // 64 (one); kResident: a contraction of at most kRing stages is loaded whole
-// up front (the header's note), a longer one runs the ring.
+// up front (the header's note), a longer one runs the ring. With a `pair`
+// (one operand limb, copied with cp.async) the operand word is
+// pair(x[0][i], x[1][i]) (the header's note).
 template <int kD, int kTO, bool kPlain, int kRows = kTM, int kRing = kStages,
-          bool kResident = false, class P, class Load>
+          bool kResident = false, class P, class Load, class Pair = NoPair>
 __device__ __forceinline__ void mainloop(int (&acc)[kD * kTO / 2], const P& a, long long chan,
                                          int row0, const uint32_t* planes, uint32_t* smem,
-                                         Load load) {
+                                         Load load, Pair pair = Pair{}) {
+  constexpr bool kPair = !std::is_same_v<Pair, NoPair>;
   static_assert(kRows == 64 || kRows == 128, "one or two warpgroups of 64 rows");
   static_assert(kRing >= 2 && kRing <= 8, "a ring of 2 to 8 stages");
+  static_assert(!(kPair && kPlain), "a pair operand is copied with cp.async");
   constexpr int kT = threads(kRows);
   constexpr int kAW = a_word(kRows);
   constexpr int kAS = a_stage(kRows);
@@ -329,6 +393,7 @@ __device__ __forceinline__ void mainloop(int (&acc)[kD * kTO / 2], const P& a, l
   constexpr int kCols = kRows / 4;   // 16-byte chunks a contraction word, strided layout
   uint32_t* ps = smem;                // [kRing][kPS] plane tiles (the packed image)
   uint32_t* xs = smem + kRing * kPS;  // [kRing][kAS] operand words
+  uint32_t* xq = xs + kRing * kAS;    // [kRing][kAS] a pair's second operand
   const int tid = threadIdx.x;
   const int g = (tid & 31) >> 2, t = tid & 3;
   const int wrow = (tid >> 5) * 16;  // first row of the warp: group (tid / 128) * 64 + 16 w
@@ -379,6 +444,8 @@ __device__ __forceinline__ void mainloop(int (&acc)[kD * kTO / 2], const P& a, l
         *reinterpret_cast<uint4*>(xd + x_dst[i]) = v;
       } else {
         cp_async16(xd + x_dst[i], xl + x_src[i] + (long long)i0 * a.s_k, ok);
+        if constexpr (kPair)
+          cp_async16(xq + s * kAS + x_dst[i], a.x[1] + x_src[i] + (long long)i0 * a.s_k, ok);
       }
     }
     // the stage's plane tile is one contiguous packed block: chunk tid + kT i
@@ -396,17 +463,26 @@ __device__ __forceinline__ void mainloop(int (&acc)[kD * kTO / 2], const P& a, l
   const int ws = rowmajor ? 1 : kAW;
   const int a_lane = (wrow + g) * rs + t * ws;
   // the four k32 steps of ring slot s: A fragments (operand words, digit
-  // split) from shared memory, then one wgmma group
+  // split; kPair: the pair of the two slots' words) from shared memory,
+  // then one wgmma group
   auto products = [&](int s) {
     const uint32_t* xa = xs + s * kAS + a_lane;
     uint32_t af[kKC / 8][4];
 #pragma unroll
     for (int ks = 0; ks < kKC / 8; ++ks) {
       const uint32_t* xr = xa + 8 * ks * ws;
-      af[ks][0] = xr[0] ^ kDigitXor;
-      af[ks][1] = xr[8 * rs] ^ kDigitXor;
-      af[ks][2] = xr[4 * ws] ^ kDigitXor;
-      af[ks][3] = xr[8 * rs + 4 * ws] ^ kDigitXor;
+      if constexpr (kPair) {
+        const uint32_t* yr = xq + s * kAS + a_lane + 8 * ks * ws;
+        af[ks][0] = pair(xr[0], yr[0]) ^ kDigitXor;
+        af[ks][1] = pair(xr[8 * rs], yr[8 * rs]) ^ kDigitXor;
+        af[ks][2] = pair(xr[4 * ws], yr[4 * ws]) ^ kDigitXor;
+        af[ks][3] = pair(xr[8 * rs + 4 * ws], yr[8 * rs + 4 * ws]) ^ kDigitXor;
+      } else {
+        af[ks][0] = xr[0] ^ kDigitXor;
+        af[ks][1] = xr[8 * rs] ^ kDigitXor;
+        af[ks][2] = xr[4 * ws] ^ kDigitXor;
+        af[ks][3] = xr[8 * rs + 4 * ws] ^ kDigitXor;
+      }
     }
     wgmma_fence();
 #pragma unroll

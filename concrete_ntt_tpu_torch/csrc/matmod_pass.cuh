@@ -66,7 +66,9 @@
 // output tiles, z); rows past the batch edge are zero-filled and not stored.
 // K2's entries pick a smaller tile where one channel's grid is small (Tile
 // below): 64 rows (one warpgroup) x 16 outputs (m64n(16 kD)k32, 32 or 40
-// accumulators), with a contraction of up to four stages held whole.
+// accumulators), with a contraction of up to four stages held whole; K1c /
+// K1d's entries take that tile, K1's, K1's holding four stages whole, or
+// 128 rows x 64 outputs (m64n256k32).
 //
 // The z axis is channel * nb + block. nb = 1 is a direct transform. With the
 // 32-bit stage-split hybrid's block tables (ops/stagesplit.py) a transform of
@@ -95,19 +97,27 @@ namespace mxu32 {
 using sm90::kKC;
 
 // The tiles of a pass, by the code the host passes (ops/mxu32_cuda.py
-// k2_tile): rows and outputs a block, ring stages, and whether a short
-// contraction is held whole (gemm_sm90.cuh's note). Code 0 is K1's, K3's and
-// the block tables' (and K2's where its grid reaches 128 blocks: 2^15 and up
-// at B = 16); code 1 is K2's for one channel's small grids, 64 rows x 16
-// outputs a block (N = 16 kD).
+// k2_tile, k1_tile): rows and outputs a block, ring stages, and whether a
+// short contraction is held whole (gemm_sm90.cuh's note). Code 0 is K1's,
+// K3's and the block tables' (and K2's where its grid reaches 128 blocks:
+// 2^15 and up at B = 16); code 1 is K2's for one channel's small grids, 64
+// rows x 16 outputs a block (N = 16 kD), and K1c / K1d's where their grid
+// is small. Codes 2 and 3 are K1c / K1d's only: code 2 is K1's 128 x 32
+// holding a contraction of up to four stages whole; code 3 is 128 rows x 64
+// outputs (N = 256, 128 accumulators a thread) on K1's ring of three, which
+// copies each operand tile once for twice K1's outputs (150 KiB, 204 KiB
+// with K1d's pair: one block an SM).
 struct Tile {
   int rows, outs, ring;
   bool resident;
 };
 __host__ __device__ constexpr Tile tile(int code) {
-  return code == 0 ? Tile{128, 32, 3, false} : Tile{64, 16, 4, true};
+  return code == 0   ? Tile{128, 32, 3, false}
+         : code == 1 ? Tile{64, 16, 4, true}
+         : code == 2 ? Tile{128, 32, 4, true}
+                     : Tile{128, 64, 3, false};
 }
-constexpr int kTiles = 2;
+constexpr int kTiles = 4;
 
 // words of one stage of the plane tile: kD * outs rows (N) of kKC words (K),
 // in the host-packed order of ops/mxu32_cuda.py pack_planes_kmajor: 8-row
@@ -117,14 +127,15 @@ constexpr int kTiles = 2;
 __host__ __device__ constexpr int plane_stage(int kD, int code = 0) {
   return sm90::plane_stage(kD, tile(code).outs);
 }
-__host__ __device__ constexpr int smem_bytes(int kD, int code = 0) {
-  return sm90::smem_bytes(kD, tile(code).outs, tile(code).rows, tile(code).ring);
+// (`pair`: with K1d's second operand, gemm_sm90.cuh's pair)
+__host__ __device__ constexpr int smem_bytes(int kD, int code = 0, bool pair = false) {
+  return sm90::smem_bytes(kD, tile(code).outs, tile(code).rows, tile(code).ring, pair);
 }
-// blocks an SM the registers are budgeted for: two (one with five digit
-// planes) for tile 0 as before; tile 1 as many as its shared memory lets in
-// (68 / 76 KiB)
-__host__ __device__ constexpr int min_blocks(int kD, int code) {
-  return code == 0 ? (kD == 4 ? 2 : 1) : (kD == 4 ? 3 : 2);
+// blocks an SM the registers are budgeted for: as many as the shared memory
+// lets in (tile 0: two, one with five digit planes; tile 1: three, two with
+// five or K1d's pair; tiles 2 and 3 one)
+__host__ __device__ constexpr int min_blocks(int kD, int code, bool pair = false) {
+  return sm90::blocks_per_sm(smem_bytes(kD, code, pair));
 }
 
 // Per-channel scalar record (uint32 words), built by ops/mxu32_cuda.py
@@ -202,19 +213,30 @@ __device__ __forceinline__ T table_word(const T* ptr) {
   }
 }
 
+// The pair operand of K1d's first pass: the Montgomery product of the two
+// words at one index (gemm_sm90.cuh's pair).
+struct MontPair {
+  uint32_t p, p_neginv;
+  __device__ __forceinline__ uint32_t operator()(uint32_t l, uint32_t r) const {
+    return mont_mul(l, r, p, p_neginv);
+  }
+};
+
 // kPointwise (K1d's first pass): the operand value is the Montgomery product
 // mont_mul(x[0][i], x[1][i]) of two operands read at the same index (both
-// any u32, one limb each), taken in the load before the digit split.
-// kPointwise and kPresplit load their operand tile with plain loads and
-// stores (the value is computed or packed on the way); every other pass
-// copies it with cp.async.
+// any u32, one limb each), both copied with cp.async and multiplied where
+// the A fragment is read (gemm_sm90.cuh's note), before the digit split.
+// kPresplit loads its operand tile with plain loads and stores (the value
+// is packed on the way); every other pass copies it with cp.async.
 template <int kD, int kRegime, bool kScaled, bool kPointwise = false, bool kPresplit = false,
           int kTile = 0>
-__global__ void __launch_bounds__(sm90::threads(tile(kTile).rows), min_blocks(kD, kTile))
+__global__ void __launch_bounds__(sm90::threads(tile(kTile).rows),
+                                  min_blocks(kD, kTile, kPointwise))
     matmod_pass(Pass a) {
   static_assert(!(kPointwise && kPresplit), "the presplit operand is one array of planes");
-  constexpr int kTM = tile(kTile).rows;
-  constexpr int kTO = tile(kTile).outs;
+  constexpr Tile kT = tile(kTile);
+  constexpr int kTM = kT.rows;
+  constexpr int kTO = kT.outs;
   extern __shared__ __align__(128) uint32_t smem[];
   const int z = blockIdx.z;
   const int c = z / a.nb;        // channel
@@ -229,38 +251,30 @@ __global__ void __launch_bounds__(sm90::threads(tile(kTile).rows), min_blocks(kD
   const uint32_t* planes = reinterpret_cast<const uint32_t*>(a.planes) +
                            ((size_t)pz * (a.o / kTO) + blockIdx.y) * nk * plane_stage(kD, kTile);
   const long long chan = (long long)c * a.x_chan + (long long)blk * a.x_blk;
-  uint32_t pw_p = 0, pw_neginv = 0;  // p and -p^-1 of the channel (kPointwise)
-  if constexpr (kPointwise) {
-    pw_p = a.scal[kScalWords * c];
-    pw_neginv = a.scal[kScalWords * c + 3];
-  }
-  // the operand chunk at `at` of the plain-loading passes
+  // the operand chunk at `at` of the presplit pass: value i0 + w + u of the
+  // row that starts at element at - i0 - w has its digit e at byte 4 * (row
+  // start) + e * k1 + (i0 + w + u) of the plane array; the bytes are the
+  // xor-128 pattern already, so undo the xor the fragment read applies
   auto load = [&](long long at, int i0, int) {
-    if constexpr (kPointwise) {
-      const uint4 l = *reinterpret_cast<const uint4*>(a.x[0] + at);
-      const uint4 r = *reinterpret_cast<const uint4*>(a.x[1] + at);
-      return make_uint4(mont_mul(l.x, r.x, pw_p, pw_neginv), mont_mul(l.y, r.y, pw_p, pw_neginv),
-                        mont_mul(l.z, r.z, pw_p, pw_neginv), mont_mul(l.w, r.w, pw_p, pw_neginv));
-    } else {
-      // kPresplit: value i0 + w + u of the row that starts at element
-      // at - i0 - w has its digit e at byte 4 * (row start) + e * k1 +
-      // (i0 + w + u) of the plane array; the bytes are the xor-128 pattern
-      // already, so undo the xor the fragment read applies
-      const int w = 4 * (threadIdx.x & 7);
-      const uint8_t* xb =
-          reinterpret_cast<const uint8_t*>(a.x[0]) + 4 * (at - i0 - w) + i0 + w;
-      uint32_t u[4];
+    const int w = 4 * (threadIdx.x & 7);
+    const uint8_t* xb = reinterpret_cast<const uint8_t*>(a.x[0]) + 4 * (at - i0 - w) + i0 + w;
+    uint32_t u[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        u[e] = ((uint32_t)xb[e] | ((uint32_t)xb[a.k1 + e] << 8) |
-                ((uint32_t)xb[2 * a.k1 + e] << 16) | ((uint32_t)xb[3 * a.k1 + e] << 24)) ^
-               sm90::kDigitXor;
-      return make_uint4(u[0], u[1], u[2], u[3]);
-    }
+    for (int e = 0; e < 4; ++e)
+      u[e] = ((uint32_t)xb[e] | ((uint32_t)xb[a.k1 + e] << 8) |
+              ((uint32_t)xb[2 * a.k1 + e] << 16) | ((uint32_t)xb[3 * a.k1 + e] << 24)) ^
+             sm90::kDigitXor;
+    return make_uint4(u[0], u[1], u[2], u[3]);
   };
   int acc[kD * kTO / 2];  // the warpgroup's m64 x (kD * kTO) int32 tile, this thread's part
-  sm90::mainloop<kD, kTO, kPointwise || kPresplit, kTM, tile(kTile).ring, tile(kTile).resident>(
-      acc, a, chan, row0, planes, smem, load);
+  if constexpr (kPointwise) {
+    const MontPair pair{a.scal[kScalWords * c], a.scal[kScalWords * c + 3]};
+    sm90::mainloop<kD, kTO, false, kTM, kT.ring, kT.resident>(acc, a, chan, row0, planes, smem,
+                                                              load, pair);
+  } else {
+    sm90::mainloop<kD, kTO, kPresplit, kTM, kT.ring, kT.resident>(acc, a, chan, row0, planes,
+                                                                 smem, load);
+  }
 
   const uint32_t* sc = a.scal + kScalWords * c;
   const uint32_t p = sc[0], c32 = sc[1], c32_sh = sc[2], p_neginv = sc[3];
@@ -368,7 +382,7 @@ static cudaError_t launch(const Pass& a, int channels, cudaStream_t stream) {
   if (!tiles_fit(a, kPointwise || kPresplit, kPresplit ? 0 : kPointwise ? 2 : a.n_limbs, kT.outs))
     return cudaErrorInvalidValue;
   auto kernel = matmod_pass<kD, kRegime, kScaled, kPointwise, kPresplit, kTile>;
-  constexpr int smem = smem_bytes(kD, kTile);
+  constexpr int smem = smem_bytes(kD, kTile, kPointwise);
   static bool smem_set[sm90::kMaxDevices];
   cudaError_t e = sm90::set_smem_once(kernel, smem, smem_set);
   if (e != cudaSuccess) return e;

@@ -51,8 +51,22 @@
 // rows past the batch edge are masked, so any batch size works. Both
 // launches of a kernel go on the caller's stream; the C entry point returns
 // cudaGetLastError() after them. K1c is K1a's launches with a channel
-// stride on the operand; K1d's first pass is the one pointwise instance of
-// the template (kPointwise), so K1a/K1b/K2/K3 keep their instances.
+// stride on the operand; K1d's first pass is the pointwise instance of the
+// template (kPointwise): fl and fr are copied with cp.async into two operand
+// slots and multiplied where the A fragment is read (gemm_sm90.cuh's pair),
+// so no stage waits a global round trip for its operand.
+//
+// K1c / K1d run the product plan's small channel grids (two or three
+// channels: 128 blocks a pass at (2^14, 16, 2 ch) on K1's tile, 4 stages
+// of contraction), so each pass takes a tile code from the host
+// (ops/mxu32_cuda.py k1_tile, set by tools/sweep_product.py; matmod_pass.cuh
+// Tile): K1's ring (code 0; not K1d's first pass), 64 x 16 (1), K1's tile
+// holding the contraction of up to four stages whole with one wgmma group in
+// flight (2: 136 KiB, 208 KiB with the pair), or 128 rows x 64 outputs on
+// K1's ring (3: 150 KiB, 204 KiB with the pair; not K1c's scaled first
+// pass), which copies each operand tile, and K1d's pair, once for twice the
+// outputs. K1a / K1b / K1e keep K1's instances (tile 0) and take no code;
+// K2 / K3 keep theirs.
 //
 // Bound at n = 2^14, B = 8, five channels: K1a (two limbs) is 4.0e9 int8
 // MACs (K1b 2.7e9) against about 12 MiB moved (operand, scratch written and
@@ -62,14 +76,45 @@
 // microseconds each at 2^14 and 10-30 at 2^16, so the kernel is bound by how
 // close the contraction comes to the tensor cores' rate (measured in
 // PERF.md section 6). K1d adds one 32x32
-// multiply-high chain per operand value to the load (n values per
-// polynomial against n * n1 MACs), and two operand reads instead of one.
+// multiply-high chain per operand value (n values per polynomial against
+// n * n1 MACs), and two operand reads instead of one: every output tile's
+// block copies and multiplies its rows again, so on 32-output tiles its
+// first pass copies 1.5x a plain pass's bytes from L2 (about 4 TB/s on this
+// card, PERF.md section 6), on 64-output tiles (code 3) as many as a plain
+// pass on 32.
 
 #include "matmod_pass.cuh"
 
 using mxu32::kLt30;
 using mxu32::launch;
 using mxu32::Pass;
+
+namespace {
+
+// K1c / K1d's passes on the tile of code `tile` (matmod_pass.cuh Tile; the
+// host's mxu32_cuda.k1_tile): code 0 on K1a / K1b's instances, codes 1 and
+// 2, and code 3 (64 outputs) for the canonical second passes and K1d's
+// pointwise first pass; no code 0 for the pointwise pass, no code 3 for
+// K1c's scaled first pass
+template <bool kScaled, bool kPointwise = false>
+cudaError_t launch_k1(const Pass& a, int channels, int tile, cudaStream_t s) {
+  switch (tile) {
+    case 0:
+      if constexpr (!kPointwise) return launch<4, kLt30, kScaled>(a, channels, s);
+      break;
+    case 1:
+      return launch<4, kLt30, kScaled, kPointwise, false, 1>(a, channels, s);
+    case 2:
+      return launch<4, kLt30, kScaled, kPointwise, false, 2>(a, channels, s);
+    case 3:
+      if constexpr (kPointwise || !kScaled)
+        return launch<4, kLt30, kScaled, kPointwise, false, 3>(a, channels, s);
+      break;
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
 
 // K1a: x0 (, x1 (, x2, x3)) [B, n] u32 limbs of a u32 / u64 / u128 operand
 // (n_limbs = 1, 2 or 4) -> out [C, B, n] canonical, bit-reversed.
@@ -122,35 +167,46 @@ extern "C" int k1e_inv_multi_presplit(const void* xd, int batch, int n1, int n2,
 
 // K1c: x0 (, x1) [C, B, nb * n] u32 limbs, one operand per channel (any values)
 // -> out [C, B, nb * n] canonical, bit-reversed; nb > 1: the hybrid's blocks.
+// tile1, tile2: the tile codes of the column and the row pass.
 extern "C" int k1c_fwd_multi_perchannel(const void* x0, const void* x1, int n_limbs, int batch,
-                                        int n1, int n2, int nb, int channels, const void* planes1,
-                                        const void* cvec1, const void* planes2,
-                                        const void* cvec2, const void* diag, const void* scal,
-                                        void* scratch, void* out, void* stream) {
+                                        int n1, int n2, int nb, int channels, int tile1,
+                                        int tile2, const void* planes1, const void* cvec1,
+                                        const void* planes2, const void* cvec2, const void* diag,
+                                        const void* scal, void* scratch, void* out,
+                                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   Pass col, row;
   const void* const x[4] = {x0, x1, x0, x0};  // 1 or 2 limbs
   mxu32::fwd_passes(&col, &row, x, n_limbs, (long long)batch * nb * n1 * n2, batch, n1, n2, nb,
                     planes1, cvec1, planes2, cvec2, diag, scal, scratch, out);
-  cudaError_t e = launch<4, kLt30, true>(col, channels, s);
+  cudaError_t e = launch_k1<true>(col, channels, tile1, s);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch<4, kLt30, false>(row, channels, s);
+  return (int)launch_k1<false>(row, channels, tile2, s);
 }
 
 // K1d: fl, fr [C, B, nb * n] u32 (any representatives) -> out [C, B, nb * n] =
 // inv(mont_mul(fl, fr)) times the scale folded into A_inv, canonical,
-// standard order within each block.
+// standard order within each block. tile1, tile2: the tile codes of the row
+// and the column pass.
 extern "C" int k1d_pointwise_inv_multi(const void* fl, const void* fr, int batch, int n1,
-                                       int n2, int nb, int channels, const void* planes1,
-                                       const void* cvec1, const void* planes2,
-                                       const void* cvec2, const void* diag, const void* scal,
-                                       void* scratch, void* out, void* stream) {
+                                       int n2, int nb, int channels, int tile1, int tile2,
+                                       const void* planes1, const void* cvec1,
+                                       const void* planes2, const void* cvec2, const void* diag,
+                                       const void* scal, void* scratch, void* out,
+                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   Pass row, col;
   mxu32::inv_passes(&row, &col, fl, batch, n1, n2, nb, planes1, cvec1, planes2, cvec2, diag,
                     scal, scratch, out);
   row.x[1] = (const uint32_t*)fr;  // the pointwise pass's second operand (n_limbs stays 1)
-  cudaError_t e = launch<4, kLt30, true, true>(row, channels, s);
+  cudaError_t e = launch_k1<true, true>(row, channels, tile1, s);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch<4, kLt30, false>(col, channels, s);
+  return (int)launch_k1<false>(col, channels, tile2, s);
+}
+
+// Dynamic shared memory of a block of K1c / K1d's passes on the tile of
+// code `tile`, with K1d's second operand if `pair`, for the build report.
+extern "C" int k1_smem_bytes(int tile, int pair) {
+  if (tile < 0 || tile >= mxu32::kTiles) return -1;
+  return mxu32::smem_bytes(4, tile, pair != 0);
 }

@@ -64,12 +64,16 @@ descriptor reads them. Loads run through a three-stage cp.async ring in
 shared memory; the operator tables stay in L2 and the mid-pass transpose
 is a stride of the second pass's loads. K2, one channel, picks its tiles
 per pass from the grid (`k2_tile`: 128 x 32 as K1, or 64 x 16 holding a
-contraction of up to four stages whole) and packs its tables
-for them; its fixed launch arguments (tables, shape, tiles) are built once
-per table set and batch as a `K2Args` record (`_k2_launch`). Every operand,
-table and output pointer a kernel reads 16 bytes at a time must be
-16-byte aligned (`_ptrs16` checks; the tables once, when their record is
-built).
+contraction of up to four stages whole) and packs its tables for them; its
+fixed launch arguments (tables, shape, tiles) are built once per table set
+and batch as a `K2Args` record (`_k2_launch`). K1c and K1d, the product
+plan's kernels on two or three channels, pick their tiles too (`k1_tile`:
+64 x 16, K1's tile holding four stages whole, 128 x 64, or K1's ring; K1d's
+pointwise pass copies both operands with cp.async and takes their
+Montgomery product where the A fragment is read); each of their launches
+also adds one to `TILE_LAUNCHES[(name, code 1, code 2)]`. Every operand,
+table and output pointer a kernel reads 16 bytes at a time must be 16-byte
+aligned (`_ptrs16` checks; the tables once, when their record is built).
 
 Routing is by the device of the operand: a CUDA tensor launches the kernel
 or raises, a CPU tensor runs the plain torch version (`*_plain`, built on
@@ -110,6 +114,9 @@ LAUNCHES = {"fwd_wide_multi": 0, "inv_multi": 0, "fwd_multi_perchannel": 0,
             "fwd_wide_multi_u128": 0, "fwd_u128": 0, "pass_matmod_u128": 0,
             "fwd_hyb": 0, "inv_hyb": 0, "inv_multi_hyb": 0, "fwd_multi_perchannel_hyb": 0,
             "pointwise_inv_multi_hyb": 0, "inv_multi_presplit": 0}
+# K1c / K1d launches by (LAUNCHES name, tile code of the first pass, of the
+# second): which of their pass instances ran (`k1_tile`)
+TILE_LAUNCHES: dict = {}
 
 MIN_N, MAX_N = 1 << 11, 1 << 17
 _SCAL_WORDS = 16  # the scalar record of csrc/matmod_pass.cuh
@@ -118,6 +125,7 @@ _SCAL_WORDS = 16  # the scalar record of csrc/matmod_pass.cuh
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    TILE_LAUNCHES.clear()
 
 
 def _check_n_limbs(n: int, n_limbs: int, what: str) -> None:
@@ -295,9 +303,19 @@ def pack_planes(planes: np.ndarray, k: int) -> np.ndarray:
 # words a ring stage
 _TILE_O, _STAGE_K = 32, 32
 # (rows, outputs) of the pass's tiles by code (csrc/matmod_pass.cuh `tile`):
-# K1's (also K3's and the block tables'), then K2's for small grids
-TILES = ((128, 32), (64, 16))
+# K1's (also K3's and the block tables'), K2's for small grids (K1c / K1d's
+# too), then K1c / K1d's own: K1's 128 x 32 holding a short contraction
+# whole, and 128 x 64 on K1's ring
+TILES = ((128, 32), (64, 16), (128, 32), (128, 64))
+K2_CODES = (0, 1)  # the codes K2's entries take
 _FILL = 128  # blocks a K2 pass aims for: about one on each of the H100's 132 SMs
+_SMS = 132   # the H100's streaming multiprocessors
+_RESIDENT = 4  # ring stages tile 2 holds whole (csrc/matmod_pass.cuh `tile`)
+
+
+def _blocks(rows: int, outs: int, code: int) -> int:
+    tm, to = TILES[code]
+    return -(-rows // tm) * (outs // to)
 
 
 def k2_tile(rows: int, outs: int) -> int:
@@ -305,8 +323,45 @@ def k2_tile(rows: int, outs: int) -> int:
     a polynomial) with `outs` outputs a row: K1's where its grid has at
     least 128 blocks, else 64 x 16 (csrc/mxu32_pass.cu lists the choice at
     each n for B = 16 and the sweep that set the threshold)."""
-    tm, to = TILES[0]
-    return 0 if -(-rows // tm) * (outs // to) >= _FILL else 1
+    return 0 if _blocks(rows, outs, 0) >= _FILL else 1
+
+
+def k1_tile(rows: int, outs: int, grids: int, stages: int, kind: str = "canonical") -> int:
+    """The tile code of a K1c / K1d pass over `rows` operand rows (batch x
+    rows of a polynomial) with `outs` outputs a row, over `grids` channels
+    x blocks, contracting `stages` ring stages of 32 words; `kind` is the
+    pass's: "scaled" (K1c's first), "canonical" (both second passes) or
+    "pair" (K1d's first, which copies two operands). Where the grid fits
+    the card at once: 64 x 16 (code 1, three blocks an SM, two with the
+    pair), else K1's tile holding a contraction of up to four stages whole
+    (code 2, one block an SM), else 128 x 64 (code 3, one block an SM; not
+    for the scaled pass). Else a ring: 128 x 64 for the pair (it copies
+    the pair once for twice the outputs), K1's (code 0) otherwise.
+    tools/sweep_product.py timed every code at the product plan's shapes
+    (PERF.md section 6) and set the rule."""
+    if grids * _blocks(rows, outs, 1) <= _SMS * (2 if kind == "pair" else 3):
+        return 1
+    if stages <= _RESIDENT and grids * _blocks(rows, outs, 2) <= _SMS:
+        return 2
+    if kind == "pair":
+        return 3  # n2 >= 64: whole 64-output tiles
+    fits = outs % TILES[3][1] == 0 and grids * _blocks(rows, outs, 3) <= _SMS
+    return 3 if kind == "canonical" and fits else 0
+
+
+def _k1_tiles(b: int, n: int, grids: int, n_limbs: int, direction: str) -> tuple:
+    """Tile codes of K1c's (fwd) or K1d's (inv) two passes in launch order,
+    for transforms (blocks) of size n over `grids` channels x blocks: the
+    column pass (B·n2 rows, n1 outputs, n_limbs·n1 contraction words) then
+    the row pass (B·n1 rows, n2 outputs, n2 words) forward, the other
+    order inverse."""
+    n1, n2 = mxu32.four_step_factors(n)
+    col_rows, col_stages = b * n2, n_limbs * n1 // _STAGE_K
+    if direction == "fwd":
+        return (k1_tile(col_rows, n1, grids, col_stages, "scaled"),
+                k1_tile(b * n1, n2, grids, n2 // _STAGE_K))
+    return (k1_tile(b * n1, n2, grids, n2 // _STAGE_K, "pair"),
+            k1_tile(col_rows, n1, grids, col_stages))
 
 
 def pack_planes_kmajor(planes: np.ndarray, k: int, n_d: int, tile_o: int = _TILE_O) -> np.ndarray:
@@ -343,9 +398,11 @@ def _to_dev(a: np.ndarray, device: str) -> torch.Tensor:
 
 @lru_cache(maxsize=64)
 def _kernel_tables(n: int, primes: tuple, n_limbs: int, scales: tuple,
-                   direction: str, device: str, hyb: int | None = None):
-    """The kernel's tables for one direction, as tensors on `device`. With
-    `hyb` (a parent size) the per-block tables are indexed by
+                   direction: str, device: str, hyb: int | None = None,
+                   outs: tuple = (_TILE_O, _TILE_O)):
+    """The kernel's tables for one direction, as tensors on `device`, the
+    planes of each pass packed for tiles of `outs` outputs (in launch
+    order). With `hyb` (a parent size) the per-block tables are indexed by
     z = channel * nb + block, the shared ones by the channel."""
     tabs = _multi_tables(n, primes, n_limbs, scales, hyb)
     n1, n2 = tabs["n1"], tabs["n2"]
@@ -354,9 +411,9 @@ def _kernel_tables(n: int, primes: tuple, n_limbs: int, scales: tuple,
     lead = 1 if hyb is None else 2
     l1, l2 = (lead, 1) if direction == "fwd" else (1, lead)  # A_b / Ainv_b are per block
     return {
-        "planes1": _to_dev(pack_planes_kmajor(_flat_blocks(planes1, l1), k1, 4), device),
+        "planes1": _to_dev(pack_planes_kmajor(_flat_blocks(planes1, l1), k1, 4, outs[0]), device),
         "cvec1": _to_dev(_flat_blocks(cvec1, l1), device),
-        "planes2": _to_dev(pack_planes_kmajor(_flat_blocks(planes2, l2), k2, 4), device),
+        "planes2": _to_dev(pack_planes_kmajor(_flat_blocks(planes2, l2), k2, 4, outs[1]), device),
         "cvec2": _to_dev(_flat_blocks(cvec2, l2), device),
         # [C * nb, 4, R, O]
         "diag": _to_dev(np.stack([_flat_blocks(d, lead) for d in diag], axis=1).view(np.int32),
@@ -585,10 +642,12 @@ def _lib() -> ctypes.CDLL:
         lib.k1b_inv_multi.restype = ctypes.c_int
         lib.k1e_inv_multi_presplit.argtypes = [_P, _I, _I, _I, _I, *[_P] * 9]
         lib.k1e_inv_multi_presplit.restype = ctypes.c_int
-        lib.k1c_fwd_multi_perchannel.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, *[_P] * 9]
+        lib.k1c_fwd_multi_perchannel.argtypes = [_P, _P, *[_I] * 8, *[_P] * 9]
         lib.k1c_fwd_multi_perchannel.restype = ctypes.c_int
-        lib.k1d_pointwise_inv_multi.argtypes = [_P, _P, _I, _I, _I, _I, _I, *[_P] * 9]
+        lib.k1d_pointwise_inv_multi.argtypes = [_P, _P, *[_I] * 7, *[_P] * 9]
         lib.k1d_pointwise_inv_multi.restype = ctypes.c_int
+        lib.k1_smem_bytes.argtypes = [_I, _I]
+        lib.k1_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -757,6 +816,16 @@ def _call(dev: torch.device, fn, *args) -> int:
         return fn(*args, stream)
 
 
+def _tile_outs(tiles: tuple) -> tuple:
+    """Outputs a block of each pass's tile: how `_kernel_tables` packs its planes."""
+    return tuple(TILES[t][1] for t in tiles)
+
+
+def _count_tiles(name: str, tiles: tuple) -> None:
+    LAUNCHES[name] += 1
+    TILE_LAUNCHES[(name, *tiles)] = TILE_LAUNCHES.get((name, *tiles), 0) + 1
+
+
 def _check_channels(x: torch.Tensor, primes: tuple) -> None:
     if x.shape[0] != len(primes):
         raise ValueError(f"expected {len(primes)} channels, got {tuple(x.shape)}")
@@ -789,7 +858,9 @@ def _fwd_perchannel(limbs: tuple, primes: tuple, n_h: int | None) -> torch.Tenso
     c, b, n = limbs[0].shape
     _check_multi(n, primes, len(limbs), n_h)
     size, hyb = _tabs_args(n, n_h)
-    tabs = _kernel_tables(size, primes, len(limbs), (1,) * c, "fwd", str(dev), hyb)
+    tiles = _k1_tiles(b, size, c * (n // size), len(limbs), "fwd")
+    tabs = _kernel_tables(size, primes, len(limbs), (1,) * c, "fwd", str(dev), hyb,
+                          _tile_outs(tiles))
     n1, n2 = mxu32.four_step_factors(size)
     out = torch.empty((c, b, n), dtype=torch.uint32, device=dev)
     scratch = torch.empty_like(out)
@@ -797,8 +868,8 @@ def _fwd_perchannel(limbs: tuple, primes: tuple, n_h: int | None) -> torch.Tenso
     ptrs = _ptrs16(limbs[0], x1, tabs["planes1"], tabs["cvec1"], tabs["planes2"],
                    tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
     err = _call(dev, _lib().k1c_fwd_multi_perchannel, ptrs[0], ptrs[1], len(limbs), b, n1, n2,
-                n // size, c, *ptrs[2:])
-    LAUNCHES[_hyb_name("fwd_multi_perchannel", n_h)] += 1
+                n // size, c, *tiles, *ptrs[2:])
+    _count_tiles(_hyb_name("fwd_multi_perchannel", n_h), tiles)
     if err != 0:
         raise RuntimeError(f"K1c fwd_multi_perchannel launch failed: CUDA error {err}")
     return out
@@ -821,15 +892,16 @@ def pointwise_inv_multi(fl: torch.Tensor, fr: torch.Tensor, primes: tuple,
     c, b, n = fl.shape
     _check_multi(n, primes, 1, n_h)
     size, hyb = _tabs_args(n, n_h)
-    tabs = _kernel_tables(size, primes, 1, scales, "inv", str(dev), hyb)
+    tiles = _k1_tiles(b, size, c * (n // size), 1, "inv")
+    tabs = _kernel_tables(size, primes, 1, scales, "inv", str(dev), hyb, _tile_outs(tiles))
     n1, n2 = mxu32.four_step_factors(size)
     out = torch.empty_like(fl)
     scratch = torch.empty_like(fl)
     ptrs = _ptrs16(fl, fr, tabs["planes1"], tabs["cvec1"], tabs["planes2"], tabs["cvec2"],
                    tabs["diag"], tabs["scal"], scratch, out)
     err = _call(dev, _lib().k1d_pointwise_inv_multi, ptrs[0], ptrs[1], b, n1, n2, n // size, c,
-                *ptrs[2:])
-    LAUNCHES[_hyb_name("pointwise_inv_multi", n_h)] += 1
+                *tiles, *ptrs[2:])
+    _count_tiles(_hyb_name("pointwise_inv_multi", n_h), tiles)
     if err != 0:
         raise RuntimeError(f"K1d pointwise_inv_multi launch failed: CUDA error {err}")
     return out

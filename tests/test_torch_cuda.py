@@ -166,17 +166,25 @@ def test_prime32_polymul_on_card_matches_cpu(gen, cuda_device, n):
     _same(plan.negacyclic_polymul(lhs, rhs), want)  # numpy input goes to the card
 
 
-@pytest.mark.parametrize("n,b", [(1 << 11, 3), (1 << 14, 5)])
-def test_k1c_k1d_match_plain_on_card(gen, cuda_device, n, b):
-    primes = PRIMES[:2]
-    xs = (_u32(gen, (2, b, n), cuda_device), _u32(gen, (2, b, n), cuda_device))
-    _same(mxu32_cuda.fwd_multi_perchannel(xs[0], primes),
-          mxu32_cuda.fwd_multi_perchannel_plain(xs[:1], primes))
-    _same(mxu32_cuda.fwd_wide_multi_perchannel(*xs, primes),
-          mxu32_cuda.fwd_multi_perchannel_plain(xs, primes))
+@pytest.mark.parametrize("n,b,c,n_h", [
+    (1 << 11, 3, 2, None), (1 << 14, 5, 2, None), (1 << 14, 16, 2, None), (1 << 14, 1, 2, None),
+    (1 << 16, 8, 2, None), (1 << 16, 8, 3, None), (1 << 16, 5, 3, None), (1 << 15, 8, 3, 1 << 14)])
+def test_k1c_k1d_match_plain_on_card(gen, cuda_device, n, b, c, n_h):
+    """K1c (1 and 2 limbs) and K1d on the tiles `mxu32_cuda.k1_tile` picks:
+    the product plan's (2^14, 16, 2 channels), (2^16, 8) over 2 and 3
+    channels, batch edges, and block tables (nb = 2); full-range u32
+    operands."""
+    from concrete_ntt_tpu_torch.tables import primes32_ext
+
+    primes = (PRIMES if n <= 1 << 15 else primes32_ext())[:c]
+    xs = (_u32(gen, (c, b, n), cuda_device), _u32(gen, (c, b, n), cuda_device))
+    _same(mxu32_cuda.fwd_multi_perchannel(xs[0], primes, n_h=n_h),
+          mxu32_cuda.fwd_multi_perchannel_plain(xs[:1], primes, n_h))
+    _same(mxu32_cuda.fwd_wide_multi_perchannel(*xs, primes, n_h=n_h),
+          mxu32_cuda.fwd_multi_perchannel_plain(xs, primes, n_h))
     scales = tuple(pow(n, p - 2, p) * pow(2, 32, p) % p for p in primes)
-    _same(mxu32_cuda.pointwise_inv_multi(*xs, primes, scales),
-          mxu32_cuda.pointwise_inv_multi_plain(*xs, primes, scales))
+    _same(mxu32_cuda.pointwise_inv_multi(*xs, primes, scales, n_h=n_h),
+          mxu32_cuda.pointwise_inv_multi_plain(*xs, primes, scales, n_h))
 
 
 @pytest.mark.parametrize("factors", [PRIMES[:2], (2147352577, 4293918721)], ids=["K1", "K2"])

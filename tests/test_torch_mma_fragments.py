@@ -25,11 +25,20 @@ operand limbs and the zero plane rows that pad a mid-pass operand's 6 or 7
 planes to 8; and the single-prime K2's smaller tile (`mxu32_cuda.TILES`
 code 1: 64 rows x 16 outputs a block, N = 64 with four digit planes and 80
 with five) from 2^11 to 2^14, over planes packed by `pack_planes_kmajor(...,
-tile_o=16)`. The packed tiles must unpack to the JAX package's planes, and
-the shared-memory reads of both operand layouts (strided rows at 128 + 8
-and 64 + 8 words) must fall on 32 different banks. Tolerance: exact
-equality.
+tile_o=16)`, and K1c / K1d's 64-output tile (128 rows x 64 outputs, N =
+256) over planes packed with tile_o = 64. The packed tiles must unpack to
+the JAX package's planes, and the shared-memory reads of both operand
+layouts (strided rows at 128 + 8 and 64 + 8 words) must fall on 32
+different banks, K1d's second operand slot too. K1d's pointwise stage is
+modelled where the kernel takes it: mont_mul of the two slots' words at the
+A-fragment read, held against the port's plain mont_mul (REDC sums that
+overflow u32 included) and, stage by stage, through K1b's plain twin
+against `pointwise_inv_multi_plain`. `mxu32_cuda.k1_tile`'s codes at the
+product plan's shapes are pinned. Tolerance: exact equality.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +49,7 @@ from concrete_ntt_tpu.ops import mxu32 as jmx
 from concrete_ntt_tpu.ops import mxu64 as jmx64
 from concrete_ntt_tpu.tables import GOLDILOCKS, PRIMES52
 from concrete_ntt_tpu_torch.ops import mxu32 as tmx
+from concrete_ntt_tpu_torch.ops import u32 as tu32
 from concrete_ntt_tpu_torch.ops import mxu32_cuda as tcu
 from concrete_ntt_tpu_torch.ops import mxu64_cuda as tcu64
 from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
@@ -229,6 +239,35 @@ def test_fragment_model_reproduces_the_digit_gemm_on_k2_tiles(rng, case, n):
     np.testing.assert_array_equal(_model_pass(x, tiles, n_d, to, tm), _dense(x, planes, n_limbs))
 
 
+# K1c / K1d's 64-output tile (`mxu32_cuda.TILES` code 3: 128 rows x 64
+# outputs, N = 256): K1c's column pass (1 and 2 limbs) and row pass (F),
+# K1d's row pass (G)
+K1_WIDE_CASES = {"A": (1, "fwd", 0), "A-2limbs": (2, "fwd", 0), "F": (1, "fwd", 2),
+                 "G": (1, "inv", 0)}
+
+
+@pytest.mark.parametrize("n", [1 << 12, 1 << 13])
+@pytest.mark.parametrize("case", list(K1_WIDE_CASES))
+def test_fragment_model_reproduces_the_digit_gemm_on_64_output_tiles(rng, case, n):
+    """The 64-output tile: N = 256 columns (digit d of output j at column
+    64 d + j), 128 accumulators a thread, planes packed with tile_o = 64,
+    3 polynomials (rows end in a ragged tile)."""
+    tm, to = tcu.TILES[3]
+    assert (tm, to) == (128, 64)
+    n_limbs, direction, which = K1_WIDE_CASES[case]
+    n1, n2 = tmx.four_step_factors(n)
+    tabs = tcu._multi_tables(n, PRIMES[:1], n_limbs, (1,), None)
+    planes = tabs[direction][which][0]
+    k, rows = (n1, 3 * n2) if case.startswith("A") else (n2, 3 * n1)
+    tiles = tcu.pack_planes_kmajor(planes[None], k, 4, tile_o=to)[0]
+    o = planes.shape[1] // 4
+    assert tiles.shape == (o // to, n_limbs * k // KC, 4 * to * KC)
+    x = rng.integers(0, 1 << 32, (rows, n_limbs * k), dtype=np.uint32)
+    x[0] = 0xFFFFFFFF
+    x[1] = 0
+    np.testing.assert_array_equal(_model_pass(x, tiles, 4, to, tm), _dense(x, planes, n_limbs))
+
+
 def test_k2_tile_choice():
     """K1's 128 x 32 tile where its grid has at least 128 blocks, else
     64 x 16: at B = 16 the grids the source note of csrc/mxu32_pass.cu
@@ -243,6 +282,44 @@ def test_k2_tile_choice():
             tm, to = tcu.TILES[code]
             assert -(-rows // tm) * (o // to) == blocks
     assert tcu._k2_tiles(1, 1 << 17, "fwd") == (1, 1)
+
+
+def test_k1_tile_choice():
+    """K1c / K1d's tile codes (`mxu32_cuda.k1_tile`, the rule the sweep
+    set) at the product plan's shapes: where its grid fits the card at
+    once, 64 x 16 (3 blocks an SM, 2 with K1d's pair), else K1's tile
+    holding four stages whole (<= 132 blocks), else 128 x 64 (<= 132
+    blocks; not K1c's scaled first pass); else 128 x 64 for K1d's pair pass
+    and K1's ring for the others. K1a / K1b / K1e take no code: their
+    entries launch K1's own instances (tile 0)."""
+    want = {  # (n, B, channels): (K1c 1 limb, K1c 2 limbs, K1d), passes in launch order
+        (1 << 11, 16, 2): ((1, 1), (1, 1), (1, 1)),
+        (1 << 13, 16, 3): ((1, 1), (1, 1), (2, 1)),
+        (1 << 14, 16, 2): ((2, 2), (0, 2), (2, 2)),   # the product plan's PBS shape
+        (1 << 14, 16, 3): ((0, 3), (0, 3), (3, 3)),
+        (1 << 14, 8, 2): ((1, 1), (1, 1), (1, 1)),
+        (1 << 14, 1, 2): ((1, 1), (1, 1), (1, 1)),
+        (1 << 15, 16, 2): ((0, 3), (0, 3), (3, 3)),
+        (1 << 16, 8, 2): ((0, 3), (0, 3), (3, 3)),
+        (1 << 16, 8, 3): ((0, 0), (0, 0), (3, 0)),
+        (1 << 17, 16, 2): ((0, 0), (0, 0), (3, 0)),
+    }
+    for (n, b, c), (k1c, k1c2, k1d) in want.items():
+        assert tcu._k1_tiles(b, n, c, 1, "fwd") == k1c, (n, b, c)
+        assert tcu._k1_tiles(b, n, c, 2, "fwd") == k1c2, (n, b, c)
+        assert tcu._k1_tiles(b, n, c, 1, "inv") == k1d, (n, b, c)
+    # block tables: channels x blocks count as grids (2^16 = 4 blocks of 2^14)
+    assert tcu._k1_tiles(8, 1 << 14, 3 * 4, 1, "inv") == (3, 0)
+    assert tcu._k1_tiles(8, 1 << 14, 3 * 2, 1, "inv") == (3, 3)
+    # (rows, outputs) of each code: K1's 128 x 32 but 64 x 16 for code 1
+    assert tcu.TILES == ((128, 32), (64, 16), (128, 32), (128, 64))
+    # K1a / K1b / K1e launch K1's instances: no tile argument in their entries
+    src = (Path(tcu.__file__).parent.parent / "csrc" / "mxu32_multi.cu").read_text()
+    for entry in ("k1a_fwd_wide_multi", "k1b_inv_multi", "k1e_inv_multi_presplit"):
+        body = src[src.index(f'extern "C" int {entry}('):]
+        body = body[:body.index("\n}\n")]
+        assert "tile" not in body and "launch_k1" not in body, entry
+        assert re.findall(r"launch<4, kLt30, (?:true|false)(?:, false, true)?>\(", body), entry
 
 
 def _unpack(words: np.ndarray, k: int) -> np.ndarray:
@@ -305,8 +382,124 @@ def test_shared_memory_fragment_reads_hit_32_banks():
     """Word offsets of one A register over the 32 lanes, in the
     contiguous-row operand layout [row][KC + 4] and the strided one
     [word][rows + 8] that both passes use (128 rows, and 64 on K2's one
-    warpgroup tile): 32 banks, no conflict."""
+    warpgroup tile): 32 banks, no conflict. K1d's pair pass reads a second
+    operand slot in the contiguous-row layout, `ring` stages further on
+    (after the plane tiles and the first operand's slots of every tile
+    code): its reads hit 32 banks too."""
     for rs, ws in ((A_ROW, 1), (1, A_WORD), (1, 64 + 8)):
         for dr, dw in ((0, 0), (8, 0), (0, 4), (8, 4)):
             banks = ((G + dr) * rs + (T + dw) * ws) % 32
             assert len(set(banks.tolist())) == 32
+    for code, ring in PAIR_RINGS.items():
+        tm, to = tcu.TILES[code]
+        for slot in range(ring):
+            base = ring * 4 * to * KC + ring * _a_stage(tm) + slot * _a_stage(tm)
+            for dr, dw in ((0, 0), (8, 0), (0, 4), (8, 4)):
+                banks = (base + (G + dr) * A_ROW + T + dw) % 32
+                assert len(set(banks.tolist())) == 32
+
+
+# K1d's first pass with its pair operand (csrc/gemm_sm90.cuh, kPair): fl and
+# fr copied into two operand slots of one layout, the contiguous-row one
+# [row][KC + 4] (the inverse's row pass contracts each row's own words); the
+# second slot of ring stage s sits `ring` stages of the first one further on
+PAIR_RINGS = {1: 4, 2: 4, 3: 3}  # ring stages by K1d's tile codes (matmod_pass.cuh `tile`)
+
+
+def _a_stage(tm: int) -> int:
+    """Words of one operand stage of tm rows (gemm_sm90.cuh a_stage)."""
+    return max(tm * A_ROW, KC * (tm + 8))
+
+
+def _mont_mul_model(a: np.ndarray, b: np.ndarray, p: int, p_neginv: int):
+    """The kernel's mont_mul (csrc/matmod_pass.cuh) on uint64 carriers of
+    u32 words: (result, s), s the 64-bit REDC sum hi + mulhi(m, p) + (lo !=
+    0) before its one conditional subtract (s >= 2^32: the sum overflows
+    u32)."""
+    ab = a * b
+    lo = ab & np.uint64(0xFFFFFFFF)
+    m = (lo * np.uint64(p_neginv)) & np.uint64(0xFFFFFFFF)
+    s = (ab >> np.uint64(32)) + ((m * np.uint64(p)) >> np.uint64(32)) + (lo != 0)
+    return np.where(s >= p, s - np.uint64(p), s), s
+
+
+def _pair_fragments(fl: np.ndarray, fr: np.ndarray, p: int, tm: int, ring: int,
+                    slot: int) -> tuple:
+    """One ring stage of K1d's pair pass over a tile of tm operand rows x KC
+    words (fl, fr [tm, KC] u32): both copied into shared memory as the
+    kernel lays them out (the second operand's slot `ring` stages on), each
+    lane of each warp of each warpgroup reading its A registers at the
+    kernel's offsets from both slots and taking mont_mul before the digit
+    xor. Returns (the product words [tm, KC] the fragments hand to wgmma,
+    xor undone, the REDC sums)."""
+    p_neginv = (-pow(p, -1, 1 << 32)) % (1 << 32)
+    kas = _a_stage(tm)
+    smem = np.zeros(2 * ring * kas, np.uint64)
+    xs, xq = slot * kas, ring * kas + slot * kas
+    r, w = np.meshgrid(np.arange(tm), np.arange(KC), indexing="ij")
+    smem[xs + r * A_ROW + w] = fl
+    smem[xq + r * A_ROW + w] = fr
+    out = np.zeros((tm, KC), np.uint64)
+    sums = np.zeros((tm, KC), np.uint64)
+    for warp in range(tm // 16):  # warp w of the block: rows 16 w + g (+ 8)
+        a_lane = (16 * warp + G) * A_ROW + T
+        for ks in range(KC // 8):
+            for dr, dw in ((0, 0), (8, 0), (0, 4), (8, 4)):
+                off = a_lane + 8 * ks + dr * A_ROW + dw
+                word, s = _mont_mul_model(smem[xs + off], smem[xq + off], p, p_neginv)
+                af = word.astype(np.uint32) ^ XOR
+                out[16 * warp + G + dr, 8 * ks + T + dw] = af ^ XOR
+                sums[16 * warp + G + dr, 8 * ks + T + dw] = s
+    return out.astype(np.uint32), sums
+
+
+@pytest.mark.parametrize("code", list(PAIR_RINGS))
+def test_pair_stage_model_takes_mont_mul_at_the_fragment_read(rng, code):
+    """K1d's pointwise product where the redesign takes it: per lane, at the
+    A-fragment read of both operand slots, over the stage's shared-memory
+    layout (every ring slot of each tile code), on full-range u32 pairs and
+    on pairs whose REDC sum overflows u32: every (row, word) of the stage
+    is read once and equals the port's plain mont_mul. Tolerance: exact."""
+    tm = tcu.TILES[code][0]
+    p = PRIMES[0]
+    fl = rng.integers(0, 1 << 32, (tm, KC), dtype=np.uint64)
+    fr = rng.integers(0, 1 << 32, (tm, KC), dtype=np.uint64)
+    fl[0], fr[0] = 0xFFFFFFFF, 0xFFFFFFFF  # the largest REDC sums
+    fl[1, :16], fr[1, :16] = 0, rng.integers(0, 1 << 32, 16)  # lo == 0: no carry
+    want = tu32.mont_mul(torch.from_numpy(fl.astype(np.int64)),
+                         torch.from_numpy(fr.astype(np.int64)), p, tu32.mont_neginv(p))
+    for slot in range(PAIR_RINGS[code]):
+        got, sums = _pair_fragments(fl, fr, p, tm, PAIR_RINGS[code], slot)
+        assert (sums >= 1 << 32).sum() > 0, "no pair whose REDC sum overflows u32"
+        np.testing.assert_array_equal(got.astype(np.int64), want.numpy())
+
+
+def test_pair_stage_model_through_the_plain_k1d(rng):
+    """The whole first-pass operand of K1d built stage by stage through the
+    fragment model (n = 2^11: rows (b, r < n1) of 64 words, two stages; B =
+    3, so the row tile is ragged, zero-filled past the batch edge), fed to
+    K1b's plain twin, equals `pointwise_inv_multi_plain` on full-range u32
+    operands over two channels. Tolerance: exact."""
+    n, b, primes = 1 << 11, 3, PRIMES[:2]
+    n1, n2 = tmx.four_step_factors(n)
+    fl = rng.integers(0, 1 << 32, (2, b, n), dtype=np.uint64)
+    fr = rng.integers(0, 1 << 32, (2, b, n), dtype=np.uint64)
+    fl[:, 0, :64], fr[:, 0, :64] = 0xFFFFFFFF, 0xFFFFFFFF
+    prod = np.zeros((2, b * n1, n2), np.uint32)
+    for ch, p in enumerate(primes):
+        rows_l, rows_r = fl[ch].reshape(b * n1, n2), fr[ch].reshape(b * n1, n2)
+        pad = -(b * n1) % TM
+        rows_l = np.concatenate([rows_l, np.zeros((pad, n2), np.uint64)])
+        rows_r = np.concatenate([rows_r, np.zeros((pad, n2), np.uint64)])
+        for r0 in range(0, b * n1 + pad, TM):
+            for kt in range(n2 // KC):
+                tile = np.s_[r0:r0 + TM, kt * KC:(kt + 1) * KC]
+                got, _ = _pair_fragments(rows_l[tile], rows_r[tile], p, TM, 3, kt % 3)
+                keep = min(TM, b * n1 - r0)
+                prod[ch, r0:r0 + keep, kt * KC:(kt + 1) * KC] = got[:keep]
+        assert not got[b * n1 - r0:].any(), "rows past the batch edge must stay zero"
+    scales = tuple(pow(n, p - 2, p) * pow(2, 32, p) % p for p in primes)
+    t = lambda a: torch.from_numpy(a.astype(np.uint32).reshape(2, b, n))  # noqa: E731
+    np.testing.assert_array_equal(
+        tcu.inv_multi_plain(t(prod), primes, scales).numpy(),
+        tcu.pointwise_inv_multi_plain(t(fl), t(fr), primes, scales).numpy())

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Sweep the launch shapes of prime32.Plan's two kernels on one GPU: K2's
-tile per pass (`mxu32_cuda.TILES`: 128 x 32 and 64 x 16 rows x outputs) at
-n = 2^11 .. 2^17, and K4's cluster size c (1, 2, 4, 8 blocks a polynomial,
-2^8 .. 2^15 values a block) and round size (2 or 3 stages in registers, the
-kernel's range) at n = 1024 .. 2^17, at batch 16 with the lt30 prime
-1073479681 (K2) and a prime below 2^26 (K4).
+tile per pass (`mxu32_cuda.K2_CODES`: 128 x 32 and 64 x 16 rows x outputs)
+at n = 2^11 .. 2^17, and K4's cluster size c (1, 2, 4, 8 blocks a
+polynomial, 2^8 .. 2^15 values a block) and round size (2 or 3 stages in
+registers, the kernel's range) at n = 1024 .. 2^17, at batch 16 with the
+lt30 prime 1073479681 (K2) and a prime below 2^26 (K4).
 
 Each shape is forced by replacing the wrapper's choice (`mxu32_cuda.k2_tile`,
 `butterfly32_cuda.cluster_size` / `radix_log`) for its calls, checked
@@ -83,7 +83,7 @@ def main() -> int:
         for d, fn, plain in (("fwd", mxu32_cuda.fwd, mxu32_cuda.fwd_plain),
                              ("inv", mxu32_cuda.inv, mxu32_cuda.inv_plain)):
             want = plain(x, n=n, p=P_K2)
-            for code in range(len(mxu32_cuda.TILES)):
+            for code in mxu32_cuda.K2_CODES:
                 call = k2_call(x, n, code, fn)
                 if not torch.equal(call(), want):
                     bad.append(f"K2 {d} n={n} tile {code}")
