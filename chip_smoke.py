@@ -10,11 +10,11 @@ Drives the port's paths through their hand-written CUDA kernels:
     2048 <= n <= 2^17, p >= 2^26; tiles for one channel's small grids) of
     `csrc/mxu32_pass.cu` and K4 (butterfly `fwd` / `inv`, n < 2048 or
     p < 2^26, up to 2^17 over a cluster of blocks) of `csrc/butterfly32.cu`;
-  * rank-local passes: K3 (`pass_matmod`, `csrc/mxu32_pass.cu`) as the
-    sharded four-step's local sections call it (the JAX package's
-    `parallel/fourstep_mxu.py`: a column pass with the rank's diagonal
-    rows, the all-to-all, a row pass), with R = 4 ranks held on one card
-    and the all-to-all done as slices and concatenations;
+  * rank-local passes: K3 (`pass_matmod`, `csrc/mxu32_pass.cu`) through the
+    port's local sections (`parallel/fourstep_mxu.py`: a column pass with
+    the rank's diagonal rows, the all-to-all, a row pass), with R = 4 ranks
+    held in this process and the all-to-all done as slices and
+    concatenations (`exchange`);
   * product: `product.Plan(2^14, f1·f2, (f1, f2))` over two 30-bit primes
     (the reference grid's product-2xu32-16384 shape) at batch 16, the
     tfhe-rs hot path: `negacyclic_polymul` in Replace, Accumulate and
@@ -28,8 +28,16 @@ Drives the port's paths through their hand-written CUDA kernels:
     NTT primes below 2^62, 2^63 and 2^64), through K5 (`fwd64` / `inv64`,
     the whole four-step transform on u64 limb pairs) of
     `csrc/mxu64_pass.cu`; n = 1024 through the plain stage engine;
-  * rank-local 64-bit passes: K6 (`pass_matmod64`, same source) as the
-    sharded prime64 four-step's ranks call it, R = 4 ranks on one card;
+  * rank-local 64-bit passes: K6 (`pass_matmod64`, same source) through
+    the same local sections on limb pairs, R = 4 ranks in this process;
+  * the sharded paths (`concrete_ntt_tpu_torch.parallel`) in worlds of rank
+    processes: R = 4 gloo ranks on the one card (NCCL refuses two ranks on
+    one card) and a world of one on NCCL, each rank running
+    `native128.Plan32(2^16)` through `ChannelShardedNative` at (dp, ch, sp)
+    = (1, 2, 2) (K3 with four limbs for the A passes, one-limb K3 for F, G,
+    A_inv), `native64.Plan32(2^14)` through one `make_sharded_prime32_mxu`
+    a channel at (2, 1, 2) (K3) and `native64.Plan52(2^14)` through
+    `ChannelShardedNative52` at (2, 1, 2) (K6), batch 8;
   * Plan52: `native64.Plan52(2^14).negacyclic_polymul` on planar (lo, hi)
     limbs at batch 8 over three 50-bit primes, through K7a (`fwd_multi64`)
     and K7d (`pointwise_inv_multi64`) of `csrc/mxu64_multi.cu`, held
@@ -220,6 +228,23 @@ failure:
                path, inv(fwd(x)) == n·x, K4 +4 fwd +2 inv over clusters of
                blocks and nothing else. Each path's launch
                counters are set to 0 just before it and read just after.
+  4b. sharded — `parallel._dist.spawn` starts the worlds (the kernels are
+               built by then; FileStores in a temporary directory; 600 s a
+               world). Each rank runs the three sharded paths once with its
+               launch counts set to 0 just before each and read just after:
+               it raises unless they are the route's (a rank at (1, 2, 2):
+               K3-u128 10, K3 20 for native128; K3 30 for native64; K6 18 for
+               Plan52) and nothing else, and, in the gloo world, unless the
+               same path on CPU tensors (device="cpu", the plain passes)
+               gives the same bits; then 5 polymuls timed barrier to
+               barrier. Rank 0's products == the single-card plans' (K1a-u128
+               / K1b, K1a / K1b, K7a / K7d) on the same inputs, for both
+               worlds; a failed, hung or silent rank fails the phase. Then
+               K3 and K6 at the rank-local shapes of the gloo world (each
+               pass of each path: wrapper ms, device ms, bound), which the
+               JSON rows of pass_matmod, pass_matmod_u128 and pass_matmod64
+               carry under `rank_local`; their `launches` are the gloo
+               world's, summed over its ranks.
   5. times   — CUDA events, warm-up then the median of reps, each kernel
                beside its plain version (K1d also beside plain mont_mul +
                K1b), the polymuls in products/s (product in its three
@@ -279,6 +304,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -681,76 +707,178 @@ def profile_polymul(fn, reps: int = 10) -> dict:
             "aten_ops": n_aten / reps}
 
 
-def rank_local_fwd(pass_matmod, x, diag, *, n, n1, n2, p):
-    """Forward NTT [B, n] -> [B, n] (bit-reversed) as the sharded
-    four-step's ranks compute it: rank r holds columns r*c.. of [B, n1, n2]
-    and runs the column pass A with its rows of the diagonal d; the
-    all-to-all gives rank q outputs q*c1.. of every rank; each runs the row
-    pass F on its rows."""
-    limbs = x if isinstance(x, tuple) else (x,)  # a wide operand: little-endian u32 limbs
-    b = limbs[0].shape[0]
-    c, c1 = n2 // RANKS, n1 // RANKS
+def exchange(ys: list, split_axis: int, concat_axis: int) -> list:
+    """The tiled all-to-all over RANKS ranks held in this process: rank q gets
+    chunk q of every rank's split axis, concatenated in rank order (what
+    `parallel._dist.all_to_all_tiled` does between processes)."""
+    return [torch.cat([y.chunk(len(ys), split_axis)[q] for y in ys], dim=concat_axis)
+            for q in range(len(ys))]
 
-    def cols(r):
-        sl = tuple(a.reshape(b, n1, n2)[:, :, r * c:(r + 1) * c].transpose(1, 2).contiguous()
-                   for a in limbs)
-        return sl if len(sl) > 1 else sl[0]
 
-    ys = [pass_matmod(cols(r), n=n, p=p, which="A", n_limbs=len(limbs),
-                      diag_slices=tuple(t[r * c:(r + 1) * c] for t in diag))
-          for r in range(RANKS)]  # [B, c, n1] each
-    outs = [pass_matmod(torch.cat([y[:, :, q * c1:(q + 1) * c1] for y in ys], dim=1)
-                        .transpose(1, 2).contiguous(), n=n, p=p, which="F")
-            for q in range(RANKS)]  # [B, c1, n2] each
+def held_fwd(fm, x, diag, *, n, n1, n2, p):
+    """Forward NTT [B, n] -> [B, n] (bit-reversed) through the port's
+    rank-local sections (`parallel/fourstep_mxu.py`: `col_pass` with the
+    rank's rows of d, the all-to-all, `row_pass`), RANKS ranks held in this
+    process: rank r's value shard is columns r·c.. of [B, n1, n2]; a limb
+    tuple is a wide operand."""
+    limbs = x if isinstance(x, tuple) else (x,)
+    b, c, c1 = limbs[0].shape[0], n2 // RANKS, n1 // RANKS
+    ys = []
+    for r in range(RANKS):
+        v = tuple(fm.transposed(a.reshape(b, n1, n2)[:, :, r * c:(r + 1) * c]) for a in limbs)
+        ys.append(fm.col_pass(v if len(v) > 1 else v[0], tuple(t[r * c:(r + 1) * c] for t in diag),
+                              n=n, p=p))
+    outs = [fm.row_pass(y, n=n, p=p) for y in exchange(ys, 2, 1)]  # [B, c1, n2] each
     return torch.cat(outs, dim=1).reshape(b, n)
 
 
-def rank_local_inv(pass_matmod, x, diag, *, n, n1, n2, p):
-    """The mirror: rank q holds rows q*c1.. of the NTT domain, runs the row
-    pass G with its rows of the diagonal e, the all-to-all regroups by
-    columns, and each rank runs the column pass Ainv (unnormalized)."""
-    b = x.shape[0]
-    c, c1 = n2 // RANKS, n1 // RANKS
+def held_inv(fm, x, diag, *, n, n1, n2, p):
+    """The mirror (unnormalized): rank q holds rows q·c1.. of the NTT domain;
+    `row_pass_inv` with its rows of e, the all-to-all, `col_pass_inv`."""
+    b, c1 = x.shape[0], n1 // RANKS
     xv = x.reshape(b, n1, n2)
-    ys = [pass_matmod(xv[:, q * c1:(q + 1) * c1].contiguous(), n=n, p=p, which="G",
-                      diag_slices=tuple(t[q * c1:(q + 1) * c1] for t in diag))
-          for q in range(RANKS)]  # [B, c1, n2] each
-    outs = [pass_matmod(torch.cat([y[:, :, r * c:(r + 1) * c] for y in ys], dim=1)
-                        .transpose(1, 2).contiguous(), n=n, p=p, which="Ainv").transpose(1, 2)
-            for r in range(RANKS)]  # [B, n1, c] each
+    ys = [fm.row_pass_inv(xv[:, q * c1:(q + 1) * c1].contiguous(),
+                          tuple(t[q * c1:(q + 1) * c1] for t in diag), n=n, p=p)
+          for q in range(RANKS)]
+    outs = [fm.col_pass_inv(y, n=n, p=p) for y in exchange(ys, 2, 1)]  # [B, n1, c] each
     return torch.cat(outs, dim=2).reshape(b, n)
 
 
-def rank_local_fwd64(pass_matmod64, x, diag, *, n, n1, n2, p):
-    """`rank_local_fwd` on (lo, hi) limb pairs through the 64-bit pass."""
-    b = x[0].shape[0]
-    c, c1 = n2 // RANKS, n1 // RANKS
-    xv = tuple(a.reshape(b, n1, n2) for a in x)
-    ys = [pass_matmod64(tuple(a[:, :, r * c:(r + 1) * c].transpose(1, 2).contiguous() for a in xv),
-                        n=n, p=p, which="A",
-                        diag_slices=tuple(t[r * c:(r + 1) * c] for t in diag))
-          for r in range(RANKS)]  # (lo, hi) [B, c, n1] each
-    outs = [pass_matmod64(tuple(torch.cat([y[i][:, :, q * c1:(q + 1) * c1] for y in ys], dim=1)
-                                .transpose(1, 2).contiguous() for i in range(2)),
-                          n=n, p=p, which="F")
-            for q in range(RANKS)]  # (lo, hi) [B, c1, n2] each
+def held_fwd64(fm, x, diag, *, n, n1, n2, p):
+    """`held_fwd` on (lo, hi) limb pairs (`col_pass64`, `row_pass64`)."""
+    b, c = x[0].shape[0], n2 // RANKS
+    ys = [fm.col_pass64(tuple(fm.transposed(a.reshape(b, n1, n2)[:, :, r * c:(r + 1) * c]) for a in x),
+                        tuple(t[r * c:(r + 1) * c] for t in diag), n=n, p=p)
+          for r in range(RANKS)]
+    recv = zip(*(exchange([y[i] for y in ys], 2, 1) for i in range(2)))
+    outs = [fm.row_pass64(pair, n=n, p=p) for pair in recv]  # (lo, hi) [B, c1, n2] each
     return tuple(torch.cat([o[i] for o in outs], dim=1).reshape(b, n) for i in range(2))
 
 
-def rank_local_inv64(pass_matmod64, x, diag, *, n, n1, n2, p):
-    """`rank_local_inv` on (lo, hi) limb pairs through the 64-bit pass."""
-    b = x[0].shape[0]
-    c, c1 = n2 // RANKS, n1 // RANKS
+def held_inv64(fm, x, diag, *, n, n1, n2, p):
+    """`held_inv` on (lo, hi) limb pairs (`row_pass_inv64`, `col_pass_inv64`)."""
+    b, c1 = x[0].shape[0], n1 // RANKS
     xv = tuple(a.reshape(b, n1, n2) for a in x)
-    ys = [pass_matmod64(tuple(a[:, q * c1:(q + 1) * c1].contiguous() for a in xv), n=n, p=p,
-                        which="G", diag_slices=tuple(t[q * c1:(q + 1) * c1] for t in diag))
-          for q in range(RANKS)]  # (lo, hi) [B, c1, n2] each
-    outs = [pass_matmod64(tuple(torch.cat([y[i][:, :, r * c:(r + 1) * c] for y in ys], dim=1)
-                                .transpose(1, 2).contiguous() for i in range(2)),
-                          n=n, p=p, which="Ainv")
-            for r in range(RANKS)]  # (lo, hi) [B, c, n1] each
-    return tuple(torch.cat([o[i].transpose(1, 2) for o in outs], dim=2).reshape(b, n)
-                 for i in range(2))
+    ys = [fm.row_pass_inv64(tuple(a[:, q * c1:(q + 1) * c1].contiguous() for a in xv),
+                            tuple(t[q * c1:(q + 1) * c1] for t in diag), n=n, p=p)
+          for q in range(RANKS)]
+    recv = zip(*(exchange([y[i] for y in ys], 2, 1) for i in range(2)))
+    outs = [fm.col_pass_inv64(pair, n=n, p=p) for pair in recv]  # (lo, hi) [B, n1, c] each
+    return tuple(torch.cat([o[i] for o in outs], dim=2).reshape(b, n) for i in range(2))
+
+
+# the `sharded` phase: the slice's three paths in a world of RANKS rank
+# processes on the one card (gloo: NCCL refuses two ranks on one card), and
+# once in a world of one on NCCL; (dp, ch, sp) of each path's mesh
+N_SH128, N_SH64, B_SH = 1 << 16, 1 << 14, 8
+SHARDED_MESHES = {"native128": (1, 2, 2), "native64": (2, 1, 2), "plan52": (2, 1, 2)}
+SHARDED_REPS = 5
+SHARDED_TIMEOUT = 600  # seconds a world may take, rank processes' start and tables included
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count in this process."""
+    from concrete_ntt_tpu_torch.ops import butterfly32_cuda, mxu32_cuda, mxu64_cuda
+
+    return {**mxu32_cuda.LAUNCHES, **mxu64_cuda.LAUNCHES,
+            **{f"butterfly32_{k}": v for k, v in butterfly32_cuda.LAUNCHES.items()}}
+
+
+def reset_launch_counts() -> None:
+    from concrete_ntt_tpu_torch.ops import butterfly32_cuda, mxu32_cuda, mxu64_cuda
+
+    for m in (mxu32_cuda, mxu64_cuda, butterfly32_cuda):
+        m.reset_launch_counts()
+
+
+def sharded_inputs(seed: int) -> dict:
+    """The operands of the three sharded paths, the same on every rank:
+    native128 as uint32 limbs [B, 2^16, 4], the native64 paths as numpy
+    uint64 [B, 2^14]."""
+    rng = np.random.default_rng(seed)
+    return {"native128": tuple(rng.integers(0, 1 << 32, (B_SH, N_SH128, 4), dtype=np.uint32)
+                               for _ in range(2)),
+            **{k: tuple(rng.integers(0, 1 << 64, (B_SH, N_SH64), dtype=np.uint64)
+                        for _ in range(2)) for k in ("native64", "plan52")}}
+
+
+def sharded_want(name: str, mesh: tuple) -> dict:
+    """The launches of one polymul on a rank of `mesh` (dp, ch, sp): six
+    passes a local channel (A and F for each operand, G and A_inv)."""
+    ch = mesh[1]
+    if name == "native128":  # the A passes take the operand's four limbs
+        return {"pass_matmod_u128": 2 * 10 // ch, "pass_matmod": 4 * 10 // ch}
+    if name == "native64":  # one sharded four-step a channel, all five on every rank
+        return {"pass_matmod": 6 * 5}
+    return {"pass_matmod64": 6 * 3 // ch}
+
+
+def sharded_path(name: str, mesh, device):
+    """The polymul of path `name` on this rank: the port's sharded entry
+    points (`parallel.channels`, `parallel.fourstep_mxu`) on `device` (None:
+    the card)."""
+    from concrete_ntt_tpu_torch import native64, native128
+    from concrete_ntt_tpu_torch.parallel import channels, dryrun, fourstep_mxu
+
+    on = {} if device is None else {"device": device}
+    axes = dict(ch_axis="ch", batch_axis="dp", sp_axis="sp", device=device)
+    if name == "native128":
+        plan = native128.Plan32.try_new(N_SH128, **on)
+        return channels.ChannelShardedNative(plan, mesh, **axes).negacyclic_polymul
+    if name == "plan52":
+        plan = native64.Plan52.try_new(N_SH64, **on)
+        return channels.ChannelShardedNative52(plan, mesh, **axes).negacyclic_polymul
+    plan = native64.Plan32.try_new(N_SH64, **on)
+    chans = [fourstep_mxu.make_sharded_prime32_mxu(pl, mesh, axis="sp", batch_axis="dp",
+                                                   device=device) for pl in plan.plans]
+    return lambda lhs, rhs: dryrun.native64_polymul(plan, chans, lhs, rhs)
+
+
+def sharded_rank(rank: int, world: int, seed: int, check_cpu: bool) -> dict:
+    """One rank of the `sharded` phase: each path once on the card with the
+    launch counts set to 0 just before it and read just after (raises unless
+    they are `sharded_want`'s and nothing else), with `check_cpu` once more
+    with device="cpu" (the plain passes; the result must be the same bits),
+    then SHARDED_REPS polymuls timed barrier to barrier. Returns, by path,
+    rank 0's product, this rank's launches and the ms of one polymul."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    inputs = sharded_inputs(seed)
+    out = {}
+    for name, shape in SHARDED_MESHES.items():
+        shape = shape if world == RANKS else (1, 1, 1)
+        mesh = init_device_mesh("cuda", shape, mesh_dim_names=("dp", "ch", "sp"))
+        run = sharded_path(name, mesh, None)
+        lhs, rhs = (torch.from_numpy(v).cuda() if v.dtype == np.uint32 else v
+                    for v in inputs[name])
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = run(lhs, rhs)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in launch_counts().items() if v}
+        if launched != sharded_want(name, shape):
+            raise RuntimeError(f"rank {rank}: {name} launched {launched}, expected "
+                               f"{sharded_want(name, shape)}")
+        got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+        if check_cpu:
+            cpu = sharded_path(name, mesh, "cpu")(*(torch.from_numpy(v) if v.dtype == np.uint32
+                                                     else v for v in inputs[name]))
+            cpu = cpu.numpy() if isinstance(cpu, torch.Tensor) else cpu
+            if not np.array_equal(got, cpu):
+                raise RuntimeError(f"rank {rank}: {name} on the card differs from the CPU plain "
+                                   "path of the sharded module")
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SHARDED_REPS):
+            run(lhs, rhs)
+        torch.cuda.synchronize()
+        dist.barrier()
+        ms = (time.perf_counter() - t0) * 1e3 / SHARDED_REPS
+        out[name] = {"out": got if rank == 0 else None, "launches": launched, "ms": ms}
+    return out
 
 
 def gemm_bound(macs: float, nbytes: float) -> tuple:
@@ -839,6 +967,8 @@ def main() -> int:
         cuda_build, mxu32, mxu32_cuda, mxu64, mxu64_cuda, ntt_dispatch, stagesplit)
     from concrete_ntt_tpu_torch.ops.u32 import (
         limbs_to_np_u64, mont_mul, mont_mul64, mont_neginv, mont_neginv64, to_i64, to_u32)
+    from concrete_ntt_tpu_torch.parallel import _dist
+    from concrete_ntt_tpu_torch.parallel import fourstep_mxu as fm
     from concrete_ntt_tpu_torch.tables import GOLDILOCKS, NATIVE128_PRIMES, PRIMES52, primes32_ext
     from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
     from concrete_ntt_tpu_torch.utils.prime import (
@@ -969,18 +1099,11 @@ def main() -> int:
             require(n_gmma > 0 and n_idp == 0,
                     f"build: {os.path.basename(so)} does not contract on the tensor cores")
 
-    def counts() -> dict:
-        return {**mxu32_cuda.LAUNCHES, **{f"butterfly32_{k}": v for k, v in bcu.LAUNCHES.items()},
-                **mxu64_cuda.LAUNCHES}
+    counts, reset_counts = launch_counts, reset_launch_counts
 
     def nz(d: dict) -> dict:
         """The non-zero entries of a launch-count dict, for the printed lines."""
         return {k: v for k, v in d.items() if v}
-
-    def reset_counts() -> None:
-        mxu32_cuda.reset_launch_counts()
-        bcu.reset_launch_counts()
-        mxu64_cuda.reset_launch_counts()
 
     # -- 3. parity --------------------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -1621,8 +1744,8 @@ def main() -> int:
     sh_out = []
     for geo, d, e, x in sharded:
         before = counts()
-        f = rank_local_fwd(mxu32_cuda.pass_matmod, host(x).to(dev), d, **geo)
-        sh_out.append((f, rank_local_inv(mxu32_cuda.pass_matmod, f, e, **geo)))
+        f = held_fwd(fm, host(x).to(dev), d, **geo)
+        sh_out.append((f, held_inv(fm, f, e, **geo)))
         expect_delta(before, {"pass_matmod": 4 * RANKS},
                      f"rank-local passes n={n_sh} p={geo['p']}")
     torch.cuda.synchronize()
@@ -1786,8 +1909,8 @@ def main() -> int:
     sh64_out = []
     for geo, d, e, x in sharded64:
         before = counts()
-        f = rank_local_fwd64(mxu64_cuda.pass_matmod64, pair_of(x), d, **geo)
-        sh64_out.append((f, rank_local_inv64(mxu64_cuda.pass_matmod64, f, e, **geo)))
+        f = held_fwd64(fm, pair_of(x), d, **geo)
+        sh64_out.append((f, held_inv64(fm, f, e, **geo)))
         expect_delta(before, {"pass_matmod64": 4 * RANKS},
                      f"rank-local 64-bit passes n={n_sh} p={geo['p']}")
     torch.cuda.synchronize()
@@ -2147,7 +2270,7 @@ def main() -> int:
     sh_wide = []
     for geo, d, e, _ in sharded:
         before = counts()
-        sh_wide.append(rank_local_fwd(mxu32_cuda.pass_matmod, plan_arg(w_sh, dev), d, **geo))
+        sh_wide.append(held_fwd(fm, plan_arg(w_sh, dev), d, **geo))
         expect_delta(before, {"pass_matmod_u128": RANKS, "pass_matmod": RANKS},
                      f"rank-local fwd of a u128 operand n={n_sh} p={geo['p']}")
     torch.cuda.synchronize()
@@ -2348,7 +2471,7 @@ def main() -> int:
     wide16_got = ntt_dispatch.try_fwd32_wide_all(plan_arg(w16, dev), wide16)
     expect_delta(before, {"fwd_u128": len(wide16)}, f"u128 operand through the K2 route at {N16}")
     before = counts()
-    rl16 = rank_local_fwd(mxu32_cuda.pass_matmod, plan_arg(w16, dev), d16, **geo16)
+    rl16 = held_fwd(fm, plan_arg(w16, dev), d16, **geo16)
     expect_delta(before, {"pass_matmod_u128": RANKS, "pass_matmod": RANKS},
                  f"rank-local fwd of a u128 operand n={N16}")
     torch.cuda.synchronize()
@@ -2476,6 +2599,46 @@ def main() -> int:
               f"{mib(torch.cuda.memory_reserved())}; mxu32_cuda._kernel_tables "
               f"{mxu32_cuda._kernel_tables.cache_info()}, _hyb_tables "
               f"{mxu32_cuda._hyb_tables.cache_info()} | {smi}", flush=True)
+
+    # -- 4b. sharded: the slice's paths in worlds of rank processes -------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:  # the worlds' FileStores
+        try:
+            gloo = _dist.spawn(sharded_rank, RANKS, os.path.join(tmp, "gloo"), (args.seed, True),
+                               backend="gloo", timeout=SHARDED_TIMEOUT)
+            nccl = _dist.spawn(sharded_rank, 1, os.path.join(tmp, "nccl"), (args.seed, False),
+                               backend="nccl", timeout=SHARDED_TIMEOUT)
+        except RuntimeError as e:
+            raise PhaseError(f"sharded: {e}") from e
+    t_worlds = time.perf_counter() - t0
+    sh_in = sharded_inputs(args.seed)
+    single = {  # the single-card plans on the same operands (K1a-u128 / K1b, K1a / K1b, K7a / K7d)
+        "native128": port.native128.Plan32.try_new(N_SH128).negacyclic_polymul(
+            *(torch.from_numpy(v).to(dev) for v in sh_in["native128"])).cpu().numpy(),
+        "native64": native64.Plan32.try_new(N_SH64).negacyclic_polymul(*sh_in["native64"]),
+        "plan52": native64.Plan52.try_new(N_SH64).negacyclic_polymul(*sh_in["plan52"]),
+    }
+    what = {"native128": "native128.Plan32(2^16) through ChannelShardedNative",
+            "native64": "native64.Plan32(2^14) through make_sharded_prime32_mxu x5 channels",
+            "plan52": "native64.Plan52(2^14) through ChannelShardedNative52"}
+    for name, want in single.items():
+        for world, ranks in (("gloo", gloo), ("nccl", nccl)):
+            require(np.array_equal(ranks[0][name]["out"], want),
+                    f"sharded: {what[name]}, {world} rank 0 differs from the single-card plan")
+        print(f"sharded: {what[name]} B={B_SH} at (dp, ch, sp) = {SHARDED_MESHES[name]} over "
+              f"{RANKS} gloo rank processes on {kind}: rank 0 == the single-card plan, every "
+              f"rank == the CPU plain path of the sharded module; launches a rank "
+              f"{gloo[0][name]['launches']} (each rank's as predicted); one sharded polymul "
+              f"{gloo[0][name]['ms']:.4f} ms (rank 0, host clock barrier to barrier, mean of "
+              f"{SHARDED_REPS}; {RANKS} ranks share one card: not a scaling figure); NCCL world of 1: == the single-card plan, launches "
+              f"{nccl[0][name]['launches']}, {nccl[0][name]['ms']:.4f} ms | {smi}", flush=True)
+    launches["pass_matmod_u128"] = sum(r["native128"]["launches"]["pass_matmod_u128"] for r in gloo)
+    launches["pass_matmod"] = sum(r[k]["launches"]["pass_matmod"] for r in gloo
+                                  for k in ("native128", "native64"))
+    launches["pass_matmod64"] = sum(r["plan52"]["launches"]["pass_matmod64"] for r in gloo)
+    print(f"sharded: worlds of {RANKS} (gloo) and 1 (NCCL) in {t_worlds:.1f} s; K3 / K6 launches "
+          f"over the gloo ranks: pass_matmod_u128 {launches['pass_matmod_u128']}, pass_matmod "
+          f"{launches['pass_matmod']}, pass_matmod64 {launches['pass_matmod64']}", flush=True)
 
     memory_line("after the main paths")
 
@@ -2944,6 +3107,65 @@ def main() -> int:
               f"{t / bms:.1f} x the bound, device {fmt(k4_dev.get((key, n)))})", flush=True)
     print(f"times: device-time session {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # K3 / K6 at the rank-local shapes of the `sharded` phase's gloo world:
+    # wrapper ms (CUDA events), device ms (a second torch.profiler session,
+    # after the one above so that its rows are read as before), bound
+    n16, p16 = N_SH128, EXT[0]
+    rl_cases = []  # (row, label, fn, (MACs, bytes))
+
+    def rank_local(row, n, p, which, b, rows, limbs=1, diag=None, scale=1):
+        """Queue one pass of `row` (pass_matmod, pass_matmod_u128: K3;
+        pass_matmod64: K6) at [b, rows, K] with the rank's first rows of
+        `diag` (d or e)."""
+        wide = row == "pass_matmod64"
+        n1, n2 = mxu32.four_step_factors(n)
+        k, o = (n1, n2) if which in ("A", "Ainv") else (n2, n1)
+        if wide:
+            tbl, (planes, cvec) = mxu64._tables(n, p), mxu64.pass_mat(n, p, which, scale)
+            pair = tuple(t.contiguous() for t in u64_limbs(rand_mod(rng, p, (b, rows, k)))
+                         .to(dev).unbind(-1))
+        else:
+            tbl = mxu32._mxu_tables(n, p)
+            planes, cvec = mxu32_cuda._pass_mat(n, p, which, limbs, scale % p)
+            xs = tuple(u32((b, rows, k)) for _ in range(limbs))
+        dg = () if diag is None else tuple(torch.from_numpy(a[:rows]).to(dev) for a in tbl[diag])
+        if wide:
+            fn = lambda: mxu64_cuda.pass_matmod64(pair, n=n, p=p, which=which, diag_slices=dg,
+                                                  scale=scale)
+        else:
+            fn = lambda: mxu32_cuda.pass_matmod(xs if limbs > 1 else xs[0], n=n, p=p,
+                                                which=which, diag_slices=dg, n_limbs=limbs,
+                                                scale=scale)
+        word = 8 if wide else 4
+        nbytes = (word * b * rows * (k * limbs + o) + planes.size + cvec.nbytes
+                  + 4 * len(dg) * rows * o)
+        rl_cases.append((row, f"{which}{' x4 limbs' if limbs == 4 else ''} n={n} "
+                              f"[{b}, {rows}, {k}] -> [{b}, {rows}, {o}] p={p}",
+                         bind_now(fn), (b * rows * planes.size, nbytes)))
+
+    sc16 = pow(n16, p16 - 2, p16) * pow(2, 32, p16) % p16
+    rank_local("pass_matmod_u128", n16, p16, "A", B_SH, 128, limbs=4, diag="d")
+    for which, diag, sc in (("F", None, 1), ("G", "e", 1), ("Ainv", None, sc16)):
+        rank_local("pass_matmod", n16, p16, which, B_SH, 128, diag=diag, scale=sc)
+    for which, diag in (("A", "d"), ("F", None), ("G", "e"), ("Ainv", None)):
+        rank_local("pass_matmod", N_SH64, PRIMES[0], which, B_SH // 2, 64, diag=diag)
+    p52 = P52[0]
+    sc52 = pow(N_SH64, p52 - 2, p52) * pow(2, 64, p52) % p52
+    for which, diag, sc in (("A", "d", 1), ("F", None, 1), ("G", "e", 1), ("Ainv", None, sc52)):
+        rank_local("pass_matmod64", N_SH64, p52, which, B_SH // 2, 64, diag=diag, scale=sc)
+    rl_dev = device_times([(i, (lambda f=fn: (f, is_pass)), 1)
+                           for i, (_, _, fn, _) in enumerate(rl_cases)])
+    rank_local_rows = {}
+    for i, (row, label, fn, work_rl) in enumerate(rl_cases):
+        t = median_ms(fn)
+        bnd = gemm_bound(*work_rl)
+        dv = rl_dev[i]
+        rank_local_rows.setdefault(row, {})[label] = {
+            "ms": t, "device_ms": dv, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        print(f"sharded: rank-local {row} {label}: wrapper {t:.4f} ms, device "
+              + (f"{dv:.4f} ms" if dv is not None else "not measured")
+              + f", bound {bnd[0]:.6f} ms ({bnd[1]}) | {smi}", flush=True)
+
     # the bound of each kernel at the shape it was timed at: MACs a pass =
     # B·R·(E·K)·(D·O) from the plane shapes, bytes = operands, results and tables once
     n1m, n2m = mxu32.four_step_factors(N_MAIN)
@@ -3109,7 +3331,8 @@ def main() -> int:
          **({"device_ms": dev_ms.get(k), "gemm_ms": int_mm_ms.get(k)}
             if k in GEMM_ROWS else {}),
          **({"device_ms": k4_dev.get((k, 1024))} if k.startswith("butterfly32_") else {}),
-         **({"n17": big_rows[k]} if k in big_rows else {})}
+         **({"n17": big_rows[k]} if k in big_rows else {}),
+         **({"rank_local": rank_local_rows[k]} if k in rank_local_rows else {})}
         for k, (src, rep) in KERNELS.items()
     ]}))
     print(smi)

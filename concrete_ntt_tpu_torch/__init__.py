@@ -31,7 +31,7 @@ Ported so far:
     polynomial), only above 2^17 the plain stage engine on the operand's
     device (the reference's XLA route); `ops/ntt_dispatch.py` picks the
     tier. K3 (one
-    GEMM pass, same source) is only the sharded four-step's per-rank pass;
+    GEMM pass, same source) is the sharded four-step's per-rank pass;
   * the product plan `product.Plan(n, modulus, factors)` (the tfhe-rs
     integration layer: Generic and Bounded fwd,
     Replace and Accumulate inv, the mixed-radix lift, the elementwise ops
@@ -54,6 +54,14 @@ Ported so far:
     tables), the presplit inverse K1e (`mxu32_cuda.inv_multi_presplit`) and
     K5's forward of a u128 operand: as in the JAX package's default routing
     no plan takes them (K1 / K2 serve 2^16 and 2^17 directly);
+  * the sharded paths, `parallel/` on `torch.distributed` (one process a
+    rank, a `DeviceMesh` with named dims): the GEMM four-steps
+    `fourstep_mxu.make_sharded_prime32_mxu` / `make_sharded_prime64_mxu`
+    (K3 / K6 a pass, one tiled all-to-all a transform), the CRT channels of
+    a native plan over ranks (`channels.ChannelShardedNative`,
+    `ChannelShardedNative52`), the stage four-step
+    `fourstep.make_sharded_prime32` and `dryrun`; `parallel._dist` is the
+    collective layer;
   * beside them `ops/mxu32.py` and `ops/mxu64.py` (the host tables, the
     64-bit ones through `csrc/hostmath64.cpp`; plain four-steps),
     `ops/butterflies32.py` and `ops/engine.py` (plain stage engine),
@@ -65,9 +73,8 @@ Every plan has a device, given at construction and by default the card
 ("cuda"): numpy and Python-int input is moved to it, a tensor computes on
 the device it is on; the CPU is what a caller asks for (`device="cpu"`). The
 CUDA sources are built with nvcc at first use. CUDA tensors go through the
-kernels, CPU tensors through the plain versions. Everything else (the
-sharded paths, tooling) is listed in ROADMAP.md, in the order it will be
-ported.
+kernels, CPU tensors through the plain versions. What is left (tooling) is
+listed in ROADMAP.md, in the order it will be ported.
 """
 
 from . import (

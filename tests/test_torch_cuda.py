@@ -6,7 +6,9 @@ against its plain torch twin, and the native64 Plan32 and Plan52, prime32, prime
 through the stage-split hybrid at 2^16), product and the other native plans'
 polymuls (widths 32, 64 and 128, both tiers, the channel routes and the
 per-channel route below 2^11) through the kernels against the CPU plain
-path.
+path; and the sharded paths (`parallel/fourstep_mxu.py`,
+`parallel/channels.py`) in a world of two gloo ranks on one card and in one
+of a single NCCL rank.
 
 Every test here is marked `cuda` and skips without a CUDA GPU. The file
 imports only the port (no JAX), so it runs on a GPU machine without JAX:
@@ -754,3 +756,89 @@ def test_misaligned_operand_raises_on_card(gen, cuda_device):
         mxu64_cuda.fwd((lo, x), n=n, p=p)
     assert mxu64_cuda.LAUNCHES == before
     _same_pair(mxu64_cuda.fwd((lo, x.clone()), n=n, p=p), mxu64_cuda.fwd_plain((lo, x), n=n, p=p))
+
+
+def _sharded_rank(rank, world, n):
+    """One rank of a world on cuda:0 (tests/test_torch_cuda.py's sharded
+    card test): the sharded paths at n through K3 / K6, their outputs and
+    launch deltas back to the parent on the CPU."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from concrete_ntt_tpu_torch.parallel import channels, fourstep_mxu
+
+    dev = torch.device("cuda", 0)
+    gen = np.random.default_rng(7)
+    sp = init_device_mesh("cuda", (world,), mesh_dim_names=("sp",))
+    ch = init_device_mesh("cuda", (world,), mesh_dim_names=("ch",))
+    out, launches = {}, {}
+    p = BENCH["lt30"]
+    x = gen.integers(0, p, (4, n), dtype=np.uint32)
+    mxu32_cuda.reset_launch_counts()
+    fwd, inv, to_dist, from_dist = fourstep_mxu.make_sharded_prime32_mxu(
+        prime32.Plan.new(n, p), sp, axis="sp")
+    f = fwd(to_dist(torch.from_numpy(x)))
+    out["mxu32"] = (from_dist(f).cpu(), from_dist(inv(f)).cpu())
+    launches["mxu32"] = mxu32_cuda.LAUNCHES["pass_matmod"]
+    p64 = PRIMES52[0]
+    x64 = torch.from_numpy(np.stack([gen.integers(0, 1 << 32, (4, n), dtype=np.uint32),
+                                     gen.integers(0, 1 << 18, (4, n), dtype=np.uint32)], -1))
+    mxu64_cuda.reset_launch_counts()
+    fwd, inv, to_dist, from_dist = fourstep_mxu.make_sharded_prime64_mxu(
+        prime64.Plan.new(n, p64), sp, axis="sp")
+    f = fwd(to_dist(x64))
+    out["mxu64"] = (from_dist(f).cpu(), from_dist(inv(f)).cpu())
+    launches["mxu64"] = mxu64_cuda.LAUNCHES["pass_matmod64"]
+    lhs, rhs = (gen.integers(0, 1 << 32, (2, n, 4), dtype=np.uint32) for _ in range(2))
+    plan128 = native128.Plan32.try_new(n)
+    mxu32_cuda.reset_launch_counts()
+    for name, mesh, kw in (("ch128", ch, {}), ("sp128", sp, {"sp_axis": "sp"})):
+        sh = channels.ChannelShardedNative(plan128, mesh, **kw)
+        out[name] = sh.negacyclic_polymul(torch.from_numpy(lhs).to(dev),
+                                          torch.from_numpy(rhs).to(dev)).cpu()
+    launches["ch128"] = (mxu32_cuda.LAUNCHES["pass_matmod_u128"], mxu32_cuda.LAUNCHES["pass_matmod"])
+    a, b = (gen.integers(0, 1 << 64, (2, n), dtype=np.uint64) for _ in range(2))
+    mxu64_cuda.reset_launch_counts()
+    sh = channels.ChannelShardedNative52(native64.Plan52.try_new(n), sp, sp_axis="sp")
+    out["ch52"] = sh.negacyclic_polymul(a, b)
+    launches["ch52"] = mxu64_cuda.LAUNCHES["pass_matmod64"]
+    return out, launches
+
+
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
+def test_sharded_paths_on_card(gen, cuda_device, tmp_path, backend, world):
+    """The sharded paths (parallel/fourstep_mxu.py, parallel/channels.py) in a
+    world of ranks on cuda:0 at n = 4096: gloo with two ranks (NCCL refuses
+    two ranks on one card), NCCL with one. Each rank launches K3 / K6 and
+    nothing falls back; rank 0's results == the CPU plain path."""
+    from concrete_ntt_tpu_torch.ops import cuda_build
+    from concrete_ntt_tpu_torch.parallel import _dist
+
+    n = 4096
+    for name in ("mxu32_pass", "mxu64_pass"):
+        cuda_build.build(name)  # once, before the ranks load it
+    ranks = _dist.spawn(_sharded_rank, world, str(tmp_path / "store"), (n,), backend=backend,
+                        timeout=600)
+    gen = np.random.default_rng(7)
+    p = BENCH["lt30"]
+    plan = prime32.Plan.new(n, p, device="cpu")
+    x = torch.from_numpy(gen.integers(0, p, (4, n), dtype=np.uint32))
+    plan64 = prime64.Plan.new(n, PRIMES52[0], device="cpu")
+    x64 = torch.from_numpy(np.stack([gen.integers(0, 1 << 32, (4, n), dtype=np.uint32),
+                                     gen.integers(0, 1 << 18, (4, n), dtype=np.uint32)], -1))
+    lhs, rhs = (torch.from_numpy(gen.integers(0, 1 << 32, (2, n, 4), dtype=np.uint32))
+                for _ in range(2))
+    a, b = (gen.integers(0, 1 << 64, (2, n), dtype=np.uint64) for _ in range(2))
+    want128 = native128.Plan32.try_new(n, device="cpu").negacyclic_polymul(lhs, rhs)
+    k = len(NATIVE128_PRIMES)
+    for out, launches in ranks:
+        assert torch.equal(out["mxu32"][0], plan.fwd(x))
+        assert torch.equal(out["mxu32"][1], plan.inv(plan.fwd(x)))
+        assert torch.equal(out["mxu64"][0], plan64.fwd(x64))
+        assert torch.equal(out["mxu64"][1], plan64.inv(plan64.fwd(x64)))
+        assert torch.equal(out["ch128"], want128) and torch.equal(out["sp128"], want128)
+        assert np.array_equal(out["ch52"],
+                              native64.Plan52.try_new(n, device="cpu").negacyclic_polymul(a, b))
+        # a transform is two passes a rank; a polymul six a local channel
+        assert launches["mxu32"] == 4 and launches["mxu64"] == 4
+        assert launches["ch128"] == (2 * (k // world) + 2 * k, 4 * (k // world) + 4 * k)
+        assert launches["ch52"] == 6 * 3

@@ -149,7 +149,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, concrete_ntt_tpu_torch, concrete_ntt_tpu_torch.ops.mxu32_cuda, "
         "concrete_ntt_tpu_torch.ops.mxu64_cuda, concrete_ntt_tpu_torch.ops.stagesplit, "
-        "concrete_ntt_tpu_torch.prime64; "
+        "concrete_ntt_tpu_torch.prime64, concrete_ntt_tpu_torch.parallel, "
+        "concrete_ntt_tpu_torch.parallel.dryrun; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'concrete_ntt_tpu' not in sys.modules, 'concrete_ntt_tpu imported'; "
         "assert 'triton' not in sys.modules, 'triton imported'"
