@@ -10,11 +10,14 @@ Drives the port's paths through their hand-written CUDA kernels:
     2048 <= n <= 2^17, p >= 2^26; tiles for one channel's small grids) of
     `csrc/mxu32_pass.cu` and K4 (butterfly `fwd` / `inv`, n < 2048 or
     p < 2^26, up to 2^17 over a cluster of blocks) of `csrc/butterfly32.cu`;
-  * rank-local passes: K3 (`pass_matmod`, `csrc/mxu32_pass.cu`) through the
-    port's local sections (`parallel/fourstep_mxu.py`: a column pass with
-    the rank's diagonal rows, the all-to-all, a row pass), with R = 4 ranks
-    held in this process and the all-to-all done as slices and
-    concatenations (`exchange`);
+  * rank-local passes: K3's channel grid (`pass_matmod_multi`,
+    `csrc/mxu32_pass.cu` `k3_pass_multi`) through the port's local sections
+    (`parallel/fourstep_mxu.py`: a column pass on a view of the rank's
+    value shard with its diagonal rows, the all-to-all, a row pass on the
+    exchange's output in place), with R = 4 ranks held in this process and
+    the all-to-all done as slices and concatenations (`exchange`); K3's
+    one-channel `pass_matmod` (`k3_pass`, the JAX pass_matmod's twin, which
+    no route takes) on rank 0's four passes beside it;
   * product: `product.Plan(2^14, f1·f2, (f1, f2))` over two 30-bit primes
     (the reference grid's product-2xu32-16384 shape) at batch 16, the
     tfhe-rs hot path: `negacyclic_polymul` in Replace, Accumulate and
@@ -28,16 +31,20 @@ Drives the port's paths through their hand-written CUDA kernels:
     NTT primes below 2^62, 2^63 and 2^64), through K5 (`fwd64` / `inv64`,
     the whole four-step transform on u64 limb pairs) of
     `csrc/mxu64_pass.cu`; n = 1024 through the plain stage engine;
-  * rank-local 64-bit passes: K6 (`pass_matmod64`, same source) through
-    the same local sections on limb pairs, R = 4 ranks in this process;
+  * rank-local 64-bit passes: K6's channel grid (`pass_matmod64_multi`,
+    `k6_pass_multi`, same source) through the same local sections on limb
+    pairs, R = 4 ranks in this process, and `pass_matmod64` (`k6_pass`) on
+    rank 0's four passes beside it;
   * the sharded paths (`concrete_ntt_tpu_torch.parallel`) in worlds of rank
     processes: R = 4 gloo ranks on the one card (NCCL refuses two ranks on
     one card) and a world of one on NCCL, each rank running
     `native128.Plan32(2^16)` through `ChannelShardedNative` at (dp, ch, sp)
-    = (1, 2, 2) (K3 with four limbs for the A passes, one-limb K3 for F, G,
-    A_inv), `native64.Plan32(2^14)` through one `make_sharded_prime32_mxu`
-    a channel at (2, 1, 2) (K3) and `native64.Plan52(2^14)` through
-    `ChannelShardedNative52` at (2, 1, 2) (K6), batch 8;
+    = (1, 2, 2) (one K3 channel-grid launch a pass over the rank's five
+    channels: the A passes with the operand's four limbs), `native64.Plan32(2^14)`
+    through one `make_sharded_prime32_mxu` a channel at (2, 1, 2) (K3's grid
+    with one channel) and `native64.Plan52(2^14)` through
+    `ChannelShardedNative52` at (2, 1, 2) (one K6 launch a pass over three
+    channels), batch 8;
   * Plan52: `native64.Plan52(2^14).negacyclic_polymul` on planar (lo, hi)
     limbs at batch 8 over three 50-bit primes, through K7a (`fwd_multi64`)
     and K7d (`pointwise_inv_multi64`) of `csrc/mxu64_multi.cu`, held
@@ -104,7 +111,9 @@ failure:
                instances must be built, and a missing cuobjdump fails;
                K4's instances' registers and spills, and how many of its
                clusters the card holds at once (cudaOccupancyMaxActiveClusters:
-               the cluster launch must be accepted at 2^14 and 2^17).
+               the cluster launch must be accepted at 2^14 and 2^17);
+               K3's channel-grid instances of every tile `k3_multi_tile`
+               picks and the 16 64-row instances of the 64-bit pass built.
   3. parity  — each kernel against its plain torch version on the card,
                exact equality: K1a/K1b at (n, B) = (2^14, 8), (2^14, 5),
                (2^11, 3), (2^15, 2); K2 fwd, fwd_wide, inv (unscaled and
@@ -161,7 +170,16 @@ failure:
                The eight (digit planes, regime) instances of the 64-bit
                pass, one prime each: K5 fwd, inv (plain, scaled) at (2^11,
                3) (ragged row tiles) and (2^14, 3), K6 A scaled on a row
-               slice and F canonical at (2^11, 3).
+               slice and F canonical at (2^11, 3). K3's and K6's channel
+               grids (`pass_matmod_multi`, `pass_matmod64_multi`): the four
+               passes of a rank's transform pair on the routes' strided
+               views (A on the value shard, F on the exchange's output, G,
+               A_inv written transposed) at K3_MULTI_SHAPES /
+               K6_MULTI_SHAPES (the gloo world's rank-local shapes, s = 2
+               and 4, n = 2^11 .. 2^17, C = 1-5 and 10), K3 with one channel per
+               regime, K6 with one channel per 64-bit instance on both
+               tiles: every tile code of `k3_multi_tile` (0-3) and
+               `k6_tile` (0, 1) launched or the phase fails.
   4. main    — native64: three polymuls on the card == CPU plain path ==
                numpy wrapping oracle (row 0); K1a +2, K1b +1 per call.
                prime32: Plan(2^14, p) polymul at B = 16 for each bench prime
@@ -171,7 +189,9 @@ failure:
                fwd +1 inv); the README vector N = 32, p = 1062862849, round
                trip. Rank-local passes: fwd and inv at n = 4096, B = 16 for
                each bench prime == CPU plain path, and inv(fwd(x)) == n·x
-               (K3 +2R passes a transform). product: Plan(2^14, f1·f2)
+               (K3's channel grid +2R passes a transform; rank 0's four
+               passes through K3 `pass_matmod` == the grid's). product:
+               Plan(2^14, f1·f2)
                polymul at B = 16 in Replace, Accumulate (K1a +2, K1d +1)
                and Bounded b = 2^20 (K1c +1, K1a +1, K1d +1), fwd(bounded)
                (K1c +1) and inv (K1b +1), each == CPU plain path; at
@@ -184,7 +204,8 @@ failure:
                plain path, inv(fwd(x)) == n·x (K5 +2 fwd +1 inv a polymul);
                Plan(1024, PRIMES52[0]) polymul through the stage engine,
                row 0 == the schoolbook oracle; rank-local fwd and inv
-               through K6 at n = 4096 (K6 +4R a round trip). Plan52(2^14)
+               through K6's grid at n = 4096 (+4R a round trip; rank 0's
+               passes through K6 `pass_matmod64` == the grid's). Plan52(2^14)
                polymul at B = 8 == CPU plain path == numpy wrapping oracle
                (row 0) == Plan32 on the same inputs (K7a +2, K7d +1);
                Plan52.fwd (K7a +1) and inv (K5 inv +3); product.Plan with a
@@ -208,7 +229,9 @@ failure:
                through the per-channel route (K4 +2k fwd, +k inv, no K1
                launch); `"py128"` lists on a default native128 plan == the
                planar result; a u128 operand through K2 (x3 primes) and
-               through the rank-local passes (K3-u128 +R, K3 +R) == its
+               through the rank-local passes (K3's grid with four limbs +R,
+               one limb +R; rank 0's A pass through K3 `pass_matmod` with
+               four limbs == the grid's) == its
                residues through the one-limb path. Above 2^15 at B = 8:
                native128.Plan32(2^16) and native64.Plan32(2^16 | 2^17)
                polymul, fwd, inv == CPU plain path (all rows) == the wrapping
@@ -233,18 +256,22 @@ failure:
                world). Each rank runs the three sharded paths once with its
                launch counts set to 0 just before each and read just after:
                it raises unless they are the route's (a rank at (1, 2, 2):
-               K3-u128 10, K3 20 for native128; K3 30 for native64; K6 18 for
-               Plan52) and nothing else, and, in the gloo world, unless the
-               same path on CPU tensors (device="cpu", the plain passes)
-               gives the same bits; then 5 polymuls timed barrier to
-               barrier. Rank 0's products == the single-card plans' (K1a-u128
-               / K1b, K1a / K1b, K7a / K7d) on the same inputs, for both
-               worlds; a failed, hung or silent rank fails the phase. Then
-               K3 and K6 at the rank-local shapes of the gloo world (each
-               pass of each path: wrapper ms, device ms, bound), which the
-               JSON rows of pass_matmod, pass_matmod_u128 and pass_matmod64
-               carry under `rank_local`; their `launches` are the gloo
-               world's, summed over its ranks.
+               K3's grid 2 with four limbs and 4 with one for native128; 30
+               for native64; K6's grid 6 for Plan52) and nothing else, and,
+               in the gloo world, unless the same path on CPU tensors
+               (device="cpu", the plain passes) gives the same bits; then 5
+               polymuls timed barrier to barrier; the NCCL rank, alone on
+               the card, also under torch.profiler (device busy share,
+               aten ops a polymul). Rank 0's products == the single-card
+               plans' (K1a-u128 / K1b, K1a / K1b, K7a / K7d) on the same
+               inputs, for both worlds; a failed, hung or silent rank fails
+               the phase. Then K3's and K6's channel grids at the rank-local
+               shapes of the gloo world (each pass of each path: wrapper ms,
+               device ms, torch._int_mm on the same digit GEMMs, bound; the
+               device ms of a rank's polymul), which the JSON rows of
+               pass_matmod_multi, pass_matmod_multi_u128 and
+               pass_matmod64_multi carry under `rank_local`; their
+               `launches` are the gloo world's, summed over its ranks.
   5. times   — CUDA events, warm-up then the median of reps, each kernel
                beside its plain version (K1d also beside plain mont_mul +
                K1b), the polymuls in products/s (product in its three
@@ -389,6 +416,10 @@ KERNELS = {  # JSON name -> (source, TPU kernel replaced)
     # K1b from pre-split digit planes; K5 fwd with the four limbs of a u128 operand
     "inv_multi_presplit": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:614"),
     "fwd64_u128": (PASS64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:32"),
+    # K3 / K6 on a rank's channel grid, strided: the sharded four-step's passes
+    "pass_matmod_multi": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:687"),
+    "pass_matmod_multi_u128": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:687"),
+    "pass_matmod64_multi": (PASS64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:197"),
 }
 # the rows that also carry their shape above 2^15 (fields `n17_*` of the JSON line)
 BIG_ROWS = ("fwd_wide_multi", "fwd_wide_multi_u128", "inv_multi", "fwd_multi_perchannel",
@@ -428,7 +459,7 @@ GEMM_ROWS = ("fwd_wide_multi", "inv_multi", "fwd_multi_perchannel", "pointwise_i
              "fwd64", "inv64", "pass_matmod64", "fwd_multi64", "pointwise_inv_multi64",
              "fwd64_hyb", "inv64_hyb", "fwd_multi_perchannel64", "inv_multi64",
              "fwd_multi_perchannel64_hyb", "inv_multi64_hyb", "pointwise_inv_multi64_hyb",
-             "fwd64_u128")
+             "fwd64_u128", "pass_matmod_multi", "pass_matmod_multi_u128", "pass_matmod64_multi")
 
 
 class PhaseError(RuntimeError):
@@ -474,10 +505,11 @@ def ptxas_entries(log: str) -> list:
 
 def pass_instance(entry: str) -> str:
     """'kD/regime/epilogue[/tile t]' of a mangled GEMM pass instance:
-    matmod64_pass<kD, kMode, kScaled, kPointwise> or matmod_pass<kD,
-    kRegime, kScaled, kPointwise, kPresplit, kTile> (tile 1: K2's tile for
-    small grids)."""
-    m = re.search(r"matmod(64)?_passILi(\d)ELi(\d)ELb(\d)ELb(\d)E(?:Lb(\d)ELi(\d)E)?", entry)
+    matmod64_pass<kD, kMode, kScaled, kPointwise, kTile> or matmod_pass<kD,
+    kRegime, kScaled, kPointwise, kPresplit, kTile> (no tile shown for code
+    0)."""
+    m = re.search(r"matmod(64)?_passILi(\d)ELi(\d)ELb(\d)ELb(\d)E(?:Lb(\d)E)?(?:Li(\d)E)?",
+                  entry)
     if not m:
         return entry
     wide, d, mode, scaled, pw, presplit, tile = m.groups()
@@ -715,30 +747,36 @@ def exchange(ys: list, split_axis: int, concat_axis: int) -> list:
             for q in range(len(ys))]
 
 
+def rank_rows(diag, r: int, rows: int):
+    """Rank r's rows of a diagonal [planes, R, O] (all its tables stacked) as
+    the channel-grid passes take them: [1, planes, rows, O], contiguous."""
+    return diag[:, r * rows:(r + 1) * rows].unsqueeze(0).contiguous()
+
+
 def held_fwd(fm, x, diag, *, n, n1, n2, p):
     """Forward NTT [B, n] -> [B, n] (bit-reversed) through the port's
     rank-local sections (`parallel/fourstep_mxu.py`: `col_pass` with the
     rank's rows of d, the all-to-all, `row_pass`), RANKS ranks held in this
-    process: rank r's value shard is columns r·c.. of [B, n1, n2]; a limb
-    tuple is a wide operand."""
+    process: rank r's value shard is columns r·c.. of [B, n1, n2], read in
+    place as a view; a limb tuple is a wide operand; diag = d's tables
+    stacked [planes, n2, n1]."""
     limbs = x if isinstance(x, tuple) else (x,)
-    b, c, c1 = limbs[0].shape[0], n2 // RANKS, n1 // RANKS
+    b, c = limbs[0].shape[0], n2 // RANKS
     ys = []
     for r in range(RANKS):
-        v = tuple(fm.transposed(a.reshape(b, n1, n2)[:, :, r * c:(r + 1) * c]) for a in limbs)
-        ys.append(fm.col_pass(v if len(v) > 1 else v[0], tuple(t[r * c:(r + 1) * c] for t in diag),
-                              n=n, p=p))
+        v = tuple(a.reshape(b, n1, n2)[:, :, r * c:(r + 1) * c] for a in limbs)
+        ys.append(fm.col_pass(v if len(v) > 1 else v[0], rank_rows(diag, r, c), n=n, p=p))
     outs = [fm.row_pass(y, n=n, p=p) for y in exchange(ys, 2, 1)]  # [B, c1, n2] each
     return torch.cat(outs, dim=1).reshape(b, n)
 
 
 def held_inv(fm, x, diag, *, n, n1, n2, p):
     """The mirror (unnormalized): rank q holds rows q·c1.. of the NTT domain;
-    `row_pass_inv` with its rows of e, the all-to-all, `col_pass_inv`."""
+    `row_pass_inv` with its rows of e (diag = e stacked [planes, n1, n2]),
+    the all-to-all, `col_pass_inv`."""
     b, c1 = x.shape[0], n1 // RANKS
     xv = x.reshape(b, n1, n2)
-    ys = [fm.row_pass_inv(xv[:, q * c1:(q + 1) * c1].contiguous(),
-                          tuple(t[q * c1:(q + 1) * c1] for t in diag), n=n, p=p)
+    ys = [fm.row_pass_inv(xv[:, q * c1:(q + 1) * c1], rank_rows(diag, q, c1), n=n, p=p)
           for q in range(RANKS)]
     outs = [fm.col_pass_inv(y, n=n, p=p) for y in exchange(ys, 2, 1)]  # [B, n1, c] each
     return torch.cat(outs, dim=2).reshape(b, n)
@@ -747,8 +785,8 @@ def held_inv(fm, x, diag, *, n, n1, n2, p):
 def held_fwd64(fm, x, diag, *, n, n1, n2, p):
     """`held_fwd` on (lo, hi) limb pairs (`col_pass64`, `row_pass64`)."""
     b, c = x[0].shape[0], n2 // RANKS
-    ys = [fm.col_pass64(tuple(fm.transposed(a.reshape(b, n1, n2)[:, :, r * c:(r + 1) * c]) for a in x),
-                        tuple(t[r * c:(r + 1) * c] for t in diag), n=n, p=p)
+    ys = [fm.col_pass64(tuple(a.reshape(b, n1, n2)[:, :, r * c:(r + 1) * c] for a in x),
+                        rank_rows(diag, r, c), n=n, p=p)
           for r in range(RANKS)]
     recv = zip(*(exchange([y[i] for y in ys], 2, 1) for i in range(2)))
     outs = [fm.row_pass64(pair, n=n, p=p) for pair in recv]  # (lo, hi) [B, c1, n2] each
@@ -759,12 +797,58 @@ def held_inv64(fm, x, diag, *, n, n1, n2, p):
     """`held_inv` on (lo, hi) limb pairs (`row_pass_inv64`, `col_pass_inv64`)."""
     b, c1 = x[0].shape[0], n1 // RANKS
     xv = tuple(a.reshape(b, n1, n2) for a in x)
-    ys = [fm.row_pass_inv64(tuple(a[:, q * c1:(q + 1) * c1].contiguous() for a in xv),
-                            tuple(t[q * c1:(q + 1) * c1] for t in diag), n=n, p=p)
+    ys = [fm.row_pass_inv64(tuple(a[:, q * c1:(q + 1) * c1] for a in xv),
+                            rank_rows(diag, q, c1), n=n, p=p)
           for q in range(RANKS)]
     recv = zip(*(exchange([y[i] for y in ys], 2, 1) for i in range(2)))
     outs = [fm.col_pass_inv64(pair, n=n, p=p) for pair in recv]  # (lo, hi) [B, n1, c] each
     return tuple(torch.cat([o[i] for o in outs], dim=2).reshape(b, n) for i in range(2))
+
+
+# K3 / K6 on a rank's channel grid: (n, B, s, channels[, A-pass limbs]) of
+# the four passes of a rank's transform pair (A on the value shard, F on the
+# exchange's output, G, A_inv written transposed): the sharded routes'
+# rank-local shapes in the gloo world (native128 (2^16, 8) at (dp, ch, sp) =
+# (1, 2, 2), native64 (2^14, 8) at (2, 1, 2), Plan52 (2^14, 8) at (2, 1, 2)
+# and in a world of one, the held ranks of the main phase), s = 2 and 4, n =
+# 2^11 .. 2^17, C = 1-5 and 10, and every tile code the rules pick
+# (`mxu32_cuda.k3_multi_tile`: 64 x 16, K1's tile holding four stages whole
+# at (2^14, 16, 1, 2), 128 x 64 for canonical passes at (4096, 16, 1, 10),
+# K1's ring; `mxu64_cuda.k6_tile`: 64 rows here, 128 at the eight
+# instances' (2^14, 32, 1, 1)). The NCCL world of one checks its own shapes
+# end to end (phase `sharded`).
+K3_MULTI_SHAPES = ((1 << 16, 8, 2, 5, 4), (1 << 14, 4, 2, 1, 1),
+                   (4096, 16, 4, 1, 1), (1 << 11, 3, 4, 1, 1), (1 << 11, 2, 2, 5, 2),
+                   (1 << 12, 4, 2, 3, 4), (1 << 13, 3, 4, 2, 1), (1 << 14, 16, 1, 2, 1),
+                   (4096, 16, 1, 10, 1), (1 << 15, 2, 4, 5, 1), (1 << 17, 2, 4, 2, 1))
+K6_MULTI_SHAPES = ((1 << 14, 4, 2, 3), (1 << 14, 8, 1, 3), (4096, 16, 4, 1), (1 << 11, 3, 4, 1),
+                   (1 << 12, 2, 2, 5), (1 << 13, 3, 4, 2), (1 << 15, 2, 2, 3))
+
+
+def route_passes(u32, n: int, b: int, s: int, c: int, limbs: int, pair: bool = False) -> tuple:
+    """The four passes of a rank's transform pair over c channels as the
+    sharded routes make them, on random operands from u32(shape, hi):
+    (which, operand limb views, (first row, rows) of the rank's diagonal or
+    None): A reads the value shard [b, n1, n2 / s] transposed in place (one
+    operand for every channel), F the exchange's [c, b, n2, n1 / s], G
+    [c, b, n1 / s, n2], A_inv the exchange's [c, b, n1, n2 / s] (written
+    transposed); the rank is the last one of s. `pair`: limb pairs, F and
+    A_inv's hi limb below 2^18 (mid-pass values)."""
+    from concrete_ntt_tpu_torch.ops import mxu32
+
+    n1, n2 = mxu32.four_step_factors(n)
+    cs, c1 = n2 // s, n1 // s
+    one = 2 if pair else 1
+
+    def limbs_of(shape, k, mid=False):
+        return tuple(u32(shape, 1 << 18 if mid and i else 1 << 32) for i in range(k))
+
+    return (("A", tuple(t.transpose(1, 2) for t in limbs_of((b, n1, cs), one * limbs)),
+             (n2 - cs, cs)),
+            ("F", tuple(t.transpose(2, 3) for t in limbs_of((c, b, n2, c1), one, pair)), None),
+            ("G", limbs_of((c, b, c1, n2), one), (n1 - c1, c1)),
+            ("Ainv", tuple(t.transpose(2, 3) for t in limbs_of((c, b, n1, cs), one, pair)),
+             None))
 
 
 # the `sharded` phase: the slice's three paths in a world of RANKS rank
@@ -804,13 +888,13 @@ def sharded_inputs(seed: int) -> dict:
 
 def sharded_want(name: str, mesh: tuple) -> dict:
     """The launches of one polymul on a rank of `mesh` (dp, ch, sp): six
-    passes a local channel (A and F for each operand, G and A_inv)."""
-    ch = mesh[1]
+    passes (A and F for each operand, G and A_inv), each one channel-grid
+    launch over all of the rank's channels."""
     if name == "native128":  # the A passes take the operand's four limbs
-        return {"pass_matmod_u128": 2 * 10 // ch, "pass_matmod": 4 * 10 // ch}
+        return {"pass_matmod_multi_u128": 2, "pass_matmod_multi": 4}
     if name == "native64":  # one sharded four-step a channel, all five on every rank
-        return {"pass_matmod": 6 * 5}
-    return {"pass_matmod64": 6 * 3 // ch}
+        return {"pass_matmod_multi": 6 * 5}
+    return {"pass_matmod64_multi": 6}  # Plan52's primes: the "grid" route
 
 
 def sharded_path(name: str, mesh, device):
@@ -878,6 +962,8 @@ def sharded_rank(rank: int, world: int, seed: int, check_cpu: bool) -> dict:
         dist.barrier()
         ms = (time.perf_counter() - t0) * 1e3 / SHARDED_REPS
         out[name] = {"out": got if rank == 0 else None, "launches": launched, "ms": ms}
+        if world == 1:  # alone on the card: its device-busy share and aten ops a polymul
+            out[name]["profile"] = profile_polymul(lambda: run(lhs, rhs), reps=3)
     return out
 
 
@@ -1048,18 +1134,27 @@ def main() -> int:
         if os.path.basename(so).startswith("mxu64_"):
             require(passes and all(st == ld == 0 for _, _, st, ld in passes),
                     f"build: {os.path.basename(so)}: a GEMM pass instance spills registers")
-        # K2's tile for small grids (tile 1): built, and no spill
-        small = [e for e in passes if "/tile " in pass_instance(e[0])]
+        built = {pass_instance(entry): (st, ld) for entry, _, st, ld in passes}
         if os.path.basename(so).startswith("mxu32_pass"):
-            require(len(small) == 8 and all(st == ld == 0 for _, _, st, ld in small),
-                    f"build: {os.path.basename(so)}: K2's small-grid tile instances "
-                    f"({len(small)} of 8) missing or spilling registers")
+            # K2's tile for small grids (tile 1): no spill; K3's channel grid:
+            # every tile k3_multi_tile picks, 128 x 64 canonical with four planes
+            want = {f"{dr}/{form}/tile {t}" for t in (1, 2) for form in ("scaled", "canonical")
+                    for dr in ("4/lt30", "4/lt31", "4/generic", "5/generic")}
+            want |= {f"4/{r}/canonical/tile 3" for r in ("lt30", "lt31", "generic")}
+            require(want <= set(built) and all(
+                built[k] == (0, 0) for k in built if k.endswith("/tile 1")),
+                f"build: {os.path.basename(so)}: channel-grid / small-grid tile instances "
+                f"{sorted(want - set(built))} missing, or a tile-1 instance spills")
+        if os.path.basename(so).startswith("mxu64_pass"):
+            # K6's channel grid on 64 rows: every (digit planes, regime) instance
+            want = {k for k in built if k.endswith("/tile 1")}
+            require(len(want) == 16, f"build: {os.path.basename(so)}: {len(want)} of the 16 "
+                                     "64-row instances of the 64-bit pass built")
         # K1c / K1d's tile instances: all built
         if os.path.basename(so).startswith("mxu32_multi"):
-            built = {pass_instance(e[0]) for e in passes}
             want = {f"4/lt30/{form}/tile {t}" for form, t in K1_TILED}
-            require(want <= built, f"build: {os.path.basename(so)}: K1c / K1d's tile instances "
-                                   f"{sorted(want - built)} missing")
+            require(want <= set(built), f"build: {os.path.basename(so)}: K1c / K1d's tile "
+                                        f"instances {sorted(want - set(built))} missing")
         k4 = [e for e in ptxas_entries(log) if "ntt_k4" in e[0]]
         if k4:
             print(f"build: {os.path.basename(so)} K4 instances: " + "; ".join(
@@ -1067,15 +1162,17 @@ def main() -> int:
                 flush=True)
     smem = {(d, t): mxu32_cuda._pass_lib().k_pass_smem_bytes(d, t)
             for t in range(len(mxu32_cuda.TILES)) for d in (4, 5)}
-    smem64 = {d: mxu64_cuda._pass_lib().k64_pass_smem_bytes(d) for d in range(5, 10)}
+    smem64 = {(d, t): mxu64_cuda._pass_lib().k64_pass_smem_bytes(d, t) for t in (0, 1)
+              for d in range(5, 10)}
     smem_pair = {t: mxu32_cuda._lib().k1_smem_bytes(t, 1) for t in (1, 2, 3)}
     print("build: matmod_pass dynamic shared memory a block, 4 / 5 digit planes: " + "; ".join(
           f"tile {t} {tm} x {to}: {smem[(4, t)]} / {smem[(5, t)]} B"
           for t, (tm, to) in enumerate(mxu32_cuda.TILES)) + "; K1d's pair pass (4 planes): " +
           ", ".join(f"tile {t} {v} B" for t, v in smem_pair.items()) +
-          "; matmod64_pass with 5..9 digit "
-          f"planes: {', '.join(f'{v} B' for v in smem64.values())} (the ring of operand and "
-          "plane stages, or the whole contraction of up to four stages)", flush=True)
+          "; matmod64_pass with 5..9 digit planes, 128 / 64 rows: "
+          + ", ".join(f"{smem64[(d, 0)]} / {smem64[(d, 1)]} B" for d in range(5, 10))
+          + " (the ring of operand and plane stages, or the whole contraction of up to four "
+          "stages)", flush=True)
     # K4's cluster launch: how many clusters the card holds at once
     clusters = {(n, c): bcu._lib().k4_max_active_clusters(n.bit_length() - 1, c.bit_length() - 1,
                                                           bcu.radix_log(n // c))
@@ -1357,6 +1454,51 @@ def main() -> int:
                                  f"p={p} n={n} B={b} {which} scale={sc} rows={x[0].shape[1]}")
     print(f"parity: K6 {checks['pass_matmod64']} checks exact at n in {K3_SIZES}, B in "
           f"{K3_BATCHES}, five primes in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # K3 / K6 on channel grids with strided operands, against their plain
+    # twins, at the routes' shapes and every tile code their rules pick
+    t0 = time.perf_counter()
+    mxu32_cuda.TILE_LAUNCHES.clear()
+    mxu64_cuda.TILE_LAUNCHES.clear()
+    grid32 = [(shape, tuple((EXT if shape[0] > 1 << 15 else NATIVE128_PRIMES)[:shape[3]]))
+              for shape in K3_MULTI_SHAPES]
+    grid32 += [((4096, 3, 2, 1, 2), (p,)) for p in BENCH_PRIMES.values()]
+    grid32 += [((N17, 16, 2, 1, 1), (BENCH_PRIMES["generic"],)), ((N16, 3, 2, 1, 4),
+                                                                  (BIG32["lt31"],))]
+    for (n, b, s, c, limbs), primes in grid32:
+        for which, x, rows in route_passes(u32, n, b, s, c, limbs):
+            kw = dict(n=n, primes=primes, which=which, transposed_out=which == "Ainv",
+                      diag=mxu32_cuda.multi_diag(n, primes, which, *rows, str(dev)) if rows
+                      else None,
+                      scales=tuple(pow(n, q - 2, q) * pow(2, 32, q) % q for q in primes)
+                      if which == "Ainv" else None)
+            x = x if len(x) > 1 else x[0]
+            key = "pass_matmod_multi_u128" if which == "A" and limbs == 4 else "pass_matmod_multi"
+            compare(key, mxu32_cuda.pass_matmod_multi(x, **kw),
+                    mxu32_cuda.pass_matmod_multi_plain(x, **kw),
+                    f"n={n} B={b} s={s} C={c} {which} limbs={limbs} primes={primes[:2]}")
+    grid64 = [(shape, tuple(PRIMES52[:shape[3]])) for shape in K6_MULTI_SHAPES]
+    for p in INSTANCES64.values():
+        grid64 += [((4096, 3, 2, 1), (p,)), ((1 << 14, 32, 1, 1), (p,))]
+    for (n, b, s, c), primes in grid64:
+        for which, x, rows in route_passes(u32, n, b, s, c, 1, pair=True):
+            kw = dict(n=n, primes=primes, which=which, transposed_out=which == "Ainv",
+                      diag=mxu64_cuda.multi_diag(n, primes, which, *rows, str(dev)) if rows
+                      else None,
+                      scales=tuple(scale64(n, q) for q in primes) if which == "Ainv" else None)
+            compare_pair("pass_matmod64_multi", mxu64_cuda.pass_matmod64_multi(x, **kw),
+                         mxu64_cuda.pass_matmod64_multi_plain(x, **kw),
+                         f"n={n} B={b} s={s} C={c} {which} primes={primes[:2]}")
+    tiles32 = sorted({k[1] for k in mxu32_cuda.TILE_LAUNCHES if k[0].startswith("pass_matmod_m")})
+    tiles64 = sorted({k[1] for k in mxu64_cuda.TILE_LAUNCHES})
+    require(tiles32 == [0, 1, 2, 3] and tiles64 == [0, 1],
+            f"parity: the channel grids launched tile codes {tiles32} (K3) and {tiles64} (K6), "
+            "not every code their rules pick")
+    print(f"parity: K3's channel grid {checks['pass_matmod_multi']} + "
+          f"{checks['pass_matmod_multi_u128']} (four limbs) checks exact at (n, B, s, C, limbs) "
+          f"in {K3_MULTI_SHAPES} and one channel per regime, tile codes {tiles32}; K6's "
+          f"{checks['pass_matmod64_multi']} at {K6_MULTI_SHAPES} and the eight instances on both "
+          f"tiles, tile codes {tiles64}; in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     for n, b in K7_SHAPES:
@@ -1737,19 +1879,42 @@ def main() -> int:
     for p in BENCH_PRIMES.values():
         tbl = mxu32._mxu_tables(n_sh, p)
         geo = dict(n=n_sh, n1=tbl["n1"], n2=tbl["n2"], p=p)
-        d, e = (tuple(torch.from_numpy(a).to(dev) for a in tbl[k]) for k in ("d", "e"))
+        d, e = (torch.from_numpy(np.stack(tbl[k])).to(dev) for k in ("d", "e"))
         sharded.append((geo, d, e, rng.integers(0, p, (B32, n_sh), dtype=np.uint32)))
     torch.cuda.synchronize()
     reset_counts()
-    sh_out = []
+    sh_out, twin_out = [], []
     for geo, d, e, x in sharded:
         before = counts()
         f = held_fwd(fm, host(x).to(dev), d, **geo)
         sh_out.append((f, held_inv(fm, f, e, **geo)))
-        expect_delta(before, {"pass_matmod": 4 * RANKS},
+        expect_delta(before, {"pass_matmod_multi": 4 * RANKS},
                      f"rank-local passes n={n_sh} p={geo['p']}")
+        # the one-to-one twin of the JAX pass_matmod (K3 `pass_matmod`, which
+        # no route takes): rank 0's four passes through its entry point on
+        # contiguous operands == the local sections' channel grid on views
+        c, c1, p = geo["n2"] // RANKS, geo["n1"] // RANKS, geo["p"]
+        v = host(x).to(dev).reshape(B32, geo["n1"], geo["n2"])[:, :, :c]
+        y = (u32((B32, geo["n2"], c1)), u32((B32, c1, geo["n2"])), u32((B32, geo["n1"], c)))
+        before = counts()
+        kw = dict(n=n_sh, p=p)
+        twin_out.append((
+            (mxu32_cuda.pass_matmod(v.transpose(1, 2).contiguous(), which="A",
+                                    diag_slices=tuple(d[:, :c]), **kw),
+             mxu32_cuda.pass_matmod(y[0].transpose(1, 2).contiguous(), which="F", **kw),
+             mxu32_cuda.pass_matmod(y[1], which="G", diag_slices=tuple(e[:, :c1]), **kw),
+             mxu32_cuda.pass_matmod(y[2].transpose(1, 2).contiguous(), which="Ainv",
+                                    **kw).transpose(1, 2)),
+            (fm.col_pass(v, rank_rows(d, 0, c), **kw), fm.row_pass(y[0], **kw),
+             fm.row_pass_inv(y[1], rank_rows(e, 0, c1), **kw), fm.col_pass_inv(y[2], **kw))))
+        expect_delta(before, {"pass_matmod": 4, "pass_matmod_multi": 4},
+                     f"K3 pass_matmod against its channel grid n={n_sh} p={p}")
     torch.cuda.synchronize()
     launches_k3 = counts()
+    for twin, grid in twin_out:
+        for which, a, g in zip(("A", "F", "G", "Ainv"), twin, grid):
+            require(torch.equal(a, g), f"main: K3 pass_matmod {which} differs from its channel "
+                                       "grid (pass_matmod_multi) at the held rank 0's shape")
     for (geo, d, e, x), (f, back) in zip(sharded, sh_out):
         p = geo["p"]
         require(f.device.type == "cuda" and torch.equal(
@@ -1760,8 +1925,10 @@ def main() -> int:
                 f"main: rank-local inv(fwd(x)) != n·x mod p at n={n_sh} p={p}")
     launches["pass_matmod"] = launches_k3["pass_matmod"]
     print(f"main: rank-local passes on {kind}: fwd and inv at n={n_sh} B={B32}, R={RANKS} "
-          f"ranks, for p in {tuple(BENCH_PRIMES.values())} == CPU plain path, "
-          f"inv(fwd(x)) == n·x; launches {nz(launches_k3)}", flush=True)
+          f"ranks (K3's channel grid on views of the shards), for p in "
+          f"{tuple(BENCH_PRIMES.values())} == CPU plain path, inv(fwd(x)) == n·x; rank 0's "
+          f"four passes through K3 pass_matmod == the grid's; launches {nz(launches_k3)}",
+          flush=True)
 
     f1, f2 = PRIMES[0], PRIMES[1]
     pplan = product.Plan.new(N_PROD, f1 * f2, (f1, f2))
@@ -1901,20 +2068,45 @@ def main() -> int:
     for p in PRIMES64.values():
         tbl = mxu64._tables(n_sh, p)
         geo = dict(n=n_sh, n1=tbl["n1"], n2=tbl["n2"], p=p)
-        d, e = (tuple(torch.from_numpy(a).to(dev) for a in tbl[k]) for k in ("d", "e"))
+        d, e = (torch.from_numpy(np.stack(tbl[k])).to(dev) for k in ("d", "e"))
         sharded64.append((geo, d, e, rand_mod(rng, p, (B64, n_sh))))
     pair_of = lambda v: tuple(t.contiguous() for t in card(v).unbind(-1))
     torch.cuda.synchronize()
     reset_counts()
-    sh64_out = []
+    sh64_out, twin64 = [], []
     for geo, d, e, x in sharded64:
         before = counts()
         f = held_fwd64(fm, pair_of(x), d, **geo)
         sh64_out.append((f, held_inv64(fm, f, e, **geo)))
-        expect_delta(before, {"pass_matmod64": 4 * RANKS},
+        expect_delta(before, {"pass_matmod64_multi": 4 * RANKS},
                      f"rank-local 64-bit passes n={n_sh} p={geo['p']}")
+        # K6 `pass_matmod64`, the JAX pass_matmod64's twin (no route takes
+        # it): rank 0's four passes == the local sections' channel grid
+        c, c1, p = geo["n2"] // RANKS, geo["n1"] // RANKS, geo["p"]
+        v = tuple(a.reshape(B64, geo["n1"], geo["n2"])[:, :, :c] for a in pair_of(x))
+        y = (mid_pair((B64, geo["n2"], c1), p), (u32((B64, c1, geo["n2"])),
+                                                 u32((B64, c1, geo["n2"]))),
+             mid_pair((B64, geo["n1"], c), p))
+        tr = lambda pair: tuple(a.transpose(1, 2).contiguous() for a in pair)
+        before = counts()
+        kw = dict(n=n_sh, p=p)
+        twin64.append((
+            (mxu64_cuda.pass_matmod64(tr(v), which="A", diag_slices=tuple(d[:, :c]), **kw),
+             mxu64_cuda.pass_matmod64(tr(y[0]), which="F", **kw),
+             mxu64_cuda.pass_matmod64(y[1], which="G", diag_slices=tuple(e[:, :c1]), **kw),
+             tuple(a.transpose(1, 2) for a in mxu64_cuda.pass_matmod64(tr(y[2]), which="Ainv",
+                                                                        **kw))),
+            (fm.col_pass64(v, rank_rows(d, 0, c), **kw), fm.row_pass64(y[0], **kw),
+             fm.row_pass_inv64(y[1], rank_rows(e, 0, c1), **kw), fm.col_pass_inv64(y[2], **kw))))
+        expect_delta(before, {"pass_matmod64": 4, "pass_matmod64_multi": 4},
+                     f"K6 pass_matmod64 against its channel grid n={n_sh} p={p}")
     torch.cuda.synchronize()
     launches_k6 = counts()
+    for twin, grid in twin64:
+        for which, a, g in zip(("A", "F", "G", "Ainv"), twin, grid):
+            require(all(torch.equal(s, t) for s, t in zip(a, g)),
+                    f"main: K6 pass_matmod64 {which} differs from its channel grid "
+                    "(pass_matmod64_multi) at the held rank 0's shape")
     for (geo, d, e, x), (f, back) in zip(sharded64, sh64_out):
         p = geo["p"]
         want = mxu64_cuda.fwd_plain(tuple(t.contiguous() for t in u64_limbs(x).unbind(-1)),
@@ -1927,8 +2119,9 @@ def main() -> int:
                 f"main: rank-local 64-bit inv(fwd(x)) != n·x mod p at n={n_sh} p={p} (row 0)")
     launches["pass_matmod64"] = launches_k6["pass_matmod64"]
     print(f"main: rank-local 64-bit passes on {kind}: fwd and inv at n={n_sh} B={B64}, "
-          f"R={RANKS} ranks, five primes == CPU plain path, inv(fwd(x)) == n·x; launches "
-          f"{launches_k6}", flush=True)
+          f"R={RANKS} ranks (K6's channel grid on views of the shards), five primes == CPU "
+          f"plain path, inv(fwd(x)) == n·x; rank 0's four passes through K6 pass_matmod64 == "
+          f"the grid's; launches {nz(launches_k6)}", flush=True)
 
     # Plan52: K7a, K7d (polymul, fwd), K5 (inv), held against Plan32
     plan52 = native64.Plan52.try_new(N64)
@@ -2267,14 +2460,27 @@ def main() -> int:
     before = counts()
     wide_got = ntt_dispatch.try_fwd32_wide_all(plan_arg(w128, dev), wide_plans)
     expect_delta(before, {"fwd_u128": len(wide_plans)}, "u128 operand through the K2 route")
-    sh_wide = []
+    sh_wide, twin_wide = [], []
     for geo, d, e, _ in sharded:
         before = counts()
         sh_wide.append(held_fwd(fm, plan_arg(w_sh, dev), d, **geo))
-        expect_delta(before, {"pass_matmod_u128": RANKS, "pass_matmod": RANKS},
+        expect_delta(before, {"pass_matmod_multi_u128": RANKS, "pass_matmod_multi": RANKS},
                      f"rank-local fwd of a u128 operand n={n_sh} p={geo['p']}")
+        # rank 0's A pass through K3 pass_matmod with the four limbs (the JAX
+        # twin's entry point) == the local section's channel grid
+        c = geo["n2"] // RANKS
+        v = tuple(a.reshape(B32, geo["n1"], geo["n2"])[:, :, :c] for a in plan_arg(w_sh, dev))
+        before = counts()
+        twin_wide.append((
+            mxu32_cuda.pass_matmod(tuple(a.transpose(1, 2).contiguous() for a in v), n=n_sh,
+                                   p=geo["p"], which="A", diag_slices=tuple(d[:, :c]), n_limbs=4),
+            fm.col_pass(v, rank_rows(d, 0, c), n=n_sh, p=geo["p"])))
+        expect_delta(before, {"pass_matmod_u128": 1, "pass_matmod_multi_u128": 1},
+                     f"K3 pass_matmod with four limbs against its channel grid p={geo['p']}")
     torch.cuda.synchronize()
     launches_wide = counts()
+    require(all(torch.equal(a, g) for a, g in twin_wide),
+            "main: K3 pass_matmod's A pass with four limbs differs from its channel grid")
     residue = lambda v, p: torch.from_numpy((as_ints(v) % p).astype(np.uint32))
     for i, pl in enumerate(wide_plans):
         require(wide_got.device.type == "cuda" and torch.equal(
@@ -2289,8 +2495,9 @@ def main() -> int:
         launches[k] = launches_wide[k]
     print(f"main: u128 operands on {kind}: try_fwd32_wide_all over p in "
           f"{tuple(BENCH_PRIMES.values())} at n={N32} B={B32} (K2 with four limbs) and the "
-          f"rank-local fwd at n={n_sh} (K3's A pass with four limbs, R={RANKS}) == the CPU "
-          f"transform of value mod p; launches {nz(launches_wide)}", flush=True)
+          f"rank-local fwd at n={n_sh} (K3's channel-grid A pass with four limbs, R={RANKS}) == "
+          f"the CPU transform of value mod p, rank 0's A pass through K3 pass_matmod == the "
+          f"grid's; launches {nz(launches_wide)}", flush=True)
 
     # -- this slice's paths: the 32-bit transforms above 2^15, on the direct kernels --
     ks_of = lambda n: (0, 1, n // 2 + 7, n - 1)
@@ -2464,7 +2671,7 @@ def main() -> int:
     p_rl = BIG32["lt30"]
     tbl = mxu32._mxu_tables(N16, p_rl)
     geo16 = dict(n=N16, n1=tbl["n1"], n2=tbl["n2"], p=p_rl)
-    d16 = tuple(torch.from_numpy(a).to(dev) for a in tbl["d"])
+    d16 = torch.from_numpy(np.stack(tbl["d"])).to(dev)
     torch.cuda.synchronize()
     reset_counts()
     before = counts()
@@ -2472,10 +2679,21 @@ def main() -> int:
     expect_delta(before, {"fwd_u128": len(wide16)}, f"u128 operand through the K2 route at {N16}")
     before = counts()
     rl16 = held_fwd(fm, plan_arg(w16, dev), d16, **geo16)
-    expect_delta(before, {"pass_matmod_u128": RANKS, "pass_matmod": RANKS},
+    expect_delta(before, {"pass_matmod_multi_u128": RANKS, "pass_matmod_multi": RANKS},
                  f"rank-local fwd of a u128 operand n={N16}")
+    c16 = tbl["n2"] // RANKS
+    v16 = tuple(a.reshape(4, tbl["n1"], tbl["n2"])[:, :, :c16] for a in plan_arg(w16, dev))
+    before = counts()
+    twin16 = (mxu32_cuda.pass_matmod(tuple(a.transpose(1, 2).contiguous() for a in v16), n=N16,
+                                     p=p_rl, which="A", diag_slices=tuple(d16[:, :c16]),
+                                     n_limbs=4),
+              fm.col_pass(v16, rank_rows(d16, 0, c16), n=N16, p=p_rl))
+    expect_delta(before, {"pass_matmod_u128": 1, "pass_matmod_multi_u128": 1},
+                 f"K3 pass_matmod with four limbs against its channel grid at {N16}")
     torch.cuda.synchronize()
     launches_w16 = counts()
+    require(torch.equal(*twin16), f"main: K3 pass_matmod's A pass with four limbs at {N16} "
+                                  "differs from its channel grid")
     for i, pl in enumerate(wide16):
         require(torch.equal(wide16_got[i].cpu(),
                             mxu32_cuda.fwd_plain(residue(w16, pl.p), n=N16, p=pl.p)),
@@ -2632,15 +2850,72 @@ def main() -> int:
               f"{gloo[0][name]['ms']:.4f} ms (rank 0, host clock barrier to barrier, mean of "
               f"{SHARDED_REPS}; {RANKS} ranks share one card: not a scaling figure); NCCL world of 1: == the single-card plan, launches "
               f"{nccl[0][name]['launches']}, {nccl[0][name]['ms']:.4f} ms | {smi}", flush=True)
-    launches["pass_matmod_u128"] = sum(r["native128"]["launches"]["pass_matmod_u128"] for r in gloo)
-    launches["pass_matmod"] = sum(r[k]["launches"]["pass_matmod"] for r in gloo
-                                  for k in ("native128", "native64"))
-    launches["pass_matmod64"] = sum(r["plan52"]["launches"]["pass_matmod64"] for r in gloo)
-    print(f"sharded: worlds of {RANKS} (gloo) and 1 (NCCL) in {t_worlds:.1f} s; K3 / K6 launches "
-          f"over the gloo ranks: pass_matmod_u128 {launches['pass_matmod_u128']}, pass_matmod "
-          f"{launches['pass_matmod']}, pass_matmod64 {launches['pass_matmod64']}", flush=True)
+        prof = nccl[0][name]["profile"]
+        print(f"sharded: {what[name]}, NCCL world of 1, rank 0 under torch.profiler: host clock "
+              f"{prof['host_ms']:.4f} ms, device busy {prof['busy_ms']:.4f} ms "
+              f"({100 * prof['busy_share']:.1f} %), GEMM passes {prof['kernel_ms']:.4f} ms, "
+              f"{prof['device_events']:.0f} device events and {prof['aten_ops']:.0f} aten ops a "
+              f"polymul (3 polymuls) | {smi}", flush=True)
+    launches["pass_matmod_multi_u128"] = sum(
+        r["native128"]["launches"]["pass_matmod_multi_u128"] for r in gloo)
+    launches["pass_matmod_multi"] = sum(r[k]["launches"]["pass_matmod_multi"] for r in gloo
+                                        for k in ("native128", "native64"))
+    launches["pass_matmod64_multi"] = sum(r["plan52"]["launches"]["pass_matmod64_multi"]
+                                          for r in gloo)
+    print(f"sharded: worlds of {RANKS} (gloo) and 1 (NCCL) in {t_worlds:.1f} s; K3 / K6 "
+          f"channel-grid launches over the gloo ranks: pass_matmod_multi_u128 "
+          f"{launches['pass_matmod_multi_u128']}, pass_matmod_multi "
+          f"{launches['pass_matmod_multi']}, pass_matmod64_multi "
+          f"{launches['pass_matmod64_multi']}", flush=True)
 
     memory_line("after the main paths")
+
+    # one rank's channel-grid passes at the sharded routes' shapes (the gloo
+    # world's ranks): (path, transform size, a launch's channels, s, A-pass
+    # limbs, row, four-steps a polymul); native64 runs one four-step a channel
+    GRID_PATHS = (("native128", N_SH128, EXT[:5], 2, 4, "pass_matmod_multi", 1),
+                  ("native64", N_SH64, PRIMES[:1], 2, 1, "pass_matmod_multi", len(PRIMES)),
+                  ("plan52", N_SH64, P52, 2, 1, "pass_matmod64_multi", 1))
+
+    def grid_case(path: str, which: str) -> tuple:
+        """(JSON row, label, kernel call, plain call, (int8 MACs, bytes), int8
+        pairs of the same digit GEMMs: one a channel) of one pass of a rank of
+        `path` on random operands laid out as the route lays them. Bytes: the
+        operand (once where the channels share it), the outputs, each
+        channel's planes, cvec and diagonal rows once."""
+        _, n, primes, s, limbs, row, _ = next(g for g in GRID_PATHS if g[0] == path)
+        b = B_SH // SHARDED_MESHES[path][0]
+        wide = row == "pass_matmod64_multi"
+        x, rows = next((x, r) for w, x, r in route_passes(u32, n, b, s, len(primes), limbs,
+                                                           pair=wide) if w == which)
+        nl = len(x)
+        scales = (tuple((scale64 if wide else scale32)(n, q) for q in primes)
+                  if which == "Ainv" else None)
+        mats = [mxu64.pass_mat(n, q, which, sc) if wide else
+                mxu32_cuda._pass_mat(n, q, which, nl, sc % q)
+                for q, sc in zip(primes, scales or (1,) * len(primes))]
+        mod = mxu64_cuda if wide else mxu32_cuda
+        kw = dict(n=n, primes=primes, which=which, scales=scales, transposed_out=which == "Ainv",
+                  diag=mod.multi_diag(n, primes, which, *rows, str(dev)) if rows else None)
+        xx = x if wide or nl > 1 else x[0]
+        call = mod.pass_matmod64_multi if wide else mod.pass_matmod_multi
+        plain = mod.pass_matmod64_multi_plain if wide else mod.pass_matmod_multi_plain
+        r_all, k = b * x[0].shape[-2], x[0].shape[-1]
+        e_k, d_o = mats[0][0].shape
+        word = 8 if wide else 4
+        nbytes = (word * r_all * k * (1 if wide else nl) * (1 if x[0].dim() == 3 else len(primes))
+                  + word * len(primes) * r_all * mats[0][1].shape[1]
+                  + sum(m[0].nbytes + m[1].nbytes for m in mats)
+                  + (kw["diag"].numel() * 4 if rows else 0))
+        pairs = lambda: [
+            (torch.randint(-128, 128, (r_all, e_k), dtype=torch.int8, device=dev),
+             torch.randint(-128, 128, (d_o, e_k), dtype=torch.int8, device=dev).t())
+            for _ in primes]
+        key = "pass_matmod_multi_u128" if which == "A" and limbs == 4 else row
+        label = (f"{path} {which}{' x4 limbs' if key.endswith('u128') else ''} n={n} "
+                 f"C={len(primes)} [{b}, {x[0].shape[-2]}, {k}] s={s}")
+        return (key, label, lambda: call(xx, **kw), lambda: plain(xx, **kw),
+                (len(primes) * r_all * e_k * d_o, nbytes), pairs)
 
     # -- 5. times -----------------------------------------------------------------
     ms, plain_ms = {}, {}
@@ -2717,6 +2992,14 @@ def main() -> int:
           lambda: mxu32_cuda.pass_matmod(xa, **kw), lambda: mxu32_cuda.pass_matmod_plain(xa, **kw),
           "pass_matmod",
           (1, lambda: gemm_pairs(dev, "fwd", tbl["n1"], tbl["n2"], B32, 1, 4, passes=1)))
+    # K3 / K6 on a rank's channel grid, each JSON row at one pass of a
+    # sharded route (the rank-local rows below time every pass): native128's
+    # F over five channels and its A with four limbs, Plan52's A over three
+    grid_work = {}
+    for path, which in (("native128", "F"), ("native128", "A"), ("plan52", "A")):
+        key, label, kernel, plain, work_g, pairs = grid_case(path, which)
+        grid_work[key] = work_g
+        timed(f"K3 / K6 {key}", label, kernel, plain, key, (1, pairs))
     x = u32((B32, 4096), p)
     timed("K2 fwd (passes_engine)", f"n=4096 B={B32} p={p}",
           lambda: mxu32_cuda.passes_engine.fwd(x, n=4096, p=p),
@@ -2983,7 +3266,7 @@ def main() -> int:
               lambda: mxu32_cuda.fwd_wide_plain(w4k2b, n=N16, p=p),
               (2, lambda: gemm_pairs(dev, "fwd", nb1, nb2, B32, 1, 16)))
     w4k3b = tuple(u32((B32, geo16["n2"], geo16["n1"])) for _ in range(4))
-    kw = dict(n=N16, p=p, which="A", n_limbs=4, diag_slices=d16)
+    kw = dict(n=N16, p=p, which="A", n_limbs=4, diag_slices=tuple(d16))
     timed_big("pass_matmod_u128", "K3 pass_matmod", f"A scaled n={N16} B={B32} p={p} 4 limbs",
               lambda: mxu32_cuda.pass_matmod(w4k3b, **kw),
               lambda: mxu32_cuda.pass_matmod_plain(w4k3b, **kw),
@@ -3107,64 +3390,43 @@ def main() -> int:
               f"{t / bms:.1f} x the bound, device {fmt(k4_dev.get((key, n)))})", flush=True)
     print(f"times: device-time session {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # K3 / K6 at the rank-local shapes of the `sharded` phase's gloo world:
-    # wrapper ms (CUDA events), device ms (a second torch.profiler session,
-    # after the one above so that its rows are read as before), bound
-    n16, p16 = N_SH128, EXT[0]
-    rl_cases = []  # (row, label, fn, (MACs, bytes))
+    # K3 / K6 on the channel grids at the rank-local shapes of the `sharded`
+    # phase's gloo world, one rank's passes of a polymul: wrapper ms (CUDA
+    # events), device ms and torch._int_mm on the same digit-plane GEMMs (one
+    # a channel; a second torch.profiler session, after the one above so that
+    # its rows are read as before), bound
+    rl_cases = [(*grid_case(path, which), path) for path, *_ in GRID_PATHS
+                for which in ("A", "F", "G", "Ainv")]
 
-    def rank_local(row, n, p, which, b, rows, limbs=1, diag=None, scale=1):
-        """Queue one pass of `row` (pass_matmod, pass_matmod_u128: K3;
-        pass_matmod64: K6) at [b, rows, K] with the rank's first rows of
-        `diag` (d or e)."""
-        wide = row == "pass_matmod64"
-        n1, n2 = mxu32.four_step_factors(n)
-        k, o = (n1, n2) if which in ("A", "Ainv") else (n2, n1)
-        if wide:
-            tbl, (planes, cvec) = mxu64._tables(n, p), mxu64.pass_mat(n, p, which, scale)
-            pair = tuple(t.contiguous() for t in u64_limbs(rand_mod(rng, p, (b, rows, k)))
-                         .to(dev).unbind(-1))
-        else:
-            tbl = mxu32._mxu_tables(n, p)
-            planes, cvec = mxu32_cuda._pass_mat(n, p, which, limbs, scale % p)
-            xs = tuple(u32((b, rows, k)) for _ in range(limbs))
-        dg = () if diag is None else tuple(torch.from_numpy(a[:rows]).to(dev) for a in tbl[diag])
-        if wide:
-            fn = lambda: mxu64_cuda.pass_matmod64(pair, n=n, p=p, which=which, diag_slices=dg,
-                                                  scale=scale)
-        else:
-            fn = lambda: mxu32_cuda.pass_matmod(xs if limbs > 1 else xs[0], n=n, p=p,
-                                                which=which, diag_slices=dg, n_limbs=limbs,
-                                                scale=scale)
-        word = 8 if wide else 4
-        nbytes = (word * b * rows * (k * limbs + o) + planes.size + cvec.nbytes
-                  + 4 * len(dg) * rows * o)
-        rl_cases.append((row, f"{which}{' x4 limbs' if limbs == 4 else ''} n={n} "
-                              f"[{b}, {rows}, {k}] -> [{b}, {rows}, {o}] p={p}",
-                         bind_now(fn), (b * rows * planes.size, nbytes)))
+    def rl_gemm(pairs):
+        mats = pairs()
+        return (lambda: [torch._int_mm(a, q) for a, q in mats]), is_kernel
 
-    sc16 = pow(n16, p16 - 2, p16) * pow(2, 32, p16) % p16
-    rank_local("pass_matmod_u128", n16, p16, "A", B_SH, 128, limbs=4, diag="d")
-    for which, diag, sc in (("F", None, 1), ("G", "e", 1), ("Ainv", None, sc16)):
-        rank_local("pass_matmod", n16, p16, which, B_SH, 128, diag=diag, scale=sc)
-    for which, diag in (("A", "d"), ("F", None), ("G", "e"), ("Ainv", None)):
-        rank_local("pass_matmod", N_SH64, PRIMES[0], which, B_SH // 2, 64, diag=diag)
-    p52 = P52[0]
-    sc52 = pow(N_SH64, p52 - 2, p52) * pow(2, 64, p52) % p52
-    for which, diag, sc in (("A", "d", 1), ("F", None, 1), ("G", "e", 1), ("Ainv", None, sc52)):
-        rank_local("pass_matmod64", N_SH64, p52, which, B_SH // 2, 64, diag=diag, scale=sc)
-    rl_dev = device_times([(i, (lambda f=fn: (f, is_pass)), 1)
-                           for i, (_, _, fn, _) in enumerate(rl_cases)])
-    rank_local_rows = {}
-    for i, (row, label, fn, work_rl) in enumerate(rl_cases):
+    rl_tasks = []
+    for i, (_, _, fn, _, _, pairs, _) in enumerate(rl_cases):
+        rl_tasks.append(((i, "device"), (lambda f=fn: (f, is_pass)), 1))
+        rl_tasks.append(((i, "gemm"), (lambda q=pairs: rl_gemm(q)), None))
+    rl_dev = device_times(rl_tasks)
+    rank_local_rows, per_path = {}, {}
+    for i, (row, label, fn, _, work_rl, _, path) in enumerate(rl_cases):
         t = median_ms(fn)
         bnd = gemm_bound(*work_rl)
-        dv = rl_dev[i]
+        dv, gm = rl_dev[(i, "device")], rl_dev[(i, "gemm")]
         rank_local_rows.setdefault(row, {})[label] = {
-            "ms": t, "device_ms": dv, "bound_ms": bnd[0], "bound_by": bnd[1]}
-        print(f"sharded: rank-local {row} {label}: wrapper {t:.4f} ms, device "
-              + (f"{dv:.4f} ms" if dv is not None else "not measured")
-              + f", bound {bnd[0]:.6f} ms ({bnd[1]}) | {smi}", flush=True)
+            "ms": t, "device_ms": dv, "gemm_ms": gm, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        per_path.setdefault(path, []).append((dv, bnd[0]))
+        print(f"sharded: rank-local {row} {label}: wrapper {t:.4f} ms, device {fmt(dv)}, "
+              f"torch._int_mm on the same GEMMs {fmt(gm)}, bound {bnd[0]:.6f} ms ({bnd[1]}) | "
+              f"{smi}", flush=True)
+    for path, passes in per_path.items():  # A, F, G, A_inv: a polymul runs A and F twice
+        if all(dv is not None for dv, _ in passes):
+            reps = dict((g[0], g[-1]) for g in GRID_PATHS)[path]
+            twice = tuple(reps * w for w in (2, 2, 1, 1))
+            print(f"sharded: rank-local {path}: the channel-grid launches of one rank's polymul "
+                  f"({reps} x (2 A + 2 F + G + A_inv)) take "
+                  f"{sum(w * dv for w, (dv, _) in zip(twice, passes)):.4f} ms of device time, "
+                  f"bound {sum(w * bd for w, (_, bd) in zip(twice, passes)):.6f} ms | {smi}",
+                  flush=True)
 
     # the bound of each kernel at the shape it was timed at: MACs a pass =
     # B·R·(E·K)·(D·O) from the plane shapes, bytes = operands, results and tables once
@@ -3219,6 +3481,8 @@ def main() -> int:
         "inv_multi_presplit": fourstep_work("inv", B_MAIN, n1m, n2m, 5, 4, 4, 4, 1, 1, 4),
         # K5 fwd with four limbs: 16 operand planes in the column pass
         "fwd64_u128": fourstep_work("fwd", B64, n1m, n2m, 1, 16, 8, d_gl, 4, 2, 2),
+        # the channel grids at the pass of a sharded route their rows time
+        **grid_work,
     }
     bounds = {k: gemm_bound(*w) for k, w in work.items()}
     # the direct 32-bit kernels at n = 2^16 (n1 = n2 = 256), the shapes of `big_ms`

@@ -65,10 +65,14 @@
 // (2, or 4 for a u128 operand; K % 32 == 0). Dynamic shared memory 84-108
 // KiB (kD 5-9): two blocks an SM. Half-width tiles also double the grid
 // against 32 outputs: K5 at (2^14, 16) runs 16 x 8 = 128 blocks a pass on
-// the 132 SMs. Strides of the operand and of the output are fields of the
-// descriptor, so the mid-pass transpose is a stride of the second pass's
-// loads. Grid = (row tiles over batch x rows, output tiles, z); rows past
-// the batch edge are zero-filled and not stored.
+// the 132 SMs. A channel grid of the sharded four-step (k6_pass_multi) may
+// take tile code 1 instead: 64 rows (one warpgroup, m64n(16 kD)k32, the same
+// accumulators a thread), 57-81 KiB (kD 5-9), three blocks an SM (two with
+// nine planes), twice the blocks of a 128-row grid. Strides of the operand
+// and of the output are fields of the descriptor, so the mid-pass transpose
+// is a stride of the second pass's loads. Grid = (row tiles over batch x
+// rows, output tiles, z); rows past the batch edge are zero-filled and not
+// stored.
 //
 // The z axis is channel * nb + block. nb = 1 is a direct transform. With the
 // stage-split hybrid's block tables (ops/stagesplit.py) a transform of size
@@ -89,16 +93,31 @@
 namespace mxu64 {
 
 using sm90::kKC;
-using sm90::kTM;
-using sm90::kThreads;
 constexpr int kTO = 16;  // outputs per block (kD digit columns each)
+
+// The tiles of a pass, by the code the host passes (ops/mxu64_cuda.py
+// k6_tile): operand rows a block, both on the three-stage ring. Code 0 is
+// two warpgroups of 64 rows, the tile of K5, K5h, W4-64, K7 and k6_pass;
+// code 1 is one warpgroup (wgmma m64), which gives twice the blocks where a
+// channel grid of 128-row blocks leaves the card under-filled (k6_pass_multi
+// at the sharded routes' shapes). Both take 16 outputs a block.
+__host__ __device__ constexpr int tile_rows(int code) { return code == 0 ? 128 : 64; }
+constexpr int kTiles = 2;
 
 // words of one stage of the plane tile: kD * kTO rows (N) of kKC words (K),
 // in the host-packed order of ops/mxu64_cuda.py pack_planes64 (8-row groups
 // of eight 16-byte chunks of eight rows: wgmma's K-major core matrices
 // without swizzle)
 __host__ __device__ constexpr int plane_stage(int kD) { return sm90::plane_stage(kD, kTO); }
-__host__ __device__ constexpr int smem_bytes(int kD) { return sm90::smem_bytes(kD, kTO); }
+__host__ __device__ constexpr int smem_bytes(int kD, int code = 0) {
+  return sm90::smem_bytes(kD, kTO, tile_rows(code));
+}
+// blocks an SM the registers are budgeted for: two of tile 0 (as the
+// shared memory lets in with nine planes), as many of tile 1 as the shared
+// memory lets in (three with 5-8 planes, two with nine)
+__host__ __device__ constexpr int min_blocks(int kD, int code) {
+  return code == 0 ? 2 : sm90::blocks_per_sm(smem_bytes(kD, code));
+}
 
 // Per-channel scalar record, 16 uint32 words = 8 little-endian u64 values
 // (ops/mxu64.py _scal_vec64, extended by ops/mxu64_cuda.py scalar_record):
@@ -234,15 +253,17 @@ __device__ __forceinline__ uint64_t canonical(uint64_t v01, uint32_t v2, const S
 // in the load before the digit split, so the operand tile is loaded with
 // plain loads and stores (contiguous rows only); every other pass copies it
 // with cp.async. The mainloop is gemm_sm90.cuh's.
-template <int kD, int kMode, bool kScaled, bool kPointwise = false>
-__global__ void __launch_bounds__(kThreads, 2) matmod64_pass(Pass a) {
+template <int kD, int kMode, bool kScaled, bool kPointwise = false, int kTile = 0>
+__global__ void __launch_bounds__(sm90::threads(tile_rows(kTile)), min_blocks(kD, kTile))
+    matmod64_pass(Pass a) {
   static_assert(kD >= 5 && kD <= 9, "5 to 9 matrix digit planes");
+  constexpr int kRows = tile_rows(kTile);
   extern __shared__ __align__(128) uint32_t smem[];
   const int z = blockIdx.z;
   const int c = z / a.nb;        // channel
   const int blk = z - c * a.nb;  // block of the channel
   const int pz = a.planes_blk ? z : c;
-  const int row0 = blockIdx.x * kTM;
+  const int row0 = blockIdx.x * kRows;
   const int o0 = blockIdx.y * kTO;
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   const int wrow = (threadIdx.x >> 5) * 16;  // the warp's first row (as in sm90::mainloop)
@@ -271,7 +292,7 @@ __global__ void __launch_bounds__(kThreads, 2) matmod64_pass(Pass a) {
                       word(xl.z, xh.z, yl.z, yh.z), word(xl.w, xh.w, yl.w, yh.w));
   };
   int acc[kD * kTO / 2];  // the warpgroup's m64 x (kD * kTO) int32 tile, this thread's part
-  sm90::mainloop<kD, kTO, kPointwise>(acc, a, chan, row0, planes, smem, load);
+  sm90::mainloop<kD, kTO, kPointwise, kRows>(acc, a, chan, row0, planes, smem, load);
 
   const Scalars sc = read_scalars(a.scal + kScalWords * c);
   const int32_t* cvz = a.cvec + (size_t)pz * kD * a.o;
@@ -367,16 +388,17 @@ inline bool tiles_fit(const Pass& a, bool pointwise) {
 }
 
 // static: each library keeps its own once-flags (see matmod_pass.cuh launch)
-template <int kD, int kMode, bool kScaled, bool kPointwise = false>
+template <int kD, int kMode, bool kScaled, bool kPointwise = false, int kTile = 0>
 static cudaError_t launch(const Pass& a, int channels, cudaStream_t stream) {
   if (!tiles_fit(a, kPointwise)) return cudaErrorInvalidValue;
-  auto kernel = matmod64_pass<kD, kMode, kScaled, kPointwise>;
-  constexpr int smem = smem_bytes(kD);
+  auto kernel = matmod64_pass<kD, kMode, kScaled, kPointwise, kTile>;
+  constexpr int smem = smem_bytes(kD, kTile);
+  constexpr int rows = tile_rows(kTile);
   static bool smem_set[sm90::kMaxDevices];
   cudaError_t e = sm90::set_smem_once(kernel, smem, smem_set);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.total_rows + kTM - 1) / kTM, a.o / kTO, channels * a.nb);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  const dim3 grid((a.total_rows + rows - 1) / rows, a.o / kTO, channels * a.nb);
+  kernel<<<grid, sm90::threads(rows), smem, stream>>>(a);
   return cudaGetLastError();
 }
 

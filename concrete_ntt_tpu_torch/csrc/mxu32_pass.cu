@@ -13,7 +13,10 @@
 //   K3  k3_pass          <- _build_pass_call (kernel :706-719): one exact
 //       modular GEMM pass [B, rows, K] -> [B, rows, O] over contiguous
 //       operands, scaled-lazy (rank-local diagonal rows) or canonical
-//       epilogue: the per-rank pass of the sharded four-step.
+//       epilogue: the one-to-one twin of the JAX pass_matmod (:759);
+//       k3_pass_multi, the same pass over a rank's C CRT channels in one
+//       launch with strided operands and outputs: the per-rank pass of the
+//       sharded four-step (below);
 // for every prime32 regime with odd p >= 2^26: lt30 (p < 2^30), lt31
 // (p < 2^31) and generic (Montgomery epilogues; 5 matrix digit planes for
 // primes near 2^32), and 2^11 <= n <= 2^17 (n1 <= 256, n2 <= 512).
@@ -50,7 +53,8 @@
 // device time by torch.profiler; PERF.md §6): 64 x 16 was the
 // fastest from 2^11 to 2^13, no slower than any other tile at 2^14, and at
 // 2^15 and above K1's tile beat it (more blocks re-read each operand tile
-// more often). K2 with block tables (nb > 1) and K3 keep tile 0.
+// more often). K2 with block tables (nb > 1) and k3_pass keep tile 0;
+// k3_pass_multi takes a tile code a launch (below).
 //
 // Host work of a launch: the wrapper builds the fixed arguments (tables,
 // shape, tiles) once per table set and batch as a K2Args record and passes
@@ -68,31 +72,43 @@ using mxu32::Pass;
 namespace {
 
 template <bool kScaled, int kTile>
-cudaError_t launch_tile(const Pass& a, int n_d, int regime, cudaStream_t s) {
-  if (n_d == 5 && regime == kGeneric) return launch<5, kGeneric, kScaled, false, false, kTile>(a, 1, s);
+cudaError_t launch_tile(const Pass& a, int n_d, int regime, int channels, cudaStream_t s) {
+  // five digit planes of 64 outputs would be N = 320 > 256, past wgmma's widest
+  if constexpr (mxu32::tile(kTile).outs * 5 <= 256) {
+    if (n_d == 5 && regime == kGeneric)
+      return launch<5, kGeneric, kScaled, false, false, kTile>(a, channels, s);
+  }
   if (n_d != 4) return cudaErrorInvalidValue;
   switch (regime) {
     case kLt30:
-      return launch<4, kLt30, kScaled, false, false, kTile>(a, 1, s);
+      return launch<4, kLt30, kScaled, false, false, kTile>(a, channels, s);
     case kLt31:
-      return launch<4, kLt31, kScaled, false, false, kTile>(a, 1, s);
+      return launch<4, kLt31, kScaled, false, false, kTile>(a, channels, s);
     case kGeneric:
-      return launch<4, kGeneric, kScaled, false, false, kTile>(a, 1, s);
+      return launch<4, kGeneric, kScaled, false, false, kTile>(a, channels, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// K2 and K3 take tiles 0 and 1; k3_pass_multi takes every code that
+// ops/mxu32_cuda.py k1_tile picks, which gives the 128 x 64 tile (code 3)
+// to canonical passes with four digit planes only
 template <bool kScaled>
-cudaError_t launch_any(const Pass& a, int n_d, int regime, int tile, cudaStream_t s) {
+cudaError_t launch_any(const Pass& a, int n_d, int regime, int tile, cudaStream_t s,
+                       int channels = 1) {
   switch (tile) {
     case 0:
-      return launch_tile<kScaled, 0>(a, n_d, regime, s);
+      return launch_tile<kScaled, 0>(a, n_d, regime, channels, s);
     case 1:
-      return launch_tile<kScaled, 1>(a, n_d, regime, s);
-    default:
-      return cudaErrorInvalidValue;
+      return launch_tile<kScaled, 1>(a, n_d, regime, channels, s);
+    case 2:
+      return launch_tile<kScaled, 2>(a, n_d, regime, channels, s);
+    case 3:
+      if constexpr (!kScaled) return launch_tile<kScaled, 3>(a, n_d, regime, channels, s);
+      break;
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -165,6 +181,84 @@ extern "C" int k3_pass(const void* x0, const void* x1, const void* x2, const voi
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(scaled ? launch_any<true>(a, n_d, regime, 0, s)
                       : launch_any<false>(a, n_d, regime, 0, s));
+}
+
+// K3 on a channel grid: k3_pass_multi. The sharded four-step (parallel/
+// fourstep_mxu.py, parallel/channels.py) runs each pass on a rank's slice
+// of the transform: its rows of the column operand's diagonal, its columns
+// of the values. At the routes' shapes one pass is small, for example
+// native128's (2^16, 8) at (dp, ch, sp) = (1, 2, 2): the four-limb A pass of
+// one channel is 1024 rows x 4096 contraction bytes x 1024 digit columns,
+// 4.3e9 int8 MACs (4.3 us at 1,979 TOP/s, the data sheet of the NVIDIA
+// H100 80GB HBM3 at 700 W), the F / G / A_inv passes a quarter of that;
+// native64's (2^14, 8) at (2, 1, 2) is 256 rows x 512 bytes x 512 columns,
+// 0.07e9 MACs, where its 0.6 MiB of operand, result and tables (0.2 us at
+// 3.35 TB/s) take longer. So operations bound the 2^16 passes and bytes the
+// 2^14 ones; what held the one-channel launches at 8-51x their bound was
+// the grid: 8 to 64 blocks of K1's tile on 132 SMs, five launches where one
+// channel grid does, and a copy of the operand before each pass that reads
+// it transposed. k3_pass_multi does three things about that:
+//   * the rank's C local channels in one launch: grid z = channel, per
+//     channel planes, cvec, diagonal rows [C][4 or 2][rows][o] and scalar
+//     record (all channels of one regime and digit-plane count); the A
+//     pass's operand limbs are shared by every channel (x_chan = 0: the
+//     residue split folds into each channel's A planes, as in K1a), the
+//     other passes read a channel's own operand at stride x_chan;
+//   * a tile from the grid: the code ops/mxu32_cuda.py k1_tile picks for C
+//     channels (64 x 16 where the grid fits the card at once, K1's tile
+//     holding a contraction of up to four stages whole, 128 x 64 for a
+//     canonical pass, else K1's ring), the rule ops/mxu32_cuda.py k1_tile
+//     already holds for the same mainloop on the product plan's channel
+//     grids;
+//   * the four-step's transposes as strides: the operand's contraction and
+//     row strides (s_k, s_r; either s_k = 1 with rows at a multiple of four
+//     words, or s_r = 1 with the contraction at a multiple of four words and
+//     rows a polynomial a multiple of four, the two layouts of the
+//     mainloop's 16-byte copies) and the output's row and output strides
+//     (t_r, t_o). So A reads the value shard [b, n1, n2 / s] in place (s_k =
+//     n2 / s), F the exchange's [C, b, n2, n1 / s] (s_k = n1 / s), A_inv
+//     its [C, b, n1, n2 / s] and writes [C, b, n1, n2 / s] (t_r = 1, t_o =
+//     n2 / s): no copy around a pass.
+// The fixed arguments (tables, shape, strides, tile) come as one record
+// (ops/mxu32_cuda.py K3MultiArgs, built once per table set, batch and
+// layout); the operand limbs, the diagonal rows and the output per call.
+struct K3MultiArgs {
+  const void *planes, *cvec, *scal;
+  long long x_chan, x_b, out_chan, out_b;
+  int n_limbs, channels, batch, rows, k1, o, s_k, s_r, t_r, t_o, n_d, regime, scaled, tile;
+};
+
+// x0 (, x1 (, x2, x3)): the operand limbs, element (c, b, j, i) at
+// c * x_chan + b * x_b + j * s_r + i * s_k (x_chan = 0: shared by all
+// channels); diag [C][4 or 2][rows][o] (scaled only); out element (c, b, j,
+// oi) at c * out_chan + b * out_b + j * t_r + oi * t_o.
+extern "C" int k3_pass_multi(const K3MultiArgs* k, const void* x0, const void* x1,
+                             const void* x2, const void* x3, const void* diag, void* out,
+                             void* stream) {
+  Pass a{};
+  const void* const x[4] = {x0, x1, x2, x3};
+  for (int l = 0; l < 4; ++l) a.x[l] = (const uint32_t*)x[l < k->n_limbs ? l : 0];
+  a.x_b = k->x_b;
+  a.x_chan = k->x_chan;
+  a.n_limbs = k->n_limbs;
+  a.k1 = k->k1;
+  a.s_k = k->s_k;
+  a.s_r = k->s_r;
+  a.rows_per_poly = k->rows;
+  a.total_rows = k->batch * k->rows;
+  a.o = k->o;
+  a.out_b = k->out_b;
+  a.out_chan = k->out_chan;
+  a.t_r = k->t_r;
+  a.t_o = k->t_o;
+  a.planes = (const int32_t*)k->planes;
+  a.cvec = (const int32_t*)k->cvec;
+  a.diag = (const uint32_t*)diag;
+  a.scal = (const uint32_t*)k->scal;
+  a.out = (uint32_t*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(k->scaled ? launch_any<true>(a, k->n_d, k->regime, k->tile, s, k->channels)
+                         : launch_any<false>(a, k->n_d, k->regime, k->tile, s, k->channels));
 }
 
 // Dynamic shared memory of one pass block with n_d matrix digit planes and

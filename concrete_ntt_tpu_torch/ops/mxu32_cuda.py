@@ -46,8 +46,17 @@ Counterpart of `concrete_ntt_tpu/ops/mxu32_pallas.py`:
     and the four `*_hybrid32` functions call these.
   * K3 `pass_matmod`: one exact modular GEMM pass [B, rows, K] -> [B, rows,
     O] (which in A, F, G, Ainv; scaled-lazy epilogue by rank-local diagonal
-    slices, or canonical), the per-rank pass of the sharded four-step.
-    Replaces `_build_pass_call` (kernel :706-719).
+    slices, or canonical), the one-to-one twin of the JAX `pass_matmod`
+    (:759). Replaces `_build_pass_call` (kernel :706-719).
+  * K3 `pass_matmod_multi`: the same pass over a rank's C CRT channels in
+    one launch (`k3_pass_multi`), the per-rank pass of the sharded
+    four-step (`parallel/`): the operand limbs [B, rows, K] shared by every
+    channel (the A pass) or [C, B, rows, K], read in place through strided
+    views (`pass_layout`: a four-step transpose is a view), the output
+    [C, B, rows, O] or written transposed; per-channel tables stacked and
+    cached, the diagonal rows a rank holds from `multi_diag`; the tile a
+    launch from `k3_multi_tile` (`k1_tile` on C channels). Each launch also
+    adds one to `TILE_LAUNCHES[(name, code)]`.
 
 All are CUDA C++ for sm_90a built with nvcc at first use (ops/cuda_build.py)
 and called through ctypes: K1 in `csrc/mxu32_multi.cu`, K2/K3 in
@@ -80,8 +89,9 @@ or raises, a CPU tensor runs the plain torch version (`*_plain`, built on
 `ops/mxu32.py`), any other device raises. Every kernel launch adds one to
 `LAUNCHES[name]`; nothing else does. K2's `fwd_wide` is its `fwd` kernel
 with more limbs and counts under "fwd"; a launch with four operand limbs
-(K1a, K2 fwd, K3's A pass) counts under its own name, `*_u128`, and not
-under the plain one; a launch with block tables counts under `*_hyb`.
+(K1a, K2 fwd, K3's A pass, on one channel or a grid) counts under its own
+name, `*_u128`, and not under the plain one; a launch with block tables
+counts under `*_hyb`.
 
 Range: K1 takes channel primes 2^29 < p < 2^30 (as `mxu32_pallas.py:254`)
 and 2^11 <= n <= 2^17 (the TPU serves K1c/K1d only at n >= 2^14, a VMEM
@@ -112,10 +122,12 @@ from .u32 import MASK32, mont_mul, mont_neginv, to_i64, to_u32
 LAUNCHES = {"fwd_wide_multi": 0, "inv_multi": 0, "fwd_multi_perchannel": 0,
             "pointwise_inv_multi": 0, "fwd": 0, "inv": 0, "pass_matmod": 0,
             "fwd_wide_multi_u128": 0, "fwd_u128": 0, "pass_matmod_u128": 0,
+            "pass_matmod_multi": 0, "pass_matmod_multi_u128": 0,
             "fwd_hyb": 0, "inv_hyb": 0, "inv_multi_hyb": 0, "fwd_multi_perchannel_hyb": 0,
             "pointwise_inv_multi_hyb": 0, "inv_multi_presplit": 0}
 # K1c / K1d launches by (LAUNCHES name, tile code of the first pass, of the
-# second): which of their pass instances ran (`k1_tile`)
+# second), K3's channel grid by (name, tile code): which of their pass
+# instances ran (`k1_tile`)
 TILE_LAUNCHES: dict = {}
 
 MIN_N, MAX_N = 1 << 11, 1 << 17
@@ -326,7 +338,8 @@ def k2_tile(rows: int, outs: int) -> int:
     return 0 if _blocks(rows, outs, 0) >= _FILL else 1
 
 
-def k1_tile(rows: int, outs: int, grids: int, stages: int, kind: str = "canonical") -> int:
+def k1_tile(rows: int, outs: int, grids: int, stages: int, kind: str = "canonical",
+            n_d: int = 4) -> int:
     """The tile code of a K1c / K1d pass over `rows` operand rows (batch x
     rows of a polynomial) with `outs` outputs a row, over `grids` channels
     x blocks, contracting `stages` ring stages of 32 words; `kind` is the
@@ -336,16 +349,19 @@ def k1_tile(rows: int, outs: int, grids: int, stages: int, kind: str = "canonica
     pair), else K1's tile holding a contraction of up to four stages whole
     (code 2, one block an SM), else 128 x 64 (code 3, one block an SM; not
     for the scaled pass). Else a ring: 128 x 64 for the pair (it copies
-    the pair once for twice the outputs), K1's (code 0) otherwise.
+    the pair once for twice the outputs), K1's (code 0) otherwise. The
+    128 x 64 tile needs four matrix digit planes (`n_d`; five would be
+    N = 320 columns, past wgmma's 256) and whole 64-output tiles.
     tools/sweep_product.py timed every code at the product plan's shapes
-    (PERF.md section 6) and set the rule."""
+    (PERF.md section 6) and set the rule; K3's channel grid
+    (`pass_matmod_multi`) takes it too."""
     if grids * _blocks(rows, outs, 1) <= _SMS * (2 if kind == "pair" else 3):
         return 1
     if stages <= _RESIDENT and grids * _blocks(rows, outs, 2) <= _SMS:
         return 2
     if kind == "pair":
         return 3  # n2 >= 64: whole 64-output tiles
-    fits = outs % TILES[3][1] == 0 and grids * _blocks(rows, outs, 3) <= _SMS
+    fits = n_d == 4 and outs % TILES[3][1] == 0 and grids * _blocks(rows, outs, 3) <= _SMS
     return 3 if kind == "canonical" and fits else 0
 
 
@@ -481,6 +497,42 @@ def _diag_tables(n: int, p: int, name: str, device: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Plain torch versions (the CPU route, and the reference on the card)
 # ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=64)
+def _multi_pass_tables(n: int, primes: tuple, which: str, n_limbs: int, scales: tuple,
+                       device: str, tile_o: int):
+    """One pass's tables over C channels on `device`, the planes packed for
+    tiles of `tile_o` outputs: planes [C, O / tile_o, stages, words], cvec
+    [C, D, O], scalar records [C, 16] (every channel with one digit-plane
+    count and regime)."""
+    mats = [_pass_mat(n, p, which, n_limbs, s % p) for p, s in zip(primes, scales)]
+    n_d = {m[1].shape[0] for m in mats}
+    regimes = {regime(p) for p in primes}
+    if len(n_d) != 1 or len(regimes) != 1:
+        raise ValueError(f"the channel grid needs one digit-plane count and one regime for all "
+                         f"channels, got {sorted(n_d)} and {sorted(regimes)} for {primes}")
+    planes = np.stack([m[0] for m in mats])
+    k = planes.shape[1] // (4 * n_limbs)
+    return {
+        "planes": _to_dev(pack_planes_kmajor(planes, k, n_d.pop(), tile_o), device),
+        "cvec": _to_dev(np.stack([m[1] for m in mats]), device),
+        "scal": _to_dev(np.stack([scalar_record(p) for p in primes]).view(np.int32), device),
+        "k": k,
+        "o": mats[0][1].shape[1],
+        "n_d": mats[0][1].shape[0],
+    }
+
+
+@lru_cache(maxsize=64)
+def multi_diag(n: int, primes: tuple, which: str, row0: int, rows: int,
+               device: str) -> torch.Tensor:
+    """Rows row0 .. row0 + rows of each channel's diagonal tables (d
+    [n2, n1] for the A pass, e [n1, n2] for G), stacked [C, 4 or 2, rows,
+    O] uint32 on `device`: a rank's rows, the `diag` of `pass_matmod_multi`."""
+    name = {"A": "d", "G": "e"}[which]
+    return _to_dev(np.stack([np.stack(mxu32._mxu_tables(n, p)[name])[:, row0:row0 + rows]
+                             for p in primes]), device)
 
 
 def _fwd_blocks(xs: tuple, p: int, n_h: int | None):
@@ -625,6 +677,79 @@ def pass_matmod_plain(x, *, n: int, p: int, which: str, diag_slices=(),
     return to_u32(out)
 
 
+def pass_layout(xs: tuple, channels: int) -> tuple:
+    """The operand of a channel-grid pass (`pass_matmod_multi`, and
+    `mxu64_cuda.pass_matmod64_multi` on limb pairs): limb views of one
+    shape and strides, [B, rows, K] (one operand for every channel) or
+    [C, B, rows, K] (one a channel), contracting K, read in place. Returns
+    ((B, rows, K), (x_chan, x_b, s_r, s_k)) in elements, x_chan = 0 for a
+    shared operand (a stride of an axis of size 1 counts as 0). The kernels
+    copy 16-byte chunks in one of two layouts, and the rule is the same on
+    every device: rows contiguous along the contraction (s_k = 1, s_r a
+    multiple of 4), or four rows at a time (s_r = 1, s_k a multiple of 4,
+    rows a multiple of 4); polynomial and channel strides multiples of 4.
+    So a four-step's transpose is a view (`.transpose(-1, -2)` of the
+    value shard), not a copy."""
+    x0 = xs[0]
+    if not all(isinstance(a, torch.Tensor) and a.dtype == torch.uint32 for a in xs):
+        raise TypeError("operands must be uint32 tensors")
+    if x0.dim() not in (3, 4) or any(a.shape != x0.shape or a.stride() != x0.stride()
+                                     or a.device != x0.device for a in xs):
+        raise ValueError("operand limbs must be views [B, rows, K] or [C, B, rows, K] of one "
+                         f"shape and strides on one device, got {[tuple(a.shape) for a in xs]}")
+    if x0.dim() == 4 and x0.shape[0] != channels:
+        raise ValueError(f"operand has {x0.shape[0]} channels, expected {channels}")
+    st = [0 if size == 1 else s for size, s in zip(x0.shape, x0.stride())]
+    x_chan = st[0] if x0.dim() == 4 else 0
+    x_b, s_r, s_k = st[-3:]
+    rows = x0.shape[-2]
+    fits = (s_r % 4 == 0 if s_k == 1 else s_r == 1 and s_k % 4 == 0 and rows % 4 == 0)
+    if not (fits and x_b % 4 == 0 and x_chan % 4 == 0):
+        raise ValueError(f"operand strides {tuple(x0.stride())} of {tuple(x0.shape)}: the pass "
+                         "reads rows contiguous along K (row stride a multiple of 4) or four "
+                         "rows at a time (K stride a multiple of 4), batch and channel strides "
+                         "multiples of 4")
+    return tuple(x0.shape[-3:]), (x_chan, x_b, s_r, s_k)
+
+
+def _channel_views(xs: tuple, ch: int) -> tuple:
+    """Channel ch's operand limbs as fresh contiguous tensors: the strided
+    views of a channel-grid pass made explicit."""
+    return tuple((a[ch] if a.dim() == 4 else a).contiguous() for a in xs)
+
+
+def _check_multi_args(which: str, primes: tuple, diag, scales) -> tuple:
+    if which not in ("A", "F", "G", "Ainv"):
+        raise ValueError(f"which must be A, F, G or Ainv, got {which!r}")
+    if diag is not None and which not in ("A", "G"):
+        raise ValueError("only the A and G passes take diagonal rows (scaled-lazy epilogue)")
+    if scales is None:
+        return (1,) * len(primes)
+    if which != "Ainv" or len(scales) != len(primes):
+        raise ValueError("scales: one a channel, for the Ainv pass only")
+    return tuple(scales)
+
+
+def pass_matmod_multi_plain(x, *, n: int, primes: tuple, which: str, diag=None, scales=None,
+                            transposed_out: bool = False) -> torch.Tensor:
+    """Plain twin of K3's channel grid (`pass_matmod_multi`): per channel
+    `pass_matmod_plain` on the operand's strided view made explicit (a
+    fresh contiguous copy), with that channel's diagonal rows and scale;
+    stacked [C, B, rows, O], or [C, B, O, rows] with `transposed_out`."""
+    xs = tuple(x) if isinstance(x, tuple) else (x,)
+    primes = tuple(primes)
+    scales = _check_multi_args(which, primes, diag, scales)
+    pass_layout(xs, len(primes))
+    outs = []
+    for ch, p in enumerate(primes):
+        xc = _channel_views(xs, ch)
+        dg = tuple(diag[ch]) if diag is not None else ()
+        outs.append(pass_matmod_plain(xc if len(xc) > 1 else xc[0], n=n, p=p, which=which,
+                                      diag_slices=dg, n_limbs=len(xc), scale=scales[ch]))
+    out = torch.stack(outs)
+    return out.transpose(-1, -2).contiguous() if transposed_out else out
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -661,6 +786,8 @@ def _pass_lib() -> ctypes.CDLL:
         lib.k3_pass.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, *[_P] * 4, _I, _I, _I,
                                 _P, _P]
         lib.k3_pass.restype = ctypes.c_int
+        lib.k3_pass_multi.argtypes = [_P] * 8
+        lib.k3_pass_multi.restype = ctypes.c_int
         lib.k_pass_smem_bytes.argtypes = [_I, _I]
         lib.k_pass_smem_bytes.restype = ctypes.c_int
     return lib
@@ -692,14 +819,21 @@ def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
 
 
-def _ptrs16(*tensors, names: str = ""):
-    """`_ptrs` for the GEMM passes, which copy 16-byte chunks. `names`, one
-    word a tensor, names the misaligned tensor in the error."""
+def _addrs16(*tensors, names: str = "") -> list:
+    """Data addresses of tensors the GEMM passes copy in 16-byte chunks,
+    each checked to start on a 16-byte boundary. `names`, one word a
+    tensor, names the misaligned tensor in the error."""
     labels = names.split() or ["kernel operands"] * len(tensors)
     for label, t in zip(labels, tensors, strict=True):
         if t.data_ptr() % 16:
             raise ValueError(f"{label} must start on a 16-byte boundary (the GEMM pass "
                              "copies 16-byte chunks): pass a fresh or cloned tensor")
+    return [t.data_ptr() for t in tensors]
+
+
+def _ptrs16(*tensors, names: str = ""):
+    """`_ptrs` for the GEMM passes: contiguous and 16-byte aligned (`_addrs16`)."""
+    _addrs16(*tensors, names=names)
     return _ptrs(*tensors)
 
 
@@ -1105,6 +1239,97 @@ def pass_matmod(x, *, n: int, p: int, which: str, diag_slices=(), n_limbs: int =
     _count("pass_matmod", len(xs))
     if err != 0:
         raise RuntimeError(f"K3 pass_matmod launch failed: CUDA error {err}")
+    return out
+
+
+class K3MultiArgs(ctypes.Structure):
+    """The fixed arguments of a `k3_pass_multi` launch (`K3MultiArgs` of
+    csrc/mxu32_pass.cu, the same fields in the same order): tables,
+    strides, shape, digit planes, regime, epilogue and tile code."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("planes", "cvec", "scal")]
+                + [(f, ctypes.c_longlong) for f in ("x_chan", "x_b", "out_chan", "out_b")]
+                + [(f, ctypes.c_int) for f in ("n_limbs", "channels", "batch", "rows", "k1", "o",
+                                               "s_k", "s_r", "t_r", "t_o", "n_d", "regime",
+                                               "scaled", "tile")])
+
+
+def k3_multi_tile(b: int, rows: int, o: int, channels: int, stages: int, scaled: bool,
+                  n_d: int) -> int:
+    """The tile code of a `pass_matmod_multi` launch: `k1_tile` over its
+    B·rows operand rows, o outputs and `channels` grids, "scaled" for the
+    A / G passes with diagonal rows, "canonical" otherwise."""
+    return k1_tile(b * rows, o, channels, stages, "scaled" if scaled else "canonical", n_d)
+
+
+@lru_cache(maxsize=128)
+def _k3m_launch(n: int, primes: tuple, which: str, n_limbs: int, scales: tuple, device: str,
+                b: int, rows: int, strides: tuple, transposed_out: bool, scaled: bool):
+    """(address of the K3MultiArgs record, the record, its tables) of one
+    table set, batch, operand layout and output layout."""
+    planes, cvec = _pass_mat(n, primes[0], which, n_limbs, 1)
+    k, (n_d, o) = planes.shape[0] // (4 * n_limbs), cvec.shape
+    tile = k3_multi_tile(b, rows, o, len(primes), n_limbs * k // _STAGE_K, scaled, n_d)
+    tabs = _multi_pass_tables(n, primes, which, n_limbs, scales, device, TILES[tile][1])
+    x_chan, x_b, s_r, s_k = strides
+    t_r, t_o = (1, rows) if transposed_out else (o, 1)
+    rec = K3MultiArgs(*_ptrs16(tabs["planes"], tabs["cvec"], tabs["scal"]), x_chan, x_b,
+                      b * rows * o, rows * o, n_limbs, len(primes), b, rows, k, o, s_k, s_r,
+                      t_r, t_o, n_d, regime(primes[0]), int(scaled), tile)
+    return ctypes.addressof(rec), rec, tabs
+
+
+def pass_matmod_multi(x, *, n: int, primes: tuple, which: str, diag=None, scales=None,
+                      transposed_out: bool = False) -> torch.Tensor:
+    """K3 on a channel grid: one exact modular GEMM pass over C channels in
+    one launch (`csrc/mxu32_pass.cu` `k3_pass_multi`). x: uint32 views
+    [B, rows, K] (every channel's operand: the A pass's value limbs) or
+    [C, B, rows, K], a limb tuple (1, 2 or 4 limbs) for the wide A pass, in
+    either layout of `pass_layout` (a transposed view reads in place);
+    contracting K -> [C, B, rows, O] uint32, or its transpose [C, B, O,
+    rows] written directly with `transposed_out`. which in {A, F, G,
+    Ainv}; `diag`: the A / G pass's diagonal rows [C, 4 or 2, rows, O]
+    (`multi_diag`) for the scaled-lazy epilogue, else canonical; `scales`:
+    one a channel, multiplying the Ainv pass's matrix. Channel c computes
+    `pass_matmod` of its view with its prime, rows and scale. The tile is
+    `k3_multi_tile`'s; a launch counts under "pass_matmod_multi" (four
+    limbs: "pass_matmod_multi_u128"). A CPU tensor takes the plain twin."""
+    xs = tuple(x) if isinstance(x, tuple) else (x,)
+    primes = tuple(primes)
+    scs = _check_multi_args(which, primes, diag, scales)
+    (b, rows, k), strides = pass_layout(xs, len(primes))
+    dev = xs[0].device
+    if diag is not None and (diag.dtype != torch.uint32 or diag.device != dev
+                             or not diag.is_contiguous()):
+        raise ValueError("diag must be a contiguous uint32 tensor on the operand's device")
+    if dev.type == "cpu":
+        return pass_matmod_multi_plain(xs, n=n, primes=primes, which=which, diag=diag,
+                                       scales=scales, transposed_out=transposed_out)
+    if dev.type != "cuda":
+        raise ValueError(f"no route for tensors on {dev}: use cuda or cpu")
+    for p in primes:
+        check_single_range(n, p, len(xs))
+    scales = tuple(s % p for s, p in zip(scs, primes))
+    addr, rec, tabs = _k3m_launch(n, primes, which, len(xs), scales, str(dev), b, rows, strides,
+                                  transposed_out, diag is not None)
+    if k != rec.k1:
+        raise ValueError(f"pass {which} at n={n} contracts {rec.k1} values, got {k}")
+    o = rec.o
+    if diag is not None and tuple(diag.shape) != (len(primes), 2 if rec.regime == 2 else 4,
+                                                  rows, o):
+        raise ValueError(f"diag must be [C, 4 or 2, {rows}, {o}], got {tuple(diag.shape)}")
+    out = torch.empty((len(primes), b, o, rows) if transposed_out else (len(primes), b, rows, o),
+                      dtype=torch.uint32, device=dev)
+    if b == 0:
+        return out  # nothing to compute; an empty grid is not a valid launch
+    dg = diag if diag is not None else tabs["scal"]  # not read by a canonical pass
+    err = _call(dev, _pass_lib().k3_pass_multi, addr,
+                *_addrs16(*xs, names=" ".join(f"x{i}" for i in range(len(xs)))),
+                *[xs[0].data_ptr()] * (4 - len(xs)), *_ptrs16(dg, names="diag"), out.data_ptr())
+    _count_tiles("pass_matmod_multi_u128" if len(xs) == 4 else "pass_matmod_multi",
+                 (rec.tile,))
+    if err != 0:
+        raise RuntimeError(f"K3 pass_matmod_multi launch failed: CUDA error {err}")
     return out
 
 

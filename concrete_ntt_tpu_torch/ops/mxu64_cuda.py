@@ -20,9 +20,15 @@ pairs: a tuple `(lo, hi)` of uint32 tensors of one shape.
     transforms all blocks of (lo, hi) [B, n] in place in the arrays.
   * K6 `pass_matmod64`: one exact modular GEMM pass, (lo, hi) [B, rows, K]
     -> (lo, hi) [B, rows, O] (which in A, F, G, Ainv; scaled-lazy against
-    rank-local rows of the diagonal tables, or canonical): the per-rank pass
-    of the sharded prime64 four-step. Replaces `_build_pass_call64` (:197;
+    rank-local rows of the diagonal tables, or canonical), the one-to-one
+    twin of the JAX `pass_matmod64`. Replaces `_build_pass_call64` (:197;
     `pass_matmod64` :269), without its row fusion (a TPU lane workaround).
+  * K6 `pass_matmod64_multi`: the same pass over a rank's C channels in one
+    launch (`k6_pass_multi`), the per-rank pass of the sharded prime64
+    four-step (`parallel/`), with strided operand views and a transposed
+    output as `mxu32_cuda.pass_matmod_multi`; one digit-plane count and
+    regime for all channels; 64 or 128 rows a block by `k6_tile` (counted
+    in `TILE_LAUNCHES[(name, code)]`).
   * K7a `fwd_multi`: all Plan52 channels' forward NTTs of one operand,
     (lo, hi) [B, n] -> (lo, hi) [C, B, n]. Replaces the fwd branch of
     `_build_multi_call64` (:522; `fwd_multi` :679).
@@ -84,22 +90,40 @@ import numpy as np
 import torch
 
 from . import cuda_build, mxu64
-from .mxu32_cuda import _STAGE_K, _call, _check_operands, _ptrs16, pack_planes_kmajor
+from .mxu32_cuda import (
+    _SMS,
+    _STAGE_K,
+    _addrs16,
+    _call,
+    _channel_views,
+    _check_multi_args,
+    _check_operands,
+    _ptrs16,
+    pack_planes_kmajor,
+    pass_layout,
+)
 from .u32 import to_i64, to_u32
 
 LAUNCHES = dict.fromkeys(
-    ("fwd64", "fwd64_u128", "inv64", "fwd64_hyb", "inv64_hyb", "pass_matmod64", "fwd_multi64",
+    ("fwd64", "fwd64_u128", "inv64", "fwd64_hyb", "inv64_hyb", "pass_matmod64",
+     "pass_matmod64_multi", "fwd_multi64",
      "fwd_multi_perchannel64", "inv_multi64", "pointwise_inv_multi64",
      "fwd_multi_perchannel64_hyb", "inv_multi64_hyb", "pointwise_inv_multi64_hyb"), 0)
 
+# K6's channel-grid launches by (LAUNCHES name, tile code): which of its pass
+# instances ran (`k6_tile`)
+TILE_LAUNCHES: dict = {}
+
 MIN_N, MAX_N = 1 << 11, 1 << 15
 TILE_O = 16  # outputs a block of csrc/matmod64_pass.cuh (N = 16 x the digit planes)
+TILE_ROWS = (128, 64)  # rows a block by tile code (csrc/matmod64_pass.cuh tile_rows)
 _MODES = {"shoup": 0, "mont": 1, "gl": 3}  # mont with p >= 2^63 is 2
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    TILE_LAUNCHES.clear()
 
 
 def _check_n(n: int, what: str) -> None:
@@ -211,6 +235,42 @@ def _pass_tables(n: int, p: int, which: str, scale: int, device: str):
 
 
 @lru_cache(maxsize=64)
+def _multi_pass_tables(n: int, primes: tuple, which: str, scales: tuple, device: str):
+    """One pass's tables over C channels on `device`: each channel's planes
+    packed (`pack_planes64`, its operand planes padded to 8) and stacked
+    [C, O / 16, stages, words], cvec [C, D, O], scalar records [C, 16]
+    (every channel with one digit-plane count and one epilogue regime)."""
+    mats = [mxu64.pass_mat(n, p, which, s) for p, s in zip(primes, scales)]
+    n_d = {m[1].shape[0] for m in mats}
+    modes = {mode(p) for p in primes}
+    if len(n_d) != 1 or len(modes) != 1:
+        raise ValueError(f"the channel grid needs one digit-plane count and one regime for all "
+                         f"channels, got {sorted(n_d)} and {sorted(modes)} for {primes}")
+    n1, n2 = mxu64.four_step_factors(n)
+    k = n1 if which in ("A", "Ainv") else n2
+    return {
+        "planes": _to_dev(np.concatenate([pack_planes64(m[0][None], k, m[1].shape[0])
+                                          for m in mats]), device),
+        "cvec": _to_dev(np.stack([m[1] for m in mats]), device),
+        "scal": _to_dev(np.stack([scalar_record(n, p) for p in primes]).view(np.int32), device),
+        "k": k,
+        "o": mats[0][1].shape[1],
+        "n_d": mats[0][1].shape[0],
+    }
+
+
+@lru_cache(maxsize=64)
+def multi_diag(n: int, primes: tuple, which: str, row0: int, rows: int,
+               device: str) -> torch.Tensor:
+    """Rows row0 .. row0 + rows of each channel's diagonal tables (d for the
+    A pass, e for G), stacked [C, 8 or 2, rows, O] uint32 on `device`: a
+    rank's rows, the `diag` of `pass_matmod64_multi`."""
+    name = {"A": "d", "G": "e"}[which]
+    return _to_dev(np.stack([np.stack(mxu64._tables(n, p)[name])[:, row0:row0 + rows]
+                             for p in primes]), device)
+
+
+@lru_cache(maxsize=64)
 def _diag_tables(n: int, p: int, name: str, device: str) -> torch.Tensor:
     """The full diagonal d ([n2, n1]) or e ([n1, n2]) as [8 or 2, R, O] uint32."""
     return _to_dev(np.stack(mxu64._tables(n, p)[name]), device)
@@ -308,6 +368,26 @@ def pass_matmod64_plain(limbs: tuple, *, n: int, p: int, which: str, diag_slices
     check_single_range(n, p)
     return mxu64.pass_plain(tuple(limbs), n=n, p=p, which=which, diag_slices=tuple(diag_slices),
                             scale=scale)
+
+
+def pass_matmod64_multi_plain(limbs: tuple, *, n: int, primes: tuple, which: str, diag=None,
+                              scales=None, transposed_out: bool = False) -> tuple:
+    """Plain twin of K6's channel grid (`pass_matmod64_multi`): per channel
+    `pass_matmod64_plain` on the (lo, hi) views made explicit (fresh
+    contiguous copies) with that channel's diagonal rows and scale; each
+    limb stacked [C, B, rows, O], or [C, B, O, rows] with `transposed_out`."""
+    limbs = tuple(limbs)
+    primes = tuple(primes)
+    if len(limbs) != 2:
+        raise ValueError(f"expected a (lo, hi) limb pair, got {len(limbs)} limbs")
+    scales = _check_multi_args(which, primes, diag, scales)
+    pass_layout(limbs, len(primes))
+    outs = [pass_matmod64_plain(_channel_views(limbs, ch), n=n, p=p, which=which,
+                                diag_slices=tuple(diag[ch]) if diag is not None else (),
+                                scale=scales[ch])
+            for ch, p in enumerate(primes)]
+    pair = tuple(torch.stack([o[i] for o in outs]) for i in range(2))
+    return tuple(a.transpose(-1, -2).contiguous() for a in pair) if transposed_out else pair
 
 
 def fwd_hyb_plain(limbs: tuple, *, n: int, p: int, n_h: int) -> tuple:
@@ -434,7 +514,9 @@ def _pass_lib() -> ctypes.CDLL:
         lib.k5_fwd_u128.restype = ctypes.c_int
         lib.k6_pass.argtypes = [_P, _P, _I, _I, _I, _I, *[_P] * 4, _I, _I, _I, _P, _P, _P]
         lib.k6_pass.restype = ctypes.c_int
-        lib.k64_pass_smem_bytes.argtypes = [_I]
+        lib.k6_pass_multi.argtypes = [_P] * 7
+        lib.k6_pass_multi.restype = ctypes.c_int
+        lib.k64_pass_smem_bytes.argtypes = [_I, _I]
         lib.k64_pass_smem_bytes.restype = ctypes.c_int
     return lib
 
@@ -627,6 +709,100 @@ def pass_matmod64(limbs: tuple, *, n: int, p: int, which: str, diag_slices=(),
     if err != 0:
         raise RuntimeError(f"K6 pass_matmod64 launch failed: CUDA error {err}")
     return out
+
+
+class K6MultiArgs(ctypes.Structure):
+    """The fixed arguments of a `k6_pass_multi` launch (`K6MultiArgs` of
+    csrc/mxu64_pass.cu, the same fields in the same order)."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("planes", "cvec", "scal")]
+                + [(f, ctypes.c_longlong) for f in ("x_chan", "x_b", "out_chan", "out_b")]
+                + [(f, ctypes.c_int) for f in ("channels", "batch", "rows", "k1", "o", "s_k",
+                                               "s_r", "t_r", "t_o", "n_d", "mode", "scaled",
+                                               "tile")])
+
+
+def k6_tile(rows: int, outs: int, grids: int) -> int:
+    """The tile code of a `pass_matmod64_multi` launch over `rows` operand
+    rows (batch x rows of a polynomial), `outs` outputs a row and `grids`
+    channels: 64 rows (code 1, one warpgroup, three blocks an SM) where a
+    grid of 128-row blocks (two an SM) would hold at most one and a half
+    blocks an SM of the card's 132, else 128 rows (code 0).
+    `tools/ab_sharded.py`'s sweep set the threshold (PERF.md section 6):
+    64 rows won by 13-24 % at 48 and 192 blocks of 128 rows, and lost
+    by up to 34 % at 256 and 384."""
+    blocks = grids * -(-rows // TILE_ROWS[0]) * (outs // TILE_O)
+    return 1 if blocks <= _SMS * 3 // 2 else 0
+
+
+@lru_cache(maxsize=128)
+def _k6m_launch(n: int, primes: tuple, which: str, scales: tuple, device: str, b: int,
+                rows: int, strides: tuple, transposed_out: bool, scaled: bool):
+    """(address of the K6MultiArgs record, the record, its tables) of one
+    table set, batch, operand layout and output layout."""
+    tabs = _multi_pass_tables(n, primes, which, scales, device)
+    k, o = tabs["k"], tabs["o"]
+    x_chan, x_b, s_r, s_k = strides
+    t_r, t_o = (1, rows) if transposed_out else (o, 1)
+    rec = K6MultiArgs(*_ptrs16(tabs["planes"], tabs["cvec"], tabs["scal"],
+                               names="planes cvec scal"), x_chan, x_b, b * rows * o, rows * o,
+                      len(primes), b, rows, k, o, s_k, s_r, t_r, t_o, tabs["n_d"],
+                      mode(primes[0]), int(scaled), k6_tile(b * rows, o, len(primes)))
+    return ctypes.addressof(rec), rec, tabs
+
+
+def pass_matmod64_multi(limbs: tuple, *, n: int, primes: tuple, which: str, diag=None,
+                        scales=None, transposed_out: bool = False) -> tuple:
+    """K6 on a channel grid: one exact modular GEMM pass on limb pairs over
+    C channels in one launch (`csrc/mxu64_pass.cu` `k6_pass_multi`). limbs:
+    (lo, hi) uint32 views [B, rows, K] (every channel's operand) or
+    [C, B, rows, K], any u64, in either layout of `mxu32_cuda.pass_layout`
+    (a transposed view reads in place); contracting K -> (lo, hi) [C, B,
+    rows, O], or their transposes [C, B, O, rows] written directly with
+    `transposed_out`. which in {A, F, G, Ainv}; `diag`: the A / G pass's
+    diagonal rows [C, 8 or 2, rows, O] (`multi_diag`) for the scaled-lazy
+    epilogue, else canonical; `scales`: one a channel, multiplying the Ainv
+    pass's matrix. Every channel needs one digit-plane count and regime.
+    The tile is `k6_tile`'s; a launch counts under "pass_matmod64_multi".
+    A CPU tensor takes the plain twin."""
+    limbs = tuple(limbs)
+    primes = tuple(primes)
+    if len(limbs) != 2:
+        raise ValueError(f"expected a (lo, hi) limb pair, got {len(limbs)} limbs")
+    scs = _check_multi_args(which, primes, diag, scales)
+    (b, rows, k), strides = pass_layout(limbs, len(primes))
+    dev = limbs[0].device
+    if diag is not None and (diag.dtype != torch.uint32 or diag.device != dev
+                             or not diag.is_contiguous()):
+        raise ValueError("diag must be a contiguous uint32 tensor on the operand's device")
+    if dev.type == "cpu":
+        return pass_matmod64_multi_plain(limbs, n=n, primes=primes, which=which, diag=diag,
+                                         scales=scales, transposed_out=transposed_out)
+    if dev.type != "cuda":
+        raise ValueError(f"no route for tensors on {dev}: use cuda or cpu")
+    for p in primes:
+        check_single_range(n, p)
+    scales = tuple(s % p for s, p in zip(scs, primes))
+    addr, rec, tabs = _k6m_launch(n, primes, which, scales, str(dev), b, rows, strides,
+                                  transposed_out, diag is not None)
+    if k != rec.k1:
+        raise ValueError(f"pass {which} at n={n} contracts {rec.k1} values, got {k}")
+    o, c = rec.o, len(primes)
+    if diag is not None and tuple(diag.shape) != (c, 8 if rec.mode == 0 else 2, rows, o):
+        raise ValueError(f"diag must be [C, 8 or 2, {rows}, {o}], got {tuple(diag.shape)}")
+    out = torch.empty((2, c, b, o, rows) if transposed_out else (2, c, b, rows, o),
+                      dtype=torch.uint32, device=dev)
+    if b == 0:
+        return out[0], out[1]  # nothing to compute; an empty grid is not a valid launch
+    dg = diag if diag is not None else tabs["scal"]  # not read by a canonical pass
+    err = _call(dev, _pass_lib().k6_pass_multi, addr, *_addrs16(*limbs, names="x_lo x_hi"),
+                *_ptrs16(dg, names="diag"), out[0].data_ptr(), out[1].data_ptr())
+    LAUNCHES["pass_matmod64_multi"] += 1
+    key = ("pass_matmod64_multi", rec.tile)
+    TILE_LAUNCHES[key] = TILE_LAUNCHES.get(key, 0) + 1
+    if err != 0:
+        raise RuntimeError(f"K6 pass_matmod64_multi launch failed: CUDA error {err}")
+    return out[0], out[1]
 
 
 def _multi(name: str, x: tuple, y: tuple | None, perchannel: bool, dev, primes: tuple,

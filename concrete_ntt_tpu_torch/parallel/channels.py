@@ -16,14 +16,21 @@ cross-channel collective is the all-gather of the k standard-order residues
 before the CRT lift (and, with dp, the gather of the lifted rows, the
 whole array the JAX caller sees).
 
-Each local channel pass is one GEMM pass kernel: for Plan32 channels K3
-(`mxu32_cuda.pass_matmod`): fwd = A with the operand's 1, 2 or 4 limbs (the
-residue split folded into the column matmul) and the rank's rows of d, then
-F; inv = G with the rank's rows of e, then A_inv with the scale
-n^-1·2^32 mod p (normalization and the Montgomery factor of the pointwise
-product, as the JAX package folds it). Plan52 channels take K6
-(`mxu64_cuda.pass_matmod64`) the same way on (x, 0) or (lo, hi) limb pairs,
-with n^-1·2^64. The outputs of F and A_inv are canonical, so the result is
+A rank's channels go through each pass kind in one GEMM pass launch, the
+channel on the grid's z axis: for Plan32 channels K3's channel grid
+(`mxu32_cuda.pass_matmod_multi`): fwd = A with the operand's 1, 2 or 4
+limbs shared by all channels (the residue split folded into each
+channel's column matmul) and the rank's rows of d, then F; inv = G with
+the rank's rows of e, then A_inv with the scale n^-1·2^32 mod p
+(normalization and the Montgomery factor of the pointwise product, as the
+JAX package folds it). Plan52 channels take K6's
+(`mxu64_cuda.pass_matmod64_multi`) the same way on (x, 0) or (lo, hi)
+limb pairs, with n^-1·2^64, where every local prime has one digit and
+operand plane count (`route` "grid", the JAX package's channel-grid
+condition); else one launch a channel (`route` "per-channel"). The
+passes read the four-step's transposes as strides (A the value shards, F
+and A_inv the exchange's output in place; A_inv writes the value layout
+directly). The outputs of F and A_inv are canonical, so the result is
 bit-identical to the single-device plan's (and to the JAX package's
 sharded classes, by test). The pointwise Montgomery product is plain torch
 on the rank's device, as it is XLA code in the JAX package.
@@ -34,9 +41,19 @@ from __future__ import annotations
 import torch
 
 from .._native_common import _marshal_in, _marshal_out
-from ..ops import mxu32, mxu64
+from ..ops import mxu32, mxu32_cuda, mxu64, mxu64_cuda
 from ..ops.u32 import mont_mul, mont_mul64, mont_neginv, mont_neginv64, to_i64, to_u32
-from . import _dist, fourstep_mxu as fm
+from . import _dist
+
+
+def route52(n: int, primes: tuple) -> str:
+    """How `ChannelShardedNative52` runs a rank's channels through K6:
+    "grid" (one launch a pass over all of them) where every prime has one
+    digit and operand plane count (`mxu64.multi_applicable`, the condition
+    of the JAX package's channel grid, `mxu64_pallas.py:460-470`), else
+    "per-channel" (one launch a pass a channel). Decided from n and the
+    primes alone, the same on every device."""
+    return "grid" if mxu64.multi_applicable(n, tuple(primes)) else "per-channel"
 
 
 class _ChannelSharded:
@@ -44,7 +61,7 @@ class _ChannelSharded:
     diagonal rows, the shards, the gather and the lift."""
 
     _bits = 32  # the Montgomery radix of the pointwise product, 2^bits
-    _tables = staticmethod(mxu32._mxu_tables)
+    _diag = staticmethod(mxu32_cuda.multi_diag)
 
     def __init__(self, plan, mesh, ch_axis, batch_axis, sp_axis, device):
         n, primes = plan.n, tuple(plan.primes)
@@ -65,9 +82,10 @@ class _ChannelSharded:
         # n^-1·2^bits: normalization + Montgomery compensation, folded into A_inv
         self.scales = tuple(pow(n, p - 2, p) * pow(2, self._bits, p) % p for p in self.primes_loc)
         r = _dist.axis_index(mesh, sp_axis)
-        tabs = [self._tables(n, p) for p in self.primes_loc]
-        self._d = [fm.diag_rows(t["d"], r, self.n2 // s, self.device) for t in tabs]
-        self._e = [fm.diag_rows(t["e"], r, self.n1 // s, self.device) for t in tabs]
+        c, c1 = self.n2 // s, self.n1 // s
+        # the rank's rows of every local channel's d and e, [k_loc, planes, rows, O]
+        self._d = self._diag(n, self.primes_loc, "A", r * c, c, str(self.device))
+        self._e = self._diag(n, self.primes_loc, "G", r * c1, c1, str(self.device))
 
     def _shard(self, parts) -> tuple:
         """Whole [B, n] limbs -> the rank's value shards [b, n1, n2 / s]."""
@@ -127,24 +145,26 @@ class ChannelShardedNative(_ChannelSharded):
 
     def _fwd_local(self, parts) -> list:
         """parts: n_limbs x [b, n1, n2 / s] value shards -> per local channel
-        the NTT-domain rows [b, n1 / s, n2] (bit-reversed when flattened)."""
-        n = self.plan.n
-        v = tuple(fm.transposed(a) for a in parts)
-        v = v if len(v) > 1 else v[0]
-        y = torch.stack([fm.col_pass(v, d, n=n, p=p) for p, d in zip(self.primes_loc, self._d)])
+        the NTT-domain rows [b, n1 / s, n2] (bit-reversed when flattened):
+        one A launch over the channels, the exchange, one F launch."""
+        n, primes = self.plan.n, self.primes_loc
+        y = mxu32_cuda.pass_matmod_multi(tuple(a.transpose(1, 2) for a in parts), n=n,
+                                         primes=primes, which="A", diag=self._d)
         y = _dist.all_to_all_tiled(self.mesh, y, self.sp, 3, 2)  # [k_loc, b, n2, n1 / s]
-        return [fm.row_pass(y[c], n=n, p=p) for c, p in enumerate(self.primes_loc)]
+        return list(mxu32_cuda.pass_matmod_multi(y.transpose(2, 3), n=n, primes=primes,
+                                                 which="F"))
 
     def _inv_local(self, x: list) -> torch.Tensor:
         """x: per local channel [b, n1 / s, n2] NTT-domain values (any u32) ->
         standard-order residues [k_loc, b, n1, n2 / s] (scaled by
-        n^-1·2^32 through the folded inverse column planes)."""
-        n = self.plan.n
-        y = torch.stack([fm.row_pass_inv(a, e, n=n, p=p)
-                         for a, p, e in zip(x, self.primes_loc, self._e)])
+        n^-1·2^32 through the folded inverse column planes): one G launch,
+        the exchange, one A_inv launch."""
+        n, primes = self.plan.n, self.primes_loc
+        y = mxu32_cuda.pass_matmod_multi(torch.stack(x), n=n, primes=primes, which="G",
+                                         diag=self._e)
         y = _dist.all_to_all_tiled(self.mesh, y, self.sp, 3, 2)  # [k_loc, b, n1, n2 / s]
-        return torch.stack([fm.col_pass_inv(y[c], n=n, p=p, scale=sc)
-                            for c, (p, sc) in enumerate(zip(self.primes_loc, self.scales))])
+        return mxu32_cuda.pass_matmod_multi(y.transpose(2, 3), n=n, primes=primes, which="Ainv",
+                                            scales=self.scales, transposed_out=True)
 
     def _pointwise(self, fl: list, fr: list) -> list:
         """fl·fr·2^-32 mod p per local channel (canonical in, canonical out)."""
@@ -160,7 +180,7 @@ class ChannelShardedNative52(_ChannelSharded):
     pass is K6 on limb pairs."""
 
     _bits = 64
-    _tables = staticmethod(mxu64._tables)
+    _diag = staticmethod(mxu64_cuda.multi_diag)
 
     def __init__(self, plan, mesh, ch_axis: str = "ch", batch_axis=None, sp_axis=None,
                  device=None):
@@ -169,32 +189,48 @@ class ChannelShardedNative52(_ChannelSharded):
         if not all((1 << 33) < p < (1 << 62) for p in plan.primes):
             raise ValueError("plan52 channel sharding needs p in (2^33, 2^62)")
         super().__init__(plan, mesh, ch_axis, batch_axis, sp_axis, device)
+        self.route = route52(plan.n, self.primes_loc)
+        k_loc = len(self.primes_loc)
+        self._groups = ([slice(0, k_loc)] if self.route == "grid"
+                        else [slice(c, c + 1) for c in range(k_loc)])
+
+    def _pass(self, x: tuple, which: str, diag=None, **kw) -> torch.Tensor:
+        """One pass kind over the rank's channels, x a limb pair [b, rows,
+        K] (shared) or [k_loc, b, rows, K]: one K6 launch on the "grid"
+        route, one a channel on the "per-channel" one -> the pair stacked
+        [2, k_loc, b, rows, O] ([2, k_loc, b, O, rows] with
+        `transposed_out`)."""
+        outs = []
+        for g in self._groups:
+            scales = {"scales": self.scales[g]} if which == "Ainv" else {}
+            outs.append(torch.stack(mxu64_cuda.pass_matmod64_multi(
+                tuple(a[g] if a.dim() == 4 else a for a in x), n=self.plan.n,
+                primes=self.primes_loc[g], which=which,
+                diag=None if diag is None else diag[g], **scales, **kw)))
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
     # -- local (per-rank) sections ------------------------------------------
 
     def _fwd_local(self, parts) -> list:
         """parts: n_limbs x [b, n1, n2 / s] value limb shards -> per local
         channel the canonical NTT-domain limb pair [b, n1 / s, n2]."""
-        n = self.plan.n
         if len(parts) == 1:  # u32 values: the hi limb is zero (< 2^32 < p)
             parts = (parts[0], torch.zeros_like(parts[0]))
-        v = tuple(fm.transposed(a) for a in parts)
-        y = [torch.stack(fm.col_pass64(v, d, n=n, p=p), dim=-1)
-             for p, d in zip(self.primes_loc, self._d)]
-        y = _dist.all_to_all_tiled(self.mesh, torch.stack(y), self.sp, 3, 2)
-        return [fm.row_pass64(y[c].unbind(-1), n=n, p=p) for c, p in enumerate(self.primes_loc)]
+        y = self._pass(tuple(a.transpose(1, 2) for a in parts), "A", diag=self._d)
+        y = _dist.all_to_all_tiled(self.mesh, y, self.sp, 4, 3)  # [2, k_loc, b, n2, n1 / s]
+        f = self._pass((y[0].transpose(2, 3), y[1].transpose(2, 3)), "F")
+        return [(f[0, c], f[1, c]) for c in range(f.shape[1])]
 
     def _inv_local(self, x: list) -> torch.Tensor:
         """x: per local channel a limb pair [b, n1 / s, n2] -> standard-order
         residues [k_loc, b, n1, n2 / s, 2] (scaled by n^-1·2^64 through the
         folded inverse column planes)."""
-        n = self.plan.n
-        y = [torch.stack(fm.row_pass_inv64(a, e, n=n, p=p), dim=-1)
-             for a, p, e in zip(x, self.primes_loc, self._e)]
-        y = _dist.all_to_all_tiled(self.mesh, torch.stack(y), self.sp, 3, 2)
-        return torch.stack([torch.stack(fm.col_pass_inv64(y[c].unbind(-1), n=n, p=p, scale=sc),
-                                        dim=-1)
-                            for c, (p, sc) in enumerate(zip(self.primes_loc, self.scales))])
+        y = self._pass(tuple(torch.stack([a[i] for a in x]) for i in range(2)), "G",
+                       diag=self._e)
+        y = _dist.all_to_all_tiled(self.mesh, y, self.sp, 4, 3)  # [2, k_loc, b, n1, n2 / s]
+        out = self._pass((y[0].transpose(2, 3), y[1].transpose(2, 3)), "Ainv",
+                         transposed_out=True)
+        return out.movedim(0, -1)
 
     def _pointwise(self, fl: list, fr: list) -> list:
         """fl·fr·2^-64 mod p per local channel, on limb pairs."""

@@ -16,14 +16,19 @@ The layouts alternate stably: values [b, n1, n2 / s] <-> NTT domain
 transform and the pointwise product is local. The batch shards over a
 data-parallel dim independently.
 
-Each pass is one GEMM pass kernel: K3 (`mxu32_cuda.pass_matmod`,
-`csrc/mxu32_pass.cu` `k3_pass`) for a 32-bit prime, K6
-(`mxu64_cuda.pass_matmod64`, `csrc/mxu64_pass.cu` `k6_pass`) for a 64-bit
-one, on (lo, hi) limb pairs; on CPU tensors their plain versions. The local
-sections are module functions (`col_pass`, `row_pass`, `row_pass_inv`,
-`col_pass_inv` and their `*64` twins), so that the channel-sharded plans
-(`channels.py`) and a single process that holds several ranks call the
-same pass sequence.
+Each pass is one GEMM pass kernel: K3's channel grid
+(`mxu32_cuda.pass_matmod_multi`, `csrc/mxu32_pass.cu` `k3_pass_multi`)
+for a 32-bit prime, K6's (`mxu64_cuda.pass_matmod64_multi`,
+`csrc/mxu64_pass.cu` `k6_pass_multi`) for a 64-bit one, on (lo, hi) limb
+pairs, here with one channel; on CPU tensors their plain versions. The
+passes read and write the four-step's transposes as strides: A reads the
+value shard [b, n1, n2 / s] in place, F the exchange's [b, n2, n1 / s],
+A_inv the exchange's [b, n1, n2 / s] and writes the value shard [b, n1,
+n2 / s] directly. The local sections are module functions (`col_pass`,
+`row_pass`, `row_pass_inv`, `col_pass_inv` and their `*64` twins), so
+that a single process that holds several ranks calls the same pass
+sequence; the channel-sharded plans (`channels.py`) make the same passes
+over all of a rank's channels in one launch each.
 
 Results are bit-identical to the single-device four-step (the JAX package's
 sharded functions and the port's plans, by test).
@@ -31,17 +36,10 @@ sharded functions and the port's plans, by test).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..ops import mxu32, mxu32_cuda, mxu64, mxu64_cuda
 from . import _dist
-
-
-def transposed(x: torch.Tensor) -> torch.Tensor:
-    """The last two axes swapped, as a fresh contiguous tensor (the GEMM
-    passes copy 16-byte chunks from an aligned start)."""
-    return x.transpose(1, 2).contiguous()
 
 
 def _check_split(n1: int, n2: int, s: int) -> None:
@@ -49,74 +47,87 @@ def _check_split(n1: int, n2: int, s: int) -> None:
         raise ValueError(f"mesh axis size {s} must divide n1={n1} and n2={n2}")
 
 
-def diag_rows(tabs, r: int, rows: int, device) -> tuple:
-    """Rows r·rows .. (r+1)·rows of each diagonal table (d [n2, n1] on a
-    rank's columns, e [n1, n2] on its rows), on `device`: the rank's shard
-    of `P(axis, None)`."""
-    return tuple(torch.from_numpy(np.ascontiguousarray(a[r * rows:(r + 1) * rows])).to(device)
-                 for a in tabs)
+def _cols(v):
+    """The value shard [b, n1, c] (or a tuple of limbs) as the column
+    pass's operand [b, c, n1]: transposed views, read in place."""
+    return tuple(a.transpose(1, 2) for a in v) if isinstance(v, tuple) else v.transpose(1, 2)
 
 
-# -- 32-bit local sections (K3) -------------------------------------------------
+# -- 32-bit local sections (K3 on one channel) ---------------------------------
 
 
-def col_pass(v, d_loc: tuple, *, n: int, p: int) -> torch.Tensor:
-    """Forward column pass A with the rank's rows of d: v [b, n2 / s, n1]
-    (the value shard transposed; a limb tuple for a wide operand) -> lazy
-    representatives [b, n2 / s, n1]."""
-    n_limbs = len(v) if isinstance(v, tuple) else 1
-    return mxu32_cuda.pass_matmod(v, n=n, p=p, which="A", diag_slices=d_loc, n_limbs=n_limbs)
+def col_pass(v, d_loc: torch.Tensor, *, n: int, p: int) -> torch.Tensor:
+    """Forward column pass A with the rank's rows of d: v the value shard
+    [b, n1, n2 / s] (a limb tuple for a wide operand), contracting n1 at
+    stride n2 / s in place; d_loc the rank's rows of d (`mxu32_cuda.
+    multi_diag(n, (p,), "A", r·n2/s, n2/s, device)`) -> lazy representatives
+    [b, n2 / s, n1]."""
+    return mxu32_cuda.pass_matmod_multi(_cols(v), n=n, primes=(p,), which="A", diag=d_loc)[0]
 
 
 def row_pass(y: torch.Tensor, *, n: int, p: int) -> torch.Tensor:
-    """Forward row pass F after the exchange: y [b, n2, n1 / s] -> canonical
-    NTT-domain rows [b, n1 / s, n2] (bit-reversed when flattened)."""
-    return mxu32_cuda.pass_matmod(transposed(y), n=n, p=p, which="F")
+    """Forward row pass F after the exchange: y [b, n2, n1 / s] read in
+    place -> canonical NTT-domain rows [b, n1 / s, n2] (bit-reversed when
+    flattened)."""
+    return mxu32_cuda.pass_matmod_multi(y.transpose(1, 2), n=n, primes=(p,), which="F")[0]
 
 
-def row_pass_inv(x: torch.Tensor, e_loc: tuple, *, n: int, p: int) -> torch.Tensor:
-    """Inverse row pass G with the rank's rows of e: x [b, n1 / s, n2] (any
-    u32) -> lazy representatives [b, n1 / s, n2]."""
-    return mxu32_cuda.pass_matmod(x, n=n, p=p, which="G", diag_slices=e_loc)
+def row_pass_inv(x: torch.Tensor, e_loc: torch.Tensor, *, n: int, p: int) -> torch.Tensor:
+    """Inverse row pass G with the rank's rows of e (`multi_diag(n, (p,),
+    "G", r·n1/s, n1/s, device)`): x [b, n1 / s, n2] (any u32) -> lazy
+    representatives [b, n1 / s, n2]."""
+    return mxu32_cuda.pass_matmod_multi(x, n=n, primes=(p,), which="G", diag=e_loc)[0]
 
 
 def col_pass_inv(y: torch.Tensor, *, n: int, p: int, scale: int = 1) -> torch.Tensor:
-    """Inverse column pass A_inv (times `scale`) after the exchange:
-    y [b, n1, n2 / s] -> canonical values [b, n1, n2 / s], standard order."""
-    out = mxu32_cuda.pass_matmod(transposed(y), n=n, p=p, which="Ainv", scale=scale)
-    return transposed(out)
+    """Inverse column pass A_inv (times `scale`) after the exchange: y [b, n1,
+    n2 / s] read in place -> canonical values [b, n1, n2 / s], standard
+    order, written at row stride 1."""
+    return mxu32_cuda.pass_matmod_multi(y.transpose(1, 2), n=n, primes=(p,), which="Ainv",
+                                        scales=(scale,), transposed_out=True)[0]
 
 
-# -- 64-bit local sections (K6), on (lo, hi) limb pairs ----------------------------
+# -- 64-bit local sections (K6 on one channel), on (lo, hi) limb pairs --------------
 
 
-def col_pass64(v: tuple, d_loc: tuple, *, n: int, p: int) -> tuple:
-    """`col_pass` on (lo, hi) [b, n2 / s, n1] (any u64)."""
-    return mxu64_cuda.pass_matmod64(v, n=n, p=p, which="A", diag_slices=d_loc)
+def _first(pair: tuple) -> tuple:
+    return pair[0][0], pair[1][0]
+
+
+def col_pass64(v: tuple, d_loc: torch.Tensor, *, n: int, p: int) -> tuple:
+    """`col_pass` on the (lo, hi) value shard [b, n1, n2 / s] (any u64)."""
+    return _first(mxu64_cuda.pass_matmod64_multi(_cols(v), n=n, primes=(p,), which="A",
+                                                 diag=d_loc))
 
 
 def row_pass64(y: tuple, *, n: int, p: int) -> tuple:
     """`row_pass` on (lo, hi) [b, n2, n1 / s] -> canonical [b, n1 / s, n2]."""
-    return mxu64_cuda.pass_matmod64(tuple(transposed(a) for a in y), n=n, p=p, which="F")
+    return _first(mxu64_cuda.pass_matmod64_multi(_cols(y), n=n, primes=(p,), which="F"))
 
 
-def row_pass_inv64(x: tuple, e_loc: tuple, *, n: int, p: int) -> tuple:
+def row_pass_inv64(x: tuple, e_loc: torch.Tensor, *, n: int, p: int) -> tuple:
     """`row_pass_inv` on (lo, hi) [b, n1 / s, n2] (any u64)."""
-    return mxu64_cuda.pass_matmod64(x, n=n, p=p, which="G", diag_slices=e_loc)
+    return _first(mxu64_cuda.pass_matmod64_multi(x, n=n, primes=(p,), which="G", diag=e_loc))
 
 
 def col_pass_inv64(y: tuple, *, n: int, p: int, scale: int = 1) -> tuple:
     """`col_pass_inv` on (lo, hi) [b, n1, n2 / s] -> canonical [b, n1, n2 / s]."""
-    out = mxu64_cuda.pass_matmod64(tuple(transposed(a) for a in y), n=n, p=p, which="Ainv",
-                                   scale=scale)
-    return tuple(transposed(a) for a in out)
+    return _first(mxu64_cuda.pass_matmod64_multi(_cols(y), n=n, primes=(p,), which="Ainv",
+                                                 scales=(scale,), transposed_out=True))
 
 
 def exchange64(mesh, y: tuple, dim) -> tuple:
-    """The all-to-all of a limb pair as one collective: stacked on a last
-    axis, split on axis 2, concatenated on axis 1 (the passes after it
-    transpose each limb into a fresh tensor)."""
-    return _dist.all_to_all_tiled(mesh, torch.stack(y, dim=-1), dim, 2, 1).unbind(-1)
+    """The all-to-all of a limb pair as one collective: stacked on a leading
+    axis [2, b, rows, cols], split on the columns, concatenated on the rows;
+    the limbs come back as views of one tensor, which the passes after it
+    read in place."""
+    return _dist.all_to_all_tiled(mesh, torch.stack(y), dim, 3, 2).unbind(0)
+
+
+def planar(x: torch.Tensor) -> tuple:
+    """A [b, rows, cols, 2] limb shard as its (lo, hi) planes: one copy
+    [2, b, rows, cols], the limbs views of it."""
+    return x.movedim(-1, 0).contiguous().unbind(0)
 
 
 # -- the sharded transforms ---------------------------------------------------------
@@ -141,12 +152,12 @@ def make_sharded_prime32_mxu(plan, mesh, axis: str = "sp", batch_axis=None, devi
     _check_split(n1, n2, s)
     dev = _dist.rank_device(device)
     r = _dist.axis_index(mesh, axis)
-    tbl = mxu32._mxu_tables(n, p)
-    d_loc = diag_rows(tbl["d"], r, n2 // s, dev)  # [n2 / s, n1]
-    e_loc = diag_rows(tbl["e"], r, n1 // s, dev)  # [n1 / s, n2]
+    c, c1 = n2 // s, n1 // s
+    d_loc = mxu32_cuda.multi_diag(n, (p,), "A", r * c, c, str(dev))  # [1, 4|2, n2 / s, n1]
+    e_loc = mxu32_cuda.multi_diag(n, (p,), "G", r * c1, c1, str(dev))  # [1, 4|2, n1 / s, n2]
 
     def fwd(x_loc):
-        y = col_pass(transposed(x_loc), d_loc, n=n, p=p)
+        y = col_pass(x_loc, d_loc, n=n, p=p)
         return row_pass(_dist.all_to_all_tiled(mesh, y, axis, 2, 1), n=n, p=p)
 
     def inv(x_loc):
@@ -170,16 +181,16 @@ def make_sharded_prime64_mxu(plan, mesh, axis: str = "sp", batch_axis=None, devi
     _check_split(n1, n2, s)
     dev = _dist.rank_device(device)
     r = _dist.axis_index(mesh, axis)
-    tbl = mxu64._tables(n, p)
-    d_loc = diag_rows(tbl["d"], r, n2 // s, dev)
-    e_loc = diag_rows(tbl["e"], r, n1 // s, dev)
+    c, c1 = n2 // s, n1 // s
+    d_loc = mxu64_cuda.multi_diag(n, (p,), "A", r * c, c, str(dev))
+    e_loc = mxu64_cuda.multi_diag(n, (p,), "G", r * c1, c1, str(dev))
 
     def fwd(x_loc):
-        y = col_pass64(tuple(transposed(x_loc[..., i]) for i in range(2)), d_loc, n=n, p=p)
+        y = col_pass64(planar(x_loc), d_loc, n=n, p=p)
         return torch.stack(row_pass64(exchange64(mesh, y, axis), n=n, p=p), dim=-1)
 
     def inv(x_loc):
-        y = row_pass_inv64(tuple(x_loc[..., i].contiguous() for i in range(2)), e_loc, n=n, p=p)
+        y = row_pass_inv64(planar(x_loc), e_loc, n=n, p=p)
         return torch.stack(col_pass_inv64(exchange64(mesh, y, axis), n=n, p=p), dim=-1)
 
     return (fwd, inv, *_dist.layout(mesh, n1, n2, batch_axis, axis, dev))

@@ -11,12 +11,17 @@ One world runs every case (`_rank_cases`, started once a module by the
 numpy seeds; tolerance: exact equality.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
 
-from concrete_ntt_tpu_torch import native32, native64, native128
+from concrete_ntt_tpu_torch import native32, native64, native128, prime64
+from concrete_ntt_tpu_torch.ops.u32 import np_u64_to_limbs
 from concrete_ntt_tpu_torch.parallel import _dist
+from concrete_ntt_tpu_torch.tables import PRIMES52
+from concrete_ntt_tpu_torch.utils.prime import largest_prime_in_arithmetic_progression64 as _lp
 
 WORLD = 4
 N = 4096
@@ -31,6 +36,12 @@ CASES = {
 }
 JAX_CASES = ("native128 dp1-ch2-sp2", "native128 dp2-ch2", "plan52 ch3", "plan52 dp2-sp2")
 NAMES = ("dp", "ch", "sp")
+# ChannelShardedNative52's two local routes, on plan-like prime sets at
+# (dp, ch, sp) = (1, 1, 2): Plan52's primes share their plane counts (one K6
+# launch a pass: "grid"); a 50-bit with a 40-bit prime (7 / 7 and 5 / 6 digit
+# and operand planes) does not ("per-channel")
+ROUTE52 = {"grid": tuple(PRIMES52[:2]),
+           "per-channel": (PRIMES52[0], _lp(1 << 16, 1, 1 << 39, 1 << 40))}
 
 
 def _operands(name):
@@ -57,6 +68,24 @@ def _mesh(shape):
     return mesh, mesh.get_coordinate() is not None
 
 
+def _route52_operands():
+    rng = np.random.default_rng(52)
+    return tuple(rng.integers(0, 1 << 64, (2, N), dtype=np.uint64) for _ in range(2))
+
+
+def _route52_residues(sharded) -> np.ndarray:
+    """lhs·rhs mod each local prime through the class's local sections (the
+    passes, exchanges and pointwise product of its route; no lift),
+    gathered whole: [k, b, n] uint64."""
+    lhs, rhs = (sharded._shard(tuple(torch.from_numpy(np_u64_to_limbs(v)).unbind(-1)))
+                for v in _route52_operands())
+    res = sharded._inv_local(sharded._pointwise(sharded._fwd_local(lhs),
+                                                sharded._fwd_local(rhs)))
+    res = _dist.all_gather(sharded.mesh, res.contiguous(), (sharded.sp, 3)).numpy()
+    res = res.reshape(*res.shape[:2], N, 2).astype(np.uint64)
+    return res[..., 0] | (res[..., 1] << np.uint64(32))
+
+
 def _rank_cases(rank, world):
     """Every case on one rank; results as numpy arrays (None where the rank
     is not in the case's mesh)."""
@@ -76,6 +105,14 @@ def _rank_cases(rank, world):
         got = sharded.negacyclic_polymul(_as_port(lhs), _as_port(rhs))
         calls[name] = dict(_dist.CALLS)
         out[name] = got if isinstance(got, np.ndarray) else got.numpy()
+        if tier == "Plan52":
+            out[name, "route"] = sharded.route
+    mesh, member = _mesh((1, 1, 2))
+    for route, primes in ROUTE52.items():
+        if member:
+            plan = types.SimpleNamespace(n=N, primes=primes, tier="plan52", width=64)
+            sharded = channels.ChannelShardedNative52(plan, mesh, sp_axis="sp", device="cpu")
+            out["route52", route] = (sharded.route, _route52_residues(sharded))
     errors = {}
     mesh, _ = _mesh((1, 2, 2))
     sub, member = _mesh((1, 1, 3))
@@ -147,6 +184,28 @@ def test_sharded_polymul_matches_jax(world, jax_refs, name):
     for out, _, _ in world:
         if out[name] is not None:
             np.testing.assert_array_equal(out[name], jax_refs[name])
+
+
+def test_plan52_routes_match_single_channel_plans(world):
+    """ChannelShardedNative52 decides its route once from its primes: "grid"
+    for Plan52's (every case of CASES) and for two of its primes,
+    "per-channel" for a 50-bit with a 40-bit prime; on both, each channel's
+    residues of the product == the single-device prime64 plan's polymul of
+    the operands' residues."""
+    for out, _, _ in world:
+        for name, (module, tier, _, _) in CASES.items():
+            if tier == "Plan52" and out[name] is not None:
+                assert out[name, "route"] == "grid"
+    lhs, rhs = _route52_operands()
+    for route, primes in ROUTE52.items():
+        got = [out["route52", route] for out, _, _ in world if ("route52", route) in out]
+        assert len(got) == 2
+        for r, res in got:
+            assert r == route
+            for k, p in enumerate(primes):
+                want = prime64.Plan.new(N, p, device="cpu").negacyclic_polymul(
+                    lhs % np.uint64(p), rhs % np.uint64(p))
+                np.testing.assert_array_equal(res[k], want, err_msg=f"{route} p={p}")
 
 
 def test_collective_count_is_minimal(world):

@@ -1,5 +1,6 @@
-"""Card tests of the port: each kernel (K1a-K1e, K2, K3, K4, K5, K5 with
-block tables, K6, K7a-K7d direct and with block tables; K1a, K2 fwd, K3's A
+"""Card tests of the port: each kernel (K1a-K1e, K2, K3 and its channel
+grid, K4, K5, K5 with block tables, K6 and its channel grid, K7a-K7d direct
+and with block tables; K1a, K2 fwd, K3's A
 pass and K5 fwd also with the four limbs of a u128 operand; K1 / K2 / K3 at
 n = 2^16 and 2^17; K2 and K1b-K1d with the 32-bit hybrid's block tables)
 against its plain torch twin, and the native64 Plan32 and Plan52, prime32, prime64 (direct and
@@ -758,6 +759,102 @@ def test_misaligned_operand_raises_on_card(gen, cuda_device):
     _same_pair(mxu64_cuda.fwd((lo, x.clone()), n=n, p=p), mxu64_cuda.fwd_plain((lo, x), n=n, p=p))
 
 
+# K3's channel grid: (n, B, s, channels, A-pass limbs) of a rank's four
+# passes (A on the value shard, F on the exchange's output, G, A_inv written
+# transposed): the sharded routes' rank-local shapes (native128 (2^16, 8) at
+# (dp, ch, sp) = (1, 2, 2) and in a world of one, native64 (2^14, 8) at
+# (2, 1, 2), chip_smoke.py's held ranks), s = 2 and 4, n = 2^11 .. 2^17,
+# C = 1-5 and 10, and every tile code `k3_multi_tile` picks (K1's ring;
+# 64 x 16; K1's tile holding four stages whole at (2^14, 16, 1, 2); 128 x 64
+# for the canonical passes at (4096, 16, 1, 10))
+K3_MULTI_SHAPES = ((1 << 16, 8, 2, 5, 4), (1 << 16, 8, 1, 10, 4), (1 << 14, 4, 2, 1, 1),
+                   (4096, 16, 4, 1, 1), (1 << 11, 3, 4, 1, 1), (1 << 11, 2, 2, 5, 2),
+                   (1 << 12, 4, 2, 3, 4), (1 << 13, 3, 4, 2, 1), (1 << 14, 16, 1, 2, 1),
+                   (4096, 16, 1, 10, 1), (1 << 15, 2, 4, 5, 1), (1 << 17, 2, 4, 2, 1))
+# K6's: Plan52 (2^14, 8) at (2, 1, 2) and in a world of one (both on the
+# 64-row tile), s = 2 and 4, n = 2^11 .. 2^15, C = 1-5; the 128-row tile at
+# the eight instances' (2^14, 32, 1, 1)
+K6_MULTI_SHAPES = ((1 << 14, 4, 2, 3), (1 << 14, 8, 1, 3), (1 << 11, 3, 4, 1),
+                   (1 << 12, 2, 2, 5), (1 << 13, 3, 4, 2), (1 << 15, 2, 2, 3))
+
+
+def _route_passes(gen, dev, n, b, s, c, limbs, pair=False):
+    """The four passes of a rank's transform pair as the sharded routes
+    make them, on random operands: (which, operand views, diag, scales,
+    transposed_out) with the rank's last rows of d / e; `pair` for limb
+    pairs (F / A_inv's second limb below 2^18: mid-pass values)."""
+    n1, n2 = mxu32.four_step_factors(n)
+    c_, c1 = n2 // s, n1 // s
+
+    def limbs_of(shape, k, mid=False):
+        return tuple(_u32(gen, shape, dev, 1 << 18 if mid and i else 1 << 32) for i in range(k))
+
+    one = 2 if pair else 1
+    a = tuple(t.transpose(1, 2) for t in limbs_of((b, n1, c_), 2 if pair else limbs))
+    f = tuple(t.transpose(2, 3) for t in limbs_of((c, b, n2, c1), one, mid=pair))
+    g = limbs_of((c, b, c1, n2), one)
+    ai = tuple(t.transpose(2, 3) for t in limbs_of((c, b, n1, c_), one, mid=pair))
+    return (("A", a, (n2 - c_, c_)), ("F", f, None), ("G", g, (n1 - c1, c1)),
+            ("Ainv", ai, None))
+
+
+def _k3_multi_primes(n, c):
+    from concrete_ntt_tpu_torch.tables import primes32_ext
+
+    return tuple((primes32_ext() if n > 1 << 15 else NATIVE128_PRIMES)[:c])
+
+
+def test_k3_multi_matches_plain_on_card(gen, cuda_device):
+    """`pass_matmod_multi` (csrc/mxu32_pass.cu k3_pass_multi) == its plain
+    twin on the same strided views at K3_MULTI_SHAPES, and with one channel
+    in each regime (five digit planes included) at n = 4096 and 2^17; every
+    tile code of `k3_multi_tile` launched, and nothing but the grid."""
+    cases = [(shape, _k3_multi_primes(shape[0], shape[3])) for shape in K3_MULTI_SHAPES]
+    cases += [((4096, 3, 2, 1, 2), (p,)) for p in BENCH.values()]
+    cases += [((1 << 17, 16, 2, 1, 1), (BENCH["generic"],)), ((1 << 16, 3, 2, 1, 4),
+                                                             (BIG32["lt31"],))]
+    mxu32_cuda.reset_launch_counts()
+    launched = 0
+    for (n, b, s, c, limbs), primes in cases:
+        for which, x, rows in _route_passes(gen, cuda_device, n, b, s, c, limbs):
+            diag = (mxu32_cuda.multi_diag(n, primes, which, *rows, str(cuda_device))
+                    if rows else None)
+            kw = dict(n=n, primes=primes, which=which, diag=diag,
+                      scales=tuple(pow(n, q - 2, q) * 7 % q for q in primes)
+                      if which == "Ainv" else None, transposed_out=which == "Ainv")
+            xx = x if len(x) > 1 else x[0]
+            _same(mxu32_cuda.pass_matmod_multi(xx, **kw),
+                  mxu32_cuda.pass_matmod_multi_plain(xx, **kw))
+            launched += 1
+    counts = {k: v for k, v in mxu32_cuda.LAUNCHES.items() if v}
+    assert sum(counts.values()) == launched
+    assert set(counts) == {"pass_matmod_multi", "pass_matmod_multi_u128"}
+    assert {k[1] for k in mxu32_cuda.TILE_LAUNCHES} == {0, 1, 2, 3}
+
+
+def test_k6_multi_matches_plain_on_card(gen, cuda_device):
+    """`pass_matmod64_multi` (csrc/mxu64_pass.cu k6_pass_multi) == its plain
+    twin on the same strided limb-pair views at K6_MULTI_SHAPES over Plan52
+    primes, and with one channel for each of the eight (digit planes,
+    regime) instances on both tiles (64 rows at (4096, 3, 2), 128 at
+    (2^14, 32, 1)); both tile codes of `k6_tile` launched."""
+    cases = [(shape, tuple(PRIMES52[:shape[3]])) for shape in K6_MULTI_SHAPES]
+    for p in INSTANCES64.values():
+        cases += [((4096, 3, 2, 1), (p,)), ((1 << 14, 32, 1, 1), (p,))]
+    mxu64_cuda.reset_launch_counts()
+    for (n, b, s, c), primes in cases:
+        for which, x, rows in _route_passes(gen, cuda_device, n, b, s, c, 2, pair=True):
+            diag = (mxu64_cuda.multi_diag(n, primes, which, *rows, str(cuda_device))
+                    if rows else None)
+            kw = dict(n=n, primes=primes, which=which, diag=diag,
+                      scales=tuple(pow(n, q - 2, q) * pow(2, 64, q) % q for q in primes)
+                      if which == "Ainv" else None, transposed_out=which == "Ainv")
+            _same_pair(mxu64_cuda.pass_matmod64_multi(x, **kw),
+                       mxu64_cuda.pass_matmod64_multi_plain(x, **kw))
+    assert mxu64_cuda.LAUNCHES["pass_matmod64_multi"] == 4 * len(cases)
+    assert {k[1] for k in mxu64_cuda.TILE_LAUNCHES} == {0, 1}
+
+
 def _sharded_rank(rank, world, n):
     """One rank of a world on cuda:0 (tests/test_torch_cuda.py's sharded
     card test): the sharded paths at n through K3 / K6, their outputs and
@@ -778,7 +875,7 @@ def _sharded_rank(rank, world, n):
         prime32.Plan.new(n, p), sp, axis="sp")
     f = fwd(to_dist(torch.from_numpy(x)))
     out["mxu32"] = (from_dist(f).cpu(), from_dist(inv(f)).cpu())
-    launches["mxu32"] = mxu32_cuda.LAUNCHES["pass_matmod"]
+    launches["mxu32"] = {k: v for k, v in mxu32_cuda.LAUNCHES.items() if v}
     p64 = PRIMES52[0]
     x64 = torch.from_numpy(np.stack([gen.integers(0, 1 << 32, (4, n), dtype=np.uint32),
                                      gen.integers(0, 1 << 18, (4, n), dtype=np.uint32)], -1))
@@ -787,7 +884,7 @@ def _sharded_rank(rank, world, n):
         prime64.Plan.new(n, p64), sp, axis="sp")
     f = fwd(to_dist(x64))
     out["mxu64"] = (from_dist(f).cpu(), from_dist(inv(f)).cpu())
-    launches["mxu64"] = mxu64_cuda.LAUNCHES["pass_matmod64"]
+    launches["mxu64"] = {k: v for k, v in mxu64_cuda.LAUNCHES.items() if v}
     lhs, rhs = (gen.integers(0, 1 << 32, (2, n, 4), dtype=np.uint32) for _ in range(2))
     plan128 = native128.Plan32.try_new(n)
     mxu32_cuda.reset_launch_counts()
@@ -795,12 +892,13 @@ def _sharded_rank(rank, world, n):
         sh = channels.ChannelShardedNative(plan128, mesh, **kw)
         out[name] = sh.negacyclic_polymul(torch.from_numpy(lhs).to(dev),
                                           torch.from_numpy(rhs).to(dev)).cpu()
-    launches["ch128"] = (mxu32_cuda.LAUNCHES["pass_matmod_u128"], mxu32_cuda.LAUNCHES["pass_matmod"])
+    launches["ch128"] = {k: v for k, v in mxu32_cuda.LAUNCHES.items() if v}
     a, b = (gen.integers(0, 1 << 64, (2, n), dtype=np.uint64) for _ in range(2))
     mxu64_cuda.reset_launch_counts()
     sh = channels.ChannelShardedNative52(native64.Plan52.try_new(n), sp, sp_axis="sp")
     out["ch52"] = sh.negacyclic_polymul(a, b)
-    launches["ch52"] = mxu64_cuda.LAUNCHES["pass_matmod64"]
+    launches["ch52"] = {k: v for k, v in mxu64_cuda.LAUNCHES.items() if v}
+    out["route52"] = sh.route
     return out, launches
 
 
@@ -808,8 +906,9 @@ def _sharded_rank(rank, world, n):
 def test_sharded_paths_on_card(gen, cuda_device, tmp_path, backend, world):
     """The sharded paths (parallel/fourstep_mxu.py, parallel/channels.py) in a
     world of ranks on cuda:0 at n = 4096: gloo with two ranks (NCCL refuses
-    two ranks on one card), NCCL with one. Each rank launches K3 / K6 and
-    nothing falls back; rank 0's results == the CPU plain path."""
+    two ranks on one card), NCCL with one. Each rank launches K3 / K6's
+    channel grids and nothing else (nothing falls back); rank 0's results
+    == the CPU plain path."""
     from concrete_ntt_tpu_torch.ops import cuda_build
     from concrete_ntt_tpu_torch.parallel import _dist
 
@@ -829,7 +928,6 @@ def test_sharded_paths_on_card(gen, cuda_device, tmp_path, backend, world):
                 for _ in range(2))
     a, b = (gen.integers(0, 1 << 64, (2, n), dtype=np.uint64) for _ in range(2))
     want128 = native128.Plan32.try_new(n, device="cpu").negacyclic_polymul(lhs, rhs)
-    k = len(NATIVE128_PRIMES)
     for out, launches in ranks:
         assert torch.equal(out["mxu32"][0], plan.fwd(x))
         assert torch.equal(out["mxu32"][1], plan.inv(plan.fwd(x)))
@@ -838,7 +936,10 @@ def test_sharded_paths_on_card(gen, cuda_device, tmp_path, backend, world):
         assert torch.equal(out["ch128"], want128) and torch.equal(out["sp128"], want128)
         assert np.array_equal(out["ch52"],
                               native64.Plan52.try_new(n, device="cpu").negacyclic_polymul(a, b))
-        # a transform is two passes a rank; a polymul six a local channel
-        assert launches["mxu32"] == 4 and launches["mxu64"] == 4
-        assert launches["ch128"] == (2 * (k // world) + 2 * k, 4 * (k // world) + 4 * k)
-        assert launches["ch52"] == 6 * 3
+        # a transform is two passes a rank, each one channel-grid launch; a
+        # polymul six launches over all of a rank's channels (two A with the
+        # operand's four limbs), for each of the two meshes
+        assert launches["mxu32"] == {"pass_matmod_multi": 4}
+        assert launches["mxu64"] == {"pass_matmod64_multi": 4}
+        assert launches["ch128"] == {"pass_matmod_multi_u128": 2 * 2, "pass_matmod_multi": 4 * 2}
+        assert launches["ch52"] == {"pass_matmod64_multi": 6} and out["route52"] == "grid"

@@ -25,8 +25,10 @@ operand limbs and the zero plane rows that pad a mid-pass operand's 6 or 7
 planes to 8; and the single-prime K2's smaller tile (`mxu32_cuda.TILES`
 code 1: 64 rows x 16 outputs a block, N = 64 with four digit planes and 80
 with five) from 2^11 to 2^14, over planes packed by `pack_planes_kmajor(...,
-tile_o=16)`, and K1c / K1d's 64-output tile (128 rows x 64 outputs, N =
-256) over planes packed with tile_o = 64. The packed tiles must unpack to
+tile_o=16)`, K1c / K1d's 64-output tile (128 rows x 64 outputs, N =
+256) over planes packed with tile_o = 64, and the 64-bit pass's 64-row tile
+(`mxu64_cuda.TILE_ROWS` code 1, K6's channel grid: one warpgroup, N = 16 kD)
+for D = 5..9. The packed tiles must unpack to
 the JAX package's planes, and the shared-memory reads of both operand
 layouts (strided rows at 128 + 8 and 64 + 8 words) must fall on 32
 different banks, K1d's second operand slot too. K1d's pointwise stage is
@@ -266,6 +268,31 @@ def test_fragment_model_reproduces_the_digit_gemm_on_64_output_tiles(rng, case, 
     x[0] = 0xFFFFFFFF
     x[1] = 0
     np.testing.assert_array_equal(_model_pass(x, tiles, 4, to, tm), _dense(x, planes, n_limbs))
+
+
+# K6's channel grid on its 64-row tile (`mxu64_cuda.TILE_ROWS` code 1: one
+# warpgroup, m64n(16 kD)k32, the same 16-output plane tiles as the 128-row
+# tile): one pass of each digit-plane count, both limb counts it takes
+K6_ROW64_CASES = {"d5-F-6planes": (5, "F"), "d6-A": (6, "A"), "d7-Ainv-7planes": (7, "Ainv"),
+                  "d8-G": (8, "G"), "d9-A": (9, "A")}
+
+
+@pytest.mark.parametrize("n", [1 << 11, 1 << 12])
+@pytest.mark.parametrize("case", list(K6_ROW64_CASES))
+def test_fragment_model_reproduces_the_digit_gemm_on_64_row_64_bit_tiles(rng, case, n):
+    """The 64-bit pass on 64 rows a block (one warpgroup of four warps, rows
+    16 w + g / + 8 of the block, no second warpgroup): the digit GEMM of the
+    JAX package's planes over 3 polynomials (rows end in a ragged tile),
+    planes packed by `pack_planes64` as for the 128-row tile."""
+    assert tcu64.TILE_ROWS[1] == 64
+    n_d, which = K6_ROW64_CASES[case]
+    planes, k, n_limbs, rows = _planes64(n, n_d, which)
+    tiles = tcu64.pack_planes64(planes[None], k, n_d)[0]
+    x = rng.integers(0, 1 << 32, (rows, n_limbs * k), dtype=np.uint32)
+    x[0] = 0xFFFFFFFF
+    x[1] = 0
+    np.testing.assert_array_equal(_model_pass(x, tiles, n_d, TILE_O[64], tcu64.TILE_ROWS[1]),
+                                  _dense64(x, planes, n_limbs))
 
 
 def test_k2_tile_choice():

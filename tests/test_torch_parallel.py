@@ -65,6 +65,12 @@ def _rank_cases(rank, world):
         x = torch.from_numpy(_x32(plan.p, B_MXU, N_MXU))
         f = fwd(to_dist(x))
         out["mxu32", sp] = tuple(from_dist(t).numpy() for t in (f, inv(f)))
+        for name in ("lt31", "generic"):  # the channel-grid pass in the other regimes
+            plan = prime32.Plan.new(N_MXU, REGIMES[name], **cpu)
+            fwd, inv, to_dist, from_dist = fourstep_mxu.make_sharded_prime32_mxu(
+                plan, mesh, axis="sp", batch_axis="dp", **cpu)
+            f = fwd(to_dist(torch.from_numpy(_x32(plan.p, B_MXU, N_MXU))))
+            out["mxu32", name, sp] = tuple(from_dist(t).numpy() for t in (f, inv(f)))
         for name, p in MXU64_PRIMES.items():
             if name == "p50" and sp == 4:
                 continue
@@ -186,6 +192,20 @@ def test_fourstep_mxu32_matches_jax(world, jax_refs, sp):
         f, back = out["mxu32", sp]
         np.testing.assert_array_equal(f, want)
         np.testing.assert_array_equal(back, jax_refs["mxu32", sp][1])
+        np.testing.assert_array_equal(back, plan.inv(plan.fwd(x)).numpy())
+
+
+@pytest.mark.parametrize("sp", sorted(MXU_MESHES))
+@pytest.mark.parametrize("regime", ["lt31", "generic"])
+def test_fourstep_mxu32_regimes_match_single_device(world, regime, sp):
+    """make_sharded_prime32_mxu in the lt31 and generic regimes (five digit
+    planes near 2^32: K3's channel grid never takes its 128 x 64 tile
+    there): fwd and the round trip == the single-device plan's."""
+    plan = prime32.Plan.new(N_MXU, REGIMES[regime], device="cpu")
+    x = torch.from_numpy(_x32(plan.p, B_MXU, N_MXU))
+    for out in world:
+        f, back = out["mxu32", regime, sp]
+        np.testing.assert_array_equal(f, plan.fwd(x).numpy())
         np.testing.assert_array_equal(back, plan.inv(plan.fwd(x)).numpy())
 
 
