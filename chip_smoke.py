@@ -299,14 +299,34 @@ failure:
                the same profiler) on int8 matrices of the shapes of the same
                passes, one GEMM per channel, block and pass: the yardstick
                of the mainloop, which the port never calls.
+  6. stages  — the twin of tools/profile_stages.py and tools/ab_lift.py on
+               `utils/profiling.chain_time` (CUDA graphs: a chain of 64
+               dependent steps, 32 at 2^16, minus a chain of one, replayed
+               in turns): the native64 Plan32 polymul at (2^14, 8) on planar
+               uint32 limbs (its launches K1a 2, K1b 1 read on an eager
+               call), its stages fwd-wide-multi (x2 a polymul),
+               pointwise-montgomery (`ntt_dispatch.pointwise_mont32`),
+               inv-multi, the lift `crt.rec_u64_from5` and beside it
+               `crt_mxu.rec_u64_from5`, and native128 Plan32 at (2^16, 8):
+               each row's chain ms (dispatch removed), eager CUDA-event
+               median (dispatch included) and roofline share
+               (`profiling.Roofline`), a graph of two steps held bit for bit
+               against eager; the sum of the stages beside the whole. Then
+               the lift A/B: `ops/crt.py` against `crt_mxu` (the int8-GEMM
+               accumulation, `torch._int_mm`) for rec_u64_from5 and
+               rec_u128_from5 at [8, 2^14] and rec_u128_from10 at [8, 2^16]:
+               equal bit for bit, chain ms, eager ms and aten ops a call.
+               A capture that fails fails the run. Then the three
+               `examples/*_torch.py` run on the card, all started together.
 Then one JSON line of kernel summaries (each with its launches on its main
 path, error, ms, plain ms, and, for the direct 32-bit kernels, the same
 numbers at their shape above 2^15 under `n17`; the rows of both GEMM passes
 and the `n17` entries also `device_ms` and `gemm_ms`, the two profiler times;
 and the bound: the larger of its bytes over
 3.35 TB/s and its int8 operations over 1,979 TOP/s, the H100 SXM data-sheet
-rates; `library_ms` is null for all: no single PyTorch call computes an
-exact modular transform), the nvidia-smi line, and last
+rates that `concrete_ntt_tpu_torch/utils/profiling.py` holds; `library_ms`
+is null for all: no single PyTorch call computes an exact modular
+transform), the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
@@ -372,9 +392,6 @@ N_HYB15, HYB_SIZES, B_HYB = 1 << 15, (1 << 16, 1 << 17), 16
 HYB_BIG = ("p50", "goldilocks")  # the regimes run at 2^17 (the reference grid's two)
 K7BC_SHAPES = ((1 << 14, 8), (1 << 11, 3))
 CPU_ROWS_BIG = 4  # rows held against the CPU plain path at 2^17
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet: 80 GB of HBM at 3.35 TB/s
-INT8_OPS_PER_S = 1979e12    # H100 SXM data sheet: 1,979 TOP/s int8, dense (2 ops a MAC)
-CORE_OPS_PER_S = 67e12      # H100 SXM data sheet: 67 TFLOP/s outside the tensor cores
 MULTI_SRC = "concrete_ntt_tpu_torch/csrc/mxu32_multi.cu"
 PASS_SRC = "concrete_ntt_tpu_torch/csrc/mxu32_pass.cu"
 BFLY_SRC = "concrete_ntt_tpu_torch/csrc/butterfly32.cu"
@@ -535,6 +552,8 @@ def is_k4(name: str) -> bool:
 def k4_bound(n: int, b: int) -> tuple:
     """K4's bound at (n, B): B·(n/2)·log2 n butterflies of about 12 integer
     operations on the CUDA cores; operand, result and two twiddle tables once."""
+    from concrete_ntt_tpu_torch.utils.profiling import CORE_OPS_PER_S, HBM_BYTES_PER_S
+
     ops = b * (n // 2) * (n.bit_length() - 1) * 12
     t_b, t_o = 4 * (2 * b * n + 2 * n) / HBM_BYTES_PER_S, ops / CORE_OPS_PER_S
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
@@ -737,6 +756,179 @@ def profile_polymul(fn, reps: int = 10) -> dict:
     return {"host_ms": host_ms, "busy_ms": busy_ms, "busy_share": busy_ms / host_ms,
             "kernel_ms": kern / 1e3 / reps, "device_events": n_dev / reps,
             "aten_ops": n_aten / reps}
+
+
+def aten_ops(fn, reps: int = 3) -> float:
+    """aten ops a call of fn() (nested ones included, as `profile_polymul`
+    counts them), by a torch.profiler session on the CPU activity alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(reps):
+            fn()
+    return sum(ev.name.startswith("aten::") for ev in prof.events()) / reps
+
+
+def same_bits(xs, ys) -> bool:
+    """Equal tensors, bit for bit (uint32 compared through an int32 view)."""
+    view = lambda t: t.view(torch.int32) if t.dtype == torch.uint32 else t
+    return len(xs) == len(ys) and all(
+        x.shape == y.shape and torch.equal(view(x), view(y)) for x, y in zip(xs, ys))
+
+
+def stages_phase(smi: str, seed: int, dev: torch.device) -> None:
+    """The `stages` phase, twin of tools/profile_stages.py and
+    tools/ab_lift.py: the native64 Plan32 polymul at (2^14, 8) and its
+    stages, native128 Plan32 at (2^16, 8), and both implementations of the
+    three Garner lifts at their plans' shapes, each timed by
+    `profiling.chain_time` on CUDA graphs (dispatch removed) and by the
+    eager CUDA-event median (dispatch included). Raises on a capture that
+    fails, a graph that disagrees with eager, lifts that disagree, or
+    launches other than the route's."""
+    from concrete_ntt_tpu_torch import crt_mxu, native64, native128
+    from concrete_ntt_tpu_torch.ops import crt, ntt_dispatch
+    from concrete_ntt_tpu_torch.ops.u32 import MASK32, to_i64, to_u32
+    from concrete_ntt_tpu_torch.tables import native_channel_primes
+    from concrete_ntt_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(seed)
+    u32 = lambda shape, hi=1 << 32: torch.from_numpy(
+        rng.integers(0, hi, shape, dtype=np.uint32)).to(dev)
+    residues = lambda primes, b, n: torch.stack([u32((b, n), p) for p in primes])
+
+    def row(name, step, args, length, roof, mult=1.0):
+        """Print one stage: chain ms, eager ms, roofline share; check that a
+        graph of two steps replays to eager's bits. Returns the chain ms."""
+        graph, out = profiling.capture(step, args, 2)
+        graph.replay()
+        torch.cuda.synchronize()
+        require(same_bits(out, step(step(args))),
+                f"stages: {name}: the CUDA graph's outputs differ from eager")
+        del graph, out
+        t = profiling.chain_time(step, args, length=length) * 1e3
+        eager = median_ms(lambda: step(args))
+        r = roof(t / 1e3)
+        print(f"stages: {name}: chain {t:.4f} ms (dispatch removed: CUDA graphs of {length} and "
+              f"1 steps, best of 5 in turns), eager {eager:.4f} ms (CUDA events, median of "
+              f"{REPS}), roofline share {100 * r.share:.3f} % ({r.hbm_bytes} B, {r.mxu_macs} "
+              f"int8 MACs), x{mult:g} a polymul; graph == eager | {smi}", flush=True)
+        torch.cuda.empty_cache()
+        return t
+
+    def lift_step(rec, primes):
+        """carry (t [C, B, n] uint32, prev) -> (C fresh words from the lift, t)."""
+        def step(carry):
+            t, _ = carry
+            mods = to_i64(t)
+            out = rec([mods[i] for i in range(len(primes))], primes)
+            mix = [out[i % len(out)] + i for i in range(len(primes))]
+            return to_u32(torch.stack(mix) & MASK32), t
+        return step
+
+    # -- the native64 Plan32 polymul (2^14, 8) and its stages ------------------------
+    t_start = time.perf_counter()
+    n, b = N_MAIN, B_MAIN
+    plan = native64.Plan32.try_new(n)
+    primes, c = plan.primes, len(plan.primes)
+    scales = ntt_dispatch._pointwise_scales(n, primes)
+    length = 64  # tools/profile_stages.py: 64 steps up to 2^14, 32 above
+    ops = [u32((b, n)) for _ in range(4)]
+    reset_launch_counts()
+    plan.negacyclic_polymul(tuple(ops[:2]), tuple(ops[2:]))
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in launch_counts().items() if v}
+    require(launched == {"fwd_wide_multi": 2, "inv_multi": 1},
+            f"stages: the native64 Plan32 polymul launched {launched}")
+    fwd_r = lambda t: profiling.mxu_transform_roofline(n, b * c, t, 8, 4)
+    inv_r = lambda t: profiling.mxu_transform_roofline(n, b * c, t, 4, 4)
+    word = 4 * b * n  # bytes of one u32 [B, n]
+    full = row(f"full-polymul native64 Plan32 n={n} B={b}",
+               lambda cr: (*plan.negacyclic_polymul(cr[:2], cr[2:]), cr[0], cr[1]), tuple(ops),
+               length, lambda t: profiling.Roofline(
+                   t, 6 * word, 2 * fwd_r(t).mxu_macs + inv_r(t).mxu_macs))
+    fwd = row("fwd-wide-multi", lambda cr: tuple(ntt_dispatch.try_fwd32_wide_all(
+        cr, plan.plans)[:2]), tuple(ops[:2]), length, fwd_r, 2.0)
+    fl, fr = residues(primes, b, n), residues(primes, b, n)
+    pw = row("pointwise-montgomery", lambda cr: (ntt_dispatch.pointwise_mont32(
+        cr[0], cr[1], primes), cr[0]), (fl, fr), length,
+        lambda t: profiling.Roofline(t, 3 * c * word, 0))
+    inv = row("inv-multi", lambda cr: (ntt_dispatch.try_inv32_all(cr[0], plan.plans, scales),
+                                       cr[0]), (fl, fr), length, inv_r)
+    lift_roof = lambda macs: lambda t: profiling.Roofline(t, (c + 2) * word, macs)
+    lift = row("garner-lift rec_u64_from5", lift_step(crt.rec_u64_from5, primes), (fl, fr),
+               length, lift_roof(0))
+    row("garner-lift crt_mxu.rec_u64_from5", lift_step(crt_mxu.rec_u64_from5, primes), (fl, fr),
+        length, lift_roof(b * n * 20 * 9))
+    parts = 2 * fwd + pw + inv + lift
+    print(f"stages: SUM(parts) {parts:.4f} ms (fwd x2 + pointwise + inv + scalar lift) vs "
+          f"full-polymul {full:.4f} ms: ratio {parts / full:.3f}; {1e3 / full:.1f} polymuls/s "
+          f"with dispatch removed | {smi}", flush=True)
+
+    # -- native128 Plan32 (2^16, 8), BASELINE.json configs[4] -----------------------
+    n128 = N16
+    plan128 = native128.Plan32.try_new(n128)
+    ops = [u32((b, n128)) for _ in range(8)]
+    reset_launch_counts()
+    plan128.negacyclic_polymul(tuple(ops[:4]), tuple(ops[4:]))
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in launch_counts().items() if v}
+    require(launched == {"fwd_wide_multi_u128": 2, "inv_multi": 1},
+            f"stages: the native128 Plan32 polymul launched {launched}")
+    c128, w128 = len(plan128.primes), 4 * b * n128
+    row(f"full-polymul native128 Plan32 n={n128} B={b}",
+        lambda cr: (*plan128.negacyclic_polymul(cr[:4], cr[4:]), *cr[:4]), tuple(ops), 32,
+        lambda t: profiling.Roofline(t, 12 * w128, 2 * profiling.mxu_transform_roofline(
+            n128, b * c128, t, 16, 4).mxu_macs + profiling.mxu_transform_roofline(
+            n128, b * c128, t, 4, 4).mxu_macs))
+
+    # -- the lift A/B at the plans' shapes (tools/ab_lift.py) ------------------------
+    for name, k, nn, words in (("rec_u64_from5", 5, n, 2), ("rec_u128_from5", 5, n, 4),
+                               ("rec_u128_from10", 10, n128, 4)):
+        pr = native_channel_primes(k, nn)
+        t = residues(pr, b, nn)
+        mods = [m for m in to_i64(t)]
+        scalar, gemm = getattr(crt, name), getattr(crt_mxu, name)
+        require(same_bits(scalar(mods, pr), gemm(mods, pr)),
+                f"stages: lift A/B: crt_mxu.{name} differs from ops/crt.py's at [{b}, {nn}]")
+        impls = {"scalar chain": scalar, "int8 GEMM": gemm}
+        chains = {impl: [] for impl in impls}
+        for impl in ("scalar chain", "int8 GEMM", "int8 GEMM", "scalar chain"):  # in turns
+            chains[impl].append(profiling.chain_time(
+                lift_step(impls[impl], pr), (t, t), length=64 if nn <= N_MAIN else 32) * 1e3)
+        print(f"stages: lift A/B {name} [{b}, {nn}], {k} channels -> {words} limbs, equal bit "
+              "for bit; chain ms in turns (scalar, GEMM, GEMM, scalar): " + "; ".join(
+                  f"{impl} {chains[impl][0]:.4f}, {chains[impl][1]:.4f}, eager "
+                  f"{median_ms(lambda: rec(mods, pr)):.4f} ms, "
+                  f"{aten_ops(lambda: rec(mods, pr)):.0f} aten ops" for impl, rec in impls.items())
+              + f"; GEMM / scalar chain, best of each "
+              f"{min(chains['int8 GEMM']) / min(chains['scalar chain']):.3f} | {smi}", flush=True)
+        torch.cuda.empty_cache()
+    print(f"stages: done in {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+EXAMPLES = ("mul_poly_native_torch.py", "mul_poly_prime_torch.py",
+            "mul_poly_product_accumulate_torch.py")
+
+
+def examples_phase(root: str, smi: str) -> None:
+    """Run the port's three examples on the card, all started together;
+    each must exit 0 and print its `ok:` line."""
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, os.path.join(root, "examples", name)],
+                                    cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True) for name in EXAMPLES}
+    try:
+        for name, proc in procs.items():
+            out, _ = proc.communicate(timeout=600)
+            require(proc.returncode == 0 and "ok:" in out,
+                    f"examples: {name} exited {proc.returncode}: {out[-2000:]}")
+            print(f"examples: {name}: {out.strip().splitlines()[-1]}", flush=True)
+    finally:
+        for proc in procs.values():
+            proc.kill()
+    print(f"examples: {len(EXAMPLES)} on the card in {time.perf_counter() - t0:.1f} s | {smi}",
+          flush=True)
 
 
 def exchange(ys: list, split_axis: int, concat_axis: int) -> list:
@@ -970,7 +1162,9 @@ def sharded_rank(rank: int, world: int, seed: int, check_cpu: bool) -> dict:
 def gemm_bound(macs: float, nbytes: float) -> tuple:
     """(bound ms, which bounds): the larger of the bytes the function must
     move over the card's memory rate and its int8 operations (2 a MAC) over
-    the card's int8 tensor-core peak."""
+    the card's int8 tensor-core peak (`utils/profiling`'s H100 figures)."""
+    from concrete_ntt_tpu_torch.utils.profiling import HBM_BYTES_PER_S, INT8_OPS_PER_S
+
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * macs / INT8_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -3586,6 +3780,10 @@ def main() -> int:
                   f"busy {r['busy_ms']:.4f} ms ({100 * r['busy_share']:.1f} %), GEMM passes "
                   f"{r['kernel_ms']:.4f} ms, {r['device_events']:.0f} device events and "
                   f"{r['aten_ops']:.0f} aten ops a polymul (5 polymuls) | {smi}", flush=True)
+
+    # -- 6. stages and examples ---------------------------------------------------
+    stages_phase(smi, args.seed, dev)
+    examples_phase(os.path.dirname(os.path.abspath(__file__)), smi)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -67,7 +67,12 @@ Ported so far:
     `ops/butterflies32.py` and `ops/engine.py` (plain stage engine),
     `ops/u32.py` (u32 / u64 / N-limb arithmetic in int64 carriers),
     `ops/crt.py` (every residue split and signed lift), `tables.py`,
-    `golden/`, `utils/`.
+    `golden/`, `utils/`;
+  * `crt_mxu.py` (the lifts with their mixed-radix accumulation as an int8
+    GEMM; bit-identical to `ops/crt.py`'s, and, as in the JAX package, no
+    plan takes them) and `utils/profiling.py` (`chain_time`: dispatch-free
+    time on CUDA graphs; rooflines at the H100's peaks; `trace`), both
+    imported by path as in the JAX package.
 
 Every plan has a device, given at construction and by default the card
 ("cuda"): numpy and Python-int input is moved to it, a tensor computes on

@@ -9,8 +9,9 @@ u128 values are planar tuples of four uint32 tensors [..., n] (the
 performance format: K1a reads the four limbs as they are, the u128 →
 residue split folded into its column matmul as 16 operand digit planes),
 uint32 limb tensors [..., n, 4], or flat lists of Python ints for host
-convenience. The lift is the scalar one (`ops/crt.py::rec_u128_from10`):
-the reference's matmul lift is off by default and is not ported.
+convenience. The lift is the scalar one (`ops/crt.py::rec_u128_from10`);
+its int8-GEMM twin `crt_mxu.rec_u128_from10` is ported and, as in the
+reference, taken by no route.
 `try_new(n, device=...)`: the plan's device, by default the card.
 """
 

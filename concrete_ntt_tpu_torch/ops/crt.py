@@ -253,9 +253,10 @@ def rec_u128_from5(mods, primes):
     return select_limbs(sign, neg, pos)
 
 
-def rec_u128_from10(mods, primes):
-    """10×u32 residues → wrapping u128, v2 pairing
-    (reconstruct_32bit_0123456789_v2, native128.rs:20-118)."""
+def _pair_digits_from10(mods, primes):
+    """The v2 pairing of ten 30-bit channels: the mixed-radix digits v01,
+    v23, v45, v67, v89 over the pair moduli P01 … P89 (limb pairs), the
+    pair moduli, and the sign v89 > P89/2 (native128.rs:20-118)."""
     assert len(primes) == 10 and len(mods) == 10
     pairs = [(primes[2 * i], primes[2 * i + 1]) for i in range(5)]
     pair_mods = [_pair_digit(mods[2 * i], mods[2 * i + 1], *pairs[i]) for i in range(5)]
@@ -274,8 +275,13 @@ def rec_u128_from10(mods, primes):
         # acc < 2p-ish; keep lazy, _sub_mod64_lazy tolerates < 3p
         phi = pow(prefix % pi, _carmichael(pairs[i]) - 1, pi)
         digits.append(_mul_mod64(_sub_mod64_lazy(pair_mods[i], acc, pi), phi, pi))
+    return digits, pair_p, geq64(digits[4], const64_like(pair_p[4] // 2 + 1))
 
-    sign = geq64(digits[4], const64_like(pair_p[4] // 2 + 1))
+
+def rec_u128_from10(mods, primes):
+    """10×u32 residues → wrapping u128, v2 pairing
+    (reconstruct_32bit_0123456789_v2, native128.rs:20-118)."""
+    digits, pair_p, sign = _pair_digits_from10(mods, primes)
     mask128 = (1 << 128) - 1
     pos = (digits[0][0], digits[0][1], 0, 0)
     pref = 1

@@ -55,6 +55,8 @@ lists of channels.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from . import butterfly32_cuda, mxu32, mxu32_cuda, mxu64, mxu64_cuda, stagesplit
@@ -171,21 +173,38 @@ def try_inv32_all(stacked, plans, scales=None):
 
 def try_polymul32_stacked(parts_l, parts_r, plans, rhs_binary=False):
     """End-to-end stacked negacyclic polymul over plan32 CRT channels: K1a on
-    both operands, the pointwise Montgomery product per channel (plain
-    torch, as the reference's XLA elementwise stage), then K1b with
-    n^-1 * 2^32 folded into the inverse column matrix. Returns
-    standard-order residues [C, B, n] (uint32)."""
+    both operands, the pointwise Montgomery product per channel
+    (`pointwise_mont32`, plain torch, as the reference's XLA elementwise
+    stage), then K1b with n^-1 * 2^32 folded into the inverse column
+    matrix. Returns standard-order residues [C, B, n] (uint32)."""
     primes = _primes(plans)
     n = parts_l[0].shape[-1]
     fl = mxu32_cuda.fwd_wide_multi(tuple(parts_l), primes)
     fr = mxu32_cuda.fwd_wide_multi(
         tuple(parts_r[:1]) if rhs_binary else tuple(parts_r), primes
     )
-    c = len(primes)
+    return mxu32_cuda.inv_multi(pointwise_mont32(fl, fr, primes), primes,
+                                _pointwise_scales(n, primes))
+
+
+@lru_cache(maxsize=64)
+def _mont_columns(primes: tuple, device: str) -> tuple:
+    """(p, -p^-1 mod 2^32) of each channel as int64 [C, 1, 1] tensors on
+    `device`, made once: a per-call host-to-device copy would stop a CUDA
+    graph capture of the polymul."""
+    def col(vals):
+        return torch.tensor(vals, dtype=torch.int64, device=device).reshape(-1, 1, 1)
+
+    return col(primes), col([mont_neginv(p) for p in primes])
+
+
+def pointwise_mont32(fl, fr, primes: tuple):
+    """The stacked polymul's pointwise stage: the bare Montgomery product
+    a·b·2^-32 mod p of each channel, [C, B, n] uint32 canonical operands
+    (< p < 2^30, the forward transforms' outputs) -> [C, B, n] uint32 (a u32
+    representative; the scaled inverse takes any)."""
     a, b = to_i64(fl), to_i64(fr)
-    pv = a.new_tensor(primes).reshape(c, 1, 1)
-    nv = a.new_tensor([pl.p_neginv for pl in plans]).reshape(c, 1, 1)
-    # Montgomery product a*b*2^-32 mod p (any-u32 representative out).
+    pv, nv = _mont_columns(tuple(primes), str(a.device))
     lo, hi = mulwide_u32(a, b)
     m = mullo_u32(lo, nv)
     # REDC carry: lo(a·b) + lo(m·p) is 0 or exactly 2^32 (m·p ≡ -lo mod
@@ -194,8 +213,7 @@ def try_polymul32_stacked(parts_l, parts_r, plans, rhs_binary=False):
     # fwd outputs here: a, b < p < 2^30 give a sum < 2p); K1d, whose
     # operands are any u32, keeps it (its full-range parity test in
     # tests/test_torch_mxu32.py).
-    t = (hi + mulhi_u32(m, pv) + (lo != 0).to(lo.dtype)) & MASK32
-    return mxu32_cuda.inv_multi(to_u32(t), primes, _pointwise_scales(n, primes))
+    return to_u32((hi + mulhi_u32(m, pv) + (lo != 0).to(lo.dtype)) & MASK32)
 
 
 def tier32(n: int, p: int, variant: str) -> str:

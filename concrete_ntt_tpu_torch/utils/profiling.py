@@ -1,0 +1,177 @@
+"""Profiling and roofline helpers.
+
+Counterpart of `concrete_ntt_tpu/utils/profiling.py`, with the same names:
+
+  * `trace(log_dir)`: a torch.profiler session (CPU, and CUDA where there is
+    a card) that writes a Chrome trace into `log_dir` when it closes;
+  * `chain_time(step, args)`: seconds a step with host dispatch removed, by
+    the JAX package's chain-difference rule: a chain of `length` dependent
+    steps minus a chain of one, best of `reps` interleaved pairs. On CUDA
+    tensors both chains are captured as CUDA graphs (`capture`) and replayed
+    in turns, timed by CUDA events, so what is left is the device's time,
+    the gaps between the graph's kernels included. A step that cannot be
+    captured (one that synchronises with the host or copies from pageable
+    host memory) raises: timing it eagerly would measure the dispatch that
+    the chain is meant to remove. On CPU tensors the chains run eagerly
+    under `time.perf_counter`;
+  * `Roofline` and `mxu_transform_roofline`: the JAX package's byte and
+    int8 MAC counts of a four-step transform, against the H100's peaks.
+
+The peaks are NVIDIA's H100 SXM data-sheet figures (dense, at the 700 W
+power limit), the one copy that `chip_smoke.py` and `benches/run_torch.py`
+read.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: 80 GB of HBM at 3.35 TB/s
+INT8_OPS_PER_S = 1979e12   # H100 SXM data sheet: 1,979 TOP/s int8, dense (2 ops a MAC)
+CORE_OPS_PER_S = 67e12     # H100 SXM data sheet: 67 TFLOP/s outside the tensor cores
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """torch.profiler session over the block; on exit a Chrome trace
+    (`*.pt.trace.json`, for TensorBoard or chrome://tracing) lands in
+    `log_dir`. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+
+
+def _check_carry(args: tuple, out, what: str) -> None:
+    out = tuple(out)
+    if len(out) != len(args) or any(o.shape != a.shape for o, a in zip(out, args)):
+        raise ValueError(f"chain_time: {what} must map the carry to a tuple of the same shapes, "
+                         f"got {[tuple(o.shape) for o in out]} for {[tuple(a.shape) for a in args]}")
+
+
+def capture(step, args: tuple, length: int = 1):
+    """(graph, outputs): `step` warmed up on a side stream (three calls:
+    tables, libraries and kernel attributes come into being there), then
+    `length` dependent steps from `args` captured into one CUDA graph. Each
+    replay recomputes `outputs` from the current contents of `args`. A
+    capture error is raised as a RuntimeError that names it."""
+    args = tuple(args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            _check_carry(args, step(args), "step")
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    caller = torch.cuda.current_stream()
+    try:
+        with torch.cuda.graph(graph):
+            out = args
+            for _ in range(length):
+                out = tuple(step(out))
+    except RuntimeError as exc:  # the capture stream may be left current
+        torch.cuda.set_stream(caller)
+        raise RuntimeError(
+            f"chain_time: the step cannot be captured in a CUDA graph ({type(exc).__name__}: "
+            f"{exc}); a step that synchronises with the host or copies from pageable host "
+            "memory has no time with dispatch removed") from exc
+    return graph, out
+
+
+def chain_samples(step, args: tuple, *, length: int = 128, reps: int = 5) -> list:
+    """`reps` interleaved (t_length, t_1) pairs in seconds: a chain of
+    `length` dependent steps, then a chain of one (see the module doc for
+    how each device runs them)."""
+    args = tuple(args)
+    if length < 2:
+        raise ValueError(f"chain_time: length must be at least 2, got {length}")
+    if args[0].device.type != "cuda":
+        _check_carry(args, step(args), "step")  # warm-up
+
+        def run(k):
+            t0 = time.perf_counter()
+            out = args
+            for _ in range(k):
+                out = step(out)
+            return time.perf_counter() - t0
+
+        return [(run(length), run(1)) for _ in range(reps)]
+    graphs = [capture(step, args, k)[0] for k in (length, 1)]
+    pairs = []
+    for _ in range(reps):
+        pair = []
+        for graph in graphs:
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            stop.record()
+            stop.synchronize()
+            pair.append(start.elapsed_time(stop) / 1e3)
+        pairs.append(tuple(pair))
+    return pairs
+
+
+def chain_time(step, args, *, length: int = 128, reps: int = 5) -> float:
+    """Seconds a step, dispatch removed: (best t_length - best t_1) /
+    (length - 1) over `reps` interleaved pairs (`chain_samples`). `step`
+    maps a tuple of tensors to a tuple of the same shapes; each step's
+    outputs are the next one's inputs. A non-positive difference raises."""
+    pairs = chain_samples(step, args, length=length, reps=reps)
+    best_k, best_1 = min(a for a, _ in pairs), min(b for _, b in pairs)
+    if best_k <= best_1:
+        raise RuntimeError(f"chain_time: non-monotone chain (t_{length} = {best_k:.6f} s <= "
+                           f"t_1 = {best_1:.6f} s)")
+    return (best_k - best_1) / (length - 1)
+
+
+@dataclass
+class Roofline:
+    seconds: float
+    hbm_bytes: int
+    mxu_macs: int  # int8 multiply-accumulates (tensor cores on the card)
+
+    @property
+    def hbm_gbs(self) -> float:
+        return self.hbm_bytes / self.seconds / 1e9
+
+    @property
+    def mxu_tops(self) -> float:
+        return 2 * self.mxu_macs / self.seconds / 1e12
+
+    @property
+    def hbm_util(self) -> float:
+        return self.hbm_bytes / self.seconds / HBM_BYTES_PER_S
+
+    @property
+    def mxu_util(self) -> float:
+        return 2 * self.mxu_macs / self.seconds / INT8_OPS_PER_S
+
+    @property
+    def share(self) -> float:
+        """The roofline share: the least time the card could take (bytes or
+        int8 operations at peak, whichever is larger) over `seconds`."""
+        return max(self.hbm_util, self.mxu_util)
+
+
+def mxu_transform_roofline(n: int, batch: int, seconds: float,
+                           n_eplanes: int = 4, n_dplanes: int = 4) -> Roofline:
+    """Roofline for one four-step transform of [batch, n] u32 data.
+
+    hbm_bytes counts the ideal fused traffic (operand in + result out);
+    mxu_macs counts both digit-plane matmuls."""
+    log2n = n.bit_length() - 1
+    n1 = 1 << (log2n // 2)
+    n2 = n // n1
+    # col pass: contraction E*n1, output D*n1 int32; row: 4*n2 planes
+    macs = batch * n2 * (n_eplanes * n1) * (n_dplanes * n1)
+    macs += batch * n1 * (4 * n2) * (n_dplanes * n2)
+    data = batch * n * 4 * (n_eplanes // 4 + 1)
+    return Roofline(seconds=seconds, hbm_bytes=data, mxu_macs=macs)

@@ -9,7 +9,9 @@ polymuls (widths 32, 64 and 128, both tiers, the channel routes and the
 per-channel route below 2^11) through the kernels against the CPU plain
 path; and the sharded paths (`parallel/fourstep_mxu.py`,
 `parallel/channels.py`) in a world of two gloo ranks on one card and in one
-of a single NCCL rank.
+of a single NCCL rank; the native64 Plan32 polymul captured as a CUDA graph
+(`utils/profiling.capture`) against eager, and `chain_time`'s error on a
+step that synchronises with the host.
 
 Every test here is marked `cuda` and skips without a CUDA GPU. The file
 imports only the port (no JAX), so it runs on a GPU machine without JAX:
@@ -943,3 +945,40 @@ def test_sharded_paths_on_card(gen, cuda_device, tmp_path, backend, world):
         assert launches["mxu64"] == {"pass_matmod64_multi": 4}
         assert launches["ch128"] == {"pass_matmod_multi_u128": 2 * 2, "pass_matmod_multi": 4 * 2}
         assert launches["ch52"] == {"pass_matmod64_multi": 6} and out["route52"] == "grid"
+
+
+def test_plan32_polymul_graph_replay_matches_eager(gen, cuda_device):
+    """The native64 Plan32 polymul (2^14, 8) captured as a CUDA graph of two
+    dependent polymuls (`utils/profiling.capture`) replays to eager's bits,
+    also after its inputs are overwritten in place; `chain_time` times it."""
+    from concrete_ntt_tpu_torch.utils import profiling
+
+    plan = native64.Plan32.try_new(1 << 14, device="cuda")
+    ops = tuple(_u32(gen, (8, 1 << 14), cuda_device) for _ in range(4))
+
+    def step(c):
+        return (*plan.negacyclic_polymul(c[:2], c[2:]), c[0], c[1])
+
+    graph, out = profiling.capture(step, ops, 2)
+    for fresh in (False, True):
+        if fresh:
+            for t in ops:
+                t.copy_(_u32(gen, tuple(t.shape), cuda_device))
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(out, step(step(ops))):
+            _same(got, want)
+    assert profiling.chain_time(step, ops, length=4, reps=2) > 0
+
+
+def test_chain_time_raises_on_a_host_sync(cuda_device):
+    """A step that synchronises with the host cannot be captured:
+    `chain_time` raises and names it, and the card works on after it."""
+    from concrete_ntt_tpu_torch.utils import profiling
+
+    def step(c):
+        return (c[0] + c[0].sum().item(),)  # .item() waits for the device
+
+    with pytest.raises(RuntimeError, match="cannot be captured in a CUDA graph"):
+        profiling.chain_time(step, (torch.ones(64, device=cuda_device),), length=2, reps=1)
+    assert torch.ones(3, device=cuda_device).sum().item() == 3
