@@ -158,11 +158,20 @@ failure:
                primes with 2^18 | p - 1 at (2^16, 16), (2^16, 3), (2^17, 16),
                (2^17, 2): the main paths' shapes among them; K3's A pass
                with four limbs at 2^16. Block tables: K2h fwd / inv scaled at
-               (2^15, 16), (2^16, 16), (2^17, 4) in the three regimes, K1c
-               (1, 2 limbs) / K1b / K1d over three channel primes at
-               (2^15, 8), (2^16, 8), each against its plain version and each
-               whole hybrid against the direct kernel. K1e == K1b at
-               (2^14, 8), (2^11, 3), (2^16, 2); K5 fwd with four limbs at
+               (2^15, 16), (2^16, 1), (2^16, 16), (2^17, 1), (2^17, 16) in
+               four regimes (lt30, lt31, generic with four and with five
+               digit planes) on the tile codes `mxu32_cuda.k2h_tiles` picks,
+               and at (2^16, 1), (2^16, 16) every pair of codes forced
+               (against the rule's result; the phase fails unless every
+               code ran), K1c (1, 2 limbs) / K1b / K1d over three channel
+               primes at (2^15, 8), (2^16, 8), each against its plain
+               version and each whole hybrid (`engine32_fused`) against the
+               direct kernel. K1e == its plain version == K1b at (2^11, 3,
+               5 ch), (2^16, 2, 5 ch) and (2^14, B, C) for B in {1, 8, 16}
+               x C in {2, 3, 5, 10} on the codes `mxu32_cuda._k1e_tiles`
+               picks, every pair of codes forced at (2^14, 8, 5) and
+               (2^14, 1, 2) (the phase fails unless every code ran); K5 fwd
+               with four limbs at
                (2^14, 16), (2^11, 3) in five regime primes. The tensor-core
                pass at small and ragged shapes, (n, B) in (2^11, 1),
                (2^11, 3), (2^12, 2), (2^13, 5): K1a with 1, 2, 4 limbs, K1b,
@@ -288,7 +297,10 @@ failure:
                the polymul of every native family at (2^14, 8) and the
                per-channel route's at 1024; the direct 32-bit kernels at
                2^16 (and K2 at 2^17), K2h and K1 with block tables at 2^16,
-               K1e beside K1b, K5 with four limbs; K4 at (2^14, 16) and
+               K1e beside K1b (and at (2^14, 8, 5), (2^14, 16, 2) their
+               device ms, torch._int_mm, bound and share of it), K2h at
+               (2^16 | 2^17, 16 | 1) likewise, K5 with four limbs; K4 at
+               (2^14, 16) and
                (2^16, 16) with a prime below 2^26 (device time too); K2 and K1a / K1d direct
                beside the 32-bit hybrid at 2^15, 2^16 and 2^17, in turns, with
                the hybrid's split; the polymuls above 2^15. Each row of a
@@ -455,9 +467,16 @@ N16, N17 = 1 << 16, 1 << 17
 # the main paths' shapes (B = 8 for the channel grid, 16 for K2) and a ragged and a small batch
 K1_BIG_SHAPES = ((N16, 8), (N16, 3), (N17, 8), (N17, 2))
 K2_BIG_SHAPES = ((N16, 16), (N16, 3), (N17, 16), (N17, 2))
-HYB32_SHAPES = ((1 << 15, 16), (N16, 16), (N17, 4))
+# K2 with block tables: (n, B) per regime (its tile codes from k2h_tiles), and
+# the shapes where every pair of tile codes is forced
+HYB32_SHAPES = ((1 << 15, 16), (N16, 1), (N16, 16), (N17, 1), (N17, 16))
+K2H_FORCED = ((N16, 1), (N16, 16))
 K1H_SHAPES = ((1 << 15, 8), (N16, 8))
-K1E_SHAPES = ((1 << 14, 8), (1 << 11, 3), (N16, 2))
+# K1e: (n, B, C), its codes from k1_tile on C channels; every code pair forced
+# at K1E_FORCED
+K1E_SHAPES = ((1 << 11, 3, 5), (N16, 2, 5)) + tuple(
+    (1 << 14, b, c) for b in (1, 8, 16) for c in (2, 3, 5, 10))
+K1E_FORCED = ((1 << 14, 8, 5), (1 << 14, 1, 2))
 W464_SHAPES = ((1 << 14, 16), (1 << 11, 3))
 # the eight instances of the 64-bit pass: at 2^11 B = 3 leaves ragged row
 # tiles (96 and 192 rows); at 2^14 the main paths' contraction
@@ -1344,9 +1363,11 @@ def main() -> int:
             want = {k for k in built if k.endswith("/tile 1")}
             require(len(want) == 16, f"build: {os.path.basename(so)}: {len(want)} of the 16 "
                                      "64-row instances of the 64-bit pass built")
-        # K1c / K1d's tile instances: all built
+        # K1c / K1d's tile instances and K1e's presplit pass on codes 0-2: all built
         if os.path.basename(so).startswith("mxu32_multi"):
             want = {f"4/lt30/{form}/tile {t}" for form, t in K1_TILED}
+            want |= {"4/lt30/scaled+presplit"} | {f"4/lt30/scaled+presplit/tile {t}"
+                                                  for t in (1, 2)}
             require(want <= set(built), f"build: {os.path.basename(so)}: K1c / K1d's tile "
                                         f"instances {sorted(want - set(built))} missing")
         k4 = [e for e in ptxas_entries(log) if "ntt_k4" in e[0]]
@@ -1871,11 +1892,19 @@ def main() -> int:
           f"{K2_BIG_SHAPES}, p in {tuple(BIG32.values())}, in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # the 32-bit hybrid's block tables: K2 per regime, K1b / K1c / K1d over three
+    # the 32-bit hybrid's block tables: K2 per regime (a generic prime with four
+    # digit planes besides BIG32's three), its tile codes from k2h_tiles and,
+    # at K2H_FORCED, every pair of codes forced; K1b / K1c / K1d over three
     # channel primes; and each whole hybrid against the direct kernel at the same n
     t0 = time.perf_counter()
     hyb32_build = []
-    for rname, p in BIG32.items():
+    HYB32 = {"lt30": BIG32["lt30"], "lt31": BIG32["lt31"],
+             "generic4": prime_in_ap(1 << 18, 1, 1 << 31, 3 << 30), "generic5": BIG32["generic"]}
+    require([mxu32._n_dplanes32(q) for q in HYB32.values()] == [4, 4, 4, 5],
+            f"parity: the hybrid's regime primes {HYB32} take other plane counts")
+    mxu32_cuda.TILE_LAUNCHES.clear()
+    rule_k2h, k2h_picked, k2h_forced = mxu32_cuda.k2h_tiles, set(), 0
+    for rname, p in HYB32.items():
         for n, b in HYB32_SHAPES:
             t1 = time.perf_counter()  # the host build: operators, block proof, digit planes
             stagesplit._dev32(n, p, N_H)
@@ -1883,19 +1912,41 @@ def main() -> int:
             x = u32((b, n))
             s = scale32(n, p)
             kw = dict(n=n, p=p, n_h=N_H)
-            what = f"p={p} n={n} B={b}"
-            compare("fwd_hyb", mxu32_cuda.fwd_hyb(x, **kw), mxu32_cuda.fwd_hyb_plain(x, **kw), what)
-            compare("inv_hyb", mxu32_cuda.inv_hyb(x, scale=s, **kw),
-                    mxu32_cuda.inv_hyb_plain(x, scale=s, **kw), what + " scaled")
+            what = f"p={p} ({rname}) n={n} B={b}"
+            calls = {"fwd_hyb": lambda: mxu32_cuda.fwd_hyb(x, **kw),
+                     "inv_hyb": lambda: mxu32_cuda.inv_hyb(x, scale=s, **kw)}
+            want = {"fwd_hyb": calls["fwd_hyb"](), "inv_hyb": calls["inv_hyb"]()}
+            compare("fwd_hyb", want["fwd_hyb"], mxu32_cuda.fwd_hyb_plain(x, **kw), what)
+            compare("inv_hyb", want["inv_hyb"], mxu32_cuda.inv_hyb_plain(x, scale=s, **kw),
+                    what + " scaled")
             compare("fwd_hyb", stagesplit.engine32_fused.fwd(x, n=n, p=p),
                     mxu32_cuda.fwd(x, n=n, p=p), what + " hybrid vs direct K2")
             compare("inv_hyb", stagesplit.engine32_fused.inv(x, n=n, p=p, scale=s),
                     mxu32_cuda.inv(x, n=n, p=p, scale=s), what + " scaled hybrid vs direct K2")
+            for d in ("fwd", "inv"):
+                k2h_picked.add(rule_k2h(b, n, N_H, d, mxu32._n_dplanes32(p)))
+            if (n, b) not in K2H_FORCED:
+                continue
+            try:
+                for codes in ((t1, t2) for t1 in range(3) for t2 in range(4)
+                              if t2 < 3 or mxu32._n_dplanes32(p) == 4):
+                    mxu32_cuda.k2h_tiles = lambda *a, codes=codes, **k: codes
+                    for name, call in calls.items():
+                        compare(name, call(), want[name], what + f" tiles {codes} forced")
+                        k2h_forced += 1
+            finally:
+                mxu32_cuda.k2h_tiles = rule_k2h
+    ran = {k[1:3] for k in mxu32_cuda.TILE_LAUNCHES if k[0] in ("fwd_hyb", "inv_hyb")}
+    every = {(t1, t2) for t1 in range(3) for t2 in range(4)}
+    require(every <= ran and k2h_picked <= ran, f"parity: K2h tile codes "
+            f"{sorted((every | k2h_picked) - ran)} never ran")
     print(f"parity: K2 with block tables (K2h) fwd {checks['fwd_hyb']}, inv {checks['inv_hyb']} "
-          f"checks exact at (n, B) in {HYB32_SHAPES}, n_h={N_H}, p in {tuple(BIG32.values())}: "
-          f"against the plain versions, and the whole 32-bit hybrid == direct K2, in "
-          f"{time.perf_counter() - t0:.1f} s; host build of the block tables: "
-          f"{', '.join(hyb32_build)}", flush=True)
+          f"checks exact at (n, B) in {HYB32_SHAPES}, n_h={N_H}, p in {HYB32}: against the "
+          f"plain versions, the whole 32-bit hybrid == direct K2; the rule's codes "
+          f"{sorted(k2h_picked)}, and {k2h_forced} launches with every code pair forced at "
+          f"{K2H_FORCED} == the rule's result; launches by (kernel, codes) "
+          f"{dict(mxu32_cuda.TILE_LAUNCHES)}; in {time.perf_counter() - t0:.1f} s; host build "
+          f"of the block tables: {', '.join(hyb32_build)}", flush=True)
 
     t0 = time.perf_counter()
     for n, b in K1H_SHAPES:
@@ -1931,25 +1982,47 @@ def main() -> int:
           f"versions, and the four channel-grid hybrids == K1a / K1c / K1b / K1d direct, in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    # K1e (the operand as int8 digit planes) == K1b; K5 fwd with four limbs
+    # K1e (the operand as int8 digit planes) == its plain version == K1b, its
+    # codes from k1_tile and, at K1E_FORCED, every pair of codes forced; K5
+    # fwd with four limbs
     t0 = time.perf_counter()
-    for n, b in K1E_SHAPES:
-        pr = PRIMES if n <= 1 << 15 else p5
+    mxu32_cuda.TILE_LAUNCHES.clear()
+    rule_k1e, k1e_picked, k1e_forced = mxu32_cuda._k1e_tiles, set(), 0
+    for n, b, c in K1E_SHAPES:
+        pr = ((PRIMES if c <= 5 else NATIVE128_PRIMES) if n <= 1 << 15 else EXT)[:c]
         scs = tuple(scale32(n, p) for p in pr)
-        x = u32((5, b, n))
+        x = u32((c, b, n))
         xd = mxu32_cuda.digit_planes32(x)
         got = mxu32_cuda.inv_multi_presplit(xd, pr, scs)
-        compare("inv_multi_presplit", got, mxu32_cuda.inv_multi_presplit_plain(xd, pr, scs),
-                f"n={n} B={b}")
-        compare("inv_multi_presplit", got, mxu32_cuda.inv_multi(x, pr, scs),
-                f"n={n} B={b} vs K1b on the values")
+        what = f"n={n} B={b} C={c}"
+        k1e_picked.add(rule_k1e(b, n, c))
+        compare("inv_multi_presplit", got, mxu32_cuda.inv_multi_presplit_plain(xd, pr, scs), what)
+        k1b = mxu32_cuda.inv_multi(x, pr, scs)
+        compare("inv_multi_presplit", got, k1b, what + " vs K1b on the values")
+        if (n, b, c) not in K1E_FORCED:
+            continue
+        try:
+            for codes in ((t1, t2) for t1 in range(3) for t2 in range(4)):
+                mxu32_cuda._k1e_tiles = lambda *a, codes=codes: codes
+                compare("inv_multi_presplit", mxu32_cuda.inv_multi_presplit(xd, pr, scs), k1b,
+                        what + f" tiles {codes} forced vs K1b")
+                k1e_forced += 1
+        finally:
+            mxu32_cuda._k1e_tiles = rule_k1e
+    ran = {k[1:] for k in mxu32_cuda.TILE_LAUNCHES if k[0] == "inv_multi_presplit"}
+    every = {(t1, t2) for t1 in range(3) for t2 in range(4)}
+    require(every <= ran and k1e_picked <= ran,
+            f"parity: K1e tile codes {sorted((every | k1e_picked) - ran)} never ran")
+    k1e_line = (f"K1e inv_multi_presplit {checks['inv_multi_presplit']} checks exact (== its "
+                f"plain version == K1b) at (n, B, C) in {K1E_SHAPES}, the rule's codes "
+                f"{sorted(k1e_picked)}, {k1e_forced} launches with every code pair forced at "
+                f"{K1E_FORCED} == K1b")
     for rname, p in PRIMES64.items():
         for n, b in W464_SHAPES:
             x = tuple(u32((b, n)) for _ in range(4))
             compare_pair("fwd64_u128", mxu64_cuda.fwd(x, n=n, p=p),
                          mxu64_cuda.fwd_plain(x, n=n, p=p), f"p={p} n={n} B={b} 4 limbs")
-    print(f"parity: K1e inv_multi_presplit {checks['inv_multi_presplit']} checks exact (== its "
-          f"plain version == K1b) at (n, B) in {K1E_SHAPES}; K5 fwd with four limbs "
+    print(f"parity: {k1e_line}; K5 fwd with four limbs "
           f"{checks['fwd64_u128']} checks exact at (n, B) in {W464_SHAPES} x five regime primes, "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -3501,6 +3574,39 @@ def main() -> int:
         lambda: mxu32_cuda.digit_planes32(xe)))
     print(f"times: K1b vs K1e n={N_MAIN} B={B_MAIN} C=5: K1b {t_b:.4f} ms, K1e {t_e:.4f} ms, "
           f"digit_planes32 (plain torch) {t_s:.4f} ms (median of {REPS}) | {smi}", flush=True)
+    # K1e beside K1b at (2^14, 8, 5) and (2^14, 16, 2), K2h at 2^16 and 2^17 at B = 16
+    # and 1: device ms and torch._int_mm from the profiler session, bound
+    # and bound share on the lines after it
+    ext_dev, ext_int_mm, ext_rows = {}, {}, {}
+    for c, b in ((5, B_MAIN), (2, 16)):
+        pr, xk = PRIMES[:c], u32((c, b, N_MAIN))
+        xdk = mxu32_cuda.digit_planes32(xk)
+        sck = tuple(scale32(N_MAIN, q) for q in pr)
+        work = fourstep_work("inv", b, n1m, n2m, c, 4, 4, 4, 1, 1, 4)
+        for key, kernel in (
+                (f"K1b n={N_MAIN} B={b} C={c} codes (0, 0)",
+                 lambda xk=xk, pr=pr, sck=sck: mxu32_cuda.inv_multi(xk, pr, sck)),
+                (f"K1e n={N_MAIN} B={b} C={c} codes {mxu32_cuda._k1e_tiles(b, N_MAIN, c)}",
+                 lambda xdk=xdk, pr=pr, sck=sck: mxu32_cuda.inv_multi_presplit(xdk, pr, sck))):
+            ext_rows[key] = (median_ms(kernel), work)
+            dev_times(key, kernel, 2, lambda b=b, c=c: gemm_pairs(dev, "inv", n1m, n2m, b, c, 4),
+                      into=(ext_dev, ext_int_mm))
+    p = BIG32["lt30"]
+    for n in (N16, N17):
+        for b in (B32, 1):
+            xk, sk = u32((b, n)), scale32(n, p)
+            for d, kernel in (
+                    ("fwd", lambda xk=xk, n=n: mxu32_cuda.fwd_hyb(xk, n=n, p=p, n_h=N_H)),
+                    ("inv", lambda xk=xk, n=n, sk=sk: mxu32_cuda.inv_hyb(xk, n=n, p=p, n_h=N_H,
+                                                                          scale=sk))):
+                key = (f"K2h {d} n={n} n_h={N_H} B={b} p={p} (lt30) codes "
+                       f"{mxu32_cuda.k2h_tiles(b, n, N_H, d)}")
+                ext_rows[key] = (median_ms(kernel),
+                                 hybrid_work(d, b, n1m, n2m, n // N_H, 1, 4, 4, 4, 4, limbs=1))
+                dev_times(key, kernel, 2,
+                          lambda b=b, d=d, n=n: gemm_pairs(dev, d, n1m, n2m, b, 1, 4,
+                                                           nb=n // N_H),
+                          into=(ext_dev, ext_int_mm))
 
     # the direct 32-bit kernels beside the 32-bit hybrid at 2^15, 2^16 and 2^17,
     # in turns (direct, hybrid, hybrid, direct); the route stays direct
@@ -3576,6 +3682,13 @@ def main() -> int:
               f"{fmt(int_mm_ms.get(key))}; above 2^15 device {fmt(big_dev.get(key))}, "
               f"torch._int_mm {fmt(big_int_mm.get(key))} (torch.profiler, median of {REPS}) | "
               f"{smi}", flush=True)
+    for key, (t, work_k) in ext_rows.items():
+        bms, by = gemm_bound(*work_k)
+        dv = ext_dev.get(key)
+        share = "not measured" if dv is None else f"{100 * bms / dv:.1f} %"
+        print(f"times: {key}: wrapper {t:.4f} ms, device {fmt(dv)}, torch._int_mm on the same "
+              f"GEMMs {fmt(ext_int_mm.get(key))}, bound {bms:.6f} ms ({by}), device at "
+              f"{share} of the bound (torch.profiler, median of {REPS}) | {smi}", flush=True)
     for (key, n), (label, t, _) in k4_rows.items():
         bms, by = k4_bound(n, B32)
         print(f"times: {key} {label} device {fmt(k4_dev.get((key, n)))}, kernel {t:.4f} ms "

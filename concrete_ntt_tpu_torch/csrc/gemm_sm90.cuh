@@ -47,6 +47,21 @@
 // one layout; the word the digit split takes is pair(l, r) (the Montgomery
 // product), taken where the A fragment is read: each operand word is read
 // by one thread of its warpgroup, once a block.
+//
+// A presplit operand (K1e's first pass, Presplit) is the four int8 digit
+// planes of contiguous rows: the 4 K bytes of a row, plane e at byte e K.
+// It is copied with cp.async as K1b's words are, four 16-byte chunks a
+// thread a stage, one chunk holding 16 bytes of one plane; a row's stage
+// (32 values) lands as [plane][32 bytes] in the [row][kKC + 4] layout, so
+// its chunks sit where K1b's would. The digit word of value v (byte e =
+// plane e's byte v, the xor-128 pattern already) is packed where the A
+// fragment is read: for two k-steps at a time lane t reads the sixteen
+// bytes 16 kp .. + 15 of each plane of its two rows (one 16-byte load
+// each), and three byte permutes (prmt) pick byte t of the four planes'
+// words for value 8 ks + t (+ 4); the two k-steps' products are issued as
+// soon as their registers are packed (a wgmma fence a pair), so two
+// k-steps' plane words are live at a time.
+
 
 #pragma once
 
@@ -90,6 +105,10 @@ __host__ __device__ constexpr int blocks_per_sm(int bytes) {
 
 // The operand of a pass that is one array (or the limbs of one): no pair.
 struct NoPair {};
+// The operand as four int8 digit planes of each row (the header's note).
+struct Presplit {};
+// No per-chunk load: the operand tile is copied with cp.async (kPlain false).
+struct NoLoad {};
 
 inline bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
 
@@ -143,6 +162,12 @@ __device__ __forceinline__ void cp_async_wait_n(int pending) {
 // async proxy that wgmma reads through
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// digit word of byte t of four plane words: byte e = byte t of p[e] (t = 0..3)
+__device__ __forceinline__ uint32_t plane_word(uint32_t p0, uint32_t p1, uint32_t p2,
+                                               uint32_t p3, uint32_t sel) {
+  return __byte_perm(__byte_perm(p0, p1, sel), __byte_perm(p2, p3, sel), 0x5410);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -368,23 +393,25 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[128], const uint32_t (&a)[4], 
 // `a` is the pass descriptor (mxu32::Pass or mxu64::Pass: x[4], n_limbs,
 // k1, s_k, s_r, x_b, rows_per_poly, total_rows), `chan` the element offset
 // of the block's channel and block in the operand. The operand tile is
-// copied with cp.async, or with kPlain (contiguous rows only) stored from
-// load(at, i0, limb): the four words of the 16-byte chunk at element offset
-// `at` of limb `limb`, in the stage that starts at contraction word i0 of
-// the limb, computed or packed on the way. kRows = 128 (two warpgroups) or
-// 64 (one); kResident: a contraction of at most kRing stages is loaded whole
-// up front (the header's note), a longer one runs the ring. With a `pair`
-// (one operand limb, copied with cp.async) the operand word is
-// pair(x[0][i], x[1][i]) (the header's note).
+// copied with cp.async, or with kPlain (contiguous rows only; the 64-bit
+// pointwise pass) stored from load(at, i0, limb): the four words of the
+// 16-byte chunk at element offset `at` of limb `limb`, in the stage that
+// starts at contraction word i0 of the limb, computed on the way. kRows =
+// 128 (two warpgroups) or 64 (one); kResident: a contraction of at most
+// kRing stages is loaded whole up front (the header's note), a longer one
+// runs the ring. With a `pair` (one operand limb, copied with cp.async) the
+// operand word is pair(x[0][i], x[1][i]); with Presplit the operand is the
+// digit planes of contiguous rows (the header's notes).
 template <int kD, int kTO, bool kPlain, int kRows = kTM, int kRing = kStages,
           bool kResident = false, class P, class Load, class Pair = NoPair>
 __device__ __forceinline__ void mainloop(int (&acc)[kD * kTO / 2], const P& a, long long chan,
                                          int row0, const uint32_t* planes, uint32_t* smem,
                                          Load load, Pair pair = Pair{}) {
-  constexpr bool kPair = !std::is_same_v<Pair, NoPair>;
+  constexpr bool kPresplit = std::is_same_v<Pair, Presplit>;
+  constexpr bool kPair = !std::is_same_v<Pair, NoPair> && !kPresplit;
   static_assert(kRows == 64 || kRows == 128, "one or two warpgroups of 64 rows");
   static_assert(kRing >= 2 && kRing <= 8, "a ring of 2 to 8 stages");
-  static_assert(!(kPair && kPlain), "a pair operand is copied with cp.async");
+  static_assert(!((kPair || kPresplit) && kPlain), "pair and presplit operands use cp.async");
   constexpr int kT = threads(kRows);
   constexpr int kAW = a_word(kRows);
   constexpr int kAS = a_stage(kRows);
@@ -404,7 +431,9 @@ __device__ __forceinline__ void mainloop(int (&acc)[kD * kTO / 2], const P& a, l
   // contiguous rows, chunk tid % 8 of row tid / 8 + (kRows / 4) i; strided,
   // rows 4 (tid % kCols) .. + 3 of word tid / kCols + 8 i. x_src is the
   // element offset of the chunk's first value in the stage of contraction
-  // word 0.
+  // word 0; with Presplit the byte offset in the planes of chunk c = tid %
+  // 8: plane c / 2, values 16 (c % 2) .. + 15 (4 bytes an element of the
+  // row's start), landing where K1b's chunk c of the row would.
   int x_dst[4];
   long long x_src[4];
   unsigned x_ok = 0;
@@ -425,7 +454,13 @@ __device__ __forceinline__ void mainloop(int (&acc)[kD * kTO / 2], const P& a, l
     if (m < a.total_rows) {
       const int b = m / a.rows_per_poly;
       const int j = m - b * a.rows_per_poly;
-      x_src[i] = chan + (long long)b * a.x_b + (long long)j * a.s_r + (long long)w * a.s_k;
+      const long long row = chan + (long long)b * a.x_b + (long long)j * a.s_r;
+      if constexpr (kPresplit) {
+        const int c = tid & 7;
+        x_src[i] = 4 * row + (long long)(c >> 1) * a.k1 + 16 * (c & 1);
+      } else {
+        x_src[i] = row + (long long)w * a.s_k;
+      }
       x_ok |= 1u << i;
     }
   }
@@ -442,6 +477,8 @@ __device__ __forceinline__ void mainloop(int (&acc)[kD * kTO / 2], const P& a, l
       if constexpr (kPlain) {
         const uint4 v = ok ? load(x_src[i] + i0, i0, limb) : make_uint4(0u, 0u, 0u, 0u);
         *reinterpret_cast<uint4*>(xd + x_dst[i]) = v;
+      } else if constexpr (kPresplit) {
+        cp_async16(xd + x_dst[i], reinterpret_cast<const uint8_t*>(a.x[0]) + x_src[i] + i0, ok);
       } else {
         cp_async16(xd + x_dst[i], xl + x_src[i] + (long long)i0 * a.s_k, ok);
         if constexpr (kPair)
@@ -465,7 +502,42 @@ __device__ __forceinline__ void mainloop(int (&acc)[kD * kTO / 2], const P& a, l
   // the four k32 steps of ring slot s: A fragments (operand words, digit
   // split; kPair: the pair of the two slots' words) from shared memory,
   // then one wgmma group
+  // Presplit: byte selector of this lane's value in a plane word (byte t of
+  // the first word, of the second) and the lane's row offsets
+  const uint32_t sel = (uint32_t)t | ((uint32_t)(t + 4) << 4);
+  const int p_lane = (wrow + g) * kARow;
   auto products = [&](int s) {
+    if constexpr (kPresplit) {
+      // two k-steps' registers packed, then their products (one fence a
+      // pair): two k-steps' plane words live at a time, the permutes beside
+      // the tensor cores' work. Plane e of rows g, g + 8: words 4 kp .. + 3
+      // (values 16 kp .. + 15: k-steps 2 kp and 2 kp + 1), one 16-byte load
+      // each; the xor-128 pattern already, no digit xor.
+      const uint32_t* pr0 = xs + s * kAS + p_lane;
+#pragma unroll
+      for (int kp = 0; kp < kKC / 16; ++kp) {
+        const uint32_t* pr = pr0 + 4 * kp;
+        uint4 lo[4], hi[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          lo[e] = *reinterpret_cast<const uint4*>(pr + 8 * e);
+          hi[e] = *reinterpret_cast<const uint4*>(pr + 8 * kARow + 8 * e);
+        }
+        const uint32_t af0[4] = {plane_word(lo[0].x, lo[1].x, lo[2].x, lo[3].x, sel),
+                                 plane_word(hi[0].x, hi[1].x, hi[2].x, hi[3].x, sel),
+                                 plane_word(lo[0].y, lo[1].y, lo[2].y, lo[3].y, sel),
+                                 plane_word(hi[0].y, hi[1].y, hi[2].y, hi[3].y, sel)};
+        const uint32_t af1[4] = {plane_word(lo[0].z, lo[1].z, lo[2].z, lo[3].z, sel),
+                                 plane_word(hi[0].z, hi[1].z, hi[2].z, hi[3].z, sel),
+                                 plane_word(lo[0].w, lo[1].w, lo[2].w, lo[3].w, sel),
+                                 plane_word(hi[0].w, hi[1].w, hi[2].w, hi[3].w, sel)};
+        wgmma_fence();
+        wgmma_s8(acc, af0, plane_desc(ps + s * kPS + 64 * (2 * kp)));
+        wgmma_s8(acc, af1, plane_desc(ps + s * kPS + 64 * (2 * kp + 1)));
+      }
+      wgmma_commit();
+      return;
+    }
     const uint32_t* xa = xs + s * kAS + a_lane;
     uint32_t af[kKC / 8][4];
 #pragma unroll

@@ -67,8 +67,8 @@
 // K2's entries pick a smaller tile where one channel's grid is small (Tile
 // below): 64 rows (one warpgroup) x 16 outputs (m64n(16 kD)k32, 32 or 40
 // accumulators), with a contraction of up to four stages held whole; K1c /
-// K1d's entries take that tile, K1's, K1's holding four stages whole, or
-// 128 rows x 64 outputs (m64n256k32).
+// K1d / K1e's entries and K2's with block tables take that tile, K1's,
+// K1's holding four stages whole, or 128 rows x 64 outputs (m64n256k32).
 //
 // The z axis is channel * nb + block. nb = 1 is a direct transform. With the
 // 32-bit stage-split hybrid's block tables (ops/stagesplit.py) a transform of
@@ -82,8 +82,9 @@
 //
 // kPresplit (K1e's first pass): the operand arrives as the int8 digit planes
 // of ops/mxu32_cuda.py digit_planes32, [.., rows, 4 * K] bytes, plane-major in
-// the last axis; the four plane bytes of a value are the xor-128 pattern
-// already, so they are packed into the digit word as they are.
+// the last axis. They are copied with cp.async into K1b's ring and packed into
+// digit words where the A fragment is read (gemm_sm90.cuh's Presplit): the
+// four plane bytes of a value are the xor-128 pattern already, so no xor.
 
 #pragma once
 
@@ -97,16 +98,17 @@ namespace mxu32 {
 using sm90::kKC;
 
 // The tiles of a pass, by the code the host passes (ops/mxu32_cuda.py
-// k2_tile, k1_tile): rows and outputs a block, ring stages, and whether a
-// short contraction is held whole (gemm_sm90.cuh's note). Code 0 is K1's,
-// K3's and the block tables' (and K2's where its grid reaches 128 blocks:
-// 2^15 and up at B = 16); code 1 is K2's for one channel's small grids, 64
-// rows x 16 outputs a block (N = 16 kD), and K1c / K1d's where their grid
-// is small. Codes 2 and 3 are K1c / K1d's only: code 2 is K1's 128 x 32
-// holding a contraction of up to four stages whole; code 3 is 128 rows x 64
-// outputs (N = 256, 128 accumulators a thread) on K1's ring of three, which
-// copies each operand tile once for twice K1's outputs (150 KiB, 204 KiB
-// with K1d's pair: one block an SM).
+// k2_tile, k1_tile, k2h_tiles): rows and outputs a block, ring stages, and
+// whether a short contraction is held whole (gemm_sm90.cuh's note). Code 0
+// is K1's and K3's (and K2's where its grid reaches 128 blocks: 2^15 and up
+// at B = 16); code 1 is K2's for one channel's small grids, 64 rows x 16
+// outputs a block (N = 16 kD), and the channel grids' and the block
+// tables' where their grid is small. Codes 2 and 3 serve those grids
+// (K1c / K1d / K1e, K3's channel grid, K2 with block tables): code 2 is
+// K1's 128 x 32 holding a contraction of up to four stages whole; code 3 is
+// 128 rows x 64 outputs (N = 256, 128 accumulators a thread) on K1's ring
+// of three, which copies each operand tile once for twice K1's outputs
+// (150 KiB, 204 KiB with K1d's pair: one block an SM).
 struct Tile {
   int rows, outs, ring;
   bool resident;
@@ -226,8 +228,8 @@ struct MontPair {
 // mont_mul(x[0][i], x[1][i]) of two operands read at the same index (both
 // any u32, one limb each), both copied with cp.async and multiplied where
 // the A fragment is read (gemm_sm90.cuh's note), before the digit split.
-// kPresplit loads its operand tile with plain loads and stores (the value
-// is packed on the way); every other pass copies it with cp.async.
+// kPresplit copies the digit planes with cp.async and packs the digit words
+// where the A fragment is read; every pass copies its operand with cp.async.
 template <int kD, int kRegime, bool kScaled, bool kPointwise = false, bool kPresplit = false,
           int kTile = 0>
 __global__ void __launch_bounds__(sm90::threads(tile(kTile).rows),
@@ -251,29 +253,17 @@ __global__ void __launch_bounds__(sm90::threads(tile(kTile).rows),
   const uint32_t* planes = reinterpret_cast<const uint32_t*>(a.planes) +
                            ((size_t)pz * (a.o / kTO) + blockIdx.y) * nk * plane_stage(kD, kTile);
   const long long chan = (long long)c * a.x_chan + (long long)blk * a.x_blk;
-  // the operand chunk at `at` of the presplit pass: value i0 + w + u of the
-  // row that starts at element at - i0 - w has its digit e at byte 4 * (row
-  // start) + e * k1 + (i0 + w + u) of the plane array; the bytes are the
-  // xor-128 pattern already, so undo the xor the fragment read applies
-  auto load = [&](long long at, int i0, int) {
-    const int w = 4 * (threadIdx.x & 7);
-    const uint8_t* xb = reinterpret_cast<const uint8_t*>(a.x[0]) + 4 * (at - i0 - w) + i0 + w;
-    uint32_t u[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      u[e] = ((uint32_t)xb[e] | ((uint32_t)xb[a.k1 + e] << 8) |
-              ((uint32_t)xb[2 * a.k1 + e] << 16) | ((uint32_t)xb[3 * a.k1 + e] << 24)) ^
-             sm90::kDigitXor;
-    return make_uint4(u[0], u[1], u[2], u[3]);
-  };
   int acc[kD * kTO / 2];  // the warpgroup's m64 x (kD * kTO) int32 tile, this thread's part
   if constexpr (kPointwise) {
     const MontPair pair{a.scal[kScalWords * c], a.scal[kScalWords * c + 3]};
-    sm90::mainloop<kD, kTO, false, kTM, kT.ring, kT.resident>(acc, a, chan, row0, planes, smem,
-                                                              load, pair);
+    sm90::mainloop<kD, kTO, false, kTM, kT.ring, kT.resident>(
+        acc, a, chan, row0, planes, smem, sm90::NoLoad{}, pair);
+  } else if constexpr (kPresplit) {
+    sm90::mainloop<kD, kTO, false, kTM, kT.ring, kT.resident>(
+        acc, a, chan, row0, planes, smem, sm90::NoLoad{}, sm90::Presplit{});
   } else {
-    sm90::mainloop<kD, kTO, kPresplit, kTM, kT.ring, kT.resident>(acc, a, chan, row0, planes,
-                                                                 smem, load);
+    sm90::mainloop<kD, kTO, false, kTM, kT.ring, kT.resident>(
+        acc, a, chan, row0, planes, smem, sm90::NoLoad{});
   }
 
   const uint32_t* sc = a.scal + kScalWords * c;
@@ -356,8 +346,7 @@ __global__ void __launch_bounds__(sm90::threads(tile(kTile).rows),
 // chunks of 16 aligned bytes in one of the two memory orders (contiguous
 // rows only for the pointwise and presplit first passes), aligned plane rows,
 // and aligned output pairs where the outputs of a row are contiguous. n_x
-// operand pointers are read 16 bytes at a time (the presplit planes byte by
-// byte: none).
+// operand pointers are read 16 bytes at a time (the presplit planes: one).
 inline bool tiles_fit(const Pass& a, bool rows_only, int n_x, int outs) {
   if (a.k1 % kKC || a.o % outs || a.total_rows <= 0) return false;
   if (a.s_k == 1 ? a.s_r % 4 != 0
@@ -379,7 +368,7 @@ template <int kD, int kRegime, bool kScaled, bool kPointwise = false, bool kPres
           int kTile = 0>
 static cudaError_t launch(const Pass& a, int channels, cudaStream_t stream) {
   constexpr Tile kT = tile(kTile);
-  if (!tiles_fit(a, kPointwise || kPresplit, kPresplit ? 0 : kPointwise ? 2 : a.n_limbs, kT.outs))
+  if (!tiles_fit(a, kPointwise || kPresplit, kPresplit ? 1 : kPointwise ? 2 : a.n_limbs, kT.outs))
     return cudaErrorInvalidValue;
   auto kernel = matmod_pass<kD, kRegime, kScaled, kPointwise, kPresplit, kTile>;
   constexpr int smem = smem_bytes(kD, kTile, kPointwise);

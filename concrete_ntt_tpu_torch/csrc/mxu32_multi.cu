@@ -36,9 +36,12 @@
 //        feeds mont_mul(fl, fr) (REDC for any u32 operands, its u32 overflow
 //        kept) into the digit split; n^-1 * 2^32 is folded into A_inv.
 //   K1e: K1b whose operand is [C][B][n1][4 * n2] int8 digit planes: the first
-//        pass packs the four plane bytes of a value into its digit word and
-//        skips the xor. On this card the in-kernel split is that one xor, so
-//        K1e saves nothing; it is ported because the reference has it.
+//        pass copies the planes with cp.async into K1b's ring (the same bytes:
+//        four 16-byte runs, one a plane, a 16-value chunk) and packs the four
+//        plane bytes of a value into its digit word with byte permutes where
+//        the A fragment is read, no xor. On this card the in-kernel split is
+//        one xor, so K1e saves nothing; it is ported because the reference
+//        has it.
 //
 // Design. Each product is one launch of matmod_pass (matmod_pass.cuh, shared
 // with K2/K3): a tiled int8 tensor-core GEMM (wgmma m64nNk32, s8 x s8 ->
@@ -65,8 +68,10 @@
 // flight (2: 136 KiB, 208 KiB with the pair), or 128 rows x 64 outputs on
 // K1's ring (3: 150 KiB, 204 KiB with the pair; not K1c's scaled first
 // pass), which copies each operand tile, and K1d's pair, once for twice the
-// outputs. K1a / K1b / K1e keep K1's instances (tile 0) and take no code;
-// K2 / K3 keep theirs.
+// outputs. K1e takes codes the same way (k1_tile on C channels: "scaled"
+// for the presplit first pass, codes 0-2, "canonical" for the second): at
+// B = 1 over two channels K1's tile gave 8 blocks a pass on 132 SMs. K1a /
+// K1b keep K1's instances (tile 0) and take no code; K2 / K3 keep theirs.
 //
 // Bound at n = 2^14, B = 8, five channels: K1a (two limbs) is 4.0e9 int8
 // MACs (K1b 2.7e9) against about 12 MiB moved (operand, scratch written and
@@ -91,24 +96,24 @@ using mxu32::Pass;
 
 namespace {
 
-// K1c / K1d's passes on the tile of code `tile` (matmod_pass.cuh Tile; the
-// host's mxu32_cuda.k1_tile): code 0 on K1a / K1b's instances, codes 1 and
-// 2, and code 3 (64 outputs) for the canonical second passes and K1d's
-// pointwise first pass; no code 0 for the pointwise pass, no code 3 for
-// K1c's scaled first pass
-template <bool kScaled, bool kPointwise = false>
+// K1c / K1d / K1e's passes on the tile of code `tile` (matmod_pass.cuh
+// Tile; the host's mxu32_cuda.k1_tile): code 0 on K1a / K1b's instances (and
+// K1e's presplit instance), codes 1 and 2, and code 3 (64 outputs) for the
+// canonical second passes and K1d's pointwise first pass; no code 0 for the
+// pointwise pass, no code 3 for the scaled first passes (K1c's, K1e's)
+template <bool kScaled, bool kPointwise = false, bool kPresplit = false>
 cudaError_t launch_k1(const Pass& a, int channels, int tile, cudaStream_t s) {
   switch (tile) {
     case 0:
-      if constexpr (!kPointwise) return launch<4, kLt30, kScaled>(a, channels, s);
+      if constexpr (!kPointwise) return launch<4, kLt30, kScaled, false, kPresplit>(a, channels, s);
       break;
     case 1:
-      return launch<4, kLt30, kScaled, kPointwise, false, 1>(a, channels, s);
+      return launch<4, kLt30, kScaled, kPointwise, kPresplit, 1>(a, channels, s);
     case 2:
-      return launch<4, kLt30, kScaled, kPointwise, false, 2>(a, channels, s);
+      return launch<4, kLt30, kScaled, kPointwise, kPresplit, 2>(a, channels, s);
     case 3:
       if constexpr (kPointwise || !kScaled)
-        return launch<4, kLt30, kScaled, kPointwise, false, 3>(a, channels, s);
+        return launch<4, kLt30, kScaled, kPointwise, kPresplit, 3>(a, channels, s);
       break;
   }
   return cudaErrorInvalidValue;
@@ -149,20 +154,22 @@ extern "C" int k1b_inv_multi(const void* x, int batch, int n1, int n2, int nb, i
   return (int)launch<4, kLt30, false>(col, channels, s);
 }
 
-// K1e: xd [C, B, n1, 4 * n2] int8 digit planes of K1b's operand -> out [C, B, n]
-// canonical, standard order: the bits of K1b on the values the planes hold.
+// K1e: xd [C, B, n1, 4 * n2] int8 digit planes of K1b's operand (16-byte
+// aligned) -> out [C, B, n] canonical, standard order: the bits of K1b on the
+// values the planes hold. tile1, tile2: the tile codes of the row and the
+// column pass.
 extern "C" int k1e_inv_multi_presplit(const void* xd, int batch, int n1, int n2, int channels,
-                                      const void* planes1, const void* cvec1,
-                                      const void* planes2, const void* cvec2, const void* diag,
-                                      const void* scal, void* scratch, void* out,
-                                      void* stream) {
+                                      int tile1, int tile2, const void* planes1,
+                                      const void* cvec1, const void* planes2, const void* cvec2,
+                                      const void* diag, const void* scal, void* scratch,
+                                      void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   Pass row, col;
   mxu32::inv_passes(&row, &col, xd, batch, n1, n2, 1, planes1, cvec1, planes2, cvec2, diag,
                     scal, scratch, out);
-  cudaError_t e = launch<4, kLt30, true, false, true>(row, channels, s);
+  cudaError_t e = launch_k1<true, false, true>(row, channels, tile1, s);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch<4, kLt30, false>(col, channels, s);
+  return (int)launch_k1<false>(col, channels, tile2, s);
 }
 
 // K1c: x0 (, x1) [C, B, nb * n] u32 limbs, one operand per channel (any values)

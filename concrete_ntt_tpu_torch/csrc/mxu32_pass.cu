@@ -53,8 +53,23 @@
 // device time by torch.profiler; PERF.md §6): 64 x 16 was the
 // fastest from 2^11 to 2^13, no slower than any other tile at 2^14, and at
 // 2^15 and above K1's tile beat it (more blocks re-read each operand tile
-// more often). K2 with block tables (nb > 1) and k3_pass keep tile 0;
-// k3_pass_multi takes a tile code a launch (below).
+// more often). k3_pass keeps tile 0; k3_pass_multi takes a tile code a
+// launch (below).
+//
+// K2 with block tables (nb > 1, the 32-bit hybrid's blocks of n_h = 2^14 at
+// n = 2^16, 2^17): a pass's grid is B * (outputs / tile outputs) * nb
+// blocks, so with K1's tile at B = 1 it had 16 (2^16) or 32 (2^17) blocks on
+// 132 SMs. Its passes take a tile code each from the grid with the nb blocks
+// counted (ops/mxu32_cuda.py k2h_tiles, set by the sweep of
+// tools/ab_k1e_k2h.py on one H100: k1_tile over nb grids, with five digit
+// planes K1's tile holding the contraction whole in place of its ring, and
+// 128 x 64 for a canonical pass with four where k1_tile keeps K1's ring),
+// the tables packed for the code's outputs: at B = 1, 64 (2^16) and 128
+// (2^17) blocks of 64 x 16. Every block of the pass whose operator the
+// blocks share (F forward, G inverse), and every row tile of an output
+// tile, copies the same plane tiles from L2; a cluster of CTAs taking them
+// through one multicast bulk copy a stage was measured slower at every
+// shape and code (PERF.md section 6) and is not kept.
 //
 // Host work of a launch: the wrapper builds the fixed arguments (tables,
 // shape, tiles) once per table set and batch as a K2Args record and passes
@@ -91,9 +106,9 @@ cudaError_t launch_tile(const Pass& a, int n_d, int regime, int channels, cudaSt
   }
 }
 
-// K2 and K3 take tiles 0 and 1; k3_pass_multi takes every code that
-// ops/mxu32_cuda.py k1_tile picks, which gives the 128 x 64 tile (code 3)
-// to canonical passes with four digit planes only
+// K2 takes tiles 0 and 1, K2 with block tables and k3_pass_multi every code
+// that ops/mxu32_cuda.py k1_tile picks, which gives the 128 x 64 tile (code
+// 3) to canonical passes with four digit planes only
 template <bool kScaled>
 cudaError_t launch_any(const Pass& a, int n_d, int regime, int tile, cudaStream_t s,
                        int channels = 1) {

@@ -22,10 +22,14 @@ Counterpart of `concrete_ntt_tpu/ops/mxu32_pallas.py`:
     `pointwise=True` inv (:637); the product plan's fused polymul.
   * K1e `inv_multi_presplit`: K1b whose operand arrives as the int8 digit
     planes of `digit_planes32` ([C, B, n1, 4 * n2], plain torch), the
-    JAX function's `presplit=True` (:331-336, :614). The first pass packs the
-    four plane bytes of a value into its digit word instead of xoring the
-    u32; the result is K1b's bit for bit. No route takes it (off in the
-    reference's 'auto' too): on this card the in-kernel split is one xor.
+    JAX function's `presplit=True` (:331-336, :614). The first pass copies
+    the planes with cp.async into K1b's ring (K1b's bytes) and packs the
+    four plane bytes of a value into its digit word where the A fragment is
+    read instead of xoring the u32; the result is K1b's bit for bit. Its
+    passes take tile codes as K1c's (`_k1e_tiles`: `k1_tile` on C channels;
+    launches also counted in `TILE_LAUNCHES`). No route takes it (off in
+    the reference's 'auto' too): on this card the in-kernel split is one
+    xor.
   * K2 `fwd` / `fwd_wide` / `inv(scale)`: the whole four-step transform of
     one prime, [B, n] -> [B, n]. Replaces `_build_call` (kernel :72-107).
     `passes_engine` (fwd / fwd_wide / inv) names the same functions: the
@@ -41,9 +45,12 @@ Counterpart of `concrete_ntt_tpu/ops/mxu32_pallas.py`:
     A_inv,b times the scale per block; F, G shared). The TPU launches one
     kernel a block on slices and concatenates; here the block is a grid
     axis (z = channel * nb + block): one launch pair transforms all blocks
-    in place in the [.., B, n] arrays. No route of `ntt_dispatch` takes the
-    32-bit hybrid (as the reference's 'auto'); `stagesplit.engine32_fused`
-    and the four `*_hybrid32` functions call these.
+    in place in the [.., B, n] arrays. K2's passes take a tile code each
+    from the grid with the nb blocks counted (`k2h_tiles`), the block
+    tables packed for it (launches also counted in `TILE_LAUNCHES`). No
+    route of `ntt_dispatch` takes the 32-bit hybrid (as the reference's
+    'auto'); `stagesplit.engine32_fused` and the four `*_hybrid32`
+    functions call these.
   * K3 `pass_matmod`: one exact modular GEMM pass [B, rows, K] -> [B, rows,
     O] (which in A, F, G, Ainv; scaled-lazy epilogue by rank-local diagonal
     slices, or canonical), the one-to-one twin of the JAX `pass_matmod`
@@ -125,9 +132,9 @@ LAUNCHES = {"fwd_wide_multi": 0, "inv_multi": 0, "fwd_multi_perchannel": 0,
             "pass_matmod_multi": 0, "pass_matmod_multi_u128": 0,
             "fwd_hyb": 0, "inv_hyb": 0, "inv_multi_hyb": 0, "fwd_multi_perchannel_hyb": 0,
             "pointwise_inv_multi_hyb": 0, "inv_multi_presplit": 0}
-# K1c / K1d launches by (LAUNCHES name, tile code of the first pass, of the
-# second), K3's channel grid by (name, tile code): which of their pass
-# instances ran (`k1_tile`)
+# K1c / K1d / K1e launches and K2's with block tables by (LAUNCHES name, tile
+# code of the first pass, of the second), K3's channel grid by (name, tile
+# code): which of their pass instances ran (`k1_tile`, `k2h_tiles`)
 TILE_LAUNCHES: dict = {}
 
 MIN_N, MAX_N = 1 << 11, 1 << 17
@@ -319,7 +326,7 @@ _TILE_O, _STAGE_K = 32, 32
 # too), then K1c / K1d's own: K1's 128 x 32 holding a short contraction
 # whole, and 128 x 64 on K1's ring
 TILES = ((128, 32), (64, 16), (128, 32), (128, 64))
-K2_CODES = (0, 1)  # the codes K2's entries take
+K2_CODES = (0, 1)  # the codes K2's entries take (with block tables: all four)
 _FILL = 128  # blocks a K2 pass aims for: about one on each of the H100's 132 SMs
 _SMS = 132   # the H100's streaming multiprocessors
 _RESIDENT = 4  # ring stages tile 2 holds whole (csrc/matmod_pass.cuh `tile`)
@@ -365,19 +372,54 @@ def k1_tile(rows: int, outs: int, grids: int, stages: int, kind: str = "canonica
     return 3 if kind == "canonical" and fits else 0
 
 
-def _k1_tiles(b: int, n: int, grids: int, n_limbs: int, direction: str) -> tuple:
+def _k1_tiles(b: int, n: int, grids: int, n_limbs: int, direction: str,
+              first: str = "pair", n_d: int = 4) -> tuple:
     """Tile codes of K1c's (fwd) or K1d's (inv) two passes in launch order,
     for transforms (blocks) of size n over `grids` channels x blocks: the
     column pass (B·n2 rows, n1 outputs, n_limbs·n1 contraction words) then
     the row pass (B·n1 rows, n2 outputs, n2 words) forward, the other
-    order inverse."""
+    order inverse. `first`: the kind of the inverse's first pass ("pair"
+    for K1d, "scaled" for K1e and K2 with block tables); `n_d`: matrix
+    digit planes."""
     n1, n2 = mxu32.four_step_factors(n)
     col_rows, col_stages = b * n2, n_limbs * n1 // _STAGE_K
     if direction == "fwd":
-        return (k1_tile(col_rows, n1, grids, col_stages, "scaled"),
-                k1_tile(b * n1, n2, grids, n2 // _STAGE_K))
-    return (k1_tile(b * n1, n2, grids, n2 // _STAGE_K, "pair"),
-            k1_tile(col_rows, n1, grids, col_stages))
+        return (k1_tile(col_rows, n1, grids, col_stages, "scaled", n_d),
+                k1_tile(b * n1, n2, grids, n2 // _STAGE_K, "canonical", n_d))
+    return (k1_tile(b * n1, n2, grids, n2 // _STAGE_K, first, n_d),
+            k1_tile(col_rows, n1, grids, col_stages, "canonical", n_d))
+
+
+def _k1e_tiles(b: int, n: int, channels: int) -> tuple:
+    """Tile codes of K1e's two passes: `k1_tile` on C channels, "scaled"
+    for the presplit row pass (codes 0-2), "canonical" for the column pass,
+    as K1c's."""
+    return _k1_tiles(b, n, channels, 1, "inv", "scaled")
+
+
+def k2h_tiles(b: int, n: int, n_h: int, direction: str, n_d: int = 4) -> tuple:
+    """Tile codes of K2's two passes with block tables (launch order) for a
+    batch of b polynomials of size n cut into n // n_h blocks of size n_h:
+    `k1_tile` over the nb = n // n_h grids of one channel, "scaled" for the
+    first pass, "canonical" for the second, but where it keeps K1's ring
+    (code 0): with five matrix digit planes K1's tile holding a contraction
+    of up to four stages whole (code 2; either is one block an SM), with
+    four 128 x 64 for the canonical pass (code 3). tools/ab_k1e_k2h.py
+    --sweep forced every code at the hybrid's shapes on one H100 and set
+    the rule (PERF.md section 6)."""
+    n1, n2 = mxu32.four_step_factors(n_h)
+    stages = ((n1 if direction == "fwd" else n2) // _STAGE_K,
+              (n2 if direction == "fwd" else n1) // _STAGE_K)
+    outs = (n1, n2) if direction == "fwd" else (n2, n1)
+    codes = _k1_tiles(b, n_h, n // n_h, 1, direction, "scaled", n_d)
+    out = []
+    for code, st, o, kind in zip(codes, stages, outs, ("scaled", "canonical")):
+        if code == 0 and n_d == 5 and st <= _RESIDENT:
+            code = 2
+        elif code == 0 and n_d == 4 and kind == "canonical" and o % TILES[3][1] == 0:
+            code = 3
+        out.append(code)
+    return tuple(out)
 
 
 def pack_planes_kmajor(planes: np.ndarray, k: int, n_d: int, tile_o: int = _TILE_O) -> np.ndarray:
@@ -439,21 +481,25 @@ def _kernel_tables(n: int, primes: tuple, n_limbs: int, scales: tuple,
 
 
 @lru_cache(maxsize=32)
-def _hyb_tables(n: int, p: int, n_h: int, scale: int, direction: str, device: str):
+def _hyb_tables(n: int, p: int, n_h: int, scale: int, direction: str, device: str,
+                outs: tuple = (_TILE_O, _TILE_O)):
     """K2's block tables for one direction of the hybrid of (n, p, n_h): the
     per-block pass (A_b forward, A_inv,b times the scale inverse) and the
     per-block diagonal stacked over the block, the shared pass (F, G) and the
-    scalar record once."""
+    scalar record once; each pass's planes packed for tiles of `outs`
+    outputs (in launch order: per-block then shared forward, shared then
+    per-block inverse)."""
     blocks, a, ainv = _block_mats(n_h, p, 1, scale, n)
     n1, n2 = mxu32.four_step_factors(n_h)  # the column operators contract n1, the row ones n2
     per_block, shared, diag = (a, blocks[0]["F"], "d") if direction == "fwd" else (
         ainv, blocks[0]["G"], "e")
     n_d = shared[1].shape[0]
+    o_blk, o_sh = outs if direction == "fwd" else outs[::-1]
     return {
-        "planes_blk": _to_dev(pack_planes_kmajor(np.stack([m[0] for m in per_block]), n1, n_d),
-                              device),
+        "planes_blk": _to_dev(pack_planes_kmajor(np.stack([m[0] for m in per_block]), n1, n_d,
+                                                 o_blk), device),
         "cvec_blk": _to_dev(np.stack([m[1] for m in per_block]), device),
-        "planes_sh": _to_dev(pack_planes_kmajor(shared[0][None], n2, n_d), device),
+        "planes_sh": _to_dev(pack_planes_kmajor(shared[0][None], n2, n_d, o_sh), device),
         "cvec_sh": _to_dev(shared[1], device),
         "diag": _to_dev(np.stack([np.stack(t[diag]) for t in blocks]), device),  # [nb, 4|2, R, O]
         "scal": _to_dev(scalar_record(p).view(np.int32), device),
@@ -765,7 +811,7 @@ def _lib() -> ctypes.CDLL:
         lib.k1a_fwd_wide_multi.restype = ctypes.c_int
         lib.k1b_inv_multi.argtypes = [_P, _I, _I, _I, _I, _I, *[_P] * 9]
         lib.k1b_inv_multi.restype = ctypes.c_int
-        lib.k1e_inv_multi_presplit.argtypes = [_P, _I, _I, _I, _I, *[_P] * 9]
+        lib.k1e_inv_multi_presplit.argtypes = [_P, *[_I] * 6, *[_P] * 9]
         lib.k1e_inv_multi_presplit.restype = ctypes.c_int
         lib.k1c_fwd_multi_perchannel.argtypes = [_P, _P, *[_I] * 8, *[_P] * 9]
         lib.k1c_fwd_multi_perchannel.restype = ctypes.c_int
@@ -929,13 +975,16 @@ def inv_multi_presplit(xd: torch.Tensor, primes: tuple, scales: tuple) -> torch.
         return inv_multi_presplit_plain(xd, primes, scales)
     check_range(n, primes)
     dev = xd.device
-    tabs = _kernel_tables(n, primes, 1, scales, "inv", str(dev))
+    tiles = _k1e_tiles(b, n, c)
+    tabs = _kernel_tables(n, primes, 1, scales, "inv", str(dev), None, _tile_outs(tiles))
     out = torch.empty((c, b, n), dtype=torch.uint32, device=dev)
     scratch = torch.empty_like(out)
     ptrs = _ptrs16(xd, tabs["planes1"], tabs["cvec1"], tabs["planes2"],
-                   tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
-    err = _call(dev, _lib().k1e_inv_multi_presplit, ptrs[0], b, n1, four_n2 // 4, c, *ptrs[1:])
-    LAUNCHES["inv_multi_presplit"] += 1
+                   tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out,
+                   names="xd planes1 cvec1 planes2 cvec2 diag scal scratch out")
+    err = _call(dev, _lib().k1e_inv_multi_presplit, ptrs[0], b, n1, four_n2 // 4, c, *tiles,
+                *ptrs[1:])
+    _count_tiles("inv_multi_presplit", tiles)
     if err != 0:
         raise RuntimeError(f"K1e inv_multi_presplit launch failed: CUDA error {err}")
     return out
@@ -1136,32 +1185,35 @@ def inv(x: torch.Tensor, *, n: int, p: int, scale: int = 1) -> torch.Tensor:
 
 
 @lru_cache(maxsize=32)
-def _k2h_launch(n: int, p: int, n_h: int, scale: int, direction: str, device: str, b: int):
-    """K2's fixed launch arguments with block tables (`_hyb_tables`; K1's
-    tile, code 0, for both passes), as `_k2_launch`."""
-    t = _hyb_tables(n, p, n_h, scale, direction, device)
+def _k2h_launch(n: int, p: int, n_h: int, scale: int, direction: str, device: str, b: int,
+                tiles: tuple):
+    """K2's fixed launch arguments with block tables (`_hyb_tables` packed
+    for the tiles of codes `tiles`), as `_k2_launch`."""
+    t = _hyb_tables(n, p, n_h, scale, direction, device, _tile_outs(tiles))
     first, second = ("blk", "sh") if direction == "fwd" else ("sh", "blk")
     tabs = (t["planes_" + first], t["cvec_" + first], t["planes_" + second],
             t["cvec_" + second], t["diag"], t["scal"])
-    return _k2_record(tabs, t["n_d"], p, 1, b, n_h, n // n_h, (0, 0))
+    return _k2_record(tabs, t["n_d"], p, 1, b, n_h, n // n_h, tiles)
 
 
 def _hyb(name: str, x: torch.Tensor, n: int, p: int, n_h: int, scale: int) -> torch.Tensor:
     """Launch K2 with block tables in one direction on a checked CUDA
     operand [B, n]: n // n_h block transforms of size n_h."""
     fwd_dir = name == "fwd_hyb"
+    direction = "fwd" if fwd_dir else "inv"
     b = x.shape[0]
     out = torch.empty_like(x)
     if b == 0:
         return out
-    rec = _k2h_launch(n, p, n_h, scale, "fwd" if fwd_dir else "inv", str(x.device), b)[0]
+    tiles = k2h_tiles(b, n, n_h, direction, mxu32._n_dplanes32(p))
+    rec = _k2h_launch(n, p, n_h, scale, direction, str(x.device), b, tiles)[0]
     scratch = torch.empty_like(x)
     ptrs = (*_ptrs16(x), scratch.data_ptr(), out.data_ptr())
     if fwd_dir:
         err = _call(x.device, _pass_lib().k2_fwd, rec, *_limb_ptrs((x,)), *ptrs[1:])
     else:
         err = _call(x.device, _pass_lib().k2_inv, rec, *ptrs)
-    LAUNCHES[name] += 1
+    _count_tiles(name, tiles)
     if err != 0:
         raise RuntimeError(f"K2 {name} launch failed: CUDA error {err}")
     return out

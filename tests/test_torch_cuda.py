@@ -521,23 +521,49 @@ def test_k2_k3_match_plain_above_2_15_on_card(gen, cuda_device, regime, n, b):
     _same(mxu32_cuda.pass_matmod(xa, **kw), mxu32_cuda.pass_matmod_plain(xa, **kw))
 
 
-@pytest.mark.parametrize("regime", list(BIG32))
-@pytest.mark.parametrize("n,b", [(1 << 15, 3), (1 << 16, 3), (1 << 17, 2)])
+# the hybrid's regimes: BIG32 (its "generic" prime takes five digit planes) and
+# a generic prime with four
+HYB32 = {**BIG32, "generic4": _lp(1 << 18, 1, 1 << 31, 3 << 30)}
+
+
+@pytest.mark.parametrize("regime", list(HYB32))
+@pytest.mark.parametrize("n,b", [(1 << 15, 3), (1 << 16, 3), (1 << 17, 2), (1 << 16, 1),
+                                 (1 << 16, 16), (1 << 17, 1), (1 << 17, 16)])
 def test_k2_block_tables_match_plain_and_direct_on_card(gen, cuda_device, regime, n, b):
-    """K2 with block tables (n_h = 2^14): the block transforms against their
-    plain version, and the whole 32-bit hybrid against the direct kernel at
+    """K2 with block tables (n_h = 2^14): the block transforms on the tile
+    codes `k2h_tiles` picks against their plain version (launches counted
+    under those codes in `TILE_LAUNCHES`), every other pair of codes forced
+    against them, and the whole 32-bit hybrid against the direct kernel at
     the same n on full-range u32 operands."""
-    p, n_h = BIG32[regime], 1 << 14
+    p, n_h = HYB32[regime], 1 << 14
+    n_d = mxu32._n_dplanes32(p)
+    assert n_d == (5 if regime == "generic" else 4)
     x = _u32(gen, (b, n), cuda_device)
     s = _scale32(n, p)
     mxu32_cuda.reset_launch_counts()
-    _same(mxu32_cuda.fwd_hyb(x, n=n, p=p, n_h=n_h), mxu32_cuda.fwd_hyb_plain(x, n=n, p=p, n_h=n_h))
-    _same(mxu32_cuda.inv_hyb(x, n=n, p=p, n_h=n_h, scale=s),
-          mxu32_cuda.inv_hyb_plain(x, n=n, p=p, n_h=n_h, scale=s))
+    fwd = mxu32_cuda.fwd_hyb(x, n=n, p=p, n_h=n_h)
+    inv = mxu32_cuda.inv_hyb(x, n=n, p=p, n_h=n_h, scale=s)
+    _same(fwd, mxu32_cuda.fwd_hyb_plain(x, n=n, p=p, n_h=n_h))
+    _same(inv, mxu32_cuda.inv_hyb_plain(x, n=n, p=p, n_h=n_h, scale=s))
+    rule = {d: mxu32_cuda.k2h_tiles(b, n, n_h, d, n_d) for d in ("fwd", "inv")}
+    assert mxu32_cuda.TILE_LAUNCHES == {("fwd_hyb", *rule["fwd"]): 1,
+                                        ("inv_hyb", *rule["inv"]): 1}
     _same(stagesplit.engine32_fused.fwd(x, n=n, p=p), mxu32_cuda.fwd(x, n=n, p=p))
     _same(stagesplit.engine32_fused.inv(x, n=n, p=p, scale=s), mxu32_cuda.inv(x, n=n, p=p, scale=s))
     assert mxu32_cuda.LAUNCHES == {**dict.fromkeys(mxu32_cuda.LAUNCHES, 0), "fwd_hyb": 2,
                                    "inv_hyb": 2, "fwd": 1, "inv": 1}
+    codes = [(t1, t2) for t1 in range(3) for t2 in range(4) if t2 < 3 or n_d == 4]
+    rule_tiles = mxu32_cuda.k2h_tiles
+    mxu32_cuda.reset_launch_counts()
+    try:
+        for c in codes:
+            mxu32_cuda.k2h_tiles = lambda *a, c=c, **k: c
+            _same(mxu32_cuda.fwd_hyb(x, n=n, p=p, n_h=n_h), fwd)
+            _same(mxu32_cuda.inv_hyb(x, n=n, p=p, n_h=n_h, scale=s), inv)
+    finally:
+        mxu32_cuda.k2h_tiles = rule_tiles
+    assert mxu32_cuda.TILE_LAUNCHES == {(name, *c): 1 for c in codes
+                                        for name in ("fwd_hyb", "inv_hyb")}
 
 
 @pytest.mark.parametrize("n,b", [(1 << 15, 3), (1 << 16, 2)])
@@ -576,20 +602,39 @@ def test_k1_block_tables_match_plain_and_direct_on_card(gen, cuda_device, n, b):
                                    "pointwise_inv_multi": 1}
 
 
-@pytest.mark.parametrize("n,b", [(1 << 11, 3), (1 << 14, 5), (1 << 16, 2)])
-def test_k1e_presplit_matches_k1b_on_card(gen, cuda_device, n, b):
+@pytest.mark.parametrize("n,b,c", [(1 << 11, 3, 5), (1 << 14, 5, 5), (1 << 16, 2, 5),
+                                   (1 << 14, 1, 2), (1 << 14, 8, 5), (1 << 14, 16, 2),
+                                   (1 << 14, 16, 10)])
+def test_k1e_presplit_matches_k1b_on_card(gen, cuda_device, n, b, c):
+    """K1e on the codes `_k1e_tiles` picks (counted under them in
+    `TILE_LAUNCHES`) against its plain version and K1b on the values, then
+    every pair of codes its passes take forced against K1b (n >= 2^12: the
+    second pass's 64-output tile needs n1 % 64 == 0)."""
     from concrete_ntt_tpu_torch.tables import primes32_ext
 
-    primes = (PRIMES if n <= 1 << 15 else primes32_ext())[:5]
+    primes = ((PRIMES if c <= 5 else NATIVE128_PRIMES) if n <= 1 << 15 else primes32_ext())[:c]
     scales = tuple(_scale32(n, p) for p in primes)
-    x = _u32(gen, (5, b, n), cuda_device)
+    x = _u32(gen, (c, b, n), cuda_device)
     xd = mxu32_cuda.digit_planes32(x)
     mxu32_cuda.reset_launch_counts()
     got = mxu32_cuda.inv_multi_presplit(xd, primes, scales)
     assert mxu32_cuda.LAUNCHES == {**dict.fromkeys(mxu32_cuda.LAUNCHES, 0),
                                    "inv_multi_presplit": 1}
+    rule = mxu32_cuda._k1e_tiles(b, n, c)
+    assert mxu32_cuda.TILE_LAUNCHES == {("inv_multi_presplit", *rule): 1}
     _same(got, mxu32_cuda.inv_multi_presplit_plain(xd, primes, scales))
-    _same(got, mxu32_cuda.inv_multi(x, primes, scales))
+    k1b = mxu32_cuda.inv_multi(x, primes, scales)
+    _same(got, k1b)
+    codes = [(t1, t2) for t1 in range(3) for t2 in range(4 if n >= 1 << 12 else 3)]
+    rule_tiles = mxu32_cuda._k1e_tiles
+    mxu32_cuda.reset_launch_counts()
+    try:
+        for codes_ in codes:
+            mxu32_cuda._k1e_tiles = lambda *a, c=codes_: c
+            _same(mxu32_cuda.inv_multi_presplit(xd, primes, scales), k1b)
+    finally:
+        mxu32_cuda._k1e_tiles = rule_tiles
+    assert mxu32_cuda.TILE_LAUNCHES == {("inv_multi_presplit", *t): 1 for t in codes}
 
 
 @pytest.mark.parametrize("instance", list(INSTANCES64))

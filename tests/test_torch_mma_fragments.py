@@ -340,13 +340,24 @@ def test_k1_tile_choice():
     assert tcu._k1_tiles(8, 1 << 14, 3 * 2, 1, "inv") == (3, 3)
     # (rows, outputs) of each code: K1's 128 x 32 but 64 x 16 for code 1
     assert tcu.TILES == ((128, 32), (64, 16), (128, 32), (128, 64))
-    # K1a / K1b / K1e launch K1's instances: no tile argument in their entries
+    # K1a / K1b launch K1's instances: no tile argument in their entries
     src = (Path(tcu.__file__).parent.parent / "csrc" / "mxu32_multi.cu").read_text()
-    for entry in ("k1a_fwd_wide_multi", "k1b_inv_multi", "k1e_inv_multi_presplit"):
+    for entry in ("k1a_fwd_wide_multi", "k1b_inv_multi"):
         body = src[src.index(f'extern "C" int {entry}('):]
         body = body[:body.index("\n}\n")]
         assert "tile" not in body and "launch_k1" not in body, entry
-        assert re.findall(r"launch<4, kLt30, (?:true|false)(?:, false, true)?>\(", body), entry
+        assert re.findall(r"launch<4, kLt30, (?:true|false)>\(", body), entry
+    # K1e takes a code a pass, as K1c: its presplit row pass, then K1b's column pass
+    body = src[src.index('extern "C" int k1e_inv_multi_presplit('):]
+    body = body[:body.index("\n}\n")]
+    assert "launch_k1<true, false, true>(row, channels, tile1, s)" in body
+    assert "launch_k1<false>(col, channels, tile2, s)" in body
+    want_k1e = {  # (B, channels): codes at n = 2^14, the presplit pass "scaled" (no code 3)
+        (1, 2): (1, 1), (1, 10): (1, 1), (8, 2): (1, 1), (8, 3): (1, 1), (8, 5): (0, 3),
+        (8, 10): (0, 0), (16, 2): (2, 2), (16, 3): (0, 3), (16, 5): (0, 0), (16, 10): (0, 0)}
+    for (b, c), codes in want_k1e.items():
+        assert tcu._k1e_tiles(b, 1 << 14, c) == codes, (b, c)
+        assert codes[0] != 3 and codes == tcu._k1_tiles(b, 1 << 14, c, 1, "inv", "scaled")
 
 
 def _unpack(words: np.ndarray, k: int) -> np.ndarray:
@@ -530,3 +541,184 @@ def test_pair_stage_model_through_the_plain_k1d(rng):
     np.testing.assert_array_equal(
         tcu.inv_multi_plain(t(prod), primes, scales).numpy(),
         tcu.pointwise_inv_multi_plain(t(fl), t(fr), primes, scales).numpy())
+
+
+# -- K1e's presplit pass: the planes copied as K1b's words, packed at the read --
+
+# the tile codes K1e's presplit row pass may take (`k1_tile` "scaled": no code
+# 3) and each code's ring stages (csrc/matmod_pass.cuh `tile`)
+PRESPLIT_RINGS = {0: 3, 1: 4, 2: 4}
+
+
+def _byte_perm(x: np.ndarray, y: np.ndarray, sel) -> np.ndarray:
+    """CUDA's __byte_perm (prmt, default mode) on uint64 carriers of u32
+    words: result byte n = byte (sel >> 4n) & 7 of the 8 bytes y:x."""
+    both = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    sel = np.asarray(sel, np.uint64)
+    out = np.zeros(np.broadcast(both, sel).shape, np.uint64)
+    for k in range(4):
+        pick = (sel >> np.uint64(4 * k)) & np.uint64(7)
+        out |= ((both >> (np.uint64(8) * pick)) & np.uint64(255)) << np.uint64(8 * k)
+    return out
+
+
+def _presplit_stage(xd: np.ndarray, kt: int, tm: int, ring: int, slot: int) -> tuple:
+    """One ring stage of K1e's presplit pass over tm rows of plane bytes xd
+    [rows, 4 K] (uint8; rows past the edge are not copied: zero): the
+    cp.async copies of the kernel (thread tid, chunk c = tid % 8 of row tid
+    / 8 + (threads / 8) i: 16 bytes of plane c / 2, values 32 kt + 16 (c %
+    2) .. + 15) into the [row][KC + 4] layout of slot `slot`, then each
+    lane's fragment read (a 16-byte load of words 4 kp .. + 3 of each plane
+    of rows g, g + 8 for k-steps 2 kp, 2 kp + 1; three byte permutes a
+    register). Returns (the [tm, KC] words handed to wgmma, the
+    shared-memory word addresses each warp's 16-byte loads read, [warps,
+    kp, e, half, 32 lanes])."""
+    rows, k4 = xd.shape
+    k = k4 // 4
+    kas = _a_stage(tm)
+    smem = np.zeros(ring * kas, np.uint32)
+    threads = 2 * tm
+    for tid in range(threads):
+        c = tid & 7
+        for i in range(4):
+            r = tid // 8 + (threads // 8) * i
+            if r >= rows:
+                continue  # zero-filled past the batch edge
+            src = (c >> 1) * k + 32 * kt + 16 * (c & 1)
+            chunk = np.ascontiguousarray(xd[r, src:src + 16]).view(np.uint32)
+            dst = slot * kas + r * A_ROW + 4 * c
+            smem[dst:dst + 4] = chunk
+    words = np.zeros((tm, KC), np.uint64)
+    addrs = np.zeros((tm // 16, KC // 16, 4, 2, 32), np.int64)
+    sel = T | ((T + 4) << 4)
+    for warp in range(tm // 16):
+        p_lane = slot * kas + (16 * warp + G) * A_ROW
+        for kp in range(KC // 16):  # two k-steps a 16-byte load
+            lo = np.zeros((4, 4, 32), np.uint32)
+            hi = np.zeros((4, 4, 32), np.uint32)
+            for e in range(4):
+                at = p_lane + 4 * kp + 8 * e
+                addrs[warp, kp, e, 0] = at
+                addrs[warp, kp, e, 1] = at + 8 * A_ROW
+                lo[e] = np.stack([smem[at + q] for q in range(4)])
+                hi[e] = np.stack([smem[at + 8 * A_ROW + q] for q in range(4)])
+            for ks in (2 * kp, 2 * kp + 1):
+                for reg, (half, word) in enumerate(((lo, 0), (hi, 0), (lo, 1), (hi, 1))):
+                    w = 2 * (ks - 2 * kp) + word
+                    v = _byte_perm(_byte_perm(half[0][w], half[1][w], sel),
+                                   _byte_perm(half[2][w], half[3][w], sel), 0x5410)
+                    row = 16 * warp + G + 8 * (reg % 2)
+                    words[row, 8 * ks + T + 4 * (reg // 2)] = v
+    return words.astype(np.uint32), addrs
+
+
+@pytest.mark.parametrize("code", list(PRESPLIT_RINGS))
+def test_presplit_fragment_model_gives_the_digit_words(rng, code):
+    """K1e's copy-then-prmt read at every tile code its presplit pass may
+    take, over every ring slot: the words handed to wgmma are v ^ 0x80808080
+    of the values whose `digit_planes32` the pass copies (K1b's words after
+    its digit xor), bit for bit; rows past the batch edge stay zero. n =
+    2^12 (rows of n2 = 64 values: two stages), B = 3. Tolerance: exact."""
+    tm = tcu.TILES[code][0]
+    ring = PRESPLIT_RINGS[code]
+    n, b = 1 << 12, 3
+    n1, n2 = tmx.four_step_factors(n)
+    x = rng.integers(0, 1 << 32, (b, n), dtype=np.uint32)
+    x[0, :4] = (0, 0x80, 0xFFFFFFFF, 0x7F7F7F7F)
+    xd = tcu.digit_planes32(torch.from_numpy(x)).numpy().view(np.uint8)  # [B, n1, 4 n2]
+    rows_all = xd.reshape(b * n1, 4 * n2)
+    vals = x.reshape(b * n1, n2)
+    for r0 in range(0, b * n1, tm):
+        for kt in range(n2 // KC):
+            slot = kt % ring
+            words, _ = _presplit_stage(rows_all[r0:r0 + tm], kt, tm, ring, slot)
+            keep = min(tm, b * n1 - r0)
+            np.testing.assert_array_equal(words[:keep], vals[r0:r0 + keep, kt * KC:(kt + 1) * KC]
+                                          ^ XOR)
+            assert not words[keep:].any()
+
+
+@pytest.mark.parametrize("code", list(PRESPLIT_RINGS))
+def test_presplit_fragment_reads_hit_32_banks(rng, code):
+    """The presplit read's 16-byte loads (words 4 kp .. + 3 of one plane of
+    one row a lane; four lanes of a row read the same address): in each
+    warp instruction the 8 distinct addresses cover all 32 banks once, so
+    no load waits for a bank, at every ring slot of every code."""
+    tm = tcu.TILES[code][0]
+    ring = PRESPLIT_RINGS[code]
+    xd = rng.integers(0, 256, (tm, 4 * 64), dtype=np.uint8)
+    for slot in range(ring):
+        _, addrs = _presplit_stage(xd, 0, tm, ring, slot)
+        assert (addrs % 4 == 0).all()  # 16-byte aligned loads
+        for warp, kp, e, half in np.ndindex(addrs.shape[:4]):
+            distinct = np.unique(addrs[warp, kp, e, half])
+            banks = {int(a + j) % 32 for a in distinct for j in range(4)}
+            assert len(distinct) == 8 and len(banks) == 32
+
+
+# -- K2 with block tables: tiles from the block grid, tables packed for them --
+
+HYB_N_D = {"lt30": 4, "lt31": 4, "generic4": 4, "generic5": 5}
+
+
+def test_k2h_tile_choice():
+    """K2 with block tables takes a code a pass from its grid with the nb =
+    n / n_h blocks counted (`mxu32_cuda.k2h_tiles`: `k1_tile` over nb grids,
+    "scaled" first, "canonical" second, and where that keeps K1's ring, K1's
+    tile holding the contraction whole with five digit planes and 128 x 64
+    for the canonical pass with four: the sweep's picks) at n_h = 2^14, B in
+    (1, 4, 16), every regime's plane count, both directions; the grid has at
+    least 128 blocks wherever even K2's smallest tile (64 x 16) reaches it."""
+    n_h = 1 << 14
+    want = {  # (n, B): codes with four planes, with five; both directions alike
+        (1 << 15, 1): ((1, 1), (1, 1)), (1 << 15, 4): ((1, 1), (1, 1)),
+        (1 << 15, 16): ((2, 2), (2, 2)),
+        (1 << 16, 1): ((1, 1), (1, 1)), (1 << 16, 4): ((1, 1), (1, 1)),
+        (1 << 16, 16): ((0, 3), (2, 2)),
+        (1 << 17, 1): ((1, 1), (1, 1)), (1 << 17, 4): ((2, 2), (2, 2)),
+        (1 << 17, 16): ((0, 3), (2, 2)),
+    }
+    n1, n2 = tmx.four_step_factors(n_h)
+    for (n, b), (four, five) in want.items():
+        nb = n // n_h
+        for regime, n_d in HYB_N_D.items():
+            for direction in ("fwd", "inv"):
+                codes = tcu.k2h_tiles(b, n, n_h, direction, n_d)
+                assert codes == (four if n_d == 4 else five), (n, b, regime, direction)
+                for code, kind in zip(codes, ("scaled", "canonical")):
+                    assert code != 3 or (kind == "canonical" and n_d == 4)
+                    blocks = nb * tcu._blocks(b * n2, n1, code)
+                    if nb * tcu._blocks(b * n2, n1, 1) >= 128:
+                        assert blocks >= 128, (n, b, code)
+
+
+@pytest.mark.parametrize("code", [0, 1, 3])
+@pytest.mark.parametrize("direction", ["fwd", "inv"])
+def test_block_tables_packed_for_each_code_round_trip_to_the_jax_hyb_planes(code, direction):
+    """K2's block tables packed for the outputs of each tile code (32, 16,
+    64; code 2 packs as code 0) unpack to the JAX package's `hyb=` planes:
+    A_b (forward) / A_inv,b times the scale (inverse) for every block, F /
+    G once; the table cache keys on the outputs. n = 2^14, n_h = 2^13."""
+    from concrete_ntt_tpu.ops import stagesplit as jss
+
+    n, n_h, p = 1 << 14, 1 << 13, PRIMES[0]
+    n1, n2 = tmx.four_step_factors(n_h)
+    to = tcu.TILES[code][1]
+    scale = 1 if direction == "fwd" else pow(n, p - 2, p)
+    tabs = tcu._hyb_tables(n, p, n_h, scale, direction, "cpu", (to, to))
+    blocks = jss._dev32(n, p, n_h)["blocks"]
+    per_block = ([t["A"][0] for t in blocks] if direction == "fwd"
+                 else [m[0] for m in jss._scaled_ainv_blocks32(n, p, n_h, scale)])
+    shared = blocks[0]["F" if direction == "fwd" else "G"][0]
+    for tiles, ref, k in ((tabs["planes_blk"].numpy(), per_block, n1),
+                          (tabs["planes_sh"].numpy(), [shared], n2)):
+        assert len(tiles) == len(ref)
+        for t, r in zip(tiles, ref):
+            r = np.asarray(r)
+            n_ot, nk = t.shape[:2]
+            assert t.shape[-1] == 4 * to * KC and n_ot * to == r.shape[1] // 4
+            words = t.reshape(n_ot, nk, 4, to // 8, 8, 8, 4).transpose(1, 4, 6, 2, 0, 3, 5)
+            words = np.ascontiguousarray(words).reshape(1, nk * KC, r.shape[1])
+            np.testing.assert_array_equal(_unpack(words, k)[0], r)
+    other = tcu._hyb_tables(n, p, n_h, scale, direction, "cpu", (32, 32) if to != 32 else (16, 16))
+    assert other["planes_blk"].shape != tabs["planes_blk"].shape

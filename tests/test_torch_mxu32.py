@@ -513,3 +513,38 @@ def test_k1e_presplit_plain_matches_pallas_interpret(rng, interpret, n, b):
         tcu.inv_multi_presplit(torch.from_numpy(x), primes, scales)
     with pytest.raises(ValueError, match="four-step"):
         tcu.inv_multi_presplit(xd.reshape(3, b, n1 // 2, 8 * n2), primes, scales)
+
+
+def test_k1e_plane_pointer_checks(rng):
+    """K1e's kernel copies its planes in 16-byte chunks: the pointer check
+    of its wrapper (`_ptrs16`, on the card's path) refuses a plane tensor
+    that is not contiguous or starts off a 16-byte boundary and names it,
+    so a sliced operand raises instead of being misread."""
+    x = torch.from_numpy(_u32(rng, (2, 3, 2048)))
+    xd = tcu.digit_planes32(x)
+    assert xd.is_contiguous() and xd.data_ptr() % 16 == 0
+    tcu._ptrs16(xd, names="xd")
+    with pytest.raises(ValueError, match="contiguous"):
+        tcu._ptrs16(xd[..., :64], names="xd")
+    buf = torch.empty(xd.numel() + 1, dtype=torch.int8)
+    off = buf[1:].view(xd.shape)
+    assert off.data_ptr() % 16
+    with pytest.raises(ValueError, match="xd must start on a 16-byte boundary"):
+        tcu._ptrs16(off, names="xd")
+
+
+@pytest.mark.parametrize("direction", ["fwd", "inv"])
+def test_k2h_launch_tables_follow_the_codes(direction):
+    """K2 with block tables packs its tables for the outputs of the codes
+    `k2h_tiles` picks, in launch order, and the cache keys on them: the
+    per-block and the shared pass's planes have one tile per 16, 32 or 64
+    outputs as the code says (n = 2^14, n_h = 2^13, two blocks)."""
+    n, n_h, p = 1 << 14, 1 << 13, PRIMES[0]
+    for tiles in ((1, 1), (0, 3), (2, 0)):
+        outs = tuple(tcu.TILES[t][1] for t in tiles)
+        t = tcu._hyb_tables(n, p, n_h, 1, direction, "cpu", outs)
+        o_blk, o_sh = outs if direction == "fwd" else outs[::-1]
+        n1, n2 = tmx.four_step_factors(n_h)
+        assert t["planes_blk"].shape[:2] == (n // n_h, n1 // o_blk)
+        assert t["planes_sh"].shape[:2] == (1, n2 // o_sh)
+    assert tcu.k2h_tiles(1, n, n_h, direction) == (1, 1)
