@@ -189,6 +189,16 @@ failure:
                regime, K6 with one channel per 64-bit instance on both
                tiles: every tile code of `k3_multi_tile` (0-3) and
                `k6_tile` (0, 1) launched or the phase fails.
+  3b. parity gate — tools/gpu_parity.py's --quick rows in this process:
+               every value of `ntt_dispatch.route32` / `tier32` / `tier64` /
+               `route64` at n in its QUICK_N (B 1, 3, 16; every regime,
+               limb count and channel count), each kernel row against its
+               plain version, each plan row (the ten public plans) against
+               the golden oracle's sampled coefficients, and the dense
+               fixture (tests/fixtures/dense_oracle_2048.json: native32,
+               native64 Plan32 and Plan52, native128, native_binary64 at
+               N = 2048) against its digests; prints the FAIL and fixture
+               lines, and fails on any FAIL.
   4. main    — native64: three polymuls on the card == CPU plain path ==
                numpy wrapping oracle (row 0); K1a +2, K1b +1 per call.
                prime32: Plan(2^14, p) polymul at B = 16 for each bench prime
@@ -357,6 +367,8 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import functools
+import importlib.util
 import json
 import os
 import re
@@ -505,6 +517,19 @@ class PhaseError(RuntimeError):
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+@functools.lru_cache(maxsize=None)
+def gate():
+    """tools/gpu_parity.py of this checkout, loaded once: the parity gate's
+    rows (phase 3b) and the checks both scripts use (`same_bits`,
+    `route_passes`)."""
+    spec = importlib.util.spec_from_file_location(
+        "gpu_parity", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                   "gpu_parity.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
@@ -689,57 +714,6 @@ def bind_now(fn):
     return types.FunctionType(fn.__code__, fn.__globals__, fn.__name__, fn.__defaults__, cells)
 
 
-def device_times(tasks: list, reps: int = REPS) -> dict:
-    """Device time of a call, median of `reps` calls, for each task = (key,
-    make, per_call) or (key, make, per_call, pick): make() -> (fn, match).
-    All tasks run in ONE torch.profiler session; a spin kernel
-    (torch.cuda._sleep) before and after each task's calls splits the device
-    trace into their segments. A call's time is the sum of its kernels whose
-    name matches (with `pick`, only its pick-th such kernel, in launch
-    order), the calls being consecutive groups of per_call such kernels
-    (None: as many as there are per call). A key whose segment does not
-    split so, or a trace that lost its markers, maps to None."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        matches = []
-        for _, make, *_ in tasks:
-            fn, match = make()
-            fn()  # warm, outside the segment
-            torch.cuda.synchronize()
-            torch.cuda._sleep(1000)
-            for _ in range(reps):
-                fn()
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-            matches.append(match)
-            del fn
-    evs = sorted((ev.time_range.start, ev.time_range.elapsed_us(), ev.name) for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA)
-    segments, seg = [], None
-    for _, us, name in evs:
-        if "spin_kernel" in name:
-            if seg is None:
-                seg = []
-            else:
-                segments.append(seg)
-                seg = None
-        elif seg is not None:
-            seg.append((us, name))
-    out = {task[0]: None for task in tasks}
-    if len(segments) != len(tasks):
-        print(f"profile: {len(segments)} marked segments for {len(tasks)} tasks: device times "
-              "not measured", flush=True)
-        return out
-    for (key, _, per_call, *pick), match, seg in zip(tasks, matches, segments):
-        us = [t for t, name in seg if match(name)]
-        k = per_call or len(us) // reps
-        if k and len(us) == k * reps:
-            calls = [us[i * k:(i + 1) * k] for i in range(reps)]
-            out[key] = statistics.median(c[pick[0]] if pick else sum(c) for c in calls) / 1e3
-    return out
-
-
 def profile_polymul(fn, reps: int = 10) -> dict:
     """Per-call breakdown of fn(): host-clock ms (perf_counter around reps
     synchronized calls, no profiler), then under torch.profiler the device
@@ -789,13 +763,6 @@ def aten_ops(fn, reps: int = 3) -> float:
     return sum(ev.name.startswith("aten::") for ev in prof.events()) / reps
 
 
-def same_bits(xs, ys) -> bool:
-    """Equal tensors, bit for bit (uint32 compared through an int32 view)."""
-    view = lambda t: t.view(torch.int32) if t.dtype == torch.uint32 else t
-    return len(xs) == len(ys) and all(
-        x.shape == y.shape and torch.equal(view(x), view(y)) for x, y in zip(xs, ys))
-
-
 def stages_phase(smi: str, seed: int, dev: torch.device) -> None:
     """The `stages` phase, twin of tools/profile_stages.py and
     tools/ab_lift.py: the native64 Plan32 polymul at (2^14, 8) and its
@@ -822,7 +789,7 @@ def stages_phase(smi: str, seed: int, dev: torch.device) -> None:
         graph, out = profiling.capture(step, args, 2)
         graph.replay()
         torch.cuda.synchronize()
-        require(same_bits(out, step(step(args))),
+        require(gate().same_bits(out, step(step(args))),
                 f"stages: {name}: the CUDA graph's outputs differ from eager")
         del graph, out
         t = profiling.chain_time(step, args, length=length) * 1e3
@@ -908,7 +875,7 @@ def stages_phase(smi: str, seed: int, dev: torch.device) -> None:
         t = residues(pr, b, nn)
         mods = [m for m in to_i64(t)]
         scalar, gemm = getattr(crt, name), getattr(crt_mxu, name)
-        require(same_bits(scalar(mods, pr), gemm(mods, pr)),
+        require(gate().same_bits(scalar(mods, pr), gemm(mods, pr)),
                 f"stages: lift A/B: crt_mxu.{name} differs from ops/crt.py's at [{b}, {nn}]")
         impls = {"scalar chain": scalar, "int8 GEMM": gemm}
         chains = {impl: [] for impl in impls}
@@ -1034,32 +1001,6 @@ K3_MULTI_SHAPES = ((1 << 16, 8, 2, 5, 4), (1 << 14, 4, 2, 1, 1),
                    (4096, 16, 1, 10, 1), (1 << 15, 2, 4, 5, 1), (1 << 17, 2, 4, 2, 1))
 K6_MULTI_SHAPES = ((1 << 14, 4, 2, 3), (1 << 14, 8, 1, 3), (4096, 16, 4, 1), (1 << 11, 3, 4, 1),
                    (1 << 12, 2, 2, 5), (1 << 13, 3, 4, 2), (1 << 15, 2, 2, 3))
-
-
-def route_passes(u32, n: int, b: int, s: int, c: int, limbs: int, pair: bool = False) -> tuple:
-    """The four passes of a rank's transform pair over c channels as the
-    sharded routes make them, on random operands from u32(shape, hi):
-    (which, operand limb views, (first row, rows) of the rank's diagonal or
-    None): A reads the value shard [b, n1, n2 / s] transposed in place (one
-    operand for every channel), F the exchange's [c, b, n2, n1 / s], G
-    [c, b, n1 / s, n2], A_inv the exchange's [c, b, n1, n2 / s] (written
-    transposed); the rank is the last one of s. `pair`: limb pairs, F and
-    A_inv's hi limb below 2^18 (mid-pass values)."""
-    from concrete_ntt_tpu_torch.ops import mxu32
-
-    n1, n2 = mxu32.four_step_factors(n)
-    cs, c1 = n2 // s, n1 // s
-    one = 2 if pair else 1
-
-    def limbs_of(shape, k, mid=False):
-        return tuple(u32(shape, 1 << 18 if mid and i else 1 << 32) for i in range(k))
-
-    return (("A", tuple(t.transpose(1, 2) for t in limbs_of((b, n1, cs), one * limbs)),
-             (n2 - cs, cs)),
-            ("F", tuple(t.transpose(2, 3) for t in limbs_of((c, b, n2, c1), one, pair)), None),
-            ("G", limbs_of((c, b, c1, n2), one), (n1 - c1, c1)),
-            ("Ainv", tuple(t.transpose(2, 3) for t in limbs_of((c, b, n1, cs), one, pair)),
-             None))
 
 
 # the `sharded` phase: the slice's three paths in a world of RANKS rank
@@ -1272,6 +1213,7 @@ def main() -> int:
     from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
     from concrete_ntt_tpu_torch.utils.prime import (
         largest_prime_in_arithmetic_progression64 as prime_in_ap)
+    from concrete_ntt_tpu_torch.utils.profiling import device_times
 
     # the five regime primes of the prime64 plan: four epilogue regimes, and
     # the shoup regime with 7 and with 8 digit planes
@@ -1681,7 +1623,7 @@ def main() -> int:
     grid32 += [((N17, 16, 2, 1, 1), (BENCH_PRIMES["generic"],)), ((N16, 3, 2, 1, 4),
                                                                   (BIG32["lt31"],))]
     for (n, b, s, c, limbs), primes in grid32:
-        for which, x, rows in route_passes(u32, n, b, s, c, limbs):
+        for which, x, rows in gate().route_passes(u32, n, b, s, c, limbs):
             kw = dict(n=n, primes=primes, which=which, transposed_out=which == "Ainv",
                       diag=mxu32_cuda.multi_diag(n, primes, which, *rows, str(dev)) if rows
                       else None,
@@ -1696,7 +1638,7 @@ def main() -> int:
     for p in INSTANCES64.values():
         grid64 += [((4096, 3, 2, 1), (p,)), ((1 << 14, 32, 1, 1), (p,))]
     for (n, b, s, c), primes in grid64:
-        for which, x, rows in route_passes(u32, n, b, s, c, 1, pair=True):
+        for which, x, rows in gate().route_passes(u32, n, b, s, c, 1, pair=True):
             kw = dict(n=n, primes=primes, which=which, transposed_out=which == "Ainv",
                       diag=mxu64_cuda.multi_diag(n, primes, which, *rows, str(dev)) if rows
                       else None,
@@ -2025,6 +1967,24 @@ def main() -> int:
     print(f"parity: {k1e_line}; K5 fwd with four limbs "
           f"{checks['fwd64_u128']} checks exact at (n, B) in {W464_SHAPES} x five regime primes, "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 3b. the parity gate: tools/gpu_parity.py's --quick rows in this
+    # process (every dispatcher value at n in its QUICK_N, the dense fixture's
+    # five plans at N = 2048), each kernel row against its plain version and
+    # each plan row against the golden oracle
+    t0 = time.perf_counter()
+    gate_rows = gate().rows(quick=True)
+    gate_lines = []
+    passed, failed = gate().run_rows(gate().Ctx("cuda", True, args.seed), gate_rows,
+                                     out=gate_lines.append)
+    for line in gate_lines:
+        if line.startswith("FAIL") or line.startswith("PASS fixture"):
+            print(f"parity: gpu_parity {line}", flush=True)
+    print(f"parity: tools/gpu_parity.py --quick: {passed} of {len(gate_rows)} rows PASS "
+          f"({sum(r.kind == 'kernel' for r in gate_rows)} kernel rows against their plain "
+          f"versions, the rest against the golden oracle or the dense fixture's digests) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    require(not failed, f"parity: gpu_parity rows failed: {failed[:8]}")
 
     # -- 4. main paths ------------------------------------------------------------
     plan = native64.Plan32.try_new(N_MAIN)
@@ -3153,7 +3113,7 @@ def main() -> int:
         _, n, primes, s, limbs, row, _ = next(g for g in GRID_PATHS if g[0] == path)
         b = B_SH // SHARDED_MESHES[path][0]
         wide = row == "pass_matmod64_multi"
-        x, rows = next((x, r) for w, x, r in route_passes(u32, n, b, s, len(primes), limbs,
+        x, rows = next((x, r) for w, x, r in gate().route_passes(u32, n, b, s, len(primes), limbs,
                                                            pair=wide) if w == which)
         nl = len(x)
         scales = (tuple((scale64 if wide else scale32)(n, q) for q in primes)

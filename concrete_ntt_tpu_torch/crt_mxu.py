@@ -25,9 +25,10 @@ library call outside any kernel, as the JAX package leaves this product to
 `lax.dot_general`. On the card it takes more than 16 rows and a depth and a
 width that are multiples of 8, so `_mixed_radix_operand` pads the matrix
 with zero rows and columns (a padded row is zero in the Σx column too, so it
-enters no sum) and `_mixed_radix_mxu` pads the operand's bytes with zero
-columns and, below 17 rows, zero rows. The matrix is held column-major, the
-layout of the int8 GEMM's second operand.
+enters no sum), `_mixed_radix_mxu` pads the operand's bytes with zero
+columns, and `ops/mxu32.int_mm` pads fewer than 17 rows with zero rows.
+The matrix is held column-major, the layout of the int8 GEMM's second
+operand.
 
 No route takes these lifts: the plans use `ops/crt.py`. They are
 bit-identical to its `rec_u64_from5`, `rec_u128_from5` and
@@ -47,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from .ops import crt
+from .ops.mxu32 import int_mm
 from .ops.u32 import (
     MASK32,
     const64_like,
@@ -57,9 +59,6 @@ from .ops.u32 import (
     sub_limbs,
     to_u32,
 )
-
-_INT_MM_MIN_ROWS = 17  # torch._int_mm on the card takes more than 16 rows
-
 
 @lru_cache(maxsize=32)
 def _mixed_radix_matrix(limb_counts: tuple, prefixes: tuple, out_limbs: int):
@@ -120,10 +119,9 @@ def _mixed_radix_mxu(digits, prefixes, out_limbs: int):
     x = (limbs.view(torch.uint8) ^ 128).view(torch.int8)
     x = x.reshape(-1, x.shape[-1])
     rows = x.shape[0]
-    pad = (0, mat.shape[0] - x.shape[1], 0, max(0, _INT_MM_MIN_ROWS - rows))
-    if any(pad):
-        x = F.pad(x, pad)
-    acc = torch._int_mm(x, mat)[:rows].to(torch.int64)
+    if mat.shape[0] > x.shape[1]:
+        x = F.pad(x, (0, mat.shape[0] - x.shape[1]))
+    acc = int_mm(x, mat).to(torch.int64)
     ncol = 4 * out_limbs
     t = (acc[:, :ncol] + (acc[:, ncol:ncol + 1] << 7) + const).reshape(rows, out_limbs, 4)
     v = t[..., 0] + (t[..., 1] << 8) + (t[..., 2] << 16) + (t[..., 3] << 24)

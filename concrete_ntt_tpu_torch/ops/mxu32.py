@@ -15,7 +15,8 @@ Counterpart of `concrete_ntt_tpu/ops/mxu32.py`, in two halves:
     table dicts (`_mxu_tables`, `_wide_col_planes`, `_scaled_ainv_planes`).
     The port's tests assert every array equals the JAX package's.
   * **Device half, plain torch.** `_digit_cat`, `_dot_planes`
-    (`torch._int_mm`), `_combine`, the two epilogues and the single-channel
+    (`torch._int_mm` through `int_mm`, which pads the few-row products the
+    card refuses), `_combine`, the two epilogues and the single-channel
     transforms `fwd`, `fwd_wide`, `inv(scale)`, and `applicable`, the
     range of the four-step engine. This is the plain reference the kernels
     of `ops/mxu32_cuda.py` (K1a/K1b, K2, K3) are held against.
@@ -474,12 +475,21 @@ def _digit_cat(x):
     return torch.cat(parts, dim=-1)
 
 
+def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch._int_mm (int8 [M, K] x [K, N] -> int32 [M, N]) for any M: its
+    CUDA path takes only M > 16, so fewer rows are zero-padded to 17."""
+    rows = a.shape[0]
+    if rows > 16:
+        return torch._int_mm(a, b)
+    return torch._int_mm(torch.cat([a, a.new_zeros((17 - rows, a.shape[1]))]), b)[:rows]
+
+
 def _dot_planes(x, mat):
     """Fused int8 digit dot contracting the LAST axis: u32 carrier (or limb
     tuple) [..., K] -> int32 accumulators [..., D*O]."""
     xd = _digit_cat(x)
     planes = _dev(mat[0], xd.device)
-    acc = torch._int_mm(xd.reshape(-1, xd.shape[-1]), planes)
+    acc = int_mm(xd.reshape(-1, xd.shape[-1]), planes)
     return acc.reshape(*xd.shape[:-1], planes.shape[1])
 
 

@@ -16,7 +16,7 @@ of `mxu64_pallas.py`), in two halves as `ops/mxu32.py`:
     also builds a parent transform with its own n1 and the exact stage
     engine on Python integers, `_fwd_stage_range_obj`). The tests assert
     every array equals the JAX package's.
-  * **Device half, plain torch.** `_digit_cat`, `_dot` (`torch._int_mm`),
+  * **Device half, plain torch.** `_digit_cat`, `_dot` (`mxu32.int_mm`),
     the 3-limb combine, the top-limb fold, the two epilogues, `fwd`,
     `inv(scale)`, one pass (`pass_plain`) and the channel-grid twins that
     read the scalar record (`_sc_*`). This is the plain version the kernels
@@ -57,7 +57,7 @@ import torch
 from ..golden.ntt import negacyclic_twiddles
 from ..tables import GOLDILOCKS
 from . import host_build
-from .mxu32 import _dev, assert_accumulator_exact, four_step_factors, off_delta
+from .mxu32 import _dev, assert_accumulator_exact, four_step_factors, int_mm, off_delta
 from .table_cache import cached_operators
 from .u32 import (
     MASK32,
@@ -351,7 +351,7 @@ def _digit_cat(limbs: tuple, n_planes: int | None = None):
 
 def _dot(xd, planes):
     """int8 digits [..., E*K] x planes [E*K, D*O] -> int32 [..., D*O]."""
-    acc = torch._int_mm(xd.reshape(-1, xd.shape[-1]), planes)
+    acc = int_mm(xd.reshape(-1, xd.shape[-1]), planes)
     return acc.reshape(*xd.shape[:-1], planes.shape[1])
 
 

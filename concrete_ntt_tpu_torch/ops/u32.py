@@ -151,6 +151,11 @@ def mont_neginv(p: int) -> int:
     return (-inv) % (1 << 32)
 
 
+def to_mont(x: int, p: int) -> int:
+    """Host-side: x·2^32 mod p (for precomputing Montgomery-form constants)."""
+    return (x << 32) % p
+
+
 def mont_mul(a, b, p, p_neginv):
     """a*b*2^{-32} mod p, canonical [0, p), for any odd p < 2^32 (REDC)."""
     lo, hi = mulwide_u32(a, b)
@@ -366,6 +371,16 @@ def mullo_limbs(a: tuple, b: tuple, out_len: int) -> tuple:
         out.append(s & MASK32)
         carry = s >> 32
     return tuple(out)
+
+
+def geq_limbs(a: tuple, b: tuple):
+    """a >= b for equal-length little-endian limb tuples (b's limbs may be
+    Python ints, `const_limbs`)."""
+    assert len(a) == len(b)
+    res = a[0] >= b[0]
+    for x, y in zip(a[1:], b[1:]):
+        res = (x > y) | ((x == y) & res)
+    return res
 
 
 def select_limbs(c, a: tuple, b: tuple) -> tuple:

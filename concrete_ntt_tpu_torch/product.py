@@ -197,6 +197,9 @@ class Plan:
     def primes64(self):
         return tuple(pl.p for pl in self.plans64)
 
+    def ntt_size(self) -> int:
+        return self.n
+
     def _route(self):
         return ntt_dispatch.route32(self.n, self.primes32)
 

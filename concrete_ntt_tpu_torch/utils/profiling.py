@@ -15,7 +15,11 @@ Counterpart of `concrete_ntt_tpu/utils/profiling.py`, with the same names:
     the chain is meant to remove. On CPU tensors the chains run eagerly
     under `time.perf_counter`;
   * `Roofline` and `mxu_transform_roofline`: the JAX package's byte and
-    int8 MAC counts of a four-step transform, against the H100's peaks.
+    int8 MAC counts of a four-step transform, against the H100's peaks;
+  * `device_times(tasks)`: the device time of each of many calls in ONE
+    torch.profiler session (a later session in the same process may return
+    no device events), spin kernels marking each call's segment; for
+    `chip_smoke.py`, `tools/gpu_parity.py --times` and the A/B tools.
 
 The peaks are NVIDIA's H100 SXM data-sheet figures (dense, at the 700 W
 power limit), the one copy that `chip_smoke.py` and `benches/run_torch.py`
@@ -25,6 +29,7 @@ read.
 from __future__ import annotations
 
 import contextlib
+import statistics
 import time
 from dataclasses import dataclass
 
@@ -175,3 +180,54 @@ def mxu_transform_roofline(n: int, batch: int, seconds: float,
     macs += batch * n1 * (4 * n2) * (n_dplanes * n2)
     data = batch * n * 4 * (n_eplanes // 4 + 1)
     return Roofline(seconds=seconds, hbm_bytes=data, mxu_macs=macs)
+
+
+def device_times(tasks: list, reps: int = 20) -> dict:
+    """Device time of a call, median of `reps` calls, for each task = (key,
+    make, per_call) or (key, make, per_call, pick): make() -> (fn, match).
+    All tasks run in ONE torch.profiler session; a spin kernel
+    (torch.cuda._sleep) before and after each task's calls splits the device
+    trace into their segments. A call's time is the sum of its kernels whose
+    name matches (with `pick`, only its pick-th such kernel, in launch
+    order), the calls being consecutive groups of per_call such kernels
+    (None: as many as there are per call). A key whose segment does not
+    split so, or a trace that lost its markers, maps to None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        matches = []
+        for _, make, *_ in tasks:
+            fn, match = make()
+            fn()  # warm, outside the segment
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            matches.append(match)
+            del fn
+    evs = sorted((ev.time_range.start, ev.time_range.elapsed_us(), ev.name) for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+    segments, seg = [], None
+    for _, us, name in evs:
+        if "spin_kernel" in name:
+            if seg is None:
+                seg = []
+            else:
+                segments.append(seg)
+                seg = None
+        elif seg is not None:
+            seg.append((us, name))
+    out = {task[0]: None for task in tasks}
+    if len(segments) != len(tasks):
+        print(f"profile: {len(segments)} marked segments for {len(tasks)} tasks: device times "
+              "not measured", flush=True)
+        return out
+    for (key, _, per_call, *pick), match, seg in zip(tasks, matches, segments):
+        us = [t for t, name in seg if match(name)]
+        k = per_call or len(us) // reps
+        if k and len(us) == k * reps:
+            calls = [us[i * k:(i + 1) * k] for i in range(reps)]
+            out[key] = statistics.median(c[pick[0]] if pick else sum(c) for c in calls) / 1e3
+    return out

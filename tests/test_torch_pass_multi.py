@@ -309,3 +309,35 @@ def test_multi_wrappers_reject_and_launch_nothing_on_cpu(rng):
     with pytest.raises(ValueError, match="one digit-plane count"):
         tcu._multi_pass_tables(n, (PRIMES[0], GENERIC), "G", 1, (1, 1), "cpu", 32)
     assert (tcu.LAUNCHES, tcu64.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("word", [32, 64])
+def test_plain_passes_take_the_cards_few_row_products(rng, monkeypatch, word):
+    """A rank's F pass at (n, B, s) = (2048, 1, 2) multiplies 16 operand
+    rows, and torch._int_mm on the card takes only more than 16: the
+    plain twins failed there on CUDA tensors until `mxu32.int_mm` padded
+    such products. Here _int_mm keeps to the card's contract and the pass
+    equals the one computed without it."""
+    n, b, s = 2048, 1, 2
+    held, _, swap = _route(rng, "F", n, b, s, 1, 2 if word == 64 else 1, hi=1 << 18)
+    x = _view(held, swap, "strided")
+    kw = dict(n=n, which="F")
+    if word == 32:
+        run = lambda: tcu.pass_matmod_multi(x[0], primes=(PRIMES[0],), **kw)
+    else:
+        run = lambda: tcu64.pass_matmod64_multi(x, primes=(PRIMES52[0],), **kw)
+    want = run()
+    real = torch._int_mm
+    rows = []
+
+    def card_int_mm(a, b_):
+        rows.append(a.shape[0])
+        if a.shape[0] <= 16:
+            raise RuntimeError(f"self.size(0) needs to be greater than 16, but got {a.shape[0]}")
+        return real(a, b_)
+
+    monkeypatch.setattr(torch, "_int_mm", card_int_mm)
+    got = run()
+    assert min(rows) == 17  # a few-row product, padded
+    for g, w in zip(got if word == 64 else (got,), want if word == 64 else (want,)):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))

@@ -10,7 +10,6 @@ plan's tables must equal the JAX package's array for array. Tolerance:
 exact equality (modular integers).
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch

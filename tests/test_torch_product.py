@@ -333,3 +333,8 @@ def test_prime64_channel_takes_the_hybrid_at_2pow16(rng):
     a, b = (_rand_mod(rng, m, (1, n)) for _ in range(2))
     np.testing.assert_array_equal(tp.negacyclic_polymul(a, b), jp.negacyclic_polymul(a, b))
     np.testing.assert_array_equal(tp.inv(tp.fwd(a))[0], [int(v) * n % m for v in a[0]])
+
+
+def test_ntt_size_matches_jax():
+    jp, tp, _ = _plans(N, P30)
+    assert tp.ntt_size() == jp.ntt_size() == N

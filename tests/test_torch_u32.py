@@ -233,3 +233,26 @@ def test_n_limb_helpers_match_python_ints_and_jax(rng, name):
     assert len(port) == 4
     _eq(port, ref)
     assert _to_ints(port) == want
+
+
+@pytest.mark.parametrize("p", [P30, P32, (1 << 64) - (1 << 32) + 1])
+def test_to_mont_matches_jax(p):
+    for x in (0, 1, p - 1, p // 2, 0x12345678):
+        assert T.to_mont(x, p) == J.to_mont(x, p) == (x << 32) % p
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_geq_limbs_matches_jax_and_python_ints(rng, k):
+    """a >= b on k-limb tuples: random values, each limb's edges, equal
+    values, and a Python-int constant on the right."""
+    a = _limb_operands(rng, k)
+    b = np.concatenate([a[:64], np.roll(a, 3, axis=0)[64:]])  # equal rows first
+    b[64:128, -1] = a[64:128, -1]  # equal top limbs: the lower limbs decide
+    cols = lambda x: [x[:, i] for i in range(k)]
+    port = T.geq_limbs(tuple(map(_t, cols(a))), tuple(map(_t, cols(b))))
+    ref = J.geq_limbs(tuple(map(_j, cols(a))), tuple(map(_j, cols(b))))
+    want = [x >= y for x, y in zip(_to_ints(cols(a)), _to_ints(cols(b)))]
+    assert port.tolist() == np.asarray(ref).tolist() == want
+    c = (1 << (32 * k - 1)) + 5
+    port_c = T.geq_limbs(tuple(map(_t, cols(a))), T.const_limbs(c, k))
+    assert port_c.tolist() == [x >= c for x in _to_ints(cols(a))]

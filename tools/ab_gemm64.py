@@ -7,9 +7,9 @@ for each, the wrapper's CUDA-event median of 20 calls, and from one
 torch.profiler session the device time of its `matmod64_pass` launches a
 call and of `torch._int_mm` on int8 matrices of the same passes' shapes
 (the mainloop's yardstick, which the port never calls), beside nvidia-smi's
-card name and power limit. The row definitions and the timing helpers come
-from `chip_smoke.py` of this script's own checkout; the package, kernels and
-wrappers from the current directory. So an A/B of two checkouts on one card
+card name and power limit. The row definitions and `median_ms` come from
+`chip_smoke.py` of this script's own checkout; the package, kernels,
+wrappers and `utils/profiling.device_times` from the current directory. So an A/B of two checkouts on one card
 runs it from each in turns, in one call:
 
     for d in parent change change parent; do (cd $d && python3 /abs/tools/ab_gemm64.py); done
@@ -37,6 +37,7 @@ _spec = importlib.util.spec_from_file_location(
                                "chip_smoke.py"))
 cs = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(cs)
+from concrete_ntt_tpu_torch.utils.profiling import device_times  # noqa: E402
 
 
 def main() -> int:
@@ -65,7 +66,7 @@ def main() -> int:
             return (lambda: [torch._int_mm(a, b) for a, b in mats]), cs.is_kernel
 
         tasks.append(((key, "gemm_ms"), gemm, None))
-    prof = cs.device_times(tasks)
+    prof = device_times(tasks)
     rows = {k: {"ms": t, "device_ms": prof[(k, "device_ms")], "gemm_ms": prof[(k, "gemm_ms")]}
             for k, t in ms.items()}
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731

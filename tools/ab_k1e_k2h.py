@@ -30,9 +30,10 @@ at the rule's. Each forced launch is held against the rule's result
 fails. Then each pass's device time (one torch.profiler session, median of
 10) and, per pass, the fastest code beside the rule's.
 
-Device times come from one torch.profiler session (the helpers of
-`chip_smoke.py` of this script's own checkout; the package, kernels and
-wrappers from the current directory), beside nvidia-smi's card name and
+Device times come from one torch.profiler session
+(`utils/profiling.device_times`; the other helpers from `chip_smoke.py` of
+this script's own checkout; the package, kernels and wrappers from the
+current directory), beside nvidia-smi's card name and
 power limit. An A/B of two checkouts on one card runs the default set from
 each in turns, in one call:
 
@@ -59,6 +60,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(_ROOT, "chip_smoke.py"))
 cs = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(cs)
+from concrete_ntt_tpu_torch.utils.profiling import device_times  # noqa: E402
 
 N14, N16, N17, N_H = 1 << 14, 1 << 16, 1 << 17, 1 << 14
 LT30 = 1073479681  # 2^18 | p - 1: the hybrid's primes take n up to 2^17
@@ -169,7 +171,7 @@ def ab_rows(dev, u32, smi: str) -> dict:
                        torch.randint(-128, 128, (4 * n2, 4 * n2), dtype=torch.int8,
                                      device=dev).t()) for _ in range(2)], per_call=1)
 
-    for key, v in cs.device_times(tasks).items():
+    for key, v in device_times(tasks).items():
         rows[key[0]][key[1]] = v
 
     # the 32-bit hybrid beside the direct K2: dispatch-free and eager
@@ -258,7 +260,7 @@ def sweep(dev, u32) -> dict:
                             queue(key, cs.bind_now(lambda t=tiles, call=call: (
                                 force(tiles=t), call())), pass_i)
         force()
-        times = cs.device_times(tasks, reps=SWEEP_REPS)
+        times = device_times(tasks, reps=SWEEP_REPS)
     finally:
         force()
     out = {}

@@ -21,9 +21,10 @@ Rows, at batch 16:
   * `prime32.Plan.negacyclic_polymul` at (2^14, 16) lt30 and at (2^16, 16)
     with a prime below 2^26: min / median / max of 20 calls.
 
-Device times come from one torch.profiler session (the helpers of
-`chip_smoke.py` of this script's own checkout; the package, kernels and
-wrappers from the current directory), beside nvidia-smi's card name and
+Device times come from one torch.profiler session
+(`utils/profiling.device_times`; the other helpers from `chip_smoke.py` of
+this script's own checkout; the package, kernels and wrappers from the
+current directory), beside nvidia-smi's card name and
 power limit. So an A/B of two checkouts on one card runs it from each in
 turns, in one call:
 
@@ -53,6 +54,7 @@ _spec = importlib.util.spec_from_file_location(
                                "chip_smoke.py"))
 cs = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(cs)
+from concrete_ntt_tpu_torch.utils.profiling import device_times  # noqa: E402
 
 B = 16
 LT30, GEN5 = 1073479681, 4293918721  # 2^18 | p - 1; four and five matrix digit planes
@@ -153,7 +155,7 @@ def main() -> int:
                      "tier": ntt_dispatch.tier32(n, p, plan.variant)}
         labels[key] = f"prime32 polymul n={n} B={B} p={p} ({label})"
 
-    prof = cs.device_times(tasks)
+    prof = device_times(tasks)
     for (key, what), v in prof.items():
         rows[key][what] = v
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731

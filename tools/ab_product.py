@@ -20,9 +20,10 @@ Rows:
     mul_accumulate a term against preloaded NTT-domain operands, one
     inv(ACCUMULATE)): min / median / max of 20 calls by CUDA events.
 
-Device times come from one torch.profiler session (the helpers of
-`chip_smoke.py` of this script's own checkout; the package, kernels and
-wrappers from the current directory), beside nvidia-smi's card name and
+Device times come from one torch.profiler session
+(`utils/profiling.device_times`; the other helpers from `chip_smoke.py` of
+this script's own checkout; the package, kernels and wrappers from the
+current directory), beside nvidia-smi's card name and
 power limit. So an A/B of two checkouts on one card runs it from each in
 turns, in one call:
 
@@ -52,6 +53,7 @@ _spec = importlib.util.spec_from_file_location(
                                "chip_smoke.py"))
 cs = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(cs)
+from concrete_ntt_tpu_torch.utils.profiling import device_times  # noqa: E402
 
 K1CD_SHAPES = ((1 << 11, 16, 2), (1 << 14, 16, 2), (1 << 14, 16, 3), (1 << 16, 8, 2),
                (1 << 16, 8, 3), (1 << 17, 16, 2))
@@ -186,7 +188,7 @@ def main() -> int:
         rows[key] = {"min_ms": lo, "ms": med, "max_ms": hi}
         labels[key] = label
 
-    prof = cs.device_times(tasks)
+    prof = device_times(tasks)
     for (key, what), v in prof.items():
         rows[key][what] = v
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731

@@ -32,9 +32,10 @@ Sections, each printing one line a row:
     `mxu64_cuda.k6_tile` replaced for its calls), device ms, beside the code
     the rule picks.
 
-The helpers (`chip_smoke.py` of this script's own checkout: device_times,
-sharded_path, sharded_inputs, profile_polymul, route_passes, gemm64_rows)
-drive the package, kernels and wrappers of the current directory, so an A/B
+The helpers (`chip_smoke.py` of this script's own checkout: sharded_path,
+sharded_inputs, profile_polymul, gemm64_rows, and its gate's route_passes;
+`utils/profiling.device_times`) drive the package, kernels and wrappers of
+the current directory, so an A/B
 of two checkouts on one card runs it from each in turns, in one call:
 
     for d in parent change change parent; do (cd $d && python3 /abs/tools/ab_sharded.py); done
@@ -68,6 +69,7 @@ _spec = importlib.util.spec_from_file_location(
                                "chip_smoke.py"))
 cs = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(cs)
+from concrete_ntt_tpu_torch.utils.profiling import device_times  # noqa: E402
 
 PATHS = ("native128", "native64", "plan52")
 POLYMULS = 10  # profiled polymuls of the rank section
@@ -219,7 +221,7 @@ def rows_section(dev, u32, smi: str) -> dict:
     calls += [(key, f"{name} {label}", kernel, per_call)
               for key, name, label, kernel, _, per_call, _ in cs.gemm64_rows(dev, u32)]
     ms = {key: cs.median_ms(kernel) for key, _, kernel, _ in calls}
-    prof = cs.device_times([(key, (lambda k=kernel: (k, cs.is_pass)), per_call)
+    prof = device_times([(key, (lambda k=kernel: (k, cs.is_pass)), per_call)
                             for key, _, kernel, per_call in calls])
     rows = {}
     for key, label, _, _ in calls:
@@ -264,7 +266,7 @@ def sweep_section(dev, u32, smi: str) -> dict:
     try:
         for path, n, primes, b, s, limbs in shapes:
             wide = path.startswith(("plan52", "prime64"))
-            for which, x, rows in cs.route_passes(u32, n, b, s, len(primes), limbs, pair=wide):
+            for which, x, rows in cs.gate().route_passes(u32, n, b, s, len(primes), limbs, pair=wide):
                 mod = m64 if wide else m
                 kw = dict(n=n, primes=primes, which=which, transposed_out=which == "Ainv",
                           diag=mod.multi_diag(n, primes, which, *rows, str(dev)) if rows
@@ -284,7 +286,7 @@ def sweep_section(dev, u32, smi: str) -> dict:
                     tasks.append(((path, which, code),
                                   lambda code=code, wide=wide, xx=xx, kw=kw: forced(
                                       code, wide, xx, kw), 1))
-        prof = cs.device_times(tasks)
+        prof = device_times(tasks)
     finally:
         m.k3_multi_tile, m64.k6_tile = rules
         m._k3m_launch.cache_clear()

@@ -3,14 +3,15 @@
 tile per pass (`mxu32_cuda.K2_CODES`: 128 x 32 and 64 x 16 rows x outputs)
 at n = 2^11 .. 2^17, and K4's cluster size c (1, 2, 4, 8 blocks a
 polynomial, 2^8 .. 2^15 values a block) and round size (2 or 3 stages in
-registers, the kernel's range) at n = 1024 .. 2^17, at batch 16 with the
-lt30 prime 1073479681 (K2) and a prime below 2^26 (K4).
+registers, the kernel's range) at n = 1024 .. 2^17, at batch 16 (`--batch`
+takes another) with the lt30 prime 1073479681 (K2) and a prime below 2^26
+(K4).
 
 Each shape is forced by replacing the wrapper's choice (`mxu32_cuda.k2_tile`,
 `butterfly32_cuda.cluster_size` / `radix_log`) for its calls, checked
 against the plain twin (exact), then timed: the device time of its kernel
-launches a call from one torch.profiler session (the helpers of this
-checkout's `chip_smoke.py`), median of 20. `mxu32_cuda.k2_tile` and
+launches a call from one torch.profiler session
+(`utils/profiling.device_times`), median of 20. `mxu32_cuda.k2_tile` and
 `butterfly32_cuda.cluster_size` / `radix_log` hold the rules this sweep
 picked. Run from the repository root: `python3 tools/sweep_prime32.py`;
 `--k2 14 15` and `--k4 14` restrict the sizes (log2 n) of each kernel's rows,
@@ -37,8 +38,8 @@ sys.path.insert(0, _ROOT)
 _spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(_ROOT, "chip_smoke.py"))
 cs = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(cs)
+from concrete_ntt_tpu_torch.utils.profiling import device_times  # noqa: E402
 
-B = 16
 P_K2 = 1073479681
 
 
@@ -48,7 +49,9 @@ def main() -> int:
                     help="log2 n of K2's rows (default 11 .. 17)")
     ap.add_argument("--k4", type=int, nargs="*", default=[10, 11, 12, 14, 16, 17],
                     help="log2 n of K4's rows (default 10 11 12 14 16 17)")
+    ap.add_argument("--batch", type=int, default=16, help="B of every row (default 16)")
     args = ap.parse_args()
+    b = args.batch
     if not torch.cuda.is_available():
         print("sweep_prime32: torch.cuda.is_available() is False; this run needs a CUDA GPU",
               file=sys.stderr)
@@ -79,7 +82,7 @@ def main() -> int:
         return call
 
     for n in (1 << k for k in args.k2):
-        x = u32((B, n))
+        x = u32((b, n))
         for d, fn, plain in (("fwd", mxu32_cuda.fwd, mxu32_cuda.fwd_plain),
                              ("inv", mxu32_cuda.inv, mxu32_cuda.inv_plain)):
             want = plain(x, n=n, p=P_K2)
@@ -101,7 +104,7 @@ def main() -> int:
     for n in (1 << k for k in args.k4):
         plan = prime32.Plan.new(n, p_k4)
         kw = dict(p=p_k4, variant=plan.variant, p_neginv=plan.p_neginv)
-        x = u32((B, n), p_k4)
+        x = u32((b, n), p_k4)
         for d, fn, plain in (("fwd", bcu.try_fwd, bcu.fwd_plain),
                              ("inv", bcu.try_inv, bcu.inv_plain)):
             want = plain(x, plan._tbl, **kw)
@@ -114,10 +117,10 @@ def main() -> int:
                         bad.append(f"K4 {d} n={n} c={c} rounds of {r}")
                     tasks.append((f"K4 {d} n={n} c={c} rounds of {r}",
                                   lambda call=call: (call, cs.is_k4), 1))
-    times = cs.device_times(tasks)
+    times = device_times(tasks)
     mxu32_cuda.k2_tile, bcu.cluster_size, bcu.radix_log = rules
     for key, v in times.items():
-        print(f"sweep_prime32: {key} B={B}: device "
+        print(f"sweep_prime32: {key} B={b}: device "
               f"{'not measured' if v is None else f'{v:.4f} ms'} (torch.profiler, median of "
               f"{cs.REPS}) | {smi}", flush=True)
     print(f"sweep_prime32: parity failures: {bad or 'none'}")

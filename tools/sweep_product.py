@@ -7,14 +7,14 @@ fused pointwise product and inverse), pass by pass, over the tile codes of
 three stages, not K1d's first pass; 1 = 64 x 16 holding up to four stages
 whole; 2 = 128 x 32 holding up to four stages whole; 3 = 128 x 64 on a ring
 of three, not K1c's first pass, n >= 2^12 where a pass has n1 outputs), at
-n = 2^11, 2^13, 2^14, 2^15, 2^16, 2^17 with B = 16 and at (2^14, 8) and
-(2^16, 8), over 2 and 3 channel primes.
+n = 2^11, 2^13, 2^14, 2^15, 2^16, 2^17 with B = 16 (`--batches` takes
+others) and at (2^14, 8) and (2^16, 8), over 2 and 3 channel primes.
 
 Each code is forced by replacing the wrapper's choice
 (`mxu32_cuda._k1_tiles`) for its calls, as a pair of codes for the two
 passes, checked against the plain twin (exact), then timed: the device time
-of each pass's launch a call from one torch.profiler session (the helpers
-of this checkout's `chip_smoke.py`), median of 20. `mxu32_cuda.k1_tile`
+of each pass's launch a call from one torch.profiler session
+(`utils/profiling.device_times`), median of 20. `mxu32_cuda.k1_tile`
 holds the rule this sweep picked; the summary lines give, per pass, the
 fastest code beside the rule's. Run from the repository root: `python3
 tools/sweep_product.py`; `--sizes 14 16` restricts the sizes (log2 n; the B
@@ -41,13 +41,16 @@ sys.path.insert(0, _ROOT)
 _spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(_ROOT, "chip_smoke.py"))
 cs = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(cs)
+from concrete_ntt_tpu_torch.utils.profiling import device_times  # noqa: E402
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sizes", type=int, nargs="*", default=[11, 13, 14, 15, 16, 17],
-                    help="log2 n at B = 16 (default 11 13 14 15 16 17; 2^14, 2^16 also at B = 8)")
+                    help="log2 n of the --batches rows (default 11 13 14 15 16 17; 2^14, 2^16 also at B = 8)")
     ap.add_argument("--channels", type=int, nargs="*", default=[2, 3])
+    ap.add_argument("--batches", type=int, nargs="*", default=[16],
+                    help="B of the --sizes rows (default 16)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("sweep_product: torch.cuda.is_available() is False; this run needs a CUDA GPU",
@@ -65,8 +68,8 @@ def main() -> int:
     u32 = lambda shape: torch.from_numpy(  # noqa: E731
         rng.integers(0, 1 << 32, shape, dtype=np.uint32)).to(dev)
     rule = m._k1_tiles
-    shapes = [(1 << k, 16) for k in args.sizes] + [(1 << k, 8) for k in (14, 16)
-                                                   if k in args.sizes]
+    shapes = [(1 << k, b) for k in args.sizes for b in args.batches] + [
+        (1 << k, 8) for k in (14, 16) if k in args.sizes]
     tasks, bad, chosen, timed = [], [], {}, set()
 
     def forced(fn, codes):
@@ -108,7 +111,7 @@ def main() -> int:
                             timed.add((label, i, codes[i]))
                             tasks.append(((label, i, codes[i]),
                                           lambda call=call: (call, cs.is_pass), 2, i))
-    times = cs.device_times(tasks)
+    times = device_times(tasks)
     m._k1_tiles = rule
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
     best = {}
