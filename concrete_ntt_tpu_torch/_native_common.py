@@ -45,6 +45,7 @@ import torch
 from . import prime32, prime64
 from .ops import crt as crt_ops
 from .ops import ntt_dispatch
+from .utils.profiling import root_span, span
 from .ops.u32 import (
     DEFAULT_DEVICE,
     input_tensor,
@@ -197,16 +198,22 @@ class NativePlanBase:
         """Standard-order residues (uint32 [k, B, n], or a (lo, hi) pair of
         such for plan52) → wrapping values in `fmt`."""
         k = len(self.primes)
-        if self.tier == "plan32":
-            mods = to_i64(residues)
-            mods = [mods[i] for i in range(k)]
-        else:
-            lo, hi = to_i64(residues[0]), to_i64(residues[1])
-            mods = [(lo[i], hi[i]) for i in range(k)]
-        value_parts = self._reconstruct(mods)
-        if not isinstance(value_parts, tuple):
-            value_parts = (value_parts,)
-        return _marshal_out(tuple(to_u32(v) for v in value_parts), lead, fmt, self.n)
+        with span("ntt.lift", "lift") as sp:
+            if self.tier == "plan32":
+                mods = to_i64(residues)
+                mods = [mods[i] for i in range(k)]
+            else:
+                lo, hi = to_i64(residues[0]), to_i64(residues[1])
+                mods = [(lo[i], hi[i]) for i in range(k)]
+            value_parts = self._reconstruct(mods)
+            if not isinstance(value_parts, tuple):
+                value_parts = (value_parts,)
+            value_parts = tuple(to_u32(v) for v in value_parts)
+            sp.io(residues, value_parts)
+        with span("ntt.marshal", "marshal") as sp:
+            out = _marshal_out(value_parts, lead, fmt, self.n)
+            sp.io(value_parts, out)
+        return out
 
     def _reconstruct(self, residues):
         raise NotImplementedError
@@ -219,43 +226,63 @@ class NativePlanBase:
         return ntt_dispatch.route32(self.n, self.primes)
 
     def _fwd32(self, parts, binary: bool = False):
-        """Limb tuple of [B, n] → [k, B, n] NTT-domain residues."""
-        if self._route32() is not None:
-            return ntt_dispatch.try_fwd32_wide_all(parts[:1] if binary else parts, self.plans)
-        res = self._split_binary(parts) if binary else self._split(parts)
-        return torch.stack([pl.fwd(r) for pl, r in zip(self.plans, res)])
+        """Limb tuple of [B, n] → [k, B, n] NTT-domain residues (the
+        per-channel routes' residue split inside the transform's span, as
+        K1a folds it into the transform)."""
+        with span("ntt.transform", "transform") as sp:
+            if self._route32() is not None:
+                out = ntt_dispatch.try_fwd32_wide_all(parts[:1] if binary else parts, self.plans)
+            else:
+                res = self._split_binary(parts) if binary else self._split(parts)
+                out = torch.stack([pl.fwd(r) for pl, r in zip(self.plans, res)])
+            sp.io(parts[:1] if binary else parts, out)
+        return out
 
     def _inv32(self, arr):
-        if self._route32() is not None:
-            return ntt_dispatch.try_inv32_all(arr, self.plans)
-        return torch.stack([pl.inv(arr[i]) for i, pl in enumerate(self.plans)])
+        with span("ntt.transform", "transform") as sp:
+            if self._route32() is not None:
+                out = ntt_dispatch.try_inv32_all(arr, self.plans)
+            else:
+                out = torch.stack([pl.inv(arr[i]) for i, pl in enumerate(self.plans)])
+            sp.io(arr, out)
+        return out
 
     def _pointwise_inv32(self, fl, fr):
         """Per-channel pointwise·n^-1 then inverse NTT → standard-order
         residues [k, B, n]."""
         if self._route32() is not None:
             return ntt_dispatch.try_pointwise_inv32_all(fl, fr, self.plans)
-        return torch.stack([pl.inv(pl.mul_assign_normalize(fl[i], fr[i]))
-                            for i, pl in enumerate(self.plans)])
+        with span("ntt.pointwise", "pointwise") as sp:
+            prods = [pl.mul_assign_normalize(fl[i], fr[i]) for i, pl in enumerate(self.plans)]
+            sp.io(fl, fr, prods)
+        with span("ntt.transform", "transform") as sp:
+            out = torch.stack([pl.inv(v) for pl, v in zip(self.plans, prods)])
+            sp.io(prods, out)
+        return out
 
     # -- plan52: the channel routes (K7 / K5), else each channel's plan ---------
 
     def _fwd52(self, parts, binary: bool = False):
         """Limb tuple of [B, n] → (lo, hi) of [k, B, n] NTT-domain residues.
         A u32 or {0,1} operand is the limb pair (x, 0)."""
-        if binary or self.width == 32:
-            pair = (parts[0], torch.zeros_like(parts[0]))
-        else:
-            pair = parts
-        out = ntt_dispatch.try_fwd64_wide_all(pair, self.plans)
-        if out is not None:
-            return out
-        res = self._split_binary(parts) if binary else self._split(parts)
-        return _stack_pairs([pl.fwd_pair(*r) for pl, r in zip(self.plans, res)])
+        with span("ntt.transform", "transform") as sp:
+            if binary or self.width == 32:
+                pair = (parts[0], torch.zeros_like(parts[0]))
+            else:
+                pair = parts
+            out = ntt_dispatch.try_fwd64_wide_all(pair, self.plans)
+            if out is None:
+                res = self._split_binary(parts) if binary else self._split(parts)
+                out = _stack_pairs([pl.fwd_pair(*r) for pl, r in zip(self.plans, res)])
+            sp.io(parts[:1] if binary else parts, out)
+        return out
 
     def _inv52(self, arr):
-        return _stack_pairs([pl.inv_pair(arr[i, ..., 0].contiguous(), arr[i, ..., 1].contiguous())
-                             for i, pl in enumerate(self.plans)])
+        with span("ntt.transform", "transform") as sp:
+            out = _stack_pairs([pl.inv_pair(arr[i, ..., 0].contiguous(), arr[i, ..., 1].contiguous())
+                                for i, pl in enumerate(self.plans)])
+            sp.io(arr, out)
+        return out
 
     def _pointwise_inv52(self, fl, fr):
         """Per-channel pointwise·n^-1 then inverse NTT → standard-order
@@ -264,49 +291,69 @@ class NativePlanBase:
         fused = ntt_dispatch.try_pointwise_inv64_all(fl, fr, self.plans)
         if fused is not None:
             return fused
-        outs = []
-        for i, pl in enumerate(self.plans):
-            limbs = lambda pair: torch.stack([pair[0][i], pair[1][i]], dim=-1)
-            prod = pl.mul_assign_normalize(limbs(fl), limbs(fr))
-            outs.append(pl.inv_pair(prod[..., 0].contiguous(), prod[..., 1].contiguous()))
-        return _stack_pairs(outs)
+        with span("ntt.pointwise", "pointwise") as sp:
+            prods = []
+            for i, pl in enumerate(self.plans):
+                limbs = lambda pair: torch.stack([pair[0][i], pair[1][i]], dim=-1)
+                prods.append(pl.mul_assign_normalize(limbs(fl), limbs(fr)))
+            sp.io(fl, fr, prods)
+        with span("ntt.transform", "transform") as sp:
+            out = _stack_pairs([pl.inv_pair(prod[..., 0].contiguous(), prod[..., 1].contiguous())
+                                for pl, prod in zip(self.plans, prods)])
+            sp.io(prods, out)
+        return out
 
     # -- transforms -------------------------------------------------------------
 
     def _fwd(self, x, binary: bool):
-        parts, lead, _ = _marshal_in(x, self.width, self.n, self.device)
+        with span("ntt.marshal", "marshal") as sp:
+            parts, lead, _ = _marshal_in(x, self.width, self.n, self.device)
+            sp.io(x, parts)
         k = len(self.primes)
-        if self.tier == "plan32":
-            return self._fwd32(parts, binary).reshape(k, *lead, self.n)
-        return torch.stack(self._fwd52(parts, binary), dim=-1).reshape(k, *lead, self.n, 2)
+        res = self._fwd32(parts, binary) if self.tier == "plan32" else self._fwd52(parts, binary)
+        with span("ntt.marshal", "marshal") as sp:
+            if self.tier == "plan32":
+                out = res.reshape(k, *lead, self.n)
+            else:
+                out = torch.stack(res, dim=-1).reshape(k, *lead, self.n, 2)
+            sp.io(res, out)
+        return out
 
+    @root_span
     def fwd(self, x):
         """value array [..., n] → NTT-domain residues [k, ..., n] (plan32) or
         [k, ..., n, 2] (plan52), uint32."""
         return self._fwd(x, binary=False)
 
+    @root_span
     def fwd_binary(self, x):
         """Binary-operand forward: x holds {0, 1} coefficients, so its low
         limb is its residue in every channel and the modular reduction is
         skipped."""
         return self._fwd(x, binary=True)
 
+    @root_span
     def inv(self, ntt, out_format: str | None = None):
         """NTT-domain residues → wrapping values (signed CRT lift),
         unnormalized as the reference's: inv(fwd(x)) == n·x (wrapping).
         out_format: by default "u32" at width 32 and "limbs" ([..., n, 2] or
         [..., n, 4]) above; "planar", "np64" (width 64) or "py128" (width 128,
         one polynomial)."""
-        arr, lead = self._residues_in(ntt)
+        with span("ntt.marshal", "marshal") as sp:
+            arr, lead = self._residues_in(ntt)
+            sp.io(ntt, arr)
         stacked = self._inv32(arr) if self.tier == "plan32" else self._inv52(arr)
         return self._lift(stacked, lead, out_format or ("u32" if self.width == 32 else "limbs"))
 
+    @root_span
     def negacyclic_polymul(self, lhs, rhs, rhs_binary: bool = False):
         """Wrapping negacyclic product (reference native64.rs:1042-1069) in
         the format of `lhs`. rhs_binary: rhs holds {0, 1} coefficients, so
         only its low limb is transformed."""
-        parts_l, lead, _ = _marshal_in(lhs, self.width, self.n, self.device)
-        parts_r, _, _ = _marshal_in(rhs, self.width, self.n, self.device)
+        with span("ntt.marshal", "marshal") as sp:
+            parts_l, lead, _ = _marshal_in(lhs, self.width, self.n, self.device)
+            parts_r, _, _ = _marshal_in(rhs, self.width, self.n, self.device)
+            sp.io(lhs, rhs, parts_l, parts_r)
         if self.tier == "plan52":
             stacked = self._pointwise_inv52(self._fwd52(parts_l), self._fwd52(parts_r, rhs_binary))
         elif self._route32() == "K1":

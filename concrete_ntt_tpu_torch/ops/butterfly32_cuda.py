@@ -25,7 +25,8 @@ puts 128 blocks on the card's 132 SMs where one block a polynomial put 16.
 Routing is by the device of the operand: a CUDA tensor launches the kernel
 or raises (2 <= n <= 2^17, `MAX_N`, the port's four-step range), a CPU
 tensor runs the plain twin, the stage engine of ops/engine.py, at any n.
-Every launch adds one to `LAUNCHES["fwd"]` or `LAUNCHES["inv"]`. Where the
+Every launch adds one to `LAUNCHES["fwd"]` or `LAUNCHES["inv"]` (read into
+each top-level span's `launches` by `utils/profiling`). Where the
 JAX functions return None for "not applicable", these raise
 NotImplementedError; `ntt_dispatch.tier32` sends a larger n to the stage
 engine (`fwd_plain` / `inv_plain`) on the operand's device. The reference
@@ -40,12 +41,14 @@ from functools import lru_cache
 
 import torch
 
+from ..utils import profiling
 from . import butterflies32, cuda_build, engine
 from .mxu32 import _dev
 from .mxu32_cuda import _call
 from .u32 import to_i64, to_u32
 
 LAUNCHES = {"fwd": 0, "inv": 0}
+profiling.register_launches(LAUNCHES)
 
 MAX_N = 1 << 17  # the port's four-step range (mxu32_cuda.MAX_N): 16 KiB a block of 8
 _REGIME = {"lt30": 0, "lt31": 1, "generic": 2}

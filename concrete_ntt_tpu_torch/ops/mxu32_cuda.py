@@ -94,7 +94,8 @@ aligned (`_ptrs16` checks; the tables once, when their record is built).
 Routing is by the device of the operand: a CUDA tensor launches the kernel
 or raises, a CPU tensor runs the plain torch version (`*_plain`, built on
 `ops/mxu32.py`), any other device raises. Every kernel launch adds one to
-`LAUNCHES[name]`; nothing else does. K2's `fwd_wide` is its `fwd` kernel
+`LAUNCHES[name]`; nothing else does (`utils/profiling` reads their sum
+into each top-level span's `launches`). K2's `fwd_wide` is its `fwd` kernel
 with more limbs and counts under "fwd"; a launch with four operand limbs
 (K1a, K2 fwd, K3's A pass, on one channel or a grid) counts under its own
 name, `*_u128`, and not under the plain one; a launch with block tables
@@ -123,6 +124,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import cuda_build, mxu32
 from .u32 import MASK32, mont_mul, mont_neginv, to_i64, to_u32
 
@@ -136,6 +138,7 @@ LAUNCHES = {"fwd_wide_multi": 0, "inv_multi": 0, "fwd_multi_perchannel": 0,
 # code of the first pass, of the second), K3's channel grid by (name, tile
 # code): which of their pass instances ran (`k1_tile`, `k2h_tiles`)
 TILE_LAUNCHES: dict = {}
+profiling.register_launches(LAUNCHES)
 
 MIN_N, MAX_N = 1 << 11, 1 << 17
 _SCAL_WORDS = 16  # the scalar record of csrc/matmod_pass.cuh

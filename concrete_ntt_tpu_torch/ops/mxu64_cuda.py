@@ -72,7 +72,8 @@ Routing is by the device of the operand: a CUDA tensor launches the kernel
 or raises, a CPU tensor runs the plain torch version (`*_plain`, built on
 `ops/mxu64.py` and, for block tables, `ops/stagesplit.py`), any other device
 raises. Every kernel launch adds one to `LAUNCHES[name]` (`name_hyb` with
-block tables); nothing else does.
+block tables); nothing else does (`utils/profiling` reads their sum into
+each top-level span's `launches`).
 
 Range: K5/K6 take every odd prime 2^33 < p < 2^64; K7 takes channel primes
 2^33 < p < 2^62 with one (matrix, operand) plane count for all channels;
@@ -89,6 +90,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import cuda_build, mxu64
 from .mxu32_cuda import (
     _SMS,
@@ -113,6 +115,7 @@ LAUNCHES = dict.fromkeys(
 # K6's channel-grid launches by (LAUNCHES name, tile code): which of its pass
 # instances ran (`k6_tile`)
 TILE_LAUNCHES: dict = {}
+profiling.register_launches(LAUNCHES)
 
 MIN_N, MAX_N = 1 << 11, 1 << 15
 TILE_O = 16  # outputs a block of csrc/matmod64_pass.cuh (N = 16 x the digit planes)

@@ -59,6 +59,7 @@ from functools import lru_cache
 
 import torch
 
+from ..utils.profiling import span
 from . import butterfly32_cuda, mxu32, mxu32_cuda, mxu64, mxu64_cuda, stagesplit
 from .u32 import (
     MASK32,
@@ -151,12 +152,19 @@ def try_pointwise_inv32_all(fl, fr, plans):
     n, primes = fl.shape[-1], _primes(plans)
     scales = _pointwise_scales(n, primes)
     if _route(n, primes) == "K1":
-        return mxu32_cuda.pointwise_inv_multi(fl, fr, primes, scales)
-    a, b = to_i64(fl), to_i64(fr)
-    return torch.stack([
-        mxu32_cuda.inv(to_u32(mont_mul(a[i], b[i], p, mont_neginv(p))), n=n, p=p, scale=s)
-        for i, (p, s) in enumerate(zip(primes, scales))
-    ])
+        with span("ntt.transform", "transform") as sp:  # the product fused into the inverse
+            out = mxu32_cuda.pointwise_inv_multi(fl, fr, primes, scales)
+            sp.io(fl, fr, out)
+        return out
+    with span("ntt.pointwise", "pointwise") as sp:
+        a, b = to_i64(fl), to_i64(fr)
+        prods = [to_u32(mont_mul(a[i], b[i], p, mont_neginv(p))) for i, p in enumerate(primes)]
+        sp.io(fl, fr, prods)
+    with span("ntt.transform", "transform") as sp:
+        out = torch.stack([mxu32_cuda.inv(v, n=n, p=p, scale=s)
+                           for v, p, s in zip(prods, primes, scales)])
+        sp.io(prods, out)
+    return out
 
 
 def try_inv32_all(stacked, plans, scales=None):
@@ -179,12 +187,20 @@ def try_polymul32_stacked(parts_l, parts_r, plans, rhs_binary=False):
     matrix. Returns standard-order residues [C, B, n] (uint32)."""
     primes = _primes(plans)
     n = parts_l[0].shape[-1]
-    fl = mxu32_cuda.fwd_wide_multi(tuple(parts_l), primes)
-    fr = mxu32_cuda.fwd_wide_multi(
-        tuple(parts_r[:1]) if rhs_binary else tuple(parts_r), primes
-    )
-    return mxu32_cuda.inv_multi(pointwise_mont32(fl, fr, primes), primes,
-                                _pointwise_scales(n, primes))
+    parts_r = tuple(parts_r[:1]) if rhs_binary else tuple(parts_r)
+    with span("ntt.transform", "transform") as sp:
+        fl = mxu32_cuda.fwd_wide_multi(tuple(parts_l), primes)
+        sp.io(parts_l, fl)
+    with span("ntt.transform", "transform") as sp:
+        fr = mxu32_cuda.fwd_wide_multi(parts_r, primes)
+        sp.io(parts_r, fr)
+    with span("ntt.pointwise", "pointwise") as sp:
+        prod = pointwise_mont32(fl, fr, primes)
+        sp.io(fl, fr, prod)
+    with span("ntt.transform", "transform") as sp:
+        out = mxu32_cuda.inv_multi(prod, primes, _pointwise_scales(n, primes))
+        sp.io(prod, out)
+    return out
 
 
 @lru_cache(maxsize=64)
@@ -353,13 +369,23 @@ def try_pointwise_inv64_all(fl, fr, plans):
     if route is None:
         return None
     scales = _pointwise_scales64(n, primes)
-    if route == "K7":
-        return mxu64_cuda.pointwise_inv_multi(tuple(fl), tuple(fr), primes, scales)
-    if route == "K7h":
-        return stagesplit.pointwise_inv_multi_hybrid64(tuple(fl), tuple(fr), primes, scales, n=n)
-    a, b = tuple(map(to_i64, fl)), tuple(map(to_i64, fr))
-    outs = []
-    for i, (p, s) in enumerate(zip(primes, scales)):
-        prod = mont_mul64((a[0][i], a[1][i]), (b[0][i], b[1][i]), p, mont_neginv64(p))
-        outs.append(_engine64(route).inv(tuple(to_u32(t) for t in prod), n=n, p=p, scale=s))
-    return _stack_channels(outs)
+    if route in ("K7", "K7h"):
+        with span("ntt.transform", "transform") as sp:  # the product fused into the inverse
+            if route == "K7":
+                out = mxu64_cuda.pointwise_inv_multi(tuple(fl), tuple(fr), primes, scales)
+            else:
+                out = stagesplit.pointwise_inv_multi_hybrid64(tuple(fl), tuple(fr), primes,
+                                                              scales, n=n)
+            sp.io(fl, fr, out)
+        return out
+    with span("ntt.pointwise", "pointwise") as sp:
+        a, b = tuple(map(to_i64, fl)), tuple(map(to_i64, fr))
+        prods = [tuple(to_u32(t) for t in mont_mul64((a[0][i], a[1][i]), (b[0][i], b[1][i]),
+                                                     p, mont_neginv64(p)))
+                 for i, p in enumerate(primes)]
+        sp.io(fl, fr, prods)
+    with span("ntt.transform", "transform") as sp:
+        out = _stack_channels([_engine64(route).inv(v, n=n, p=p, scale=s)
+                               for v, p, s in zip(prods, primes, scales)])
+        sp.io(prods, out)
+    return out

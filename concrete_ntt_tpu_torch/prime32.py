@@ -47,6 +47,7 @@ from .ops.u32 import (
     to_u32,
 )
 from .utils.prime import is_prime64
+from .utils.profiling import root_span, span
 
 MIN_N = 2  # any power of two >= 2 (a superset of the reference's n >= 32)
 
@@ -140,49 +141,66 @@ class Plan:
             raise ValueError(f"last axis must be n={self.n}, got {tuple(x.shape)}")
         return x.reshape(-1, self.n).contiguous(), x.shape[:-1]
 
+    def _transform(self, x, run):
+        """`run` (`ntt_dispatch.fwd32` or `inv32`) on x in the stage spans."""
+        with span("ntt.marshal", "marshal") as sp:
+            xb, lead = self._prep(x)
+            sp.io(x, xb)
+        with span("ntt.transform", "transform") as sp:
+            out = run(xb, self._tbl, p=self.p, variant=self.variant, p_neginv=self.p_neginv)
+            sp.io(xb, out)
+        return out.reshape(*lead, self.n)
+
+    @root_span
     def fwd(self, x):
         """Forward negacyclic NTT: [..., n] standard order, values < p ->
         bit-reversed NTT values in [0, p). (prime32.rs:704-755)"""
-        xb, lead = self._prep(x)
-        out = ntt_dispatch.fwd32(
-            xb, self._tbl, p=self.p, variant=self.variant, p_neginv=self.p_neginv
-        )
-        return out.reshape(*lead, self.n)
+        return self._transform(x, ntt_dispatch.fwd32)
 
+    @root_span
     def inv(self, x):
         """Inverse negacyclic NTT: bit-reversed -> standard order, UNnormalized:
         inv(fwd(x)) == n·x mod p. (prime32.rs:757-807)"""
-        xb, lead = self._prep(x)
-        out = ntt_dispatch.inv32(
-            xb, self._tbl, p=self.p, variant=self.variant, p_neginv=self.p_neginv
-        )
-        return out.reshape(*lead, self.n)
+        return self._transform(x, ntt_dispatch.inv32)
 
     def _carrier(self, x):
         return to_i64(_as_tensor(x, self.device))
 
     # -- elementwise ops (prime32.rs:812-927) --------------------------------
 
+    @root_span
     def mul_assign_normalize(self, lhs, rhs):
         """lhs·rhs·n^{-1} mod p, elementwise, canonical."""
-        c1 = (self.n_inv << 64) % self.p
-        v = mont_mul(self._carrier(lhs), self._carrier(rhs), self.p, self.p_neginv)
-        return to_u32(mont_mul(v, c1, self.p, self.p_neginv))
+        with span("ntt.pointwise", "pointwise") as sp:
+            c1 = (self.n_inv << 64) % self.p
+            v = mont_mul(self._carrier(lhs), self._carrier(rhs), self.p, self.p_neginv)
+            out = to_u32(mont_mul(v, c1, self.p, self.p_neginv))
+            sp.io(lhs, rhs, out)
+        return out
 
+    @root_span
     def normalize(self, values):
         """values·n^{-1} mod p, elementwise."""
-        c2 = (self.n_inv << 32) % self.p
-        return to_u32(mont_mul(self._carrier(values), c2, self.p, self.p_neginv))
+        with span("ntt.pointwise", "pointwise") as sp:
+            c2 = (self.n_inv << 32) % self.p
+            out = to_u32(mont_mul(self._carrier(values), c2, self.p, self.p_neginv))
+            sp.io(values, out)
+        return out
 
+    @root_span
     def mul_accumulate(self, acc, lhs, rhs):
         """acc + lhs·rhs mod p, elementwise."""
-        c3 = (1 << 64) % self.p
-        v = mont_mul(self._carrier(lhs), self._carrier(rhs), self.p, self.p_neginv)
-        t = mont_mul(v, c3, self.p, self.p_neginv)
-        return to_u32(add_mod(self._carrier(acc), t, self.p))
+        with span("ntt.pointwise", "pointwise") as sp:
+            c3 = (1 << 64) % self.p
+            v = mont_mul(self._carrier(lhs), self._carrier(rhs), self.p, self.p_neginv)
+            t = mont_mul(v, c3, self.p, self.p_neginv)
+            out = to_u32(add_mod(self._carrier(acc), t, self.p))
+            sp.io(acc, lhs, rhs, out)
+        return out
 
     # -- convenience ---------------------------------------------------------
 
+    @root_span
     def negacyclic_polymul(self, lhs, rhs):
         """Full negacyclic polynomial product (fwd -> pointwise·n^{-1} -> inv)."""
         fl = self.fwd(lhs)

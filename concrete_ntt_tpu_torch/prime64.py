@@ -58,6 +58,7 @@ from .ops.u32 import (
     to_u32,
 )
 from .utils.prime import is_prime64
+from .utils.profiling import root_span, span
 
 #: name parity with `prime64::Solinas` (prime64.rs:22)
 Solinas = GOLDILOCKS_P
@@ -197,56 +198,85 @@ class Plan:
         out = run((to_i64(lo), to_i64(hi)), self._twid_parts(direction, lo.device), bf, lbf)
         return to_u32(out[0]), to_u32(out[1])
 
+    def _marshal_in(self, *xs) -> list:
+        """`_to_limbs` of each x, in one marshal span."""
+        with span("ntt.marshal", "marshal") as sp:
+            out = [self._to_limbs(x) for x in xs]
+            sp.io(xs, [o[:2] for o in out])
+        return out
+
+    def _marshal_out(self, lo, hi, lead, was_u64):
+        """`_from_limbs` in a marshal span."""
+        with span("ntt.marshal", "marshal") as sp:
+            out = self._from_limbs(lo, hi, lead, was_u64)
+            sp.io(lo, hi, out)
+        return out
+
+    def _transform(self, lo, hi, direction: str):
+        """The four-step tier `ntt_dispatch` picks, else the stage engine."""
+        with span("ntt.transform", "transform") as sp:
+            run = ntt_dispatch.try_fwd64 if direction == "fwd" else ntt_dispatch.try_inv64
+            out = run((lo, hi), self.n, self.p)
+            if out is None:
+                out = self._stage_engine(lo, hi, direction)
+            sp.io(lo, hi, out)
+        return out
+
     def fwd_pair(self, lo, hi):
         """Forward NTT of contiguous uint32 limbs [B, n] -> (lo, hi)."""
-        out = ntt_dispatch.try_fwd64((lo, hi), self.n, self.p)
-        return out if out is not None else self._stage_engine(lo, hi, "fwd")
+        return self._transform(lo, hi, "fwd")
 
     def inv_pair(self, lo, hi):
         """Unnormalized inverse NTT of contiguous uint32 limbs [B, n]."""
-        out = ntt_dispatch.try_inv64((lo, hi), self.n, self.p)
-        return out if out is not None else self._stage_engine(lo, hi, "inv")
+        return self._transform(lo, hi, "inv")
 
+    @root_span
     def fwd(self, x):
         """Forward negacyclic NTT: standard order, values < p -> bit-reversed
         NTT values in [0, p)."""
-        lo, hi, lead, u64 = self._to_limbs(x)
-        return self._from_limbs(*self.fwd_pair(lo, hi), lead, u64)
+        ((lo, hi, lead, u64),) = self._marshal_in(x)
+        return self._marshal_out(*self.fwd_pair(lo, hi), lead, u64)
 
+    @root_span
     def inv(self, x):
         """Inverse negacyclic NTT: bit-reversed -> standard order,
         unnormalized: inv(fwd(x)) == n·x mod p."""
-        lo, hi, lead, u64 = self._to_limbs(x)
-        return self._from_limbs(*self.inv_pair(lo, hi), lead, u64)
+        ((lo, hi, lead, u64),) = self._marshal_in(x)
+        return self._marshal_out(*self.inv_pair(lo, hi), lead, u64)
 
     # -- elementwise ops (prime64.rs:944-1129) --------------------------------
 
     def _elementwise(self, kind: str, c: int, lhs, rhs=None, acc=None):
-        a_lo, a_hi, lead, u64 = self._to_limbs(lhs)
-        a = (to_i64(a_lo), to_i64(a_hi))
-        b = a
-        if rhs is not None:
-            b_lo, b_hi, _, _ = self._to_limbs(rhs)
-            b = (to_i64(b_lo), to_i64(b_hi))
-        r = _pointwise(a, b, p=self.p, kind=kind, c=c)
-        if acc is not None:
-            c_lo, c_hi, _, _ = self._to_limbs(acc)
-            cc = (to_i64(c_lo), to_i64(c_hi))
-            r = gl_add(cc, r) if self.p == GOLDILOCKS_P else add_mod64(cc, r, self.p)
-        return self._from_limbs(to_u32(r[0]), to_u32(r[1]), lead, u64)
+        given = [x for x in (lhs, rhs, acc) if x is not None]
+        limbs = self._marshal_in(*given)
+        lead, u64 = limbs[0][2:]
+        with span("ntt.pointwise", "pointwise") as sp:
+            carriers = [(to_i64(lo), to_i64(hi)) for lo, hi, _, _ in limbs]
+            a = carriers[0]
+            b = carriers[1] if rhs is not None else a
+            r = _pointwise(a, b, p=self.p, kind=kind, c=c)
+            if acc is not None:
+                cc = carriers[-1]
+                r = gl_add(cc, r) if self.p == GOLDILOCKS_P else add_mod64(cc, r, self.p)
+            r = (to_u32(r[0]), to_u32(r[1]))
+            sp.io([x[:2] for x in limbs], r)
+        return self._marshal_out(*r, lead, u64)
 
     def _const(self, shift: int) -> int:
         """n^-1 (or 1 for shift 0 of mul_accumulate) in the regime's form."""
         return self.n_inv if self.variant == "goldilocks" else (self.n_inv << shift) % self.p
 
+    @root_span
     def mul_assign_normalize(self, lhs, rhs):
         """lhs·rhs·n^{-1} mod p, elementwise, canonical."""
         return self._elementwise("mul_norm", self._const(128), lhs, rhs)
 
+    @root_span
     def normalize(self, values):
         """values·n^{-1} mod p, elementwise."""
         return self._elementwise("normalize", self._const(64), values)
 
+    @root_span
     def mul_accumulate(self, acc, lhs, rhs):
         """acc + lhs·rhs mod p, elementwise."""
         c = 1 if self.variant == "goldilocks" else (1 << 128) % self.p
@@ -254,13 +284,16 @@ class Plan:
 
     # -- convenience ---------------------------------------------------------
 
+    @root_span
     def negacyclic_polymul(self, lhs, rhs):
         """Full negacyclic polynomial product (fwd -> pointwise·n^{-1} -> inv),
         kept in limb pairs on the device between the steps."""
-        a_lo, a_hi, lead, u64 = self._to_limbs(lhs)
-        b_lo, b_hi, _, _ = self._to_limbs(rhs)
+        (a_lo, a_hi, lead, u64), (b_lo, b_hi, _, _) = self._marshal_in(lhs, rhs)
         fl = self.fwd_pair(a_lo, a_hi)
         fr = self.fwd_pair(b_lo, b_hi)
-        prod = _pointwise(tuple(map(to_i64, fl)), tuple(map(to_i64, fr)), p=self.p,
-                          kind="mul_norm", c=self._const(128))
-        return self._from_limbs(*self.inv_pair(to_u32(prod[0]), to_u32(prod[1])), lead, u64)
+        with span("ntt.pointwise", "pointwise") as sp:
+            prod = _pointwise(tuple(map(to_i64, fl)), tuple(map(to_i64, fr)), p=self.p,
+                              kind="mul_norm", c=self._const(128))
+            prod = (to_u32(prod[0]), to_u32(prod[1]))
+            sp.io(fl, fr, prod)
+        return self._marshal_out(*self.inv_pair(*prod), lead, u64)

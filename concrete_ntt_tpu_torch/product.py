@@ -82,6 +82,7 @@ from .ops.u32 import (
     to_u32,
 )
 from .utils.prime import is_prime64
+from .utils.profiling import root_span, span
 
 GENERIC = "generic"
 REPLACE = "replace"
@@ -245,8 +246,17 @@ class Plan:
 
     # -- forward (product.rs:273-356) ------------------------------------------
 
+    @root_span
     def fwd(self, standard, mode=GENERIC) -> NttDomain:
-        lo, hi, lead, _ = self._marshal(standard)
+        with span("ntt.marshal", "marshal") as sp:
+            lo, hi, lead, _ = self._marshal(standard)
+            sp.io(standard, lo, hi)
+        with span("ntt.transform", "transform") as sp:  # the residue split included
+            dom = self._fwd(lo, hi, lead, mode)
+            sp.io(lo, hi, dom.res32, dom.res64)
+        return dom
+
+    def _fwd(self, lo, hi, lead, mode) -> NttDomain:
         route = self._route()
         if self._use_bounded(mode):
             res = self._centred(lo, hi)
@@ -295,39 +305,62 @@ class Plan:
         lead = tuple(arr.shape[1:-len(trail)])
         return arr.reshape(k, -1, *trail).contiguous(), lead
 
+    @root_span
     def inv(self, ntt: NttDomain, mode=REPLACE, standard=None, out_format=None):
         k, k64 = len(self.plans32), len(self.plans64)
         if not k and not k64:  # no channels at all: value is 0 (product.rs:386-393)
             raise ValueError("plan has no channels")
-        res, res64, lead = None, [], None
-        if k:
-            arr, lead = self._res_in(ntt.res32, k, (self.n,), "res32")
-            if self._route() is not None:
+        arr = arr64 = lead = None
+        with span("ntt.marshal", "marshal") as sp:
+            if k:
+                arr, lead = self._res_in(ntt.res32, k, (self.n,), "res32")
+            if k64:
+                arr64, lead = self._res_in(ntt.res64, k64, (self.n, 2), "res64")
+            sp.io(ntt.res32, ntt.res64, arr, arr64)
+        res, res64 = None, []
+        with span("ntt.transform", "transform") as sp:
+            if k and self._route() is not None:
                 res = ntt_dispatch.try_inv32_all(arr, self.plans32)
-            else:
+            elif k:
                 res = self._channels(lambda i, pl: pl.inv(arr[i])).res32
-        if k64:
-            arr64, lead = self._res_in(ntt.res64, k64, (self.n, 2), "res64")
-            res64 = [pl.inv_pair(*_pair(arr64[i])) for i, pl in enumerate(self.plans64)]
-        acc = self._mixed_radix_lift(res, res64)
+            if k64:
+                res64 = [pl.inv_pair(*_pair(arr64[i])) for i, pl in enumerate(self.plans64)]
+            sp.io(arr, arr64, res, res64)
+        acc = self._lift(res, res64)
         if mode == ACCUMULATE:
             acc, lead, fmt = self._accumulate(acc, standard)
             out_format = out_format or fmt
         return self._output(acc, lead, out_format or "np64")
 
+    def _lift(self, res32, res64=()):
+        """`_mixed_radix_lift` in the lift span."""
+        with span("ntt.lift", "lift") as sp:
+            acc = self._mixed_radix_lift(res32, res64)
+            sp.io(res32, res64, acc)
+        return acc
+
     def _accumulate(self, acc, standard):
-        """(standard + acc) mod modulus → (limb pair, lead shape, format)."""
+        """(standard + acc) mod modulus → (limb pair, lead shape, format):
+        the marshal of `standard`, and the add in the lift's span (a lift
+        that accumulates would fuse it)."""
         if standard is None:
             raise ValueError("accumulate mode requires the standard buffer")
-        s_lo, s_hi, lead, fmt = self._marshal(standard)
-        dev = acc[0].device
-        s = (to_i64(s_lo.to(dev)), to_i64(s_hi.to(dev)))
-        return add_mod64(s, acc, self.modulus), lead, fmt
+        with span("ntt.marshal", "marshal") as sp:
+            s_lo, s_hi, lead, fmt = self._marshal(standard)
+            sp.io(standard, s_lo, s_hi)
+        with span("ntt.lift", "lift") as sp:
+            dev = acc[0].device
+            s = (to_i64(s_lo.to(dev)), to_i64(s_hi.to(dev)))
+            out = add_mod64(s, acc, self.modulus)
+            sp.io(s_lo, s_hi, acc, out)
+        return out, lead, fmt
 
     def _output(self, acc, lead, out_format: str):
-        out = to_u32(torch.stack(acc, dim=-1)).reshape(*lead, self.n, 2)
-        if out_format == "np64":
-            return limbs_to_np_u64(out.cpu().numpy())
+        with span("ntt.marshal", "marshal") as sp:
+            out = to_u32(torch.stack(acc, dim=-1)).reshape(*lead, self.n, 2)
+            if out_format == "np64":
+                out = limbs_to_np_u64(out.cpu().numpy())
+            sp.io(acc, out)
         return out
 
     def _mixed_radix_lift(self, res32, res64=()):
@@ -367,22 +400,35 @@ class Plan:
 
     # -- elementwise (channel-wise delegation, product.rs:885-966) --------------
 
+    def _pointwise(self, fn, fn64, *doms) -> NttDomain:
+        """`_channels(fn, fn64)` in one pointwise span (the channel plans'
+        own spans nested in it)."""
+        with span("ntt.pointwise", "pointwise") as sp:
+            out = self._channels(fn, fn64)
+            sp.io([(d.res32, d.res64) for d in (*doms, out)])
+        return out
+
+    @root_span
     def mul_assign_normalize(self, lhs: NttDomain, rhs: NttDomain) -> NttDomain:
-        return self._channels(
+        return self._pointwise(
             lambda i, pl: pl.mul_assign_normalize(lhs.res32[i], rhs.res32[i]),
-            lambda i, pl: pl.mul_assign_normalize(lhs.res64[i], rhs.res64[i]))
+            lambda i, pl: pl.mul_assign_normalize(lhs.res64[i], rhs.res64[i]), lhs, rhs)
 
+    @root_span
     def normalize(self, values: NttDomain) -> NttDomain:
-        return self._channels(lambda i, pl: pl.normalize(values.res32[i]),
-                              lambda i, pl: pl.normalize(values.res64[i]))
+        return self._pointwise(lambda i, pl: pl.normalize(values.res32[i]),
+                               lambda i, pl: pl.normalize(values.res64[i]), values)
 
+    @root_span
     def mul_accumulate(self, acc: NttDomain, lhs: NttDomain, rhs: NttDomain) -> NttDomain:
-        return self._channels(
+        return self._pointwise(
             lambda i, pl: pl.mul_accumulate(acc.res32[i], lhs.res32[i], rhs.res32[i]),
-            lambda i, pl: pl.mul_accumulate(acc.res64[i], lhs.res64[i], rhs.res64[i]))
+            lambda i, pl: pl.mul_accumulate(acc.res64[i], lhs.res64[i], rhs.res64[i]),
+            acc, lhs, rhs)
 
     # -- convenience + the tfhe-rs hot path --------------------------------------
 
+    @root_span
     def negacyclic_polymul(self, lhs, rhs, mode=REPLACE, standard=None,
                            out_format=None, lhs_fwd_mode=GENERIC):
         """End-to-end product mod `modulus`; mode=ACCUMULATE adds into
@@ -408,14 +454,20 @@ class Plan:
     def _try_polymul_fused(self, lhs, rhs, mode, standard, out_format, lhs_fwd_mode=GENERIC):
         if self.plans64 or not self.plans32 or self._route() is None:
             return None
-        lo, hi, lead, fmt = self._marshal(lhs)
-        rlo, rhi, _, _ = self._marshal(rhs)
-        if self._use_bounded(lhs_fwd_mode):
-            fl = ntt_dispatch.try_fwd32_perchannel_all(self._centred(lo, hi), self.plans32)
-        else:
-            fl = ntt_dispatch.try_fwd32_wide_all((lo, hi), self.plans32)
-        fr = ntt_dispatch.try_fwd32_wide_all((rlo, rhi), self.plans32)
-        acc = self._mixed_radix_lift(ntt_dispatch.try_pointwise_inv32_all(fl, fr, self.plans32))
+        with span("ntt.marshal", "marshal") as sp:
+            lo, hi, lead, fmt = self._marshal(lhs)
+            rlo, rhi, _, _ = self._marshal(rhs)
+            sp.io(lhs, rhs, lo, hi, rlo, rhi)
+        with span("ntt.transform", "transform") as sp:  # the Bounded centring included
+            if self._use_bounded(lhs_fwd_mode):
+                fl = ntt_dispatch.try_fwd32_perchannel_all(self._centred(lo, hi), self.plans32)
+            else:
+                fl = ntt_dispatch.try_fwd32_wide_all((lo, hi), self.plans32)
+            sp.io(lo, hi, fl)
+        with span("ntt.transform", "transform") as sp:
+            fr = ntt_dispatch.try_fwd32_wide_all((rlo, rhi), self.plans32)
+            sp.io(rlo, rhi, fr)
+        acc = self._lift(ntt_dispatch.try_pointwise_inv32_all(fl, fr, self.plans32))
         if mode == ACCUMULATE:
             acc, lead, fmt = self._accumulate(acc, standard)
         return self._output(acc, lead, out_format or fmt or "np64")

@@ -19,7 +19,12 @@ Counterpart of `concrete_ntt_tpu/utils/profiling.py`, with the same names:
   * `device_times(tasks)`: the device time of each of many calls in ONE
     torch.profiler session (a later session in the same process may return
     no device events), spin kernels marking each call's segment; for
-    `chip_smoke.py`, `tools/gpu_parity.py --times` and the A/B tools.
+    `chip_smoke.py`, `tools/gpu_parity.py --times` and the A/B tools;
+  * `span(name, stage)`, `root_span`, `recorded_spans()`, `clear_spans()`:
+    the plans' calls and their stages (`STAGES`) on the timeline of any
+    torch.profiler session that is recording (`trace` among them), each
+    with its device time and logical bytes, a top-level call with its
+    kernel launches; nothing at all while no session records.
 
 The peaks are NVIDIA's H100 SXM data-sheet figures (dense, at the 700 W
 power limit), the one copy that `chip_smoke.py` and `benches/run_torch.py`
@@ -29,8 +34,12 @@ read.
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import statistics
+import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 
 import torch
@@ -231,3 +240,166 @@ def device_times(tasks: list, reps: int = 20) -> dict:
             calls = [us[i * k:(i + 1) * k] for i in range(reps)]
             out[key] = statistics.median(c[pick[0]] if pick else sum(c) for c in calls) / 1e3
     return out
+
+
+# ---------------------------------------------------------------------------
+# Spans: the plans' stages on the profiler's timeline
+# ---------------------------------------------------------------------------
+
+#: the stage of every stage span, each named "ntt.<stage>": layout changes
+#: between the caller's format and the limb planes; forward and inverse NTTs
+#: (a kernel that fuses the pointwise product into its inverse included);
+#: the NTT-domain products and adds; the CRT reconstruction
+STAGES = ("marshal", "transform", "pointwise", "lift")
+MAX_SPANS = 1 << 16  # records kept; the oldest go first
+
+_records: deque = deque(maxlen=MAX_SPANS)
+_counters: list = []  # the kernel modules' LAUNCHES dicts (`register_launches`)
+_open = threading.local()  # .stack: the records of the spans open on this thread
+_index = itertools.count()
+
+
+def register_launches(counter: dict) -> None:
+    """Add a kernel module's launch counter (name -> launches) to those a
+    top-level span reads its `launches` from."""
+    _counters.append(counter)
+
+
+def _launches() -> int:
+    return sum(sum(c.values()) for c in _counters)
+
+
+def _nbytes(obj) -> int:
+    """Bytes of the tensors and arrays in `obj` (nested lists and tuples
+    walked), from their shapes and item sizes."""
+    if isinstance(obj, (list, tuple)):
+        return sum(_nbytes(o) for o in obj)
+    size = getattr(obj, "nbytes", 0)
+    return size if isinstance(size, int) else 0
+
+
+class _Off:
+    """The span while no profiler session records: it does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+    def io(self, *tensors) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+class _Span:
+    """One span while a profiler session records (see `span`)."""
+
+    __slots__ = ("rec", "fn", "start", "mark")
+
+    def __init__(self, name: str, stage: str | None):
+        self.rec = {"index": None, "name": name, "stage": stage, "parent": None, "root": None,
+                    "nbytes": 0, "launches": None, "device_ms": None, "_events": None}
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        rec = self.rec
+        rec["index"] = index = next(_index)
+        if stack:
+            rec["parent"], rec["root"] = stack[-1]["index"], stack[-1]["root"]
+            self.mark = None
+        else:
+            rec["root"] = index
+            self.mark = _launches()
+        self.fn = torch.profiler.record_function(rec["name"])
+        self.fn.__enter__()
+        self.start = None
+        if torch.cuda.is_initialized() and not torch.cuda.is_current_stream_capturing():
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        _records.append(rec)
+        stack.append(rec)
+        return self
+
+    def io(self, *tensors) -> None:
+        """Count the logical bytes of the stage's inputs or outputs."""
+        self.rec["nbytes"] += _nbytes(tensors)
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        if self.start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            rec["_events"] = (self.start, end)
+        self.fn.__exit__(*exc)
+        _open.stack.pop()
+        if self.mark is not None:
+            rec["launches"] = _launches() - self.mark
+        return None
+
+
+def span(name: str, stage: str | None = None):
+    """A context manager marking a stretch of the port's work.
+
+    While no torch.profiler session records
+    (`torch.autograd.profiler._is_profiler_enabled` false) it returns one
+    shared object that does nothing: no allocation, no record, no CUDA call.
+
+    While one records (the benchmark's traced run, `trace(log_dir)`), the
+    span enters `torch.profiler.record_function(name)`, so it sits on the
+    profiler's timeline as a host event; on a CUDA stream that is not
+    capturing a graph it records a timing event at entry and one at exit
+    (never a synchronise); and it appends a record to a buffer of the last
+    `MAX_SPANS` spans: `index`, `name`, `stage` (one of `STAGES`, or None),
+    the `parent`'s and the `root`'s index (the spans of one top-level call
+    share its root), `nbytes` (what `io(*tensors)` counted: the logical
+    bytes of the stage's inputs and outputs, from their shapes), and on a
+    top-level span `launches`, the kernel launches made inside it (the
+    change of the registered counters' sum). `recorded_spans` reads it.
+    """
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, stage)
+
+
+def root_span(method):
+    """Wrap a plan's public method in a span `ntt.<module>.<method>`, a
+    top-level span unless another span is open (a method one of the plan's
+    own methods calls, a channel plan under a CRT plan)."""
+    suffix = "." + method.__name__
+
+    @functools.wraps(method)
+    def spanned(self, *args, **kwargs):
+        if not torch.autograd.profiler._is_profiler_enabled:
+            return method(self, *args, **kwargs)
+        with _Span("ntt." + type(self).__module__.rsplit(".", 1)[-1] + suffix, None):
+            return method(self, *args, **kwargs)
+    return spanned
+
+
+def recorded_spans() -> list:
+    """The buffer's records as dicts, oldest first, with `device_ms`: the
+    time between the span's two events on the call's stream, which is its
+    device operations plus any time the device sat idle inside the span
+    waiting for the host (None where no event was recorded: CPU work, a
+    graph capture, a span still open). Waits for each span's end event once."""
+    out = []
+    for rec in _records:
+        events = rec["_events"]
+        if events is not None:
+            events[1].synchronize()
+            rec["device_ms"] = events[0].elapsed_time(events[1])
+            rec["_events"] = None
+        out.append({k: v for k, v in rec.items() if k != "_events"})
+    return out
+
+
+def clear_spans() -> None:
+    """Empty the buffer."""
+    _records.clear()
