@@ -4,7 +4,8 @@
 Drives the port's paths through their hand-written CUDA kernels:
   * native64: `native64.Plan32(2^14).negacyclic_polymul` on planar (lo, hi)
     uint32 limbs at batch 8, through K1a (`fwd_wide_multi`) and K1b
-    (`inv_multi`) of `csrc/mxu32_multi.cu`;
+    (`inv_multi`) of `csrc/mxu32_multi.cu` and the Garner lift kernel
+    (`lift_u64_from5`, `csrc/crt_lift.cu`);
   * prime32: `prime32.Plan(n, p).negacyclic_polymul` in the three prime
     regimes (lt30, lt31, generic), through K2 (four-step `fwd` / `inv`,
     2048 <= n <= 2^17, p >= 2^26; tiles for one channel's small grids) of
@@ -113,10 +114,13 @@ failure:
                clusters the card holds at once (cudaOccupancyMaxActiveClusters:
                the cluster launch must be accepted at 2^14 and 2^17);
                K3's channel-grid instances of every tile `k3_multi_tile`
-               picks and the 16 64-row instances of the 64-bit pass built.
+               picks and the 16 64-row instances of the 64-bit pass built;
+               the lift kernel's vector and scalar instances, no spill.
   3. parity  — each kernel against its plain torch version on the card,
                exact equality: K1a/K1b at (n, B) = (2^14, 8), (2^14, 5),
-               (2^11, 3), (2^15, 2); K2 fwd, fwd_wide, inv (unscaled and
+               (2^11, 3), (2^15, 2); the lift kernel at (n, B) = (2^14, 8),
+               (2^14, 5), (1024, 3), (2^17, 3), (2, 3) and (2^11, 3) one
+               word past an aligned base; K2 fwd, fwd_wide, inv (unscaled and
                scaled) at (2^14, 16), (2^14, 3), (2^15, 2) and at n in
                {2048, 4096, 8192}, B in {16, 3}; K3 pass_matmod (A scaled
                with 1 and 2 limbs, F, G scaled, Ainv plain and scaled, a
@@ -200,7 +204,8 @@ failure:
                N = 2048) against its digests; prints the FAIL and fixture
                lines, and fails on any FAIL.
   4. main    — native64: three polymuls on the card == CPU plain path ==
-               numpy wrapping oracle (row 0); K1a +2, K1b +1 per call.
+               numpy wrapping oracle (row 0); K1a +2, K1b +1, the lift +1
+               per call.
                prime32: Plan(2^14, p) polymul at B = 16 for each bench prime
                == CPU plain path, and inv(fwd(x)) == n·x mod p (K2 +2 fwd
                +1 inv per polymul, also at n = 4096); Plan(1024,
@@ -325,15 +330,18 @@ failure:
                `utils/profiling.chain_time` (CUDA graphs: a chain of 64
                dependent steps, 32 at 2^16, minus a chain of one, replayed
                in turns): the native64 Plan32 polymul at (2^14, 8) on planar
-               uint32 limbs (its launches K1a 2, K1b 1 read on an eager
-               call), its stages fwd-wide-multi (x2 a polymul),
+               uint32 limbs (its launches K1a 2, K1b 1, the lift 1 read on
+               an eager call), its stages fwd-wide-multi (x2 a polymul),
                pointwise-montgomery (`ntt_dispatch.pointwise_mont32`),
-               inv-multi, the lift `crt.rec_u64_from5` and beside it
-               `crt_mxu.rec_u64_from5`, and native128 Plan32 at (2^16, 8):
+               inv-multi, the lift `crt.rec_u64_from5`, beside it
+               `crt_mxu.rec_u64_from5` and the lift kernel
+               (`crt_cuda.rec_u64_from5`, the route's), and native128
+               Plan32 at (2^16, 8):
                each row's chain ms (dispatch removed), eager CUDA-event
                median (dispatch included) and roofline share
                (`profiling.Roofline`), a graph of two steps held bit for bit
-               against eager; the sum of the stages beside the whole. Then
+               against eager; the sum of the stages (the kernel's lift)
+               beside the whole. Then
                the lift A/B: `ops/crt.py` against `crt_mxu` (the int8-GEMM
                accumulation, `torch._int_mm`) for rec_u64_from5 and
                rec_u128_from5 at [8, 2^14] and rec_u128_from10 at [8, 2^16]:
@@ -386,6 +394,11 @@ N_MAIN, B_MAIN = 1 << 14, 8
 N32, B32 = 1 << 14, 16
 REPS = 20
 PARITY_SHAPES = ((1 << 14, 8), (1 << 14, 5), (1 << 11, 3), (1 << 15, 2))
+# (n, B, base offset in words) of the lift kernel's parity: both prime
+# families, a count B·n that is not a multiple of 4 and a misaligned base
+# (its scalar instance)
+LIFT_SHAPES = ((1 << 14, 8, 0), (1 << 14, 5, 0), (1024, 3, 0), (1 << 17, 3, 0), (2, 3, 0),
+               (1 << 11, 3, 1))
 # (n, B, channels) of K1c / K1d's parity: the product plan's (2^14, 16, 2),
 # batch edges, 3 channels, and (2^16, 8): every tile instance k1_tile picks
 K1CD_SHAPES = ((1 << 14, 16, 2), (1 << 14, 16, 3), (1 << 14, 5, 2), (1 << 14, 1, 2),
@@ -421,6 +434,7 @@ PASS_SRC = "concrete_ntt_tpu_torch/csrc/mxu32_pass.cu"
 BFLY_SRC = "concrete_ntt_tpu_torch/csrc/butterfly32.cu"
 PASS64_SRC = "concrete_ntt_tpu_torch/csrc/mxu64_pass.cu"
 MULTI64_SRC = "concrete_ntt_tpu_torch/csrc/mxu64_multi.cu"
+LIFT_SRC = "concrete_ntt_tpu_torch/csrc/crt_lift.cu"
 KERNELS = {  # JSON name -> (source, TPU kernel replaced)
     "fwd_wide_multi": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:367"),
     "inv_multi": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:398"),
@@ -461,6 +475,8 @@ KERNELS = {  # JSON name -> (source, TPU kernel replaced)
     "pass_matmod_multi": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:687"),
     "pass_matmod_multi_u128": (PASS_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:687"),
     "pass_matmod64_multi": (PASS64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:197"),
+    # the native64 Plan32 Garner lift: no TPU kernel (XLA code there)
+    "lift_u64_from5": (LIFT_SRC, "none: concrete_ntt_tpu/ops/crt.py rec_u64_from5 is XLA code"),
 }
 # the rows that also carry their shape above 2^15 (fields `n17_*` of the JSON line)
 BIG_ROWS = ("fwd_wide_multi", "fwd_wide_multi_u128", "inv_multi", "fwd_multi_perchannel",
@@ -773,7 +789,7 @@ def stages_phase(smi: str, seed: int, dev: torch.device) -> None:
     fails, a graph that disagrees with eager, lifts that disagree, or
     launches other than the route's."""
     from concrete_ntt_tpu_torch import crt_mxu, native64, native128
-    from concrete_ntt_tpu_torch.ops import crt, ntt_dispatch
+    from concrete_ntt_tpu_torch.ops import crt, crt_cuda, ntt_dispatch
     from concrete_ntt_tpu_torch.ops.u32 import MASK32, to_i64, to_u32
     from concrete_ntt_tpu_torch.tables import native_channel_primes
     from concrete_ntt_tpu_torch.utils import profiling
@@ -812,6 +828,16 @@ def stages_phase(smi: str, seed: int, dev: torch.device) -> None:
             return to_u32(torch.stack(mix) & MASK32), t
         return step
 
+    def kernel_lift_step(primes):
+        """carry (t [5, B, n] uint32, prev) -> ((lo, hi, lo, hi, lo) of the lift
+        kernel as the next residues, t): one stack of feedback a step."""
+        def step(carry):
+            t, _ = carry
+            lo, hi = crt_cuda.rec_u64_from5(t, primes)
+            return torch.stack([v.view(torch.int32) for v in (lo, hi, lo, hi, lo)]).view(
+                torch.uint32), t
+        return step
+
     # -- the native64 Plan32 polymul (2^14, 8) and its stages ------------------------
     t_start = time.perf_counter()
     n, b = N_MAIN, B_MAIN
@@ -824,7 +850,7 @@ def stages_phase(smi: str, seed: int, dev: torch.device) -> None:
     plan.negacyclic_polymul(tuple(ops[:2]), tuple(ops[2:]))
     torch.cuda.synchronize()
     launched = {k: v for k, v in launch_counts().items() if v}
-    require(launched == {"fwd_wide_multi": 2, "inv_multi": 1},
+    require(launched == {"fwd_wide_multi": 2, "inv_multi": 1, "lift_u64_from5": 1},
             f"stages: the native64 Plan32 polymul launched {launched}")
     fwd_r = lambda t: profiling.mxu_transform_roofline(n, b * c, t, 8, 4)
     inv_r = lambda t: profiling.mxu_transform_roofline(n, b * c, t, 4, 4)
@@ -842,12 +868,17 @@ def stages_phase(smi: str, seed: int, dev: torch.device) -> None:
     inv = row("inv-multi", lambda cr: (ntt_dispatch.try_inv32_all(cr[0], plan.plans, scales),
                                        cr[0]), (fl, fr), length, inv_r)
     lift_roof = lambda macs: lambda t: profiling.Roofline(t, (c + 2) * word, macs)
-    lift = row("garner-lift rec_u64_from5", lift_step(crt.rec_u64_from5, primes), (fl, fr),
-               length, lift_roof(0))
+    row("garner-lift rec_u64_from5", lift_step(crt.rec_u64_from5, primes), (fl, fr), length,
+        lift_roof(0))
     row("garner-lift crt_mxu.rec_u64_from5", lift_step(crt_mxu.rec_u64_from5, primes), (fl, fr),
         length, lift_roof(b * n * 20 * 9))
+    require(gate().same_bits(crt_cuda.rec_u64_from5(fl, primes),
+                             crt_cuda.rec_u64_from5_plain(fl, primes)),
+            f"stages: the lift kernel differs from its plain twin at [{b}, {n}]")
+    lift = row("garner-lift crt_cuda.rec_u64_from5 (the lift kernel; the step's feedback one "
+               "int32 stack)", kernel_lift_step(primes), (fl, fr), length, lift_roof(0))
     parts = 2 * fwd + pw + inv + lift
-    print(f"stages: SUM(parts) {parts:.4f} ms (fwd x2 + pointwise + inv + scalar lift) vs "
+    print(f"stages: SUM(parts) {parts:.4f} ms (fwd x2 + pointwise + inv + kernel lift) vs "
           f"full-polymul {full:.4f} ms: ratio {parts / full:.3f}; {1e3 / full:.1f} polymuls/s "
           f"with dispatch removed | {smi}", flush=True)
 
@@ -1014,16 +1045,16 @@ SHARDED_TIMEOUT = 600  # seconds a world may take, rank processes' start and tab
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count in this process."""
-    from concrete_ntt_tpu_torch.ops import butterfly32_cuda, mxu32_cuda, mxu64_cuda
+    from concrete_ntt_tpu_torch.ops import butterfly32_cuda, crt_cuda, mxu32_cuda, mxu64_cuda
 
-    return {**mxu32_cuda.LAUNCHES, **mxu64_cuda.LAUNCHES,
+    return {**mxu32_cuda.LAUNCHES, **mxu64_cuda.LAUNCHES, **crt_cuda.LAUNCHES,
             **{f"butterfly32_{k}": v for k, v in butterfly32_cuda.LAUNCHES.items()}}
 
 
 def reset_launch_counts() -> None:
-    from concrete_ntt_tpu_torch.ops import butterfly32_cuda, mxu32_cuda, mxu64_cuda
+    from concrete_ntt_tpu_torch.ops import butterfly32_cuda, crt_cuda, mxu32_cuda, mxu64_cuda
 
-    for m in (mxu32_cuda, mxu64_cuda, butterfly32_cuda):
+    for m in (mxu32_cuda, mxu64_cuda, butterfly32_cuda, crt_cuda):
         m.reset_launch_counts()
 
 
@@ -1204,7 +1235,7 @@ def main() -> int:
     )
     from concrete_ntt_tpu_torch.ops import butterfly32_cuda as bcu
     from concrete_ntt_tpu_torch.ops import (
-        cuda_build, mxu32, mxu32_cuda, mxu64, mxu64_cuda, ntt_dispatch, stagesplit)
+        crt_cuda, cuda_build, mxu32, mxu32_cuda, mxu64, mxu64_cuda, ntt_dispatch, stagesplit)
     from concrete_ntt_tpu_torch.ops.u32 import (
         limbs_to_np_u64, mont_mul, mont_mul64, mont_neginv, mont_neginv64, to_i64, to_u32)
     from concrete_ntt_tpu_torch.parallel import _dist
@@ -1272,7 +1303,7 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(len(cuda_build.SOURCES)) as pool:
         sos = list(pool.map(cuda_build.build, cuda_build.SOURCES))
     mxu32_cuda._lib(), mxu32_cuda._pass_lib(), bcu._lib()
-    mxu64_cuda._pass_lib(), mxu64_cuda._multi_lib()
+    mxu64_cuda._pass_lib(), mxu64_cuda._multi_lib(), crt_cuda._lib()
     print(f"build: {len(sos)} sources in {time.perf_counter() - t0:.1f} s", flush=True)
     for so in sos:
         with open(so[:-3] + ".log") as f:
@@ -1286,6 +1317,10 @@ def main() -> int:
                   "epilogue): " + "; ".join(f"{pass_instance(e)} {r} registers, {st} / {ld} B "
                                             "spill stores / loads" for e, r, st, ld in passes),
                   flush=True)
+        if os.path.basename(so).startswith("crt_lift"):  # the vector and scalar instances
+            lifts = [e for e in ptxas_entries(log) if "lift_u64_from5" in e[0]]
+            require(len(lifts) == 2 and all(st == ld == 0 for _, _, st, ld in lifts),
+                    f"build: {os.path.basename(so)}: lift instances {lifts} missing or spilling")
         if os.path.basename(so).startswith("mxu64_"):
             require(passes and all(st == ld == 0 for _, _, st, ld in passes),
                     f"build: {os.path.basename(so)}: a GEMM pass instance spills registers")
@@ -1391,6 +1426,19 @@ def main() -> int:
                     f"n={n} B={b} scaled={scales != (1,) * len(PRIMES)}")
     print(f"parity: K1a/K1b {checks['fwd_wide_multi'] + checks['inv_multi']} checks exact "
           f"at (n, B) in {PARITY_SHAPES} in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    for n, b, off in LIFT_SHAPES:
+        lp = PRIMES if n <= 1 << 15 else EXT[:5]
+        words = np.concatenate([np.zeros(off, dtype=np.uint32)] + [
+            rng.integers(0, p, b * n, dtype=np.uint32) for p in lp])
+        res = torch.from_numpy(words).to(dev)[off:].view(5, b, n)  # `off` words in
+        got, want = crt_cuda.rec_u64_from5(res, lp), crt_cuda.rec_u64_from5_plain(res, lp)
+        for i, limb in enumerate(("lo", "hi")):
+            compare("lift_u64_from5", got[i], want[i], f"n={n} B={b} offset={off} {limb}")
+    print(f"parity: lift_u64_from5 {checks['lift_u64_from5']} checks exact at (n, B, base "
+          f"offset in words) in {LIFT_SHAPES}, primes {PRIMES} up to 2^15, {EXT[:5]} above, "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     p2 = PRIMES[:2]
@@ -2005,7 +2053,8 @@ def main() -> int:
         outs.append(plan.negacyclic_polymul(lhs, rhs))
         after = counts()
         require(after["fwd_wide_multi"] - before["fwd_wide_multi"] == 2
-                and after["inv_multi"] - before["inv_multi"] == 1,
+                and after["inv_multi"] - before["inv_multi"] == 1
+                and after["lift_u64_from5"] - before["lift_u64_from5"] == 1,
                 f"main: launch counts moved {before} -> {after}")
     torch.cuda.synchronize()
     launches = counts()
@@ -2032,13 +2081,15 @@ def main() -> int:
     reset_counts()
     np_out = plan.negacyclic_polymul(*operands[0])
     rule = counts()
-    require(rule["fwd_wide_multi"] == 2 and rule["inv_multi"] == 1,
+    require(rule["fwd_wide_multi"] == 2 and rule["inv_multi"] == 1
+            and rule["lift_u64_from5"] == 1,
             f"main: a numpy-input polymul on a default plan launched {rule}")
     require(isinstance(np_out, np.ndarray) and np.array_equal(
         np_out, limbs_to_np_u64(torch.stack([o.cpu() for o in outs[0]], dim=-1).numpy())),
         "main: numpy-input polymul differs from the planar one")
     print(f"main: device rule: Plan32 default device {plan.device!r}, numpy-input polymul "
-          f"launched K1a x{rule['fwd_wide_multi']}, K1b x{rule['inv_multi']}", flush=True)
+          f"launched K1a x{rule['fwd_wide_multi']}, K1b x{rule['inv_multi']}, the lift "
+          f"x{rule['lift_u64_from5']}", flush=True)
 
     host = lambda a: torch.from_numpy(a)
     p32_cases = []
@@ -2372,7 +2423,8 @@ def main() -> int:
     launches52 = counts()
     before = counts()
     outs32 = [plan.negacyclic_polymul(lhs, rhs) for lhs, rhs in card52]
-    expect_delta(before, {"fwd_wide_multi": 4, "inv_multi": 2}, "Plan32 on the Plan52 inputs")
+    expect_delta(before, {"fwd_wide_multi": 4, "inv_multi": 2, "lift_u64_from5": 2},
+                 "Plan32 on the Plan52 inputs")
     plan52_cpu = native64.Plan52.try_new(N64, device="cpu")
     as_np = lambda pr: limbs_to_np_u64(torch.stack([t.cpu() for t in pr], dim=-1).numpy())
     for i, ((a, b), out) in enumerate(zip(ops52, outs52)):
@@ -2558,14 +2610,16 @@ def main() -> int:
         return np.stack([t.cpu().numpy() for t in parts], axis=-1)
 
     def native_counts(pl, binary):
-        """Launches of one polymul, one fwd and one inv of a native plan at 2^11 <= n <= 2^17."""
+        """Launches of one polymul, one fwd and one inv of a native plan at
+        2^11 <= n <= 2^17 (native64.Plan32 lifts through the lift kernel)."""
         k, nl = len(pl.primes), pl.width // 32
         if pl.tier == "plan32":
             wide = "fwd_wide_multi_u128" if nl == 4 else "fwd_wide_multi"
-            poly = {wide: 1, "inv_multi": 1}
+            lift = {"lift_u64_from5": 1} if isinstance(pl, native64.Plan32) else {}
+            poly = {wide: 1, "inv_multi": 1, **lift}
             poly["fwd_wide_multi" if binary else wide] = poly.get(
                 "fwd_wide_multi" if binary else wide, 0) + 1
-            return poly, {wide: 1}, {"inv_multi": 1}
+            return poly, {wide: 1}, {"inv_multi": 1, **lift}
         if ntt_dispatch.route64(pl.n, pl.primes) == "K7":
             return ({"fwd_multi64": 2, "pointwise_inv_multi64": 1}, {"fwd_multi64": 1},
                     {"inv64": k})
@@ -3154,6 +3208,11 @@ def main() -> int:
     plain_ms["fwd_wide_multi"] = median_ms(
         lambda: mxu32_cuda.fwd_wide_multi_plain(limbs, PRIMES))
     plain_ms["inv_multi"] = median_ms(lambda: mxu32_cuda.inv_multi_plain(x, PRIMES, scaled))
+    lift_res = torch.stack([u32((B_MAIN, N_MAIN), p) for p in PRIMES])
+    ms["lift_u64_from5"] = median_ms(lambda: crt_cuda.rec_u64_from5(lift_res, PRIMES))
+    plain_ms["lift_u64_from5"] = median_ms(lambda: crt_cuda.rec_u64_from5_plain(lift_res, PRIMES))
+    print(f"times: lift_u64_from5 n={N_MAIN} B={B_MAIN}: kernel {ms['lift_u64_from5']:.4f} ms, "
+          f"plain {plain_ms['lift_u64_from5']:.4f} ms (median of {REPS}) | {smi}", flush=True)
     # the GEMM rows' device time (the pass launches of a call) beside
     # torch._int_mm on int8 matrices of the same passes' shapes
     dev_ms, int_mm_ms = {}, {}
@@ -3702,6 +3761,8 @@ def main() -> int:
     e50 = mxu64._n_eplanes_lazy(PRIMES64["p50"])
     n1k, n2k = mxu32.four_step_factors(4096)
     work = {
+        # the lift: five u32 residues read, two u32 limbs written a coefficient
+        "lift_u64_from5": (0, 28 * B_MAIN * N_MAIN),
         "fwd_wide_multi": fourstep_work("fwd", B_MAIN, n1m, n2m, 5, 8, 4, 4, 2, 1, 4,
                                         shared_operand=True),
         "inv_multi": fourstep_work("inv", B_MAIN, n1m, n2m, 5, 4, 4, 4, 1, 1, 4),

@@ -197,23 +197,29 @@ class NativePlanBase:
     def _lift(self, residues, lead, fmt: str):
         """Standard-order residues (uint32 [k, B, n], or a (lo, hi) pair of
         such for plan52) → wrapping values in `fmt`."""
-        k = len(self.primes)
         with span("ntt.lift", "lift") as sp:
-            if self.tier == "plan32":
-                mods = to_i64(residues)
-                mods = [mods[i] for i in range(k)]
-            else:
-                lo, hi = to_i64(residues[0]), to_i64(residues[1])
-                mods = [(lo[i], hi[i]) for i in range(k)]
-            value_parts = self._reconstruct(mods)
-            if not isinstance(value_parts, tuple):
-                value_parts = (value_parts,)
-            value_parts = tuple(to_u32(v) for v in value_parts)
+            value_parts = self._lift_parts(residues)
             sp.io(residues, value_parts)
         with span("ntt.marshal", "marshal") as sp:
             out = _marshal_out(value_parts, lead, fmt, self.n)
             sp.io(value_parts, out)
         return out
+
+    def _lift_parts(self, residues) -> tuple:
+        """Standard-order residues → the value's uint32 limb planes [B, n]:
+        the plain chain, `_reconstruct` on int64 carriers (a family with a
+        lift kernel overrides this)."""
+        k = len(self.primes)
+        if self.tier == "plan32":
+            mods = to_i64(residues)
+            mods = [mods[i] for i in range(k)]
+        else:
+            lo, hi = to_i64(residues[0]), to_i64(residues[1])
+            mods = [(lo[i], hi[i]) for i in range(k)]
+        value_parts = self._reconstruct(mods)
+        if not isinstance(value_parts, tuple):
+            value_parts = (value_parts,)
+        return tuple(to_u32(v) for v in value_parts)
 
     def _reconstruct(self, residues):
         raise NotImplementedError

@@ -32,7 +32,7 @@ FLAGS = (
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-SOURCES = ("mxu32_multi", "mxu32_pass", "butterfly32", "mxu64_pass", "mxu64_multi")
+SOURCES = ("mxu32_multi", "mxu32_pass", "butterfly32", "mxu64_pass", "mxu64_multi", "crt_lift")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

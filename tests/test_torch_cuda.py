@@ -10,7 +10,9 @@ per-channel route below 2^11) through the kernels against the CPU plain
 path; and the sharded paths (`parallel/fourstep_mxu.py`,
 `parallel/channels.py`) in a world of two gloo ranks on one card and in one
 of a single NCCL rank; the native64 Plan32 polymul captured as a CUDA graph
-(`utils/profiling.capture`) against eager, and `chain_time`'s error on a
+(`utils/profiling.capture`, the lift kernel of `ops/crt_cuda.py` inside;
+its own card tests are in tests/test_torch_crt_cuda.py) against eager, and
+`chain_time`'s error on a
 step that synchronises with the host.
 
 Every test here is marked `cuda` and skips without a CUDA GPU. The file
@@ -995,7 +997,9 @@ def test_sharded_paths_on_card(gen, cuda_device, tmp_path, backend, world):
 def test_plan32_polymul_graph_replay_matches_eager(gen, cuda_device):
     """The native64 Plan32 polymul (2^14, 8) captured as a CUDA graph of two
     dependent polymuls (`utils/profiling.capture`) replays to eager's bits,
-    also after its inputs are overwritten in place; `chain_time` times it."""
+    also after its inputs are overwritten in place, with the lift kernel
+    (`ops/crt_cuda.py`, one launch a polymul) inside; `chain_time` times it."""
+    from concrete_ntt_tpu_torch.ops import crt_cuda
     from concrete_ntt_tpu_torch.utils import profiling
 
     plan = native64.Plan32.try_new(1 << 14, device="cuda")
@@ -1004,6 +1008,9 @@ def test_plan32_polymul_graph_replay_matches_eager(gen, cuda_device):
     def step(c):
         return (*plan.negacyclic_polymul(c[:2], c[2:]), c[0], c[1])
 
+    before = crt_cuda.LAUNCHES["lift_u64_from5"]
+    step(ops)
+    assert crt_cuda.LAUNCHES["lift_u64_from5"] == before + 1
     graph, out = profiling.capture(step, ops, 2)
     for fresh in (False, True):
         if fresh:

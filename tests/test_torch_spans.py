@@ -22,7 +22,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from concrete_ntt_tpu_torch import native64, prime64
-from concrete_ntt_tpu_torch.ops import butterfly32_cuda, mxu32_cuda, mxu64_cuda
+from concrete_ntt_tpu_torch.ops import butterfly32_cuda, crt_cuda, mxu32_cuda, mxu64_cuda
 from concrete_ntt_tpu_torch.tables import GOLDILOCKS
 from concrete_ntt_tpu_torch.utils import profiling
 
@@ -205,22 +205,27 @@ def test_a_span_that_raises_closes():
 
 
 def test_launches_come_from_the_registered_counters(monkeypatch):
-    for counter in (mxu32_cuda.LAUNCHES, mxu64_cuda.LAUNCHES, butterfly32_cuda.LAUNCHES):
+    counters = (mxu32_cuda.LAUNCHES, mxu64_cuda.LAUNCHES, butterfly32_cuda.LAUNCHES,
+                crt_cuda.LAUNCHES)
+    for counter in counters:
         assert any(c is counter for c in profiling._counters)
-    for name in ("fwd_wide_multi", "inv_multi"):
-        plain = getattr(mxu32_cuda, name)
+    for module, name in ((mxu32_cuda, "fwd_wide_multi"), (mxu32_cuda, "inv_multi"),
+                         (crt_cuda, "rec_u64_from5")):
+        plain = getattr(module, name)
+        key = "lift_u64_from5" if module is crt_cuda else name
 
-        def counted(*args, _plain=plain, _name=name, **kwargs):
-            mxu32_cuda.LAUNCHES[_name] += 1
+        def counted(*args, _plain=plain, _module=module, _key=key, **kwargs):
+            _module.LAUNCHES[_key] += 1
             return _plain(*args, **kwargs)
-        monkeypatch.setattr(mxu32_cuda, name, counted)
-    before = dict(mxu32_cuda.LAUNCHES)
+        monkeypatch.setattr(module, name, counted)
+    before = {**mxu32_cuda.LAUNCHES, **crt_cuda.LAUNCHES}
     _, _, records = _traced(_native(2048))
     root, *rest = records
-    assert root["launches"] == 3  # K1a twice, K1b once
+    assert root["launches"] == 4  # K1a twice, K1b once, the lift once
     assert all(r["launches"] is None for r in rest)
     assert mxu32_cuda.LAUNCHES["fwd_wide_multi"] == before["fwd_wide_multi"] + 2
     assert mxu32_cuda.LAUNCHES["inv_multi"] == before["inv_multi"] + 1
+    assert crt_cuda.LAUNCHES["lift_u64_from5"] == before["lift_u64_from5"] + 1
 
 
 def test_root_span_keeps_the_method_name_and_doc():
@@ -262,4 +267,4 @@ def test_card_stage_times(case, cuda_device):
         # CUDA events resolve 0.5 us: one half-step of slack a child
         assert sum(kids) <= r["device_ms"] + 0.0005 * len(kids), r
     assert {r["launches"] for r in records if r["parent"] is None} == (
-        {3} if case.startswith("native64") else {1, 0})
+        {4} if case.startswith("native64") else {1, 0})

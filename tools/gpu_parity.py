@@ -7,11 +7,12 @@ Rows are enumerated from the dispatcher, not hand-picked: n walks 2^11 ...
 through `ops/ntt_dispatch.route32`, `tier32`, `tier64` and `route64` over
 the regime primes of `regimes()`, and every value those functions return
 appears at every n that returns it (`walk()`; tests/test_torch_gpu_parity.py
-holds the row list to it). Beside the routes, the ported entry points that
-no route takes: K1e, K2 with block tables (K2h) and `engine32_fused`, K5
-with the four limbs of a u128 operand (W4-64), K1c / K1d (the product
-plan's), K7b / K7c, and the sharded routes' K3 / K6 channel grids at their
-rank-local shapes in this process. Axes: B in {1, 3, 16} (8 for the native
+holds the row list to it), with the native64 Plan32 lift kernel at every n.
+Beside the routes, the ported entry points that no route takes: K1e, K2
+with block tables (K2h) and `engine32_fused`, K5 with the four limbs of a
+u128 operand (W4-64), K1c / K1d (the product plan's), K7b / K7c, and the
+sharded routes' K3 / K6 channel grids at their rank-local shapes in this
+process. Axes: B in {1, 3, 16} (8 for the native
 plans), the 32-bit regimes lt30, lt31, gen4 and gen5 (four and five digit
 planes), the 64-bit regimes p50, p62, p63, Goldilocks and p64, operand limbs
 1 / 2 / 4, CRT channels 2 / 3 / 5 / 10.
@@ -457,6 +458,32 @@ def k1_rows(n: int) -> list:
                     lambda: m.inv_multi_presplit_plain(xd, pr, s), "matmod_pass")
 
         out.append(_kernel(f"K1e inv_multi_presplit n={n} B={b} C={c}", n, (), k1e))
+    return out
+
+
+def lift_rows(n: int) -> list:
+    """The native64 Plan32 lift kernel (`ops/crt_cuda.py`) on canonical
+    residues [5, B, n] over the primes the plan takes at n; at 2^11 also one
+    word past an aligned base, and at n = 2 a count of 6 (its scalar
+    instance)."""
+    from concrete_ntt_tpu_torch.ops import crt_cuda
+
+    primes = channel_primes(5, n)
+    cases = [(_batch(n.bit_length()), 0)]
+    cases += [(3, 1)] if n == 1 << 11 else [(3, 0)] if n == 2 else []
+    out = []
+    for b, off in cases:
+        def make(ctx, name, b=b, off=off):
+            rng = ctx.rng(name)
+            words = np.concatenate([np.zeros(off, dtype=np.uint32)] + [
+                rng.integers(0, p, b * n, dtype=np.uint32) for p in primes])
+            res = torch.from_numpy(words).to(ctx.dev)[off:].view(5, b, n)
+            return (lambda: crt_cuda.rec_u64_from5(res, primes),
+                    lambda: crt_cuda.rec_u64_from5_plain(res, primes), "lift_u64_from5")
+
+        vec = (b * n) % 4 == 0 and off == 0
+        out.append(_kernel(f"lift rec_u64_from5 n={n} B={b}" + (f" offset={off}" if off else ""),
+                           n, (), make, tiles="vector" if vec else "scalar"))
     return out
 
 
@@ -1005,7 +1032,7 @@ def rows(quick: bool = False) -> list:
             if n == 1 << 16:
                 out += k3_rows(n, ((8, 2, 5, 4), (1, 2, 5, 4)))
             out += route_rows(n)
-        out += k4_rows(n)
+        out += k4_rows(n) + lift_rows(n)
         out += [row for spec in NATIVE if (row := native_row(n, *spec)) is not None]
         for i, (rname, p) in enumerate((*r["r32"].items(), ("small", r["small"]))):
             out.append(prime32_row(n, rname, p, _batch(i)))
