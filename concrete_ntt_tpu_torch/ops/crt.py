@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .u32 import (
     MASK32,
     add64,
@@ -280,16 +281,24 @@ def _pair_digits_from10(mods, primes):
 
 def rec_u128_from10(mods, primes):
     """10×u32 residues → wrapping u128, v2 pairing
-    (reconstruct_32bit_0123456789_v2, native128.rs:20-118)."""
-    digits, pair_p, sign = _pair_digits_from10(mods, primes)
-    mask128 = (1 << 128) - 1
-    pos = (digits[0][0], digits[0][1], 0, 0)
-    pref = 1
-    for i in range(1, 5):
-        pref = pref * pair_p[i - 1]
-        pos = add_limbs(pos, mullo_limbs(digits[i], const_limbs(pref & mask128, 4), 4))
-    neg = sub_limbs(pos, const_limbs((pref * pair_p[4]) & mask128, 4))
-    return select_limbs(sign, neg, pos)
+    (reconstruct_32bit_0123456789_v2, native128.rs:20-118). Two stage
+    spans: `ntt.lift_digits` (the pair digits, the outer Garner, the sign)
+    and `ntt.lift_limbs` (the four-limb multiply-accumulate by the prefix
+    products, the subtraction of P, the sign select)."""
+    with span("ntt.lift_digits", "lift_digits") as sp:
+        digits, pair_p, sign = _pair_digits_from10(mods, primes)
+        sp.io(mods, digits, sign)
+    with span("ntt.lift_limbs", "lift_limbs") as sp:
+        mask128 = (1 << 128) - 1
+        pos = (digits[0][0], digits[0][1], 0, 0)
+        pref = 1
+        for i in range(1, 5):
+            pref = pref * pair_p[i - 1]
+            pos = add_limbs(pos, mullo_limbs(digits[i], const_limbs(pref & mask128, 4), 4))
+        neg = sub_limbs(pos, const_limbs((pref * pair_p[4]) & mask128, 4))
+        out = select_limbs(sign, neg, pos)
+        sp.io(digits, sign, out)
+    return out
 
 
 def _carmichael(pair):

@@ -249,8 +249,10 @@ def device_times(tasks: list, reps: int = 20) -> dict:
 #: the stage of every stage span, each named "ntt.<stage>": layout changes
 #: between the caller's format and the limb planes; forward and inverse NTTs
 #: (a kernel that fuses the pointwise product into its inverse included);
-#: the NTT-domain products and adds; the CRT reconstruction
-STAGES = ("marshal", "transform", "pointwise", "lift")
+#: the NTT-domain products and adds; the CRT reconstruction; and two stages
+#: that only run inside a lift (`ops/crt.py::rec_u128_from10`): the Garner
+#: digits with the sign, then the limb arithmetic that weighs them
+STAGES = ("marshal", "transform", "pointwise", "lift", "lift_digits", "lift_limbs")
 MAX_SPANS = 1 << 16  # records kept; the oldest go first
 
 _records: deque = deque(maxlen=MAX_SPANS)

@@ -2,11 +2,11 @@
 
 Outside a profiler session a span is one shared object that does nothing: no
 record, no CUDA event, no profiler call, no allocation. Inside one, the
-plans' calls record their stage trees (marshal, transform, pointwise, lift)
-in the order the work runs, with parents and roots, each name on the
-profiler's timeline, the same outputs as with tracing off, a bounded
-buffer, and each top-level call's kernel launches from the registered
-counters. The card tests (marked `cuda`) read each stage's device time.
+plans' calls record their stage trees (marshal, transform, pointwise, lift;
+inside native128's lift its Garner digits and its limb arithmetic) in the
+order the work runs, with parents and roots, each name on the profiler's
+timeline, the same outputs as with tracing off, a bounded buffer, and each
+top-level call's kernel launches from the registered counters. The card tests (marked `cuda`) read each stage's device time.
 
 The file imports only the port (no JAX), so its card tests run on a GPU
 machine without JAX:
@@ -21,7 +21,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from concrete_ntt_tpu_torch import native64, prime64
+from concrete_ntt_tpu_torch import native64, native128, prime64
 from concrete_ntt_tpu_torch.ops import butterfly32_cuda, crt_cuda, mxu32_cuda, mxu64_cuda
 from concrete_ntt_tpu_torch.tables import GOLDILOCKS
 from concrete_ntt_tpu_torch.utils import profiling
@@ -47,6 +47,15 @@ def _native(n: int, device="cpu"):
     return lambda: plan.negacyclic_polymul(lhs, rhs)
 
 
+def _native128(n: int, device="cpu"):
+    """A native128 Plan32 polymul of B = 2 planar u128 operands (the u128
+    lift, `ops/crt.py::rec_u128_from10`, with its two stage spans)."""
+    plan = native128.Plan32.try_new(n, device=device)
+    lhs = tuple(_u32(7 + i, (2, n)).to(device) for i in range(4))
+    rhs = tuple(_u32(11 + i, (2, n)).to(device) for i in range(4))
+    return lambda: plan.negacyclic_polymul(lhs, rhs)
+
+
 def _below_goldilocks(seed: int, shape) -> torch.Tensor:
     """u64 limb pairs [..., 2] of values below 2^64 - 2^32 + 1."""
     rng = np.random.default_rng(seed)
@@ -67,7 +76,8 @@ def _goldilocks(device="cpu"):
     return step
 
 
-MARSHAL, TRANSFORM, POINTWISE, LIFT = (f"ntt.{s}" for s in profiling.STAGES)
+MARSHAL, TRANSFORM, POINTWISE, LIFT, LIFT_DIGITS, LIFT_LIMBS = (
+    f"ntt.{s}" for s in profiling.STAGES)
 _STAGED = [MARSHAL, TRANSFORM, MARSHAL]
 
 # (depth, name) of each span in the order it opens
@@ -81,6 +91,10 @@ TREES = {
         (1, POINTWISE), *[(2, "ntt.prime32.mul_assign_normalize"), (3, POINTWISE)] * 5,
         (1, TRANSFORM), *[(2, "ntt.prime32.inv"), (3, MARSHAL), (3, TRANSFORM)] * 5,
         (1, LIFT), (1, MARSHAL)]),
+    "native128-k1": (lambda: _native128(2048), [
+        (0, "ntt.native128.negacyclic_polymul"), (1, MARSHAL), (1, TRANSFORM),
+        (1, TRANSFORM), (1, POINTWISE), (1, TRANSFORM),
+        (1, LIFT), (2, LIFT_DIGITS), (2, LIFT_LIMBS), (1, MARSHAL)]),
     "prime64-goldilocks": (_goldilocks, [
         (0, "ntt.prime64.fwd"), *[(1, s) for s in _STAGED],
         (0, "ntt.prime64.mul_accumulate"), (1, MARSHAL), (1, POINTWISE), (1, MARSHAL),
@@ -182,6 +196,31 @@ def test_nbytes_are_the_stages_logical_bytes():
     assert by_name[TRANSFORM] == [2 * b * n * 4 + k * b * n * 4] * 2 + [2 * k * b * n * 4]
 
 
+def test_u128_lift_spans_hold_their_logical_bytes():
+    """Inside `ntt.lift`, the digits span counts the ten int64 residue
+    carriers in, the five pair digits (limb pairs) and the bool sign out;
+    the limbs span the digits and sign in, the four int64 limbs out."""
+    _, _, records = _traced(_native128(64))
+    lift, digits, limbs = (next(r for r in records if r["name"] == name)
+                           for name in (LIFT, LIFT_DIGITS, LIFT_LIMBS))
+    assert digits["parent"] == limbs["parent"] == lift["index"]
+    assert (digits["stage"], limbs["stage"]) == ("lift_digits", "lift_limbs")
+    bn = 2 * 64
+    assert digits["nbytes"] == 10 * bn * 8 + 5 * 2 * bn * 8 + bn
+    assert limbs["nbytes"] == 5 * 2 * bn * 8 + bn + 4 * bn * 8
+    assert lift["nbytes"] == 10 * bn * 4 + 4 * bn * 4  # residues in; four u32 planes out
+
+
+def test_u128_lift_records_nothing_with_tracing_off(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the off path made a profiler or CUDA call")
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert not torch.autograd.profiler._is_profiler_enabled
+    _native128(64)()
+    assert profiling.recorded_spans() == []
+
+
 def test_the_buffer_keeps_the_newest_spans():
     extra = 10
     with profile(activities=[ProfilerActivity.CPU]):
@@ -245,7 +284,11 @@ def cuda_device():
 
 
 CARD_CASES = {"native64-k1": lambda dev: _native(1 << 14, dev),
+              "native128-k1": lambda dev: _native128(1 << 16, dev),
               "prime64-goldilocks": _goldilocks}
+# a root's launches: K1a x2, K1b and native64's lift kernel; K1a-W4 x2 and
+# K1b (native128 lifts in plain torch); a K5 fwd or inv, or none
+CARD_LAUNCHES = {"native64-k1": {4}, "native128-k1": {3}, "prime64-goldilocks": {1, 0}}
 
 
 @pytest.mark.cuda
@@ -266,5 +309,4 @@ def test_card_stage_times(case, cuda_device):
         kids = children.get(r["index"], [])
         # CUDA events resolve 0.5 us: one half-step of slack a child
         assert sum(kids) <= r["device_ms"] + 0.0005 * len(kids), r
-    assert {r["launches"] for r in records if r["parent"] is None} == (
-        {4} if case.startswith("native64") else {1, 0})
+    assert {r["launches"] for r in records if r["parent"] is None} == CARD_LAUNCHES[case]
