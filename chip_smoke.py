@@ -69,7 +69,9 @@ Drives the port's paths through their hand-written CUDA kernels:
     native_binary128 Plan32): `negacyclic_polymul`, `fwd`, `inv` at n = 2^14,
     batch 8. The u128 plans run K1a with the four limbs of the operand (the
     u128 -> residue split folded into the column matmul as 16 operand digit
-    planes) over 10 and 5 channels, the others K1a / K1b with one or two
+    planes) over 10 and 5 channels (native128 lifting through its two lift
+    kernels, `lift_u128_digits` and `lift_u128_limbs` of
+    `csrc/crt_lift128.cu`), the others K1a / K1b with one or two
     limbs and K7a / K7d / K5 on `(x, 0)` limb pairs; at n = 1024 one plan of
     each width through the per-channel route (explicit split, K4 per
     channel, the lift); Python-int and 4-limb planar input on a default
@@ -115,14 +117,17 @@ failure:
                the cluster launch must be accepted at 2^14 and 2^17);
                K3's channel-grid instances of every tile `k3_multi_tile`
                picks and the 16 64-row instances of the 64-bit pass built;
-               the lift kernel's vector and scalar instances, no spill.
+               the lift kernels' vector and scalar instances (native64's
+               one, native128's two), no spill.
   3. parity  — each kernel against its plain torch version on the card,
                exact equality: K1a/K1b at (n, B) = (2^14, 8), (2^14, 5),
                (2^11, 3), (2^15, 2); the lift kernel at (n, B) = (2^14, 8),
                (2^14, 5), (1024, 3), (2^17, 3), (2, 3) and (2^11, 3) one
-               word past an aligned base; K2 fwd, fwd_wide, inv (unscaled and
-               scaled) at (2^14, 16), (2^14, 3), (2^15, 2) and at n in
-               {2048, 4096, 8192}, B in {16, 3}; K3 pass_matmod (A scaled
+               word past an aligned base; native128's two lift kernels
+               (`LIFT128_SHAPES`: the same and (2^16, 8), (2^16, 64));
+               K2 fwd, fwd_wide, inv (unscaled and scaled) at (2^14, 16),
+               (2^14, 3), (2^15, 2) and at n in {2048, 4096, 8192}, B in
+               {16, 3}; K3 pass_matmod (A scaled
                with 1 and 2 limbs, F, G scaled, Ainv plain and scaled, a
                row slice with rank-local diagonals) at the same mid sizes;
                all of K2/K3 for the three bench primes; K4 fwd / inv at n in
@@ -248,11 +253,12 @@ failure:
                plan classes' polymul == CPU plain path == the wrapping
                oracle (row 0; four sampled coefficients at width 128), fwd
                == CPU, inv(fwd(x)) == n·x wrapping; native128 K1a-u128 +2,
-               K1b +1, native_binary128 K1a-u128 +1, K1a +1, K1b +1; at
-               n = 1024 native32, native_binary64 and native128 Plan32
-               through the per-channel route (K4 +2k fwd, +k inv, no K1
-               launch); `"py128"` lists on a default native128 plan == the
-               planar result; a u128 operand through K2 (x3 primes) and
+               K1b +1, the two lift kernels +1 each, native_binary128
+               K1a-u128 +1, K1a +1, K1b +1; at n = 1024 native32,
+               native_binary64 and native128 Plan32 through the per-channel
+               route (K4 +2k fwd, +k inv, no K1 launch; native128's lift
+               kernels +1 each); `"py128"` lists on a default native128
+               plan == the planar result; a u128 operand through K2 (x3 primes) and
                through the rank-local passes (K3's grid with four limbs +R,
                one limb +R; rank 0's A pass through K3 `pass_matmod` with
                four limbs == the grid's) == its
@@ -336,7 +342,9 @@ failure:
                inv-multi, the lift `crt.rec_u64_from5`, beside it
                `crt_mxu.rec_u64_from5` and the lift kernel
                (`crt_cuda.rec_u64_from5`, the route's), and native128
-               Plan32 at (2^16, 8):
+               Plan32 at (2^16, 8) (launches K1a-u128 2, K1b 1, its two
+               lift kernels 1 each) with its lift kernels
+               (`crt_cuda.rec_u128_from10`):
                each row's chain ms (dispatch removed), eager CUDA-event
                median (dispatch included) and roofline share
                (`profiling.Roofline`), a graph of two steps held bit for bit
@@ -399,6 +407,11 @@ PARITY_SHAPES = ((1 << 14, 8), (1 << 14, 5), (1 << 11, 3), (1 << 15, 2))
 # (its scalar instance)
 LIFT_SHAPES = ((1 << 14, 8, 0), (1 << 14, 5, 0), (1024, 3, 0), (1 << 17, 3, 0), (2, 3, 0),
                (1 << 11, 3, 1))
+# (n, B, base offset in words) of native128's lift kernels: both ten-prime
+# families, the cell native128-n65536-b64's (2^16, 64), counts that are not a
+# multiple of 4 and misaligned bases (their scalar instances)
+LIFT128_SHAPES = ((1 << 14, 8, 0), (1 << 16, 8, 0), (1 << 16, 64, 0), (1024, 3, 0), (2, 3, 0),
+                  (1 << 11, 3, 1), (1 << 17, 3, 2))
 # (n, B, channels) of K1c / K1d's parity: the product plan's (2^14, 16, 2),
 # batch edges, 3 channels, and (2^16, 8): every tile instance k1_tile picks
 K1CD_SHAPES = ((1 << 14, 16, 2), (1 << 14, 16, 3), (1 << 14, 5, 2), (1 << 14, 1, 2),
@@ -435,6 +448,7 @@ BFLY_SRC = "concrete_ntt_tpu_torch/csrc/butterfly32.cu"
 PASS64_SRC = "concrete_ntt_tpu_torch/csrc/mxu64_pass.cu"
 MULTI64_SRC = "concrete_ntt_tpu_torch/csrc/mxu64_multi.cu"
 LIFT_SRC = "concrete_ntt_tpu_torch/csrc/crt_lift.cu"
+LIFT128_SRC = "concrete_ntt_tpu_torch/csrc/crt_lift128.cu"
 KERNELS = {  # JSON name -> (source, TPU kernel replaced)
     "fwd_wide_multi": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:367"),
     "inv_multi": (MULTI_SRC, "concrete_ntt_tpu/ops/mxu32_pallas.py:398"),
@@ -477,6 +491,9 @@ KERNELS = {  # JSON name -> (source, TPU kernel replaced)
     "pass_matmod64_multi": (PASS64_SRC, "concrete_ntt_tpu/ops/mxu64_pallas.py:197"),
     # the native64 Plan32 Garner lift: no TPU kernel (XLA code there)
     "lift_u64_from5": (LIFT_SRC, "none: concrete_ntt_tpu/ops/crt.py rec_u64_from5 is XLA code"),
+    # the native128 Plan32 Garner lift, digits then limbs: one launch pair a lift
+    "lift_u128_from10": (LIFT128_SRC,
+                         "none: concrete_ntt_tpu/ops/crt.py rec_u128_from10 is XLA code"),
 }
 # the rows that also carry their shape above 2^15 (fields `n17_*` of the JSON line)
 BIG_ROWS = ("fwd_wide_multi", "fwd_wide_multi_u128", "inv_multi", "fwd_multi_perchannel",
@@ -890,7 +907,8 @@ def stages_phase(smi: str, seed: int, dev: torch.device) -> None:
     plan128.negacyclic_polymul(tuple(ops[:4]), tuple(ops[4:]))
     torch.cuda.synchronize()
     launched = {k: v for k, v in launch_counts().items() if v}
-    require(launched == {"fwd_wide_multi_u128": 2, "inv_multi": 1},
+    require(launched == {"fwd_wide_multi_u128": 2, "inv_multi": 1, "lift_u128_digits": 1,
+                         "lift_u128_limbs": 1},
             f"stages: the native128 Plan32 polymul launched {launched}")
     c128, w128 = len(plan128.primes), 4 * b * n128
     row(f"full-polymul native128 Plan32 n={n128} B={b}",
@@ -898,6 +916,24 @@ def stages_phase(smi: str, seed: int, dev: torch.device) -> None:
         lambda t: profiling.Roofline(t, 12 * w128, 2 * profiling.mxu_transform_roofline(
             n128, b * c128, t, 16, 4).mxu_macs + profiling.mxu_transform_roofline(
             n128, b * c128, t, 4, 4).mxu_macs))
+    p128 = plan128.primes
+    fl128 = residues(p128, b, n128)
+    require(gate().same_bits(crt_cuda.rec_u128_from10(fl128, p128),
+                             crt_cuda.rec_u128_from10_plain(fl128, p128)),
+            f"stages: native128's lift kernels differ from their plain twin at [{b}, {n128}]")
+
+    def kernel_lift128_step(carry):
+        """carry (t [10, B, n] uint32, prev) -> (the four limbs of the lift
+        kernels, twice over plus two, as the next residues, t)."""
+        t, _ = carry
+        limbs = crt_cuda.rec_u128_from10(t, p128)
+        return torch.stack([v.view(torch.int32) for v in (*limbs, *limbs, *limbs[:2])]).view(
+            torch.uint32), t
+
+    # bytes the two launches move: 80 a coefficient (digits), 56 (limbs)
+    row("garner-lift crt_cuda.rec_u128_from10 (native128's two lift kernels; the step's "
+        "feedback one int32 stack)", kernel_lift128_step, (fl128, fl128), 32,
+        lambda t: profiling.Roofline(t, 34 * w128, 0))
 
     # -- the lift A/B at the plans' shapes (tools/ab_lift.py) ------------------------
     for name, k, nn, words in (("rec_u64_from5", 5, n, 2), ("rec_u128_from5", 5, n, 4),
@@ -1303,7 +1339,7 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(len(cuda_build.SOURCES)) as pool:
         sos = list(pool.map(cuda_build.build, cuda_build.SOURCES))
     mxu32_cuda._lib(), mxu32_cuda._pass_lib(), bcu._lib()
-    mxu64_cuda._pass_lib(), mxu64_cuda._multi_lib(), crt_cuda._lib()
+    mxu64_cuda._pass_lib(), mxu64_cuda._multi_lib(), crt_cuda._lib(), crt_cuda._lib128()
     print(f"build: {len(sos)} sources in {time.perf_counter() - t0:.1f} s", flush=True)
     for so in sos:
         with open(so[:-3] + ".log") as f:
@@ -1317,10 +1353,13 @@ def main() -> int:
                   "epilogue): " + "; ".join(f"{pass_instance(e)} {r} registers, {st} / {ld} B "
                                             "spill stores / loads" for e, r, st, ld in passes),
                   flush=True)
-        if os.path.basename(so).startswith("crt_lift"):  # the vector and scalar instances
-            lifts = [e for e in ptxas_entries(log) if "lift_u64_from5" in e[0]]
-            require(len(lifts) == 2 and all(st == ld == 0 for _, _, st, ld in lifts),
-                    f"build: {os.path.basename(so)}: lift instances {lifts} missing or spilling")
+        for lib, kernel, instances in (("crt_lift_", "lift_u64_from5", 2),
+                                       ("crt_lift128_", "lift_u128_", 4)):
+            if os.path.basename(so).startswith(lib):  # the vector and scalar instances
+                lifts = [e for e in ptxas_entries(log) if kernel in e[0]]
+                require(len(lifts) == instances and all(st == ld == 0 for _, _, st, ld in lifts),
+                        f"build: {os.path.basename(so)}: lift instances {lifts} missing or "
+                        "spilling")
         if os.path.basename(so).startswith("mxu64_"):
             require(passes and all(st == ld == 0 for _, _, st, ld in passes),
                     f"build: {os.path.basename(so)}: a GEMM pass instance spills registers")
@@ -1439,6 +1478,19 @@ def main() -> int:
     print(f"parity: lift_u64_from5 {checks['lift_u64_from5']} checks exact at (n, B, base "
           f"offset in words) in {LIFT_SHAPES}, primes {PRIMES} up to 2^15, {EXT[:5]} above, "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    for n, b, off in LIFT128_SHAPES:
+        lp = NATIVE128_PRIMES if n <= 1 << 15 else EXT
+        words = np.concatenate([np.zeros(off, dtype=np.uint32)] + [
+            rng.integers(0, p, b * n, dtype=np.uint32) for p in lp])
+        res = torch.from_numpy(words).to(dev)[off:].view(10, b, n)
+        got, want = crt_cuda.rec_u128_from10(res, lp), crt_cuda.rec_u128_from10_plain(res, lp)
+        for i in range(4):
+            compare("lift_u128_from10", got[i], want[i], f"n={n} B={b} offset={off} limb {i}")
+    print(f"parity: lift_u128_from10 (digits + limbs) {checks['lift_u128_from10']} checks exact "
+          f"at (n, B, base offset in words) in {LIFT128_SHAPES}, primes {NATIVE128_PRIMES} up to "
+          f"2^15, {EXT} above, in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     p2 = PRIMES[:2]
@@ -2609,13 +2661,22 @@ def main() -> int:
         parts = out if isinstance(out, tuple) else (out,)
         return np.stack([t.cpu().numpy() for t in parts], axis=-1)
 
+    def lift_launches(pl) -> dict:
+        """The lift kernels' launches of one lift of a native plan."""
+        if isinstance(pl, native64.Plan32):
+            return {"lift_u64_from5": 1}
+        if isinstance(pl, port.native128.Plan32):
+            return {"lift_u128_digits": 1, "lift_u128_limbs": 1}
+        return {}
+
     def native_counts(pl, binary):
         """Launches of one polymul, one fwd and one inv of a native plan at
-        2^11 <= n <= 2^17 (native64.Plan32 lifts through the lift kernel)."""
+        2^11 <= n <= 2^17 (native64.Plan32 lifts through its lift kernel,
+        native128.Plan32 through its two)."""
         k, nl = len(pl.primes), pl.width // 32
         if pl.tier == "plan32":
             wide = "fwd_wide_multi_u128" if nl == 4 else "fwd_wide_multi"
-            lift = {"lift_u64_from5": 1} if isinstance(pl, native64.Plan32) else {}
+            lift = lift_launches(pl)
             poly = {wide: 1, "inv_multi": 1, **lift}
             poly["fwd_wide_multi" if binary else wide] = poly.get(
                 "fwd_wide_multi" if binary else wide, 0) + 1
@@ -2676,6 +2737,9 @@ def main() -> int:
         require((as_ints(out_limbs(back)[:2]) == nx).all(),
                 f"main: {name}({N_MAIN}) inv(fwd(x)) != n·x (wrapping)")
     launches["fwd_wide_multi_u128"] = launches_fam["fwd_wide_multi_u128"]
+    launches["lift_u128_from10"] = launches_fam["lift_u128_digits"]  # launch pairs
+    require(launches_fam["lift_u128_limbs"] == launches_fam["lift_u128_digits"],
+            f"main: native128's lift kernels launched unpaired: {nz(launches_fam)}")
     print(f"main: native families on {kind}: {[n for n, *_ in fam]} at n={N_MAIN} B={B_MAIN}: "
           f"polymul == CPU plain path == wrapping oracle (row 0; 4 coefficients at width 128), "
           f"fwd == CPU, inv(fwd(x)) == n·x; launches {nz(launches_fam)}; checks "
@@ -2698,8 +2762,8 @@ def main() -> int:
                 f"main: {name}({N_PERCH}) has a channel route")
         before = counts()
         perch_out.append(pl.negacyclic_polymul(plan_arg(a, dev), plan_arg(b, dev)))
-        expect_delta(before, {"butterfly32_fwd": 2 * k, "butterfly32_inv": k},
-                     f"{name}({N_PERCH}) polymul")
+        expect_delta(before, {"butterfly32_fwd": 2 * k, "butterfly32_inv": k,
+                              **lift_launches(pl)}, f"{name}({N_PERCH}) polymul")
     torch.cuda.synchronize()
     launches_perch = counts()
     for (name, pl, cpu, a, b), got in zip(perch, perch_out):
@@ -2722,7 +2786,8 @@ def main() -> int:
     before = counts()
     py_out = pl128.negacyclic_polymul([int(v) for v in as_ints(a128[0])],
                                       [int(v) for v in as_ints(b128[0])])
-    expect_delta(before, {"fwd_wide_multi_u128": 2, "inv_multi": 1}, "native128 py128 polymul")
+    expect_delta(before, {"fwd_wide_multi_u128": 2, "inv_multi": 1, **lift_launches(pl128)},
+                 "native128 py128 polymul")
     planar_row0 = as_ints(out_limbs(fam_out[[n for n, *_ in fam].index(name)][0])[0])
     require(isinstance(py_out, list) and py_out == [int(v) for v in planar_row0],
             "main: native128 py128 polymul differs from the planar one")
@@ -3213,6 +3278,14 @@ def main() -> int:
     plain_ms["lift_u64_from5"] = median_ms(lambda: crt_cuda.rec_u64_from5_plain(lift_res, PRIMES))
     print(f"times: lift_u64_from5 n={N_MAIN} B={B_MAIN}: kernel {ms['lift_u64_from5']:.4f} ms, "
           f"plain {plain_ms['lift_u64_from5']:.4f} ms (median of {REPS}) | {smi}", flush=True)
+    lift128_res = torch.stack([u32((B_MAIN, N_MAIN), p) for p in NATIVE128_PRIMES])
+    ms["lift_u128_from10"] = median_ms(
+        lambda: crt_cuda.rec_u128_from10(lift128_res, NATIVE128_PRIMES))
+    plain_ms["lift_u128_from10"] = median_ms(
+        lambda: crt_cuda.rec_u128_from10_plain(lift128_res, NATIVE128_PRIMES))
+    print(f"times: lift_u128_from10 n={N_MAIN} B={B_MAIN}: kernels {ms['lift_u128_from10']:.4f} "
+          f"ms, plain {plain_ms['lift_u128_from10']:.4f} ms (median of {REPS}) | {smi}",
+          flush=True)
     # the GEMM rows' device time (the pass launches of a call) beside
     # torch._int_mm on int8 matrices of the same passes' shapes
     dev_ms, int_mm_ms = {}, {}
@@ -3763,6 +3836,8 @@ def main() -> int:
     work = {
         # the lift: five u32 residues read, two u32 limbs written a coefficient
         "lift_u64_from5": (0, 28 * B_MAIN * N_MAIN),
+        # native128's: ten u32 residues -> five u64 digits (80 B), digits -> four u32 limbs (56 B)
+        "lift_u128_from10": (0, 136 * B_MAIN * N_MAIN),
         "fwd_wide_multi": fourstep_work("fwd", B_MAIN, n1m, n2m, 5, 8, 4, 4, 2, 1, 4,
                                         shared_operand=True),
         "inv_multi": fourstep_work("inv", B_MAIN, n1m, n2m, 5, 4, 4, 4, 1, 1, 4),

@@ -9,9 +9,12 @@ u128 values are planar tuples of four uint32 tensors [..., n] (the
 performance format: K1a reads the four limbs as they are, the u128 →
 residue split folded into its column matmul as 16 operand digit planes),
 uint32 limb tensors [..., n, 4], or flat lists of Python ints for host
-convenience. The lift is the scalar one (`ops/crt.py::rec_u128_from10`);
-its int8-GEMM twin `crt_mxu.rec_u128_from10` is ported and, as in the
-reference, taken by no route.
+convenience. Plan32 lifts through two CUDA kernels on the card
+(`ops/crt_cuda.py::rec_u128_from10`, `_lift_parts`: the digits, then the
+limbs) and the int64 chain `ops/crt.py::rec_u128_from10` on the CPU;
+`_reconstruct`, that chain on int64 carriers, stays for the sharded route
+(`parallel/channels.py`). The int8-GEMM twin `crt_mxu.rec_u128_from10` is
+ported and, as in the reference, taken by no route.
 `try_new(n, device=...)`: the plan's device, by default the card.
 """
 
@@ -21,6 +24,7 @@ from dataclasses import dataclass
 
 from ._native_common import NativePlanBase, build_plans32, channel_accessors
 from .ops import crt as crt_ops
+from .ops import crt_cuda
 from .ops.u32 import DEFAULT_DEVICE
 from .tables import native_channel_primes
 
@@ -38,6 +42,11 @@ class Plan32(NativePlanBase):
             return None
         return cls(n=n, width=128, primes=primes, plans=plans, tier="plan32",
                    device=str(device))
+
+    def _lift_parts(self, residues) -> tuple:
+        """The lift kernels (`ops/crt_cuda.py`) on the card, their plain twin
+        on the CPU: uint32 [10, B, n] -> four limb planes."""
+        return crt_cuda.rec_u128_from10(residues, self.primes)
 
     def _reconstruct(self, residues):
         return crt_ops.rec_u128_from10(residues, self.primes)

@@ -32,7 +32,8 @@ FLAGS = (
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-SOURCES = ("mxu32_multi", "mxu32_pass", "butterfly32", "mxu64_pass", "mxu64_multi", "crt_lift")
+SOURCES = ("mxu32_multi", "mxu32_pass", "butterfly32", "mxu64_pass", "mxu64_multi", "crt_lift",
+           "crt_lift128")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

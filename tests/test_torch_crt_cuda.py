@@ -7,9 +7,10 @@ against the value the reference's digit rule gives, for both prime families
 (n <= 2^15 and the 2^18 | p - 1 family above): random residues, the sign
 edge (top digit P34 // 2 and P34 // 2 + 1), the hairline just above M / 2
 where the digit rule and the explicit CRT part, and residues 0 and p - 1.
-The wrapper's refusals, its launch counter, and the plans: only
-`native64.Plan32` lifts through it, to the bits of the plain chain; the
-other native families and the sharded route's `_reconstruct` keep the chain.
+The wrapper's refusals, its launch counter, and the plans: `native64.Plan32`
+lifts through it, to the bits of the plain chain; the other native families
+but native128 (whose kernels tests/test_torch_crt128_cuda.py holds) and the
+sharded route's `_reconstruct` keep the chain.
 
 On the card (marked `cuda`, skipped without one): the kernel against its
 plain twin on the same cases, on counts that are not a multiple of 4 and on
@@ -25,8 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from concrete_ntt_tpu_torch import (native32, native64, native128, native_binary64,
-                                    native_binary128)
+from concrete_ntt_tpu_torch import native32, native64, native_binary64, native_binary128
 from concrete_ntt_tpu_torch._native_common import NativePlanBase
 from concrete_ntt_tpu_torch.golden.polymul import negacyclic_convolution_wrapping_np
 from concrete_ntt_tpu_torch.ops import crt, crt_cuda
@@ -197,12 +197,12 @@ def test_wrapper_refuses(bad, err, match):
 
 def test_launch_counter_is_registered_and_resets():
     assert any(c is crt_cuda.LAUNCHES for c in profiling._counters)
-    assert list(crt_cuda.LAUNCHES) == ["lift_u64_from5"]
+    assert list(crt_cuda.LAUNCHES) == ["lift_u64_from5", "lift_u128_digits", "lift_u128_limbs"]
     crt_cuda.LAUNCHES["lift_u64_from5"] = 5
     crt_cuda.reset_launch_counts()
-    assert crt_cuda.LAUNCHES == {"lift_u64_from5": 0}
+    assert crt_cuda.LAUNCHES == dict.fromkeys(crt_cuda.LAUNCHES, 0)
     crt_cuda.rec_u64_from5(_good(), FAMILIES["n<=2^15"])  # the plain twin: no launch
-    assert crt_cuda.LAUNCHES == {"lift_u64_from5": 0}
+    assert crt_cuda.LAUNCHES == dict.fromkeys(crt_cuda.LAUNCHES, 0)
 
 
 def _u64(rng, shape) -> np.ndarray:
@@ -237,25 +237,27 @@ def test_plan32_lifts_through_the_wrapper_to_the_chains_bits(monkeypatch, n):
     assert len(calls) == 2
 
 
-@pytest.mark.parametrize("module,n", [(native32, 2048), (native128, 2048), (native_binary64, 1024),
+@pytest.mark.parametrize("module,n", [(native32, 2048), (native_binary64, 1024),
                                       (native_binary128, 2048), (native64, 2048)],
-                         ids=["native32", "native128", "native_binary64", "native_binary128",
+                         ids=["native32", "native_binary64", "native_binary128",
                               "native64.Plan52"])
 def test_other_families_keep_the_chain(monkeypatch, module, n):
-    """No other plan class overrides `_lift_parts` or reaches the kernel's
-    wrapper."""
+    """No other plan class overrides `_lift_parts` or reaches a lift
+    kernel's wrapper (native128.Plan32 lifts through its own kernels:
+    tests/test_torch_crt128_cuda.py)."""
     cls = module.Plan52 if module is native64 else module.Plan32
     assert cls._lift_parts is NativePlanBase._lift_parts
 
     def refuse(*args):
-        raise AssertionError("the lift kernel's wrapper was called")
+        raise AssertionError("a lift kernel's wrapper was called")
 
     monkeypatch.setattr(crt_cuda, "rec_u64_from5", refuse)
+    monkeypatch.setattr(crt_cuda, "rec_u128_from10", refuse)
     plan = cls.try_new(n, device="cpu")
     rng = np.random.default_rng(3)
     if module is native32:
         x = rng.integers(0, 1 << 32, (2, n), dtype=np.uint32)
-    elif module in (native128, native_binary128):
+    elif module is native_binary128:
         x = torch.from_numpy(rng.integers(0, 1 << 32, (2, n, 4), dtype=np.uint32))
     else:
         x = _u64(rng, (2, n))

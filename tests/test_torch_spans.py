@@ -287,8 +287,8 @@ CARD_CASES = {"native64-k1": lambda dev: _native(1 << 14, dev),
               "native128-k1": lambda dev: _native128(1 << 16, dev),
               "prime64-goldilocks": _goldilocks}
 # a root's launches: K1a x2, K1b and native64's lift kernel; K1a-W4 x2 and
-# K1b (native128 lifts in plain torch); a K5 fwd or inv, or none
-CARD_LAUNCHES = {"native64-k1": {4}, "native128-k1": {3}, "prime64-goldilocks": {1, 0}}
+# K1b and the two lift kernels; a K5 fwd or inv, or none
+CARD_LAUNCHES = {"native64-k1": {4}, "native128-k1": {5}, "prime64-goldilocks": {1, 0}}
 
 
 @pytest.mark.cuda

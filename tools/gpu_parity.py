@@ -7,7 +7,8 @@ Rows are enumerated from the dispatcher, not hand-picked: n walks 2^11 ...
 through `ops/ntt_dispatch.route32`, `tier32`, `tier64` and `route64` over
 the regime primes of `regimes()`, and every value those functions return
 appears at every n that returns it (`walk()`; tests/test_torch_gpu_parity.py
-holds the row list to it), with the native64 Plan32 lift kernel at every n.
+holds the row list to it), with the native64 and native128 Plan32 lift
+kernels at every n.
 Beside the routes, the ported entry points that no route takes: K1e, K2
 with block tables (K2h) and `engine32_fused`, K5 with the four limbs of a
 u128 operand (W4-64), K1c / K1d (the product plan's), K7b / K7c, and the
@@ -462,28 +463,32 @@ def k1_rows(n: int) -> list:
 
 
 def lift_rows(n: int) -> list:
-    """The native64 Plan32 lift kernel (`ops/crt_cuda.py`) on canonical
-    residues [5, B, n] over the primes the plan takes at n; at 2^11 also one
-    word past an aligned base, and at n = 2 a count of 6 (its scalar
-    instance)."""
+    """The native Plan32 lift kernels (`ops/crt_cuda.py`): native64's over
+    five channels and native128's pair (digits, limbs) over ten, on
+    canonical residues [C, B, n] over the primes the plans take at n; at 2^11
+    also one word past an aligned base, and at n = 2 a count of 6 (their
+    scalar instances)."""
     from concrete_ntt_tpu_torch.ops import crt_cuda
 
-    primes = channel_primes(5, n)
     cases = [(_batch(n.bit_length()), 0)]
     cases += [(3, 1)] if n == 1 << 11 else [(3, 0)] if n == 2 else []
     out = []
-    for b, off in cases:
-        def make(ctx, name, b=b, off=off):
-            rng = ctx.rng(name)
-            words = np.concatenate([np.zeros(off, dtype=np.uint32)] + [
-                rng.integers(0, p, b * n, dtype=np.uint32) for p in primes])
-            res = torch.from_numpy(words).to(ctx.dev)[off:].view(5, b, n)
-            return (lambda: crt_cuda.rec_u64_from5(res, primes),
-                    lambda: crt_cuda.rec_u64_from5_plain(res, primes), "lift_u64_from5")
+    for c, wrapper, match in ((5, "rec_u64_from5", "lift_u64_from5"),
+                              (10, "rec_u128_from10", "lift_u128_")):
+        primes = channel_primes(c, n)
+        lift, plain = getattr(crt_cuda, wrapper), getattr(crt_cuda, wrapper + "_plain")
+        for b, off in cases:
+            def make(ctx, name, b=b, off=off, c=c, primes=primes, lift=lift, plain=plain,
+                     match=match):
+                rng = ctx.rng(name)
+                words = np.concatenate([np.zeros(off, dtype=np.uint32)] + [
+                    rng.integers(0, p, b * n, dtype=np.uint32) for p in primes])
+                res = torch.from_numpy(words).to(ctx.dev)[off:].view(c, b, n)
+                return lambda: lift(res, primes), lambda: plain(res, primes), match
 
-        vec = (b * n) % 4 == 0 and off == 0
-        out.append(_kernel(f"lift rec_u64_from5 n={n} B={b}" + (f" offset={off}" if off else ""),
-                           n, (), make, tiles="vector" if vec else "scalar"))
+            vec = (b * n) % 4 == 0 and off == 0
+            out.append(_kernel(f"lift {wrapper} n={n} B={b}" + (f" offset={off}" if off else ""),
+                               n, (), make, tiles="vector" if vec else "scalar"))
     return out
 
 
