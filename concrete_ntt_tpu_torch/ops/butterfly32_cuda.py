@@ -26,7 +26,8 @@ Routing is by the device of the operand: a CUDA tensor launches the kernel
 or raises (2 <= n <= 2^17, `MAX_N`, the port's four-step range), a CPU
 tensor runs the plain twin, the stage engine of ops/engine.py, at any n.
 Every launch adds one to `LAUNCHES["fwd"]` or `LAUNCHES["inv"]` (read into
-each top-level span's `launches` by `utils/profiling`). Where the
+each top-level span's `launches` by `utils/profiling`, and by its
+`launch_counts` as `butterfly32_fwd` / `butterfly32_inv`). Where the
 JAX functions return None for "not applicable", these raise
 NotImplementedError; `ntt_dispatch.tier32` sends a larger n to the stage
 engine (`fwd_plain` / `inv_plain`) on the operand's device. The reference
@@ -43,23 +44,18 @@ import torch
 
 from ..utils import profiling
 from . import butterflies32, cuda_build, engine
+from .cuda_build import call
 from .mxu32 import _dev
-from .mxu32_cuda import _call
 from .u32 import to_i64, to_u32
 
 LAUNCHES = {"fwd": 0, "inv": 0}
-profiling.register_launches(LAUNCHES)
+profiling.register_launches(__name__, LAUNCHES, prefix="butterfly32_")  # beside K2's fwd / inv
 
 MAX_N = 1 << 17  # the port's four-step range (mxu32_cuda.MAX_N): 16 KiB a block of 8
 _REGIME = {"lt30": 0, "lt31": 1, "generic": 2}
 _MIN_SLICE, _MAX_BLOCK, _MAX_CLUSTER = 1 << 8, 1 << 15, 8
 _WHOLE = 1 << 10  # values of a block of whole polynomials below n = 1024
 H100_SMS = 132
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def check_range(n: int, variant: str) -> None:
@@ -189,9 +185,9 @@ def _run(x, tbl, *, p, variant, p_neginv, direction):
     tw, tws = _twiddle_ptrs(tbl, variant, direction, dev)
     c = cluster_size(n, b, _sms(str(dev)))
     rlog = radix_log(n // c if c > 1 else max(n, _WHOLE))
-    err = _call(dev, _lib().k4_ntt, x.data_ptr(), out.data_ptr(), tw, tws, b, n.bit_length() - 1,
-                c.bit_length() - 1, rlog, _REGIME[variant], int(direction == "fwd"), p,
-                p_neginv)
+    err = call(dev, _lib().k4_ntt, x.data_ptr(), out.data_ptr(), tw, tws, b, n.bit_length() - 1,
+               c.bit_length() - 1, rlog, _REGIME[variant], int(direction == "fwd"), p,
+               p_neginv)
     LAUNCHES[direction] += 1
     if err != 0:
         raise RuntimeError(f"K4 {direction} launch failed: CUDA error {err}")

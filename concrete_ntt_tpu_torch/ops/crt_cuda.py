@@ -43,19 +43,14 @@ import torch
 
 from ..utils import profiling
 from . import crt, cuda_build
-from .mxu32_cuda import _call
+from .cuda_build import call
 from .u32 import to_i64, to_u32
 
 LAUNCHES = {"lift_u64_from5": 0, "lift_u128_digits": 0, "lift_u128_limbs": 0}
-profiling.register_launches(LAUNCHES)
+profiling.register_launches(__name__, LAUNCHES)
 
 CHANNELS = 5
 MASK64 = (1 << 64) - 1
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 class Lift5Consts(ctypes.Structure):
@@ -127,8 +122,8 @@ def rec_u64_from5(residues: torch.Tensor, primes) -> tuple:
     hi = torch.empty_like(lo)
     if lo.numel() == 0:
         return lo, hi
-    err = _call(residues.device, _lib().lift_u64_from5, residues.data_ptr(), lo.data_ptr(),
-                hi.data_ptr(), lo.numel(), ctypes.byref(consts))
+    err = call(residues.device, _lib().lift_u64_from5, residues.data_ptr(), lo.data_ptr(),
+               hi.data_ptr(), lo.numel(), ctypes.byref(consts))
     LAUNCHES["lift_u64_from5"] += 1
     if err != 0:
         raise RuntimeError(f"lift_u64_from5 launch failed: CUDA error {err}")
@@ -200,8 +195,8 @@ def _launch128(name: str, src: torch.Tensor, dst: torch.Tensor, consts: Lift10Co
     """One launch of lift_u128_<name> from `src`'s planes into `dst`'s, over
     the coefficients of a plane of `dst`."""
     key = f"lift_u128_{name}"
-    err = _call(src.device, getattr(_lib128(), key), src.data_ptr(), dst.data_ptr(),
-                dst[0].numel(), ctypes.byref(consts))
+    err = call(src.device, getattr(_lib128(), key), src.data_ptr(), dst.data_ptr(),
+               dst[0].numel(), ctypes.byref(consts))
     LAUNCHES[key] += 1
     if err != 0:
         raise RuntimeError(f"{key} launch failed: CUDA error {err}")

@@ -9,7 +9,9 @@ a hash of all the sources (headers included) and the flags:
 
 The compiler's output (ptxas register and shared-memory report included) is
 kept beside the library as `<name>_<hash>.log`. A missing nvcc or a failed
-build raises with the compiler's output; nothing falls back.
+build raises with the compiler's output; nothing falls back. `call` runs a
+loaded entry point on a device's current stream: every kernel wrapper
+(`ops/*_cuda.py`) launches through it.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -93,3 +97,13 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(build(name))
         _LIBS[name] = lib
     return lib
+
+
+def call(dev: torch.device, fn, *args) -> int:
+    """fn(*args, stream) with `dev` current, on its current stream: a
+    loaded entry point's launch; returns its CUDA error code."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)

@@ -126,6 +126,7 @@ import torch
 
 from ..utils import profiling
 from . import cuda_build, mxu32
+from .cuda_build import call
 from .u32 import MASK32, mont_mul, mont_neginv, to_i64, to_u32
 
 LAUNCHES = {"fwd_wide_multi": 0, "inv_multi": 0, "fwd_multi_perchannel": 0,
@@ -138,16 +139,10 @@ LAUNCHES = {"fwd_wide_multi": 0, "inv_multi": 0, "fwd_multi_perchannel": 0,
 # code of the first pass, of the second), K3's channel grid by (name, tile
 # code): which of their pass instances ran (`k1_tile`, `k2h_tiles`)
 TILE_LAUNCHES: dict = {}
-profiling.register_launches(LAUNCHES)
+profiling.register_launches(__name__, LAUNCHES, TILE_LAUNCHES)
 
 MIN_N, MAX_N = 1 << 11, 1 << 17
 _SCAL_WORDS = 16  # the scalar record of csrc/matmod_pass.cuh
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    TILE_LAUNCHES.clear()
 
 
 def _check_n_limbs(n: int, n_limbs: int, what: str) -> None:
@@ -913,8 +908,8 @@ def fwd_wide_multi(limbs: tuple, primes: tuple) -> torch.Tensor:
     scratch = torch.empty_like(out)
     ptrs = _ptrs16(tabs["planes1"], tabs["cvec1"], tabs["planes2"],
                    tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
-    err = _call(dev, _lib().k1a_fwd_wide_multi, *_limb_ptrs(limbs), len(limbs), b, n1, n2,
-                len(primes), *ptrs)
+    err = call(dev, _lib().k1a_fwd_wide_multi, *_limb_ptrs(limbs), len(limbs), b, n1, n2,
+               len(primes), *ptrs)
     _count("fwd_wide_multi", len(limbs))
     if err != 0:
         raise RuntimeError(f"K1a fwd_wide_multi launch failed: CUDA error {err}")
@@ -952,7 +947,7 @@ def inv_multi(x: torch.Tensor, primes: tuple, scales: tuple,
     scratch = torch.empty_like(x)
     ptrs = _ptrs16(x, tabs["planes1"], tabs["cvec1"], tabs["planes2"],
                    tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
-    err = _call(dev, _lib().k1b_inv_multi, ptrs[0], b, n1, n2, n // size, len(primes), *ptrs[1:])
+    err = call(dev, _lib().k1b_inv_multi, ptrs[0], b, n1, n2, n // size, len(primes), *ptrs[1:])
     LAUNCHES[_hyb_name("inv_multi", n_h)] += 1
     if err != 0:
         raise RuntimeError(f"K1b inv_multi launch failed: CUDA error {err}")
@@ -985,21 +980,12 @@ def inv_multi_presplit(xd: torch.Tensor, primes: tuple, scales: tuple) -> torch.
     ptrs = _ptrs16(xd, tabs["planes1"], tabs["cvec1"], tabs["planes2"],
                    tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out,
                    names="xd planes1 cvec1 planes2 cvec2 diag scal scratch out")
-    err = _call(dev, _lib().k1e_inv_multi_presplit, ptrs[0], b, n1, four_n2 // 4, c, *tiles,
-                *ptrs[1:])
+    err = call(dev, _lib().k1e_inv_multi_presplit, ptrs[0], b, n1, four_n2 // 4, c, *tiles,
+               *ptrs[1:])
     _count_tiles("inv_multi_presplit", tiles)
     if err != 0:
         raise RuntimeError(f"K1e inv_multi_presplit launch failed: CUDA error {err}")
     return out
-
-
-def _call(dev: torch.device, fn, *args) -> int:
-    """fn(*args, stream) with `dev` current, on its current stream."""
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return fn(*args, stream)
-    with torch.cuda.device(dev):
-        return fn(*args, stream)
 
 
 def _tile_outs(tiles: tuple) -> tuple:
@@ -1053,8 +1039,8 @@ def _fwd_perchannel(limbs: tuple, primes: tuple, n_h: int | None) -> torch.Tenso
     x1 = limbs[1] if len(limbs) > 1 else limbs[0]
     ptrs = _ptrs16(limbs[0], x1, tabs["planes1"], tabs["cvec1"], tabs["planes2"],
                    tabs["cvec2"], tabs["diag"], tabs["scal"], scratch, out)
-    err = _call(dev, _lib().k1c_fwd_multi_perchannel, ptrs[0], ptrs[1], len(limbs), b, n1, n2,
-                n // size, c, *tiles, *ptrs[2:])
+    err = call(dev, _lib().k1c_fwd_multi_perchannel, ptrs[0], ptrs[1], len(limbs), b, n1, n2,
+               n // size, c, *tiles, *ptrs[2:])
     _count_tiles(_hyb_name("fwd_multi_perchannel", n_h), tiles)
     if err != 0:
         raise RuntimeError(f"K1c fwd_multi_perchannel launch failed: CUDA error {err}")
@@ -1085,8 +1071,8 @@ def pointwise_inv_multi(fl: torch.Tensor, fr: torch.Tensor, primes: tuple,
     scratch = torch.empty_like(fl)
     ptrs = _ptrs16(fl, fr, tabs["planes1"], tabs["cvec1"], tabs["planes2"], tabs["cvec2"],
                    tabs["diag"], tabs["scal"], scratch, out)
-    err = _call(dev, _lib().k1d_pointwise_inv_multi, ptrs[0], ptrs[1], b, n1, n2, n // size, c,
-                *tiles, *ptrs[2:])
+    err = call(dev, _lib().k1d_pointwise_inv_multi, ptrs[0], ptrs[1], b, n1, n2, n // size, c,
+               *tiles, *ptrs[2:])
     _count_tiles(_hyb_name("pointwise_inv_multi", n_h), tiles)
     if err != 0:
         raise RuntimeError(f"K1d pointwise_inv_multi launch failed: CUDA error {err}")
@@ -1152,8 +1138,8 @@ def fwd_wide(limbs: tuple, *, n: int, p: int) -> torch.Tensor:
         return out
     rec = _k2_launch(n, p, len(limbs), 1, "fwd", str(dev), b)[0]
     scratch = torch.empty_like(out)  # out and scratch: fresh, so aligned
-    err = _call(dev, _pass_lib().k2_fwd, rec, *_limb_ptrs(limbs), scratch.data_ptr(),
-                out.data_ptr())
+    err = call(dev, _pass_lib().k2_fwd, rec, *_limb_ptrs(limbs), scratch.data_ptr(),
+               out.data_ptr())
     _count("fwd", len(limbs))
     if err != 0:
         raise RuntimeError(f"K2 fwd launch failed: CUDA error {err}")
@@ -1180,7 +1166,7 @@ def inv(x: torch.Tensor, *, n: int, p: int, scale: int = 1) -> torch.Tensor:
         return out
     rec = _k2_launch(n, p, 1, scale % p, "inv", str(dev), b)[0]
     scratch = torch.empty_like(x)
-    err = _call(dev, _pass_lib().k2_inv, rec, *_ptrs16(x), scratch.data_ptr(), out.data_ptr())
+    err = call(dev, _pass_lib().k2_inv, rec, *_ptrs16(x), scratch.data_ptr(), out.data_ptr())
     LAUNCHES["inv"] += 1
     if err != 0:
         raise RuntimeError(f"K2 inv launch failed: CUDA error {err}")
@@ -1213,9 +1199,9 @@ def _hyb(name: str, x: torch.Tensor, n: int, p: int, n_h: int, scale: int) -> to
     scratch = torch.empty_like(x)
     ptrs = (*_ptrs16(x), scratch.data_ptr(), out.data_ptr())
     if fwd_dir:
-        err = _call(x.device, _pass_lib().k2_fwd, rec, *_limb_ptrs((x,)), *ptrs[1:])
+        err = call(x.device, _pass_lib().k2_fwd, rec, *_limb_ptrs((x,)), *ptrs[1:])
     else:
-        err = _call(x.device, _pass_lib().k2_inv, rec, *ptrs)
+        err = call(x.device, _pass_lib().k2_inv, rec, *ptrs)
     _count_tiles(name, tiles)
     if err != 0:
         raise RuntimeError(f"K2 {name} launch failed: CUDA error {err}")
@@ -1289,8 +1275,8 @@ def pass_matmod(x, *, n: int, p: int, which: str, diag_slices=(), n_limbs: int =
         return out  # nothing to compute; an empty grid is not a valid launch
     dg = diag if diag is not None else tabs["scal"]  # not read by a canonical pass
     ptrs = _ptrs16(tabs["planes"], tabs["cvec"], dg, tabs["scal"], out)
-    err = _call(dev, _pass_lib().k3_pass, *_limb_ptrs(xs), len(xs), b, rows, k, tabs["o"],
-                *ptrs[:4], tabs["n_d"], regime(p), int(diag is not None), ptrs[4])
+    err = call(dev, _pass_lib().k3_pass, *_limb_ptrs(xs), len(xs), b, rows, k, tabs["o"],
+               *ptrs[:4], tabs["n_d"], regime(p), int(diag is not None), ptrs[4])
     _count("pass_matmod", len(xs))
     if err != 0:
         raise RuntimeError(f"K3 pass_matmod launch failed: CUDA error {err}")
@@ -1378,9 +1364,9 @@ def pass_matmod_multi(x, *, n: int, primes: tuple, which: str, diag=None, scales
     if b == 0:
         return out  # nothing to compute; an empty grid is not a valid launch
     dg = diag if diag is not None else tabs["scal"]  # not read by a canonical pass
-    err = _call(dev, _pass_lib().k3_pass_multi, addr,
-                *_addrs16(*xs, names=" ".join(f"x{i}" for i in range(len(xs)))),
-                *[xs[0].data_ptr()] * (4 - len(xs)), *_ptrs16(dg, names="diag"), out.data_ptr())
+    err = call(dev, _pass_lib().k3_pass_multi, addr,
+               *_addrs16(*xs, names=" ".join(f"x{i}" for i in range(len(xs)))),
+               *[xs[0].data_ptr()] * (4 - len(xs)), *_ptrs16(dg, names="diag"), out.data_ptr())
     _count_tiles("pass_matmod_multi_u128" if len(xs) == 4 else "pass_matmod_multi",
                  (rec.tile,))
     if err != 0:

@@ -92,11 +92,11 @@ import torch
 
 from ..utils import profiling
 from . import cuda_build, mxu64
+from .cuda_build import call
 from .mxu32_cuda import (
     _SMS,
     _STAGE_K,
     _addrs16,
-    _call,
     _channel_views,
     _check_multi_args,
     _check_operands,
@@ -115,18 +115,12 @@ LAUNCHES = dict.fromkeys(
 # K6's channel-grid launches by (LAUNCHES name, tile code): which of its pass
 # instances ran (`k6_tile`)
 TILE_LAUNCHES: dict = {}
-profiling.register_launches(LAUNCHES)
+profiling.register_launches(__name__, LAUNCHES, TILE_LAUNCHES)
 
 MIN_N, MAX_N = 1 << 11, 1 << 15
 TILE_O = 16  # outputs a block of csrc/matmod64_pass.cuh (N = 16 x the digit planes)
 TILE_ROWS = (128, 64)  # rows a block by tile code (csrc/matmod64_pass.cuh tile_rows)
 _MODES = {"shoup": 0, "mont": 1, "gl": 3}  # mont with p >= 2^63 is 2
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    TILE_LAUNCHES.clear()
 
 
 def _check_n(n: int, what: str) -> None:
@@ -564,7 +558,7 @@ def _single(name: str, limbs: tuple, dev, n_blk: int, nb: int, tabs6: tuple, n_d
     scratch = tuple(torch.empty_like(o) for o in out)
     ptrs = _ptrs16(*limbs, *tabs6, *scratch, *out, names=f"x_lo x_hi {_TABS6} {_OUTS}")
     fn = _pass_lib().k5_fwd if name.startswith("fwd") else _pass_lib().k5_inv
-    err = _call(dev, fn, ptrs[0], ptrs[1], b, n1, n2, nb, *ptrs[2:8], n_d, mode(p), *ptrs[8:])
+    err = call(dev, fn, ptrs[0], ptrs[1], b, n1, n2, nb, *ptrs[2:8], n_d, mode(p), *ptrs[8:])
     LAUNCHES[name] += 1
     if err != 0:
         raise RuntimeError(f"K5 {name} launch failed: CUDA error {err}")
@@ -618,8 +612,8 @@ def _fwd_u128(limbs: tuple, n: int, p: int) -> tuple:
     scratch = tuple(torch.empty_like(o) for o in out)
     ptrs = _ptrs16(*limbs, planes1, cvec1, t2["planes"], t2["cvec"], diag, t2["scal"], *scratch,
                    *out, names=f"x0 x1 x2 x3 {_TABS6} {_OUTS}")
-    err = _call(dev, _pass_lib().k5_fwd_u128, *ptrs[:4], b, n1, n2, *ptrs[4:10], t2["n_d"],
-                mode(p), *ptrs[10:])
+    err = call(dev, _pass_lib().k5_fwd_u128, *ptrs[:4], b, n1, n2, *ptrs[4:10], t2["n_d"],
+               mode(p), *ptrs[10:])
     LAUNCHES["fwd64_u128"] += 1
     if err != 0:
         raise RuntimeError(f"K5 fwd64_u128 launch failed: CUDA error {err}")
@@ -706,8 +700,8 @@ def pass_matmod64(limbs: tuple, *, n: int, p: int, which: str, diag_slices=(),
     dg = diag if diag is not None else tabs["scal"]  # not read by a canonical pass
     ptrs = _ptrs16(*limbs, tabs["planes"], tabs["cvec"], dg, tabs["scal"], *out,
                    names="x_lo x_hi planes cvec diag scal out_lo out_hi")
-    err = _call(dev, _pass_lib().k6_pass, ptrs[0], ptrs[1], b, rows, k, tabs["o"], *ptrs[2:6],
-                tabs["n_d"], mode(p), int(diag is not None), ptrs[6], ptrs[7])
+    err = call(dev, _pass_lib().k6_pass, ptrs[0], ptrs[1], b, rows, k, tabs["o"], *ptrs[2:6],
+               tabs["n_d"], mode(p), int(diag is not None), ptrs[6], ptrs[7])
     LAUNCHES["pass_matmod64"] += 1
     if err != 0:
         raise RuntimeError(f"K6 pass_matmod64 launch failed: CUDA error {err}")
@@ -798,8 +792,8 @@ def pass_matmod64_multi(limbs: tuple, *, n: int, primes: tuple, which: str, diag
     if b == 0:
         return out[0], out[1]  # nothing to compute; an empty grid is not a valid launch
     dg = diag if diag is not None else tabs["scal"]  # not read by a canonical pass
-    err = _call(dev, _pass_lib().k6_pass_multi, addr, *_addrs16(*limbs, names="x_lo x_hi"),
-                *_ptrs16(dg, names="diag"), out[0].data_ptr(), out[1].data_ptr())
+    err = call(dev, _pass_lib().k6_pass_multi, addr, *_addrs16(*limbs, names="x_lo x_hi"),
+               *_ptrs16(dg, names="diag"), out[0].data_ptr(), out[1].data_ptr())
     LAUNCHES["pass_matmod64_multi"] += 1
     key = ("pass_matmod64_multi", rec.tile)
     TILE_LAUNCHES[key] = TILE_LAUNCHES.get(key, 0) + 1
@@ -826,12 +820,12 @@ def _multi(name: str, x: tuple, y: tuple | None, perchannel: bool, dev, primes: 
     rest = _ptrs16(*scratch, *out, names=_OUTS)
     xp = _ptrs16(*x, names="x_lo x_hi")
     if direction == "fwd":
-        err = _call(dev, _multi_lib().k7_fwd_multi, *xp, int(perchannel), b, n1, n2, n // size,
-                    c, *tp, tabs["n_d"], *rest)
+        err = call(dev, _multi_lib().k7_fwd_multi, *xp, int(perchannel), b, n1, n2, n // size,
+                   c, *tp, tabs["n_d"], *rest)
     else:
         yp = _ptrs16(*y, names="y_lo y_hi") if y is not None else (None, None)
-        err = _call(dev, _multi_lib().k7_inv_multi, *xp, *yp, b, n1, n2, n // size, c, *tp,
-                    tabs["n_d"], *rest)
+        err = call(dev, _multi_lib().k7_inv_multi, *xp, *yp, b, n1, n2, n // size, c, *tp,
+                   tabs["n_d"], *rest)
     LAUNCHES[name + ("_hyb" if n_h is not None else "")] += 1
     if err != 0:
         raise RuntimeError(f"K7 {name} launch failed: CUDA error {err}")

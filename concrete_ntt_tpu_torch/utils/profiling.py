@@ -24,7 +24,10 @@ Counterpart of `concrete_ntt_tpu/utils/profiling.py`, with the same names:
     the plans' calls and their stages (`STAGES`) on the timeline of any
     torch.profiler session that is recording (`trace` among them), each
     with its device time and logical bytes, a top-level call with its
-    kernel launches; nothing at all while no session records.
+    kernel launches; nothing at all while no session records;
+  * `launch_counts()`, `tile_counts()`, `reset_launches()`: the one reader
+    of the kernel modules' launch counters, of their counts by tile code,
+    and the one reset of both (`register_launches`).
 
 The peaks are NVIDIA's H100 SXM data-sheet figures (dense, at the 700 W
 power limit), the one copy that `chip_smoke.py` and `benches/run_torch.py`
@@ -256,19 +259,56 @@ STAGES = ("marshal", "transform", "pointwise", "lift", "lift_digits", "lift_limb
 MAX_SPANS = 1 << 16  # records kept; the oldest go first
 
 _records: deque = deque(maxlen=MAX_SPANS)
-_counters: list = []  # the kernel modules' LAUNCHES dicts (`register_launches`)
+# module name -> (its LAUNCHES dict, its TILE_LAUNCHES dict or None, the
+# prefix of its keys in `launch_counts`): `register_launches`
+_counters: dict = {}
 _open = threading.local()  # .stack: the records of the spans open on this thread
 _index = itertools.count()
 
 
-def register_launches(counter: dict) -> None:
-    """Add a kernel module's launch counter (name -> launches) to those a
-    top-level span reads its `launches` from."""
-    _counters.append(counter)
+def register_launches(module: str, launches: dict, tiles: dict | None = None,
+                      prefix: str = "") -> None:
+    """Register a kernel module's launch counter (name -> launches) and,
+    where it keeps one, its count of launches by (name, tile codes...).
+    `launch_counts` and `tile_counts` give each name with `prefix` before
+    it; a top-level span reads its `launches` from the first counter alone;
+    `reset_launches` zeroes both."""
+    _counters[module] = (launches, tiles, prefix)
+
+
+def launch_counts() -> dict:
+    """{name: launches} of every kernel module registered in this process
+    (a module registers when it is imported), each name with its module's
+    prefix: `butterfly32_fwd` / `butterfly32_inv` for K4, beside K2's `fwd`
+    / `inv`. Two modules that give one name raise."""
+    out = {}
+    for module, (launches, _, prefix) in _counters.items():
+        for key, v in launches.items():
+            if prefix + key in out:
+                raise RuntimeError(f"launch counter {prefix + key!r} of {module} is another "
+                                   "module's too")
+            out[prefix + key] = v
+    return out
+
+
+def tile_counts() -> dict:
+    """{(name, tile codes...): launches} of the modules that count their
+    launches by tile code, each name as `launch_counts` gives it."""
+    return {(prefix + key[0], *key[1:]): v
+            for _, tiles, prefix in _counters.values() for key, v in (tiles or {}).items()}
+
+
+def reset_launches() -> None:
+    """Zero every registered launch counter and clear every count by tile."""
+    for launches, tiles, _ in _counters.values():
+        for key in launches:
+            launches[key] = 0
+        if tiles is not None:
+            tiles.clear()
 
 
 def _launches() -> int:
-    return sum(sum(c.values()) for c in _counters)
+    return sum(sum(launches.values()) for launches, _, _ in _counters.values())
 
 
 def _nbytes(obj) -> int:

@@ -261,12 +261,12 @@ def test_wrapper_refuses_other_primes():
 def test_launch_counter_keys_and_reset():
     """Two keys, one a kernel; registered with utils/profiling; the plain
     twin launches nothing."""
-    assert any(c is crt_cuda.LAUNCHES for c in profiling._counters)
+    assert profiling._counters[crt_cuda.__name__][0] is crt_cuda.LAUNCHES
     assert [k for k in crt_cuda.LAUNCHES if k.startswith("lift_u128")] == [
         "lift_u128_digits", "lift_u128_limbs"]
     crt_cuda.LAUNCHES["lift_u128_digits"] = 3
     crt_cuda.LAUNCHES["lift_u128_limbs"] = 4
-    crt_cuda.reset_launch_counts()
+    profiling.reset_launches()
     assert not any(crt_cuda.LAUNCHES.values())
     crt_cuda.rec_u128_from10(_good(), FAMILIES["n<=2^15"])
     assert not any(crt_cuda.LAUNCHES.values())

@@ -196,10 +196,10 @@ def test_wrapper_refuses(bad, err, match):
 
 
 def test_launch_counter_is_registered_and_resets():
-    assert any(c is crt_cuda.LAUNCHES for c in profiling._counters)
+    assert profiling._counters[crt_cuda.__name__][0] is crt_cuda.LAUNCHES
     assert list(crt_cuda.LAUNCHES) == ["lift_u64_from5", "lift_u128_digits", "lift_u128_limbs"]
     crt_cuda.LAUNCHES["lift_u64_from5"] = 5
-    crt_cuda.reset_launch_counts()
+    profiling.reset_launches()
     assert crt_cuda.LAUNCHES == dict.fromkeys(crt_cuda.LAUNCHES, 0)
     crt_cuda.rec_u64_from5(_good(), FAMILIES["n<=2^15"])  # the plain twin: no launch
     assert crt_cuda.LAUNCHES == dict.fromkeys(crt_cuda.LAUNCHES, 0)

@@ -35,6 +35,7 @@ from concrete_ntt_tpu_torch.ops import (
     butterfly32_cuda, mxu32, mxu32_cuda, mxu64, mxu64_cuda, stagesplit)
 from concrete_ntt_tpu_torch.tables import GOLDILOCKS, NATIVE128_PRIMES, PRIMES52
 from concrete_ntt_tpu_torch.tables import NATIVE64_PRIMES as PRIMES
+from concrete_ntt_tpu_torch.utils import profiling
 from concrete_ntt_tpu_torch.utils.prime import largest_prime_in_arithmetic_progression64 as _lp
 
 pytestmark = pytest.mark.cuda
@@ -109,7 +110,7 @@ def test_polymul_on_card_matches_cpu(gen, cuda_device):
     n, b = 1 << 14, 3
     plan = native64.Plan32.try_new(n)  # the default device is the card
     lhs, rhs = ((_u32(gen, (b, n), "cpu"), _u32(gen, (b, n), "cpu")) for _ in range(2))
-    mxu32_cuda.reset_launch_counts()
+    profiling.reset_launches()
     got = plan.negacyclic_polymul(tuple(t.to(cuda_device) for t in lhs),
                                   tuple(t.to(cuda_device) for t in rhs))
     assert mxu32_cuda.LAUNCHES == {**dict.fromkeys(mxu32_cuda.LAUNCHES, 0),
@@ -267,7 +268,7 @@ def test_k7_matches_plain_on_card(gen, cuda_device, n, b):
 def test_prime64_polymul_on_card_matches_cpu(gen, cuda_device, regime):
     p, n = REGIMES64[regime], 1 << 14
     lhs, rhs = (gen.integers(0, 1 << 64, (3, n), dtype=np.uint64) % np.uint64(p) for _ in range(2))
-    mxu64_cuda.reset_launch_counts()
+    profiling.reset_launches()
     got = prime64.Plan.new(n, p).negacyclic_polymul(lhs, rhs)  # numpy input, default device
     assert mxu64_cuda.LAUNCHES["fwd64"] == 2 and mxu64_cuda.LAUNCHES["inv64"] == 1
     np.testing.assert_array_equal(
@@ -277,7 +278,7 @@ def test_prime64_polymul_on_card_matches_cpu(gen, cuda_device, regime):
 def test_plan52_polymul_on_card_matches_cpu_and_plan32(gen, cuda_device):
     n, b = 1 << 14, 3
     lhs, rhs = (gen.integers(0, 1 << 64, (b, n), dtype=np.uint64) for _ in range(2))
-    mxu64_cuda.reset_launch_counts()
+    profiling.reset_launches()
     got = native64.Plan52.try_new(n).negacyclic_polymul(lhs, rhs)
     assert mxu64_cuda.LAUNCHES == {**dict.fromkeys(mxu64_cuda.LAUNCHES, 0), "fwd_multi64": 2,
                                    "pointwise_inv_multi64": 1}
@@ -309,7 +310,7 @@ def test_k5h_matches_plain_and_direct_on_card(gen, cuda_device, regime):
     p, n, n_h, b = HYB64[regime], 1 << 15, 1 << 14, 3
     x = (_u32(gen, (b, n), cuda_device), _u32(gen, (b, n), cuda_device))
     s = _scale64(n, p)
-    mxu64_cuda.reset_launch_counts()
+    profiling.reset_launches()
     _same_pair(mxu64_cuda.fwd_hyb(x, n=n, p=p, n_h=n_h),
                mxu64_cuda.fwd_hyb_plain(x, n=n, p=p, n_h=n_h))
     _same_pair(mxu64_cuda.inv_hyb(x, n=n, p=p, n_h=n_h, scale=s),
@@ -359,7 +360,7 @@ def test_k7_block_tables_match_plain_and_direct_on_card(gen, cuda_device):
 def test_prime64_hybrid_polymul_on_card_matches_cpu(gen, cuda_device, regime):
     p, n = HYB64[regime], 1 << 16
     lhs, rhs = (gen.integers(0, 1 << 64, (2, n), dtype=np.uint64) % np.uint64(p) for _ in range(2))
-    mxu64_cuda.reset_launch_counts()
+    profiling.reset_launches()
     got = prime64.Plan.new(n, p).negacyclic_polymul(lhs, rhs)  # numpy input, default device
     assert mxu64_cuda.LAUNCHES == {**dict.fromkeys(mxu64_cuda.LAUNCHES, 0), "fwd64_hyb": 2,
                                    "inv64_hyb": 1}
@@ -375,7 +376,7 @@ def test_prime64_hybrid_polymul_on_card_matches_cpu(gen, cuda_device, regime):
 def test_k1a_u128_matches_plain_on_card(gen, cuda_device, n, b, channels):
     primes = NATIVE128_PRIMES[:channels]
     limbs = tuple(_u32(gen, (b, n), cuda_device) for _ in range(4))  # full-range u128
-    mxu32_cuda.reset_launch_counts()
+    profiling.reset_launches()
     got = mxu32_cuda.fwd_wide_multi(limbs, primes)
     assert mxu32_cuda.LAUNCHES == {**dict.fromkeys(mxu32_cuda.LAUNCHES, 0),
                                    "fwd_wide_multi_u128": 1}
@@ -418,8 +419,7 @@ def test_native_plan_on_card_matches_cpu(gen, cuda_device, module, tier, n):
     rhs = bits if binary else tuple(_u32(gen, (b, n), "cpu") for _ in range(nl))
     as_arg = lambda limbs, dev: limbs[0].to(dev) if nl == 1 else tuple(t.to(dev) for t in limbs)
     as_tuple = lambda out: (out,) if nl == 1 else out
-    mxu32_cuda.reset_launch_counts()
-    butterfly32_cuda.reset_launch_counts()
+    profiling.reset_launches()
     got = as_tuple(plan.negacyclic_polymul(as_arg(lhs, cuda_device), as_arg(rhs, cuda_device)))
     if tier == "Plan32" and n >= 1 << 11:
         wide = "fwd_wide_multi_u128" if nl == 4 else "fwd_wide_multi"
@@ -448,7 +448,7 @@ def test_native128_host_formats_on_default_plan(gen, cuda_device):
     plan, cpu_plan = _plan_pair(native128, "Plan32", n)
     a = [int.from_bytes(gen.bytes(16), "little") for _ in range(n)]
     b = [int.from_bytes(gen.bytes(16), "little") for _ in range(n)]
-    mxu32_cuda.reset_launch_counts()
+    profiling.reset_launches()
     got = plan.negacyclic_polymul(a, b)  # Python ints move to the card
     assert mxu32_cuda.LAUNCHES["fwd_wide_multi_u128"] == 2
     assert got == cpu_plan.negacyclic_polymul(a, b)
@@ -461,7 +461,7 @@ def test_native_plan_above_2_15_raises_on_card(gen, cuda_device):
     plan, cpu_plan = _plan_pair(native64, "Plan32", n)
     x, y = (tuple(_u32(gen, (1, n), "cpu") for _ in range(2)) for _ in range(2))
     on_card = lambda limbs: tuple(t.to(cuda_device) for t in limbs)
-    mxu32_cuda.reset_launch_counts()
+    profiling.reset_launches()
     got = plan.negacyclic_polymul(on_card(x), on_card(y))
     assert mxu32_cuda.LAUNCHES == {**dict.fromkeys(mxu32_cuda.LAUNCHES, 0),
                                    "fwd_wide_multi": 2, "inv_multi": 1}
@@ -542,7 +542,7 @@ def test_k2_block_tables_match_plain_and_direct_on_card(gen, cuda_device, regime
     assert n_d == (5 if regime == "generic" else 4)
     x = _u32(gen, (b, n), cuda_device)
     s = _scale32(n, p)
-    mxu32_cuda.reset_launch_counts()
+    profiling.reset_launches()
     fwd = mxu32_cuda.fwd_hyb(x, n=n, p=p, n_h=n_h)
     inv = mxu32_cuda.inv_hyb(x, n=n, p=p, n_h=n_h, scale=s)
     _same(fwd, mxu32_cuda.fwd_hyb_plain(x, n=n, p=p, n_h=n_h))
@@ -556,7 +556,7 @@ def test_k2_block_tables_match_plain_and_direct_on_card(gen, cuda_device, regime
                                    "inv_hyb": 2, "fwd": 1, "inv": 1}
     codes = [(t1, t2) for t1 in range(3) for t2 in range(4) if t2 < 3 or n_d == 4]
     rule_tiles = mxu32_cuda.k2h_tiles
-    mxu32_cuda.reset_launch_counts()
+    profiling.reset_launches()
     try:
         for c in codes:
             mxu32_cuda.k2h_tiles = lambda *a, c=c, **k: c
@@ -587,7 +587,7 @@ def test_k1_block_tables_match_plain_and_direct_on_card(gen, cuda_device, n, b):
           mxu32_cuda.inv_multi_plain(x, primes, scales, n_h))
     _same(mxu32_cuda.pointwise_inv_multi(x, y, primes, scales, n_h=n_h),
           mxu32_cuda.pointwise_inv_multi_plain(x, y, primes, scales, n_h))
-    mxu32_cuda.reset_launch_counts()
+    profiling.reset_launches()
     for limbs in ((x[0],), (x[0], y[0])):
         _same(stagesplit.fwd_wide_multi_hybrid32(limbs, primes, n=n),
               mxu32_cuda.fwd_wide_multi(limbs, primes))
@@ -618,7 +618,7 @@ def test_k1e_presplit_matches_k1b_on_card(gen, cuda_device, n, b, c):
     scales = tuple(_scale32(n, p) for p in primes)
     x = _u32(gen, (c, b, n), cuda_device)
     xd = mxu32_cuda.digit_planes32(x)
-    mxu32_cuda.reset_launch_counts()
+    profiling.reset_launches()
     got = mxu32_cuda.inv_multi_presplit(xd, primes, scales)
     assert mxu32_cuda.LAUNCHES == {**dict.fromkeys(mxu32_cuda.LAUNCHES, 0),
                                    "inv_multi_presplit": 1}
@@ -629,7 +629,7 @@ def test_k1e_presplit_matches_k1b_on_card(gen, cuda_device, n, b, c):
     _same(got, k1b)
     codes = [(t1, t2) for t1 in range(3) for t2 in range(4 if n >= 1 << 12 else 3)]
     rule_tiles = mxu32_cuda._k1e_tiles
-    mxu32_cuda.reset_launch_counts()
+    profiling.reset_launches()
     try:
         for codes_ in codes:
             mxu32_cuda._k1e_tiles = lambda *a, c=codes_: c
@@ -644,7 +644,7 @@ def test_k1e_presplit_matches_k1b_on_card(gen, cuda_device, n, b, c):
 def test_k5_u128_matches_plain_on_card(gen, cuda_device, instance, n, b):
     p = INSTANCES64[instance]
     x = tuple(_u32(gen, (b, n), cuda_device) for _ in range(4))
-    mxu64_cuda.reset_launch_counts()
+    profiling.reset_launches()
     got = mxu64_cuda.fwd(x, n=n, p=p)
     assert mxu64_cuda.LAUNCHES == {**dict.fromkeys(mxu64_cuda.LAUNCHES, 0), "fwd64_u128": 1}
     _same_pair(got, mxu64_cuda.fwd_plain(x, n=n, p=p))
@@ -671,7 +671,7 @@ def test_native_plan32_above_2_15_on_card_matches_cpu(gen, cuda_device, module, 
 def test_prime32_polymul_above_2_15_on_card_matches_cpu(gen, cuda_device, regime, n):
     p = BIG32[regime]
     lhs, rhs = (gen.integers(0, p, (2, n), dtype=np.uint32) for _ in range(2))
-    mxu32_cuda.reset_launch_counts()
+    profiling.reset_launches()
     got = prime32.Plan.new(n, p).negacyclic_polymul(lhs, rhs)  # numpy input, default device
     assert mxu32_cuda.LAUNCHES == {**dict.fromkeys(mxu32_cuda.LAUNCHES, 0), "fwd": 2, "inv": 1}
     _same(got, prime32.Plan.new(n, p, device="cpu").negacyclic_polymul(lhs, rhs))
@@ -687,8 +687,7 @@ def test_small_prime_above_2_15_launches_k4_on_card(gen, cuda_device):
     plan, cpu = prime32.Plan.new(n, p), prime32.Plan.new(n, p, device="cpu")
     x = _u32(gen, (1, n), cuda_device, p)
     lhs, rhs = (gen.integers(0, p, (1, n), dtype=np.uint32) for _ in range(2))
-    butterfly32_cuda.reset_launch_counts()
-    mxu32_cuda.reset_launch_counts()
+    profiling.reset_launches()
     _same(plan.fwd(x), cpu.fwd(x.cpu()))
     _same(plan.inv(x), cpu.inv(x.cpu()))
     _same(plan.negacyclic_polymul(lhs, rhs), cpu.negacyclic_polymul(lhs, rhs))
@@ -812,7 +811,7 @@ def test_misaligned_operand_raises_on_card(gen, cuda_device):
 # passes (A on the value shard, F on the exchange's output, G, A_inv written
 # transposed): the sharded routes' rank-local shapes (native128 (2^16, 8) at
 # (dp, ch, sp) = (1, 2, 2) and in a world of one, native64 (2^14, 8) at
-# (2, 1, 2), chip_smoke.py's held ranks), s = 2 and 4, n = 2^11 .. 2^17,
+# (2, 1, 2), four ranks of a 4096 transform), s = 2 and 4, n = 2^11 .. 2^17,
 # C = 1-5 and 10, and every tile code `k3_multi_tile` picks (K1's ring;
 # 64 x 16; K1's tile holding four stages whole at (2^14, 16, 1, 2); 128 x 64
 # for the canonical passes at (4096, 16, 1, 10))
@@ -862,7 +861,7 @@ def test_k3_multi_matches_plain_on_card(gen, cuda_device):
     cases += [((4096, 3, 2, 1, 2), (p,)) for p in BENCH.values()]
     cases += [((1 << 17, 16, 2, 1, 1), (BENCH["generic"],)), ((1 << 16, 3, 2, 1, 4),
                                                              (BIG32["lt31"],))]
-    mxu32_cuda.reset_launch_counts()
+    profiling.reset_launches()
     launched = 0
     for (n, b, s, c, limbs), primes in cases:
         for which, x, rows in _route_passes(gen, cuda_device, n, b, s, c, limbs):
@@ -890,7 +889,7 @@ def test_k6_multi_matches_plain_on_card(gen, cuda_device):
     cases = [(shape, tuple(PRIMES52[:shape[3]])) for shape in K6_MULTI_SHAPES]
     for p in INSTANCES64.values():
         cases += [((4096, 3, 2, 1), (p,)), ((1 << 14, 32, 1, 1), (p,))]
-    mxu64_cuda.reset_launch_counts()
+    profiling.reset_launches()
     for (n, b, s, c), primes in cases:
         for which, x, rows in _route_passes(gen, cuda_device, n, b, s, c, 2, pair=True):
             diag = (mxu64_cuda.multi_diag(n, primes, which, *rows, str(cuda_device))
@@ -919,7 +918,7 @@ def _sharded_rank(rank, world, n):
     out, launches = {}, {}
     p = BENCH["lt30"]
     x = gen.integers(0, p, (4, n), dtype=np.uint32)
-    mxu32_cuda.reset_launch_counts()
+    profiling.reset_launches()
     fwd, inv, to_dist, from_dist = fourstep_mxu.make_sharded_prime32_mxu(
         prime32.Plan.new(n, p), sp, axis="sp")
     f = fwd(to_dist(torch.from_numpy(x)))
@@ -928,7 +927,7 @@ def _sharded_rank(rank, world, n):
     p64 = PRIMES52[0]
     x64 = torch.from_numpy(np.stack([gen.integers(0, 1 << 32, (4, n), dtype=np.uint32),
                                      gen.integers(0, 1 << 18, (4, n), dtype=np.uint32)], -1))
-    mxu64_cuda.reset_launch_counts()
+    profiling.reset_launches()
     fwd, inv, to_dist, from_dist = fourstep_mxu.make_sharded_prime64_mxu(
         prime64.Plan.new(n, p64), sp, axis="sp")
     f = fwd(to_dist(x64))
@@ -936,14 +935,14 @@ def _sharded_rank(rank, world, n):
     launches["mxu64"] = {k: v for k, v in mxu64_cuda.LAUNCHES.items() if v}
     lhs, rhs = (gen.integers(0, 1 << 32, (2, n, 4), dtype=np.uint32) for _ in range(2))
     plan128 = native128.Plan32.try_new(n)
-    mxu32_cuda.reset_launch_counts()
+    profiling.reset_launches()
     for name, mesh, kw in (("ch128", ch, {}), ("sp128", sp, {"sp_axis": "sp"})):
         sh = channels.ChannelShardedNative(plan128, mesh, **kw)
         out[name] = sh.negacyclic_polymul(torch.from_numpy(lhs).to(dev),
                                           torch.from_numpy(rhs).to(dev)).cpu()
     launches["ch128"] = {k: v for k, v in mxu32_cuda.LAUNCHES.items() if v}
     a, b = (gen.integers(0, 1 << 64, (2, n), dtype=np.uint64) for _ in range(2))
-    mxu64_cuda.reset_launch_counts()
+    profiling.reset_launches()
     sh = channels.ChannelShardedNative52(native64.Plan52.try_new(n), sp, sp_axis="sp")
     out["ch52"] = sh.negacyclic_polymul(a, b)
     launches["ch52"] = {k: v for k, v in mxu64_cuda.LAUNCHES.items() if v}

@@ -23,6 +23,7 @@ from concrete_ntt_tpu_torch.golden.polymul import (
     negacyclic_convolution_wrapping,
 )
 from concrete_ntt_tpu_torch.ops import butterfly32_cuda, mxu32_cuda, ntt_dispatch
+from concrete_ntt_tpu_torch.utils import profiling
 
 # (module, tier, width, channels)
 PLANS = [
@@ -172,8 +173,7 @@ def test_routes_and_launch_free_cpu(rng, module, tier, width, k):
     else:
         assert ntt_dispatch.route64(256, small.primes) is None
         assert ntt_dispatch.route64(1 << 11, big.primes) in ("K7", "K5")
-    mxu32_cuda.reset_launch_counts()
-    butterfly32_cuda.reset_launch_counts()
+    profiling.reset_launches()
     fmt = "u32" if width == 32 else "limbs"
     x = _arg(_limbs(rng, width, (1, 256)), fmt, "torch")
     small.negacyclic_polymul(x, _arg(_limbs(rng, width, (1, 256), binary=True), fmt, "torch"))

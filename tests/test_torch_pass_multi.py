@@ -205,7 +205,7 @@ def test_k3_multi_tile_at_the_route_shapes():
     assert _route_tiles(1 << 16, 8, 1, 10, 4) == (0, 0, 0, 0)
     assert _route_tiles(1 << 14, 4, 2, 1, 1) == (1, 1, 1, 1)
     assert _route_tiles(1 << 14, 8, 1, 1, 1) == (1, 1, 1, 1)
-    assert _route_tiles(4096, 16, 4, 1, 1) == (1, 1, 1, 1)  # chip_smoke.py's held ranks
+    assert _route_tiles(4096, 16, 4, 1, 1) == (1, 1, 1, 1)  # four ranks of a 4096 transform
     assert _route_tiles(1 << 14, 16, 1, 2, 1) == (2, 2, 2, 2)
     assert _route_tiles(4096, 16, 1, 10, 1) == (0, 3, 0, 3)
     assert _route_tiles(4096, 16, 1, 10, 1, n_d=5) == (0, 0, 0, 0)

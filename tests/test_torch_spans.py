@@ -14,6 +14,8 @@ machine without JAX:
     python -m pytest tests/test_torch_spans.py --noconftest -q
 """
 
+import importlib
+import os
 import tracemalloc
 
 import numpy as np
@@ -247,7 +249,7 @@ def test_launches_come_from_the_registered_counters(monkeypatch):
     counters = (mxu32_cuda.LAUNCHES, mxu64_cuda.LAUNCHES, butterfly32_cuda.LAUNCHES,
                 crt_cuda.LAUNCHES)
     for counter in counters:
-        assert any(c is counter for c in profiling._counters)
+        assert any(c is counter for c, *_ in profiling._counters.values())
     for module, name in ((mxu32_cuda, "fwd_wide_multi"), (mxu32_cuda, "inv_multi"),
                          (crt_cuda, "rec_u64_from5")):
         plain = getattr(module, name)
@@ -265,6 +267,93 @@ def test_launches_come_from_the_registered_counters(monkeypatch):
     assert mxu32_cuda.LAUNCHES["fwd_wide_multi"] == before["fwd_wide_multi"] + 2
     assert mxu32_cuda.LAUNCHES["inv_multi"] == before["inv_multi"] + 1
     assert crt_cuda.LAUNCHES["lift_u64_from5"] == before["lift_u64_from5"] + 1
+
+
+KERNEL_MODULES = sorted(
+    name[:-3] for name in os.listdir(os.path.dirname(mxu32_cuda.__file__))
+    if name.endswith("_cuda.py"))
+
+
+def _registered() -> list:
+    """Every kernel module imported (each registers its counters then); their
+    (LAUNCHES, TILE_LAUNCHES, prefix) registrations."""
+    for name in KERNEL_MODULES:
+        importlib.import_module(f"concrete_ntt_tpu_torch.ops.{name}")
+    return list(profiling._counters.values())
+
+
+@pytest.mark.parametrize("name", KERNEL_MODULES)
+def test_every_kernel_module_registers_its_counters(name):
+    module = importlib.import_module(f"concrete_ntt_tpu_torch.ops.{name}")
+    launches, tiles, _ = profiling._counters[module.__name__]
+    assert launches is module.LAUNCHES
+    assert tiles is getattr(module, "TILE_LAUNCHES", None)
+
+
+def test_reset_launches_zeroes_every_counter():
+    for launches, tiles, _ in _registered():
+        for key in launches:
+            launches[key] += 3
+        if tiles is not None:
+            tiles[("probe", 0)] = 1
+    profiling.reset_launches()
+    for launches, tiles, _ in profiling._counters.values():
+        assert not any(launches.values())
+        assert not tiles
+    assert not any(profiling.launch_counts().values()) and not profiling.tile_counts()
+
+
+def test_launch_counts_give_each_counter_its_own_key():
+    """One name a counter, by a fixed rule: a module's keys with its
+    registered prefix (K4's `butterfly32_`), beside K2's own `fwd` / `inv`;
+    the counts by tile code apart, by `tile_counts`."""
+    counts = profiling.launch_counts()
+    assert len(counts) == sum(len(launches) for launches, *_ in _registered())
+    assert all(isinstance(k, str) for k in profiling.launch_counts())
+    assert {"fwd", "inv", "butterfly32_fwd", "butterfly32_inv"} <= set(profiling.launch_counts())
+    profiling.reset_launches()
+    try:
+        butterfly32_cuda.LAUNCHES["fwd"] += 2
+        mxu32_cuda.LAUNCHES["fwd"] += 1
+        mxu32_cuda.TILE_LAUNCHES[("fwd_hyb", 1, 2)] = 5
+        mxu64_cuda.TILE_LAUNCHES[("pass_matmod64_multi", 1)] = 4
+        moved = {k: v for k, v in profiling.launch_counts().items() if v}
+        assert moved == {"butterfly32_fwd": 2, "fwd": 1}
+        assert profiling.tile_counts() == {("fwd_hyb", 1, 2): 5, ("pass_matmod64_multi", 1): 4}
+    finally:
+        profiling.reset_launches()
+
+
+def test_a_name_two_modules_give_raises():
+    """A new kernel module whose counter shares a name with another's is
+    refused at the read, not renamed."""
+    _registered()
+    profiling.register_launches("probe_cuda", {"inv_multi": 0})
+    try:
+        with pytest.raises(RuntimeError, match="'inv_multi' of probe_cuda"):
+            profiling.launch_counts()
+    finally:
+        del profiling._counters["probe_cuda"]
+    profiling.launch_counts()
+
+
+def test_root_span_launches_ignore_the_counts_by_tile(monkeypatch):
+    """A top-level span's `launches` sums LAUNCHES alone: a launch that is
+    also counted by its tile codes counts once."""
+    plain = mxu32_cuda.fwd_wide_multi
+
+    def counted(*args, **kwargs):
+        mxu32_cuda.LAUNCHES["fwd_wide_multi"] += 1
+        key = ("fwd_wide_multi", 0, 0)
+        mxu32_cuda.TILE_LAUNCHES[key] = mxu32_cuda.TILE_LAUNCHES.get(key, 0) + 1
+        return plain(*args, **kwargs)
+    monkeypatch.setattr(mxu32_cuda, "fwd_wide_multi", counted)
+    try:
+        _, _, records = _traced(_native(2048))
+        assert records[0]["parent"] is None and records[0]["launches"] == 2  # K1a twice
+        assert mxu32_cuda.TILE_LAUNCHES[("fwd_wide_multi", 0, 0)] >= 2
+    finally:
+        profiling.reset_launches()
 
 
 def test_root_span_keeps_the_method_name_and_doc():

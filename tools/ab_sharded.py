@@ -33,9 +33,10 @@ Sections, each printing one line a row:
     the rule picks.
 
 The helpers (`chip_smoke.py` of this script's own checkout: sharded_path,
-sharded_inputs, profile_polymul, gemm64_rows, and its gate's route_passes;
-`utils/profiling.device_times`) drive the package, kernels and wrappers of
-the current directory, so an A/B
+sharded_inputs, profile_polymul, gemm64_rows, and its gate's
+route_passes; `utils/profiling.device_times`, `launch_counts` and
+`reset_launches`) drive the package, kernels and wrappers of the current
+directory, so an A/B
 of two checkouts on one card runs it from each in turns, in one call:
 
     for d in parent change change parent; do (cd $d && python3 /abs/tools/ab_sharded.py); done
@@ -112,6 +113,7 @@ def local_collectives(_dist):
 def rank_section(smi: str) -> dict:
     """One rank of each path in this process (the module note's `rank`)."""
     from concrete_ntt_tpu_torch.parallel import _dist
+    from concrete_ntt_tpu_torch.utils import profiling
 
     saved = (_dist.all_to_all_tiled, _dist.all_gather)
     _dist.all_to_all_tiled, _dist.all_gather = local_collectives(_dist)
@@ -124,10 +126,10 @@ def rank_section(smi: str) -> dict:
                         for v in inputs[name])
             run(lhs, rhs)
             torch.cuda.synchronize()
-            cs.reset_launch_counts()
+            profiling.reset_launches()
             run(lhs, rhs)
             torch.cuda.synchronize()
-            launched = {k: v for k, v in cs.launch_counts().items() if v}
+            launched = {k: v for k, v in profiling.launch_counts().items() if v}
             r = cs.profile_polymul(lambda: run(lhs, rhs), reps=POLYMULS)
             out[name] = {"launches": launched, **r}
             print(f"ab_sharded: rank {name} at (dp, ch, sp) = {cs.SHARDED_MESHES[name]}: GEMM "
@@ -147,6 +149,8 @@ def world_rank(rank: int, world: int, seed: int) -> dict:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
+    from concrete_ntt_tpu_torch.utils import profiling
+
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     inputs = cs.sharded_inputs(seed)
     out = {}
@@ -157,10 +161,10 @@ def world_rank(rank: int, world: int, seed: int) -> dict:
         lhs, rhs = (torch.from_numpy(v).cuda() if v.dtype == np.uint32 else v
                     for v in inputs[name])
         torch.cuda.synchronize()
-        cs.reset_launch_counts()
+        profiling.reset_launches()
         run(lhs, rhs)
         torch.cuda.synchronize()
-        launched = {k: v for k, v in cs.launch_counts().items() if v}
+        launched = {k: v for k, v in profiling.launch_counts().items() if v}
         dist.barrier()
         t0 = time.perf_counter()
         for _ in range(WORLD_REPS):
