@@ -24,7 +24,8 @@ failure:
                spill, K1c / K1d's eight tile instances, K3's channel-grid
                instances of every tile `k3_multi_tile` picks and the 16
                64-row instances of the 64-bit pass must be built, the lift
-               kernels' vector and scalar instances must not spill, and a
+               kernels' and the pointwise product's vector and scalar
+               instances must be built and must not spill, and a
                missing cuobjdump fails; K4's registers and how many of its
                clusters the card holds at once
                (cudaOccupancyMaxActiveClusters: accepted at 2^14 and 2^17).
@@ -33,7 +34,8 @@ failure:
                `route64` at n in its QUICK_N, each kernel row against its
                plain twin (the forced tile codes, every tile instance, the
                eight instances of the 64-bit pass and K1a / K1b / the lifts
-               at the native64 and native128 cells' n and B = 8 among them),
+               / the pointwise product at the native64 and native128 cells'
+               n and B = 8 among them),
                each plan row (the ten public plans' polymul and round trip,
                the PBS loop of 16 terms) against the golden oracle, against
                the same plan on the CPU (every row) and with its route's
@@ -43,11 +45,13 @@ failure:
                fails on any FAIL.
   4. formats — what no gate row holds: the device rule (a default
                native64.Plan32(2^14) takes numpy input to the card, the same
-               bits as planar limbs there, K1a +2, K1b +1, the lift +1 each);
+               bits as planar limbs there, K1a +2, the pointwise product +1,
+               K1b +1, the lift +1 each);
                the README vector (prime32 N = 32, p = 1062862849, round trip
                == N·x on a default plan, K4 +1 fwd +1 inv); `"py128"` lists
                on a default native128 plan == the planar result (K1a-u128 +2,
-               K1b +1, the two lift kernels +1 each). Each call's launch
+               the pointwise product +1, K1b +1, the two lift kernels +1
+               each). Each call's launch
                counters (`utils/profiling.launch_counts`) are zeroed just
                before it and read just after.
   4b. sharded — `parallel._dist.spawn` starts the worlds (the kernels are
@@ -171,6 +175,7 @@ PASS64_SRC = "concrete_ntt_tpu_torch/csrc/mxu64_pass.cu"
 MULTI64_SRC = "concrete_ntt_tpu_torch/csrc/mxu64_multi.cu"
 LIFT_SRC = "concrete_ntt_tpu_torch/csrc/crt_lift.cu"
 LIFT128_SRC = "concrete_ntt_tpu_torch/csrc/crt_lift128.cu"
+MONT_SRC = "concrete_ntt_tpu_torch/csrc/mont32_pointwise.cu"
 # the launch counter (`utils/profiling.launch_counts`) of a JSON row whose
 # name is not its counter's: native128's lift pair counts its digits launch
 COUNTER = {"lift_u128_from10": "lift_u128_digits"}
@@ -219,6 +224,8 @@ KERNELS = {  # JSON name -> (source, TPU kernel replaced)
     # the native128 Plan32 Garner lift, digits then limbs: one launch pair a lift
     "lift_u128_from10": (LIFT128_SRC,
                          "none: concrete_ntt_tpu/ops/crt.py rec_u128_from10 is XLA code"),
+    # the native Plan32 polymul's pointwise Montgomery product: no TPU kernel
+    "pointwise_mont32": (MONT_SRC, "none: the JAX stacked polymul's product is XLA code"),
 }
 # the rows that also carry their shape above 2^15 (fields `n17_*` of the JSON line)
 BIG_ROWS = ("fwd_wide_multi", "fwd_wide_multi_u128", "inv_multi", "fwd_multi_perchannel",
@@ -580,7 +587,8 @@ def stages_phase(smi: str, seed: int, dev: torch.device) -> None:
     length = 64  # tools/profile_stages.py: 64 steps up to 2^14, 32 above
     ops = [u32((b, n)) for _ in range(4)]
     _, moved = launched(lambda: plan.negacyclic_polymul(tuple(ops[:2]), tuple(ops[2:])))
-    require(moved == {"fwd_wide_multi": 2, "inv_multi": 1, "lift_u64_from5": 1},
+    require(moved == {"fwd_wide_multi": 2, "pointwise_mont32": 1, "inv_multi": 1,
+                      "lift_u64_from5": 1},
             f"stages: the native64 Plan32 polymul launched {moved}")
     fwd_r = lambda t: profiling.mxu_transform_roofline(n, b * c, t, 8, 4)
     inv_r = lambda t: profiling.mxu_transform_roofline(n, b * c, t, 4, 4)
@@ -614,8 +622,8 @@ def stages_phase(smi: str, seed: int, dev: torch.device) -> None:
     plan128 = native128.Plan32.try_new(n128)
     ops = [u32((b, n128)) for _ in range(8)]
     _, moved = launched(lambda: plan128.negacyclic_polymul(tuple(ops[:4]), tuple(ops[4:])))
-    require(moved == {"fwd_wide_multi_u128": 2, "inv_multi": 1, "lift_u128_digits": 1,
-                      "lift_u128_limbs": 1},
+    require(moved == {"fwd_wide_multi_u128": 2, "pointwise_mont32": 1, "inv_multi": 1,
+                      "lift_u128_digits": 1, "lift_u128_limbs": 1},
             f"stages: the native128 Plan32 polymul launched {moved}")
     c128, w128 = len(plan128.primes), 4 * b * n128
     row(f"full-polymul native128 Plan32 n={n128} B={b}",
@@ -862,7 +870,7 @@ def main() -> int:
     from concrete_ntt_tpu_torch import native64, prime32, prime64, product
     from concrete_ntt_tpu_torch.ops import butterfly32_cuda as bcu
     from concrete_ntt_tpu_torch.ops import (
-        crt_cuda, cuda_build, mxu32, mxu32_cuda, mxu64, mxu64_cuda, stagesplit)
+        crt_cuda, cuda_build, mxu32, mxu32_cuda, mxu64, mxu64_cuda, pointwise_cuda, stagesplit)
     from concrete_ntt_tpu_torch.ops.u32 import (
         limbs_to_np_u64, mont_mul, mont_mul64, mont_neginv, mont_neginv64, to_i64, to_u32)
     from concrete_ntt_tpu_torch.parallel import _dist
@@ -918,6 +926,7 @@ def main() -> int:
         sos = list(pool.map(cuda_build.build, cuda_build.SOURCES))
     mxu32_cuda._lib(), mxu32_cuda._pass_lib(), bcu._lib()
     mxu64_cuda._pass_lib(), mxu64_cuda._multi_lib(), crt_cuda._lib(), crt_cuda._lib128()
+    pointwise_cuda._lib()
     print(f"build: {len(sos)} sources in {time.perf_counter() - t0:.1f} s", flush=True)
     for so in sos:
         with open(so[:-3] + ".log") as f:
@@ -932,11 +941,12 @@ def main() -> int:
                                             "spill stores / loads" for e, r, st, ld in passes),
                   flush=True)
         for lib, kernel, instances in (("crt_lift_", "lift_u64_from5", 2),
-                                       ("crt_lift128_", "lift_u128_", 4)):
+                                       ("crt_lift128_", "lift_u128_", 4),
+                                       ("mont32_pointwise_", "mont32_pointwise", 2)):
             if os.path.basename(so).startswith(lib):  # the vector and scalar instances
-                lifts = [e for e in ptxas_entries(log) if kernel in e[0]]
-                require(len(lifts) == instances and all(st == ld == 0 for _, _, st, ld in lifts),
-                        f"build: {os.path.basename(so)}: lift instances {lifts} missing or "
+                found = [e for e in ptxas_entries(log) if kernel in e[0]]
+                require(len(found) == instances and all(st == ld == 0 for _, _, st, ld in found),
+                        f"build: {os.path.basename(so)}: streaming instances {found} missing or "
                         "spilling")
         if os.path.basename(so).startswith("mxu64_"):
             require(passes and all(st == ld == 0 for _, _, st, ld in passes),
@@ -1072,7 +1082,7 @@ def main() -> int:
         for _ in range(3)
     ]
     on_card = [tuple(tuple(t.to(dev) for t in planar(a)) for a in pair) for pair in operands]
-    want64 = {"fwd_wide_multi": 2, "inv_multi": 1, "lift_u64_from5": 1}
+    want64 = {"fwd_wide_multi": 2, "pointwise_mont32": 1, "inv_multi": 1, "lift_u64_from5": 1}
     np_out, rule = launched(lambda: plan.negacyclic_polymul(*operands[0]))
     planar_out, moved = launched(lambda: plan.negacyclic_polymul(*on_card[0]))
     require(rule == want64 and moved == want64,
@@ -1098,8 +1108,8 @@ def main() -> int:
     # host formats: Python ints ("py128") on a default native128 plan
     pl128 = port.native128.Plan32.try_new(N_MAIN)
     a128, b128 = limbs_np(128, (1, N_MAIN)), limbs_np(128, (1, N_MAIN))
-    route128 = {"fwd_wide_multi_u128": 2, "inv_multi": 1, "lift_u128_digits": 1,
-                "lift_u128_limbs": 1}
+    route128 = {"fwd_wide_multi_u128": 2, "pointwise_mont32": 1, "inv_multi": 1,
+                "lift_u128_digits": 1, "lift_u128_limbs": 1}
     py_out, moved = launched(lambda: pl128.negacyclic_polymul(
         [int(v) for v in as_ints(a128[0])], [int(v) for v in as_ints(b128[0])]))
     planar128 = pl128.negacyclic_polymul(plan_arg(a128, dev), plan_arg(b128, dev))
@@ -1338,6 +1348,13 @@ def main() -> int:
     print(f"times: lift_u128_from10 n={N_MAIN} B={B_MAIN}: kernels {ms['lift_u128_from10']:.4f} "
           f"ms, plain {plain_ms['lift_u128_from10']:.4f} ms (median of {REPS}) | {smi}",
           flush=True)
+    pw_r = u32((len(PRIMES), B_MAIN, N_MAIN))
+    ms["pointwise_mont32"] = median_ms(lambda: pointwise_cuda.mont_mul32(x, pw_r, PRIMES))
+    plain_ms["pointwise_mont32"] = median_ms(
+        lambda: pointwise_cuda.mont_mul32_plain(x, pw_r, PRIMES))
+    print(f"times: pointwise_mont32 n={N_MAIN} B={B_MAIN} C={len(PRIMES)}: kernel "
+          f"{ms['pointwise_mont32']:.4f} ms, plain {plain_ms['pointwise_mont32']:.4f} ms (median "
+          f"of {REPS}) | {smi}", flush=True)
     # the GEMM rows' device time (the pass launches of a call) beside
     # torch._int_mm on int8 matrices of the same passes' shapes
     dev_ms, int_mm_ms = {}, {}
@@ -1828,7 +1845,7 @@ def main() -> int:
     lt30_case = next(c for c in p32_cases if c[0] == "lt30")
     on_plans = (
         (lambda: plan.negacyclic_polymul(*on_card[0]),
-         ("fwd_wide_multi", "inv_multi", "lift_u64_from5")),
+         ("fwd_wide_multi", "inv_multi", "lift_u64_from5", "pointwise_mont32")),
         (fam_calls["native128.Plan32"], ("fwd_wide_multi_u128", "lift_u128_from10")),
         (lambda: lt30_case[1].negacyclic_polymul(*(host(v).to(dev) for v in lt30_case[2:])),
          ("fwd", "inv")),
@@ -1939,6 +1956,8 @@ def main() -> int:
         "lift_u64_from5": (0, 28 * B_MAIN * N_MAIN),
         # native128's: ten u32 residues -> five u64 digits (80 B), digits -> four u32 limbs (56 B)
         "lift_u128_from10": (0, 136 * B_MAIN * N_MAIN),
+        # the pointwise product: two u32 operands read, one u32 written a coefficient and channel
+        "pointwise_mont32": (0, 12 * len(PRIMES) * B_MAIN * N_MAIN),
         "fwd_wide_multi": fourstep_work("fwd", B_MAIN, n1m, n2m, 5, 8, 4, 4, 2, 1, 4,
                                         shared_operand=True),
         "inv_multi": fourstep_work("inv", B_MAIN, n1m, n2m, 5, 4, 4, 4, 1, 1, 4),

@@ -92,6 +92,7 @@
 #include <stdint.h>
 
 #include "gemm_sm90.cuh"
+#include "mont32.cuh"
 
 namespace mxu32 {
 
@@ -181,19 +182,6 @@ __device__ __forceinline__ uint32_t cond_sub(uint32_t x, uint32_t m) {
 __device__ __forceinline__ uint32_t shoup_lazy(uint32_t z, uint32_t w, uint32_t w_sh,
                                                uint32_t p) {
   return z * w - __umulhi(z, w_sh) * p;
-}
-
-// REDC a*b*2^-32 mod p with the (lo != 0) carry (ops/u32.py mont_mul), for
-// any u32 a, b: the 64-bit sum keeps the u32 overflow of hi + mulhi(m, p) +
-// carry (true value < 2^32 + p), which the JAX package's mont_mul and
-// _sc_mont_mul track, and one conditional subtract gives their bit pattern.
-__device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b, uint32_t p,
-                                             uint32_t p_neginv) {
-  const uint64_t ab = (uint64_t)a * b;
-  const uint32_t lo = (uint32_t)ab;
-  const uint32_t m = lo * p_neginv;
-  const uint64_t s = (ab >> 32) + __umulhi(m, p) + (lo != 0u);
-  return (uint32_t)(s >= p ? s - p : s);
 }
 
 // (a + b) mod p with the u32 overflow taken into account (ops/u32.py add_mod)

@@ -37,7 +37,7 @@ FLAGS = (
 )
 
 SOURCES = ("mxu32_multi", "mxu32_pass", "butterfly32", "mxu64_pass", "mxu64_multi", "crt_lift",
-           "crt_lift128")
+           "crt_lift128", "mont32_pointwise")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -55,24 +55,11 @@ lists of channels.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import torch
 
 from ..utils.profiling import span
-from . import butterfly32_cuda, mxu32, mxu32_cuda, mxu64, mxu64_cuda, stagesplit
-from .u32 import (
-    MASK32,
-    mont_mul,
-    mont_mul64,
-    mont_neginv,
-    mont_neginv64,
-    mulhi_u32,
-    mullo_u32,
-    mulwide_u32,
-    to_i64,
-    to_u32,
-)
+from . import butterfly32_cuda, mxu32, mxu32_cuda, mxu64, mxu64_cuda, pointwise_cuda, stagesplit
+from .u32 import mont_mul, mont_mul64, mont_neginv, mont_neginv64, to_i64, to_u32
 
 
 def _primes(plans) -> tuple:
@@ -181,9 +168,9 @@ def try_inv32_all(stacked, plans, scales=None):
 
 def try_polymul32_stacked(parts_l, parts_r, plans, rhs_binary=False):
     """End-to-end stacked negacyclic polymul over plan32 CRT channels: K1a on
-    both operands, the pointwise Montgomery product per channel
-    (`pointwise_mont32`, plain torch, as the reference's XLA elementwise
-    stage), then K1b with n^-1 * 2^32 folded into the inverse column
+    both operands, the pointwise Montgomery product of every channel
+    (`pointwise_mont32`, one streaming kernel where the reference has an XLA
+    elementwise stage), then K1b with n^-1 * 2^32 folded into the inverse column
     matrix. Returns standard-order residues [C, B, n] (uint32)."""
     primes = _primes(plans)
     n = parts_l[0].shape[-1]
@@ -203,33 +190,16 @@ def try_polymul32_stacked(parts_l, parts_r, plans, rhs_binary=False):
     return out
 
 
-@lru_cache(maxsize=64)
-def _mont_columns(primes: tuple, device: str) -> tuple:
-    """(p, -p^-1 mod 2^32) of each channel as int64 [C, 1, 1] tensors on
-    `device`, made once: a per-call host-to-device copy would stop a CUDA
-    graph capture of the polymul."""
-    def col(vals):
-        return torch.tensor(vals, dtype=torch.int64, device=device).reshape(-1, 1, 1)
-
-    return col(primes), col([mont_neginv(p) for p in primes])
-
-
 def pointwise_mont32(fl, fr, primes: tuple):
     """The stacked polymul's pointwise stage: the bare Montgomery product
-    a·b·2^-32 mod p of each channel, [C, B, n] uint32 canonical operands
-    (< p < 2^30, the forward transforms' outputs) -> [C, B, n] uint32 (a u32
-    representative; the scaled inverse takes any)."""
-    a, b = to_i64(fl), to_i64(fr)
-    pv, nv = _mont_columns(tuple(primes), str(a.device))
-    lo, hi = mulwide_u32(a, b)
-    m = mullo_u32(lo, nv)
-    # REDC carry: lo(a·b) + lo(m·p) is 0 or exactly 2^32 (m·p ≡ -lo mod
-    # 2^32), so (lo != 0) is the exact carry for any operands. The `& MASK32`
-    # drops the u32 overflow of the sum, which needs canonical operands (the
-    # fwd outputs here: a, b < p < 2^30 give a sum < 2p); K1d, whose
-    # operands are any u32, keeps it (its full-range parity test in
-    # tests/test_torch_mxu32.py).
-    return to_u32((hi + mulhi_u32(m, pv) + (lo != 0).to(lo.dtype)) & MASK32)
+    a·b·2^-32 mod p of each channel, [C, B, n] uint32 operands -> [C, B, n]
+    uint32 in K1d's form (`ops/pointwise_cuda.py`): one launch of the kernel
+    for CUDA tensors, its plain twin for CPU ones. The forward transforms'
+    outputs (< p) make it canonical; the scaled inverse takes any
+    representative, so the polymul's bits do not depend on it."""
+    if fl.device.type == "cuda":
+        return pointwise_cuda.mont_mul32(fl, fr, primes)
+    return pointwise_cuda.mont_mul32_plain(fl, fr, primes)
 
 
 def tier32(n: int, p: int, variant: str) -> str:

@@ -445,6 +445,6 @@ def test_plan32_polymul_launches_the_lift_kernels_in_their_spans_on_card(cuda_de
         assert r["parent"] == lift["index"] and r["nbytes"] == nbytes
         assert r["device_ms"] is not None and 0 < r["device_ms"] <= lift["device_ms"]
     root = next(r for r in records if r["parent"] is None)
-    assert root["launches"] == 5  # K1a-W4 x2, K1b, the two lift kernels
+    assert root["launches"] == 6  # K1a-W4 x2, the pointwise product, K1b, the two lift kernels
     want = native128.Plan32.try_new(n, device="cpu").negacyclic_polymul(a, b)
     assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want))

@@ -996,9 +996,10 @@ def test_sharded_paths_on_card(gen, cuda_device, tmp_path, backend, world):
 def test_plan32_polymul_graph_replay_matches_eager(gen, cuda_device):
     """The native64 Plan32 polymul (2^14, 8) captured as a CUDA graph of two
     dependent polymuls (`utils/profiling.capture`) replays to eager's bits,
-    also after its inputs are overwritten in place, with the lift kernel
-    (`ops/crt_cuda.py`, one launch a polymul) inside; `chain_time` times it."""
-    from concrete_ntt_tpu_torch.ops import crt_cuda
+    also after its inputs are overwritten in place, with the pointwise
+    product (`ops/pointwise_cuda.py`) and the lift kernel (`ops/crt_cuda.py`),
+    one launch each a polymul, inside; `chain_time` times it."""
+    from concrete_ntt_tpu_torch.ops import crt_cuda, pointwise_cuda
     from concrete_ntt_tpu_torch.utils import profiling
 
     plan = native64.Plan32.try_new(1 << 14, device="cuda")
@@ -1007,9 +1008,10 @@ def test_plan32_polymul_graph_replay_matches_eager(gen, cuda_device):
     def step(c):
         return (*plan.negacyclic_polymul(c[:2], c[2:]), c[0], c[1])
 
-    before = crt_cuda.LAUNCHES["lift_u64_from5"]
+    before = crt_cuda.LAUNCHES["lift_u64_from5"], pointwise_cuda.LAUNCHES["pointwise_mont32"]
     step(ops)
-    assert crt_cuda.LAUNCHES["lift_u64_from5"] == before + 1
+    assert crt_cuda.LAUNCHES["lift_u64_from5"] == before[0] + 1
+    assert pointwise_cuda.LAUNCHES["pointwise_mont32"] == before[1] + 1
     graph, out = profiling.capture(step, ops, 2)
     for fresh in (False, True):
         if fresh:

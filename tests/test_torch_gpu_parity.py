@@ -111,6 +111,26 @@ def test_ragged_shapes_and_k4_clusters_are_reached():
     assert clusters == {1, 2, 4, 8}
 
 
+def test_pointwise_rows_reach_every_channel_count_the_scalar_instance_and_the_cells():
+    """The pointwise product's rows: C = 5 and 10 at every n, every C from 1
+    to 10 at 2^11, the scalar instance (a misaligned base, a count of 6),
+    and the two cells' shapes; under --quick where their n is in QUICK_N."""
+    rows = [r for r in gp.rows() if r.name.startswith("pointwise mont_mul32 ")]
+    assert {r.n for r in rows} == set(gp.N_SMALL + gp.N_FOURSTEP)
+    names = {r.name for r in rows}
+    for n in gp.N_SMALL + gp.N_FOURSTEP:
+        for c in (5, 10):
+            assert any(f" n={n} " in s and s.endswith(f" C={c}") for s in names), (n, c)
+    assert {int(s.split(" C=")[1].split()[0]) for s in names if " n=2048 " in s} == set(
+        range(1, 11))
+    assert "pointwise mont_mul32 n=16384 B=256 C=5" in names
+    assert "pointwise mont_mul32 n=65536 B=64 C=10" in names
+    assert {r.name for r in rows if r.tiles == "scalar"} == {
+        "pointwise mont_mul32 n=2048 B=3 C=5 offset=1", "pointwise mont_mul32 n=2 B=3 C=5"}
+    quick = {r.n for r in gp.rows(quick=True) if r.name.startswith("pointwise mont_mul32 ")}
+    assert quick == set(gp.QUICK_N)
+
+
 def test_tile_rows_ask_for_every_instance_their_rules_pick():
     """The rows that require tile instances launched: K1c / K1d's shapes take
     all eight (epilogue, code) instances of their passes by `k1_tile`; K3's
@@ -173,12 +193,13 @@ def test_plan_rows_carry_their_routes_launches():
         assert r.launches is not None and set(r.launches) <= keys, r.name
     want = {
         "plan native64.Plan32 polymul n=16384 B=8 route K1":
-            {"fwd_wide_multi": 2, "inv_multi": 1, "lift_u64_from5": 1},
+            {"fwd_wide_multi": 2, "pointwise_mont32": 1, "inv_multi": 1, "lift_u64_from5": 1},
         "plan native128.Plan32 polymul n=65536 B=8 route K1":
-            {"fwd_wide_multi_u128": 2, "inv_multi": 1, "lift_u128_digits": 1,
-             "lift_u128_limbs": 1},
+            {"fwd_wide_multi_u128": 2, "pointwise_mont32": 1, "inv_multi": 1,
+             "lift_u128_digits": 1, "lift_u128_limbs": 1},
         "plan native_binary128.Plan32 polymul n=16384 B=8 route K1":
-            {"fwd_wide_multi_u128": 1, "fwd_wide_multi": 1, "inv_multi": 1},
+            {"fwd_wide_multi_u128": 1, "fwd_wide_multi": 1, "pointwise_mont32": 1,
+             "inv_multi": 1},
         "plan native64.Plan52 round trip n=16384 B=3": {"fwd_multi64": 1, "inv64": 3},
         "plan native32.Plan32 polymul n=1024 B=8 route None":
             {"butterfly32_fwd": 6, "butterfly32_inv": 3},

@@ -24,7 +24,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from concrete_ntt_tpu_torch import native64, native128, prime64
-from concrete_ntt_tpu_torch.ops import butterfly32_cuda, crt_cuda, mxu32_cuda, mxu64_cuda
+from concrete_ntt_tpu_torch.ops import (
+    butterfly32_cuda, crt_cuda, mxu32_cuda, mxu64_cuda, pointwise_cuda)
 from concrete_ntt_tpu_torch.tables import GOLDILOCKS
 from concrete_ntt_tpu_torch.utils import profiling
 
@@ -247,26 +248,28 @@ def test_a_span_that_raises_closes():
 
 def test_launches_come_from_the_registered_counters(monkeypatch):
     counters = (mxu32_cuda.LAUNCHES, mxu64_cuda.LAUNCHES, butterfly32_cuda.LAUNCHES,
-                crt_cuda.LAUNCHES)
+                crt_cuda.LAUNCHES, pointwise_cuda.LAUNCHES)
     for counter in counters:
         assert any(c is counter for c, *_ in profiling._counters.values())
+    keys = {"rec_u64_from5": "lift_u64_from5", "mont_mul32_plain": "pointwise_mont32"}
     for module, name in ((mxu32_cuda, "fwd_wide_multi"), (mxu32_cuda, "inv_multi"),
-                         (crt_cuda, "rec_u64_from5")):
+                         (crt_cuda, "rec_u64_from5"), (pointwise_cuda, "mont_mul32_plain")):
         plain = getattr(module, name)
-        key = "lift_u64_from5" if module is crt_cuda else name
+        key = keys.get(name, name)
 
         def counted(*args, _plain=plain, _module=module, _key=key, **kwargs):
             _module.LAUNCHES[_key] += 1
             return _plain(*args, **kwargs)
         monkeypatch.setattr(module, name, counted)
-    before = {**mxu32_cuda.LAUNCHES, **crt_cuda.LAUNCHES}
+    before = {**mxu32_cuda.LAUNCHES, **crt_cuda.LAUNCHES, **pointwise_cuda.LAUNCHES}
     _, _, records = _traced(_native(2048))
     root, *rest = records
-    assert root["launches"] == 4  # K1a twice, K1b once, the lift once
+    assert root["launches"] == 5  # K1a twice, the product, K1b, the lift
     assert all(r["launches"] is None for r in rest)
     assert mxu32_cuda.LAUNCHES["fwd_wide_multi"] == before["fwd_wide_multi"] + 2
     assert mxu32_cuda.LAUNCHES["inv_multi"] == before["inv_multi"] + 1
     assert crt_cuda.LAUNCHES["lift_u64_from5"] == before["lift_u64_from5"] + 1
+    assert pointwise_cuda.LAUNCHES["pointwise_mont32"] == before["pointwise_mont32"] + 1
 
 
 KERNEL_MODULES = sorted(
@@ -375,9 +378,10 @@ def cuda_device():
 CARD_CASES = {"native64-k1": lambda dev: _native(1 << 14, dev),
               "native128-k1": lambda dev: _native128(1 << 16, dev),
               "prime64-goldilocks": _goldilocks}
-# a root's launches: K1a x2, K1b and native64's lift kernel; K1a-W4 x2 and
-# K1b and the two lift kernels; a K5 fwd or inv, or none
-CARD_LAUNCHES = {"native64-k1": {4}, "native128-k1": {5}, "prime64-goldilocks": {1, 0}}
+# a root's launches: K1a x2, the pointwise product, K1b and native64's lift
+# kernel; K1a-W4 x2, the product, K1b and the two lift kernels; a K5 fwd or
+# inv, or none
+CARD_LAUNCHES = {"native64-k1": {5}, "native128-k1": {6}, "prime64-goldilocks": {1, 0}}
 
 
 @pytest.mark.cuda

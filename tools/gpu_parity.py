@@ -8,7 +8,7 @@ through `ops/ntt_dispatch.route32`, `tier32`, `tier64` and `route64` over
 the regime primes of `regimes()`, and every value those functions return
 appears at every n that returns it (`walk()`; tests/test_torch_gpu_parity.py
 holds the row list to it), with the native64 and native128 Plan32 lift
-kernels at every n.
+kernels and the Plan32 polymul's pointwise product at every n.
 Beside the routes, the ported entry points that no route takes: K1e, K2
 with block tables (K2h) and `engine32_fused`, the 32-bit channel grid with
 block tables and its four hybrids, K5 with the four limbs of a u128 operand
@@ -447,8 +447,9 @@ def route_launches(route: str, k: int) -> dict:
 
 def native_launches(module: str, tier: str, width: int, n: int, primes: tuple) -> tuple:
     """(polymul, fwd, inv) launches of a native plan at n and its routes: the
-    channel grid (K1 / K7 / K7h), else each channel's plan; native64 and
-    native128 Plan32 lift through their lift kernels, every other plan in
+    channel grid (K1 / K7 / K7h; a Plan32 polymul on K1 launches the pointwise
+    product between the forwards and K1b), else each channel's plan; native64
+    and native128 Plan32 lift through their lift kernels, every other plan in
     plain torch."""
     if tier == "Plan52":
         chans = held(n, *(("tier64", p) for p in primes))
@@ -467,8 +468,8 @@ def native_launches(module: str, tier: str, width: int, n: int, primes: tuple) -
     if routes[0][2] == "K1":
         wide = "fwd_wide_multi_u128" if width == 128 else "fwd_wide_multi"
         rhs = "fwd_wide_multi" if module.startswith("native_binary") else wide
-        return (_sum({wide: 1}, {rhs: 1}, {"inv_multi": 1}, lift), {wide: 1},
-                _sum({"inv_multi": 1}, lift), routes)
+        return (_sum({wide: 1}, {rhs: 1}, {"pointwise_mont32": 1}, {"inv_multi": 1}, lift),
+                {wide: 1}, _sum({"inv_multi": 1}, lift), routes)
     chans = held(n, *(("tier32", p) for p in primes))
     fwd, inv = _tiers(chans, 1, 0), _tiers(chans, 0, 1)
     return _sum(fwd, fwd, inv, lift), fwd, _sum(inv, lift), routes + chans
@@ -677,6 +678,43 @@ def lift_rows(n: int) -> list:
             vec = (b * n) % 4 == 0 and off == 0
             out.append(_kernel(f"lift {wrapper} n={n} B={b}" + (f" offset={off}" if off else ""),
                                n, (), make, tiles="vector" if vec else "scalar"))
+    return out
+
+
+#: the cells' pointwise shapes (C, B) at their n: native64-n16384-b256 and
+#: native128-n65536-b64
+POINTWISE_CELLS = {1 << 14: (5, 256), 1 << 16: (10, 64)}
+
+
+def pointwise_rows(n: int) -> list:
+    """The native Plan32 polymul's pointwise product (`ops/pointwise_cuda.py`)
+    on full-range uint32 operands [C, B, n] over the primes the plans take at
+    n: C = 5 and 10 at every n; at 2^11 every other C up to 10 and one word
+    past an aligned base, at n = 2 a count of 6 (the scalar instance); at the
+    main paths' n the plans' batch and the cells' shapes."""
+    from concrete_ntt_tpu_torch.ops import pointwise_cuda
+
+    cases = [(c, _batch(n.bit_length()), 0) for c in (5, 10)]
+    if n == 1 << 11:
+        cases += [(c, 3, 0) for c in (1, 2, 3, 4, 6, 7, 8, 9)] + [(5, 3, 1)]
+    if n == 2:
+        cases += [(5, 3, 0)]
+    if n in MAIN_PATHS:
+        cases += [(MAIN_PATHS[n][0], B_NATIVE, 0), (*POINTWISE_CELLS[n], 0)]
+    out = []
+    for c, b, off in cases:
+        def make(ctx, name, c=c, b=b, off=off):
+            primes = channel_primes(c, n)
+            rng = ctx.rng(name)
+            fl, fr = (torch.from_numpy(rng.integers(0, 1 << 32, off + c * b * n, dtype=np.uint32))
+                      .to(ctx.dev)[off:].view(c, b, n) for _ in range(2))
+            return (lambda: pointwise_cuda.mont_mul32(fl, fr, primes),
+                    lambda: pointwise_cuda.mont_mul32_plain(fl, fr, primes), "mont32_pointwise")
+
+        vec = (b * n) % 4 == 0 and off == 0
+        out.append(_kernel(f"pointwise mont_mul32 n={n} B={b} C={c}"
+                           + (f" offset={off}" if off else ""), n, (), make,
+                           tiles="vector" if vec else "scalar"))
     return out
 
 
@@ -1830,7 +1868,7 @@ def rows(quick: bool = False) -> list:
             if n == 1 << 16:
                 out += k3_rows(n, ((8, 2, 5, 4), (1, 2, 5, 4))) + k2h_forced_rows(n)
             out += route_rows(n)
-        out += k4_rows(n) + lift_rows(n)
+        out += k4_rows(n) + lift_rows(n) + pointwise_rows(n)
         for spec in NATIVE:
             out += [row for row in (native_row(n, *spec), native_round_row(n, *spec)) if row]
         for i, (rname, p) in enumerate((*r["r32"].items(), ("small", r["small"]))):

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Time the native Plan32 lift kernels (`ops/crt_cuda.py`: native64's
-`csrc/crt_lift.cu`, native128's two launches in `csrc/crt_lift128.cu`) on the
-card beside their plain twins, the int64 chains of `ops/crt.py`.
+`csrc/crt_lift.cu`, native128's two launches in `csrc/crt_lift128.cu`) and the
+Plan32 polymul's pointwise product (`ops/pointwise_cuda.py`,
+`csrc/mont32_pointwise.cu`) on the card beside their plain twins, the int64
+chains of `ops/crt.py` and `ops/u32.py` mont_mul.
 
 At each (B, n) of --shapes (native64 by default: the north-star cell's
 (256, 2^14) and the smoke run's (8, 2^14); native128: the cell's (64, 2^16),
-(8, 2^16) and (16, 2^17)), on canonical residues from a fixed seed: the
-kernels checked against their plain twin bit for bit, then
+(8, 2^16) and (16, 2^17); the product over native64's five channels or
+native128's ten at the same shapes), on canonical residues (the lifts) or
+full-range words (the product) from a fixed seed: the kernels checked
+against their plain twin bit for bit, then
   * device ms: each kernel launch of a call, and the plain twin's
     operations summed (one torch.profiler session, median of --reps calls,
     `utils/profiling.device_times`);
@@ -15,11 +19,13 @@ kernels checked against their plain twin bit for bit, then
   * the bound of each launch: its bytes at 3.35 TB/s (native64: 28 a
     coefficient, five u32 residues read and two u32 limbs written;
     native128's digits: 80, ten u32 residues read and five u64 digits
-    written; its limbs: 56, the digits read and four u32 limbs written),
-    and the launch's device share of it.
+    written; its limbs: 56, the digits read and four u32 limbs written;
+    the product: 12 a coefficient and channel, two u32 operands read and
+    one u32 written), and the launch's device share of it.
 One line a shape, the card's name and power limit first, a JSON line last.
 
-Usage: python3 tools/time_lift.py [--lift u64|u128] [--shapes 256:14 8:14] [--reps 20]
+Usage: python3 tools/time_lift.py [--lift u64|u128|mont32|mont32x10] [--shapes 256:14 8:14]
+       [--reps 20]
 """
 
 from __future__ import annotations
@@ -54,12 +60,15 @@ def event_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-# the lifts: channels, wrapper and twin names in ops/crt_cuda.py, each
-# launch's kernel name and bytes a coefficient, default shapes (B:log2 n)
+# the kernels: channels, wrapper and twin names in ops/crt_cuda.py (the
+# lifts) or ops/pointwise_cuda.py (the product), each launch's kernel name and
+# bytes a coefficient, default shapes (B:log2 n)
 LIFTS = {
     "u64": (5, "rec_u64_from5", (("lift_u64_from5", 28),), ["256:14", "8:14"]),
     "u128": (10, "rec_u128_from10", (("lift_u128_digits", 80), ("lift_u128_limbs", 56)),
              ["64:16", "8:16", "16:17"]),
+    "mont32": (5, "mont_mul32", (("mont32_pointwise", 60),), ["256:14", "8:14"]),
+    "mont32x10": (10, "mont_mul32", (("mont32_pointwise", 120),), ["64:16", "8:16", "16:17"]),
 }
 
 
@@ -72,12 +81,18 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("time_lift: needs a CUDA GPU", file=sys.stderr)
         return 2
-    from concrete_ntt_tpu_torch.ops import crt_cuda
+    from concrete_ntt_tpu_torch.ops import crt_cuda, pointwise_cuda
     from concrete_ntt_tpu_torch.tables import native_channel_primes
     from concrete_ntt_tpu_torch.utils.profiling import HBM_BYTES_PER_S, device_times
 
     channels, wrapper, launches, shapes = LIFTS[args.lift]
-    lift, plain = getattr(crt_cuda, wrapper), getattr(crt_cuda, wrapper + "_plain")
+    module = pointwise_cuda if args.lift.startswith("mont32") else crt_cuda
+    kern, twin = getattr(module, wrapper), getattr(module, wrapper + "_plain")
+    if module is crt_cuda:
+        lift, plain = kern, twin
+    else:  # the product's operands come as one pair
+        lift = lambda ops, primes: kern(*ops, primes)
+        plain = lambda ops, primes: twin(*ops, primes)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
                           "-i", "0"], capture_output=True, text=True).stdout.strip()
     print(f"# {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch {torch.__version__}",
@@ -89,11 +104,18 @@ def main(argv=None) -> int:
         b, log2n = (int(v) for v in spec.split(":"))
         n = 1 << log2n
         primes = native_channel_primes(channels, n)
-        res = torch.stack([torch.randint(0, p, (b, n), generator=gen, device=dev,
-                                         dtype=torch.int64) for p in primes]).to(torch.int32)
-        res = res.view(torch.uint32)
+        if module is crt_cuda:
+            res = torch.stack([torch.randint(0, p, (b, n), generator=gen, device=dev,
+                                             dtype=torch.int64) for p in primes]).to(torch.int32)
+            res = res.view(torch.uint32)
+        else:
+            res = tuple(torch.randint(-(1 << 31), 1 << 31, (channels, b, n), generator=gen,
+                                      device=dev, dtype=torch.int32).view(torch.uint32)
+                        for _ in range(2))
         got, want = lift(res, primes), plain(res, primes)
         torch.cuda.synchronize()
+        if module is pointwise_cuda:
+            got, want = (got,), (want,)
         if not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
                    for g, w in zip(got, want)):
             print(f"FAIL {wrapper} [{b}, {n}] differs from its plain twin", flush=True)
