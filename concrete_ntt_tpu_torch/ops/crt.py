@@ -350,16 +350,24 @@ def rec_from2_p50_u64(mods, primes):
 
 def rec_from3_p50_u64(mods, primes):
     """3×u64 residues (50-bit primes, limb pairs) → wrapping u64 limb pair
-    (reconstruct_52bit_012, native64.rs:770-829)."""
+    (reconstruct_52bit_012, native64.rs:770-829). Two stage spans:
+    `ntt.lift_digits` (the Garner digits v1 mod p1 and v2 mod p2, the
+    partial sum, the sign) and `ntt.lift_limbs` (v0 + v1·p0 + v2·(p0·p1)
+    mod 2^64, the subtraction of P, the sign select)."""
     p0, p1, p2 = primes
     m0, m1, m2 = mods
     v0 = m0
-    v1 = _mul_mod64(_sub_mod64_lazy(m1, v0, p1), pow(p0 % p1, p1 - 2, p1), p1)
-    partial = add64(v0, _mul_mod64(v1, p0 % p2, p2))
-    v2 = _mul_mod64(_sub_mod64_lazy(m2, partial, p2), pow((p0 * p1) % p2, p2 - 2, p2), p2)
-    sign = geq64(v2, const64_like(p2 // 2 + 1))
-    mask64 = (1 << 64) - 1
-    pos = add64(v0, add64(mullo64(v1, const64_like(p0)),
-                          mullo64(v2, const64_like((p0 * p1) & mask64))))
-    neg = sub64(pos, const64_like((p0 * p1 * p2) & mask64))
-    return select64(sign, neg, pos)
+    with span("ntt.lift_digits", "lift_digits") as sp:
+        v1 = _mul_mod64(_sub_mod64_lazy(m1, v0, p1), pow(p0 % p1, p1 - 2, p1), p1)
+        partial = add64(v0, _mul_mod64(v1, p0 % p2, p2))
+        v2 = _mul_mod64(_sub_mod64_lazy(m2, partial, p2), pow((p0 * p1) % p2, p2 - 2, p2), p2)
+        sign = geq64(v2, const64_like(p2 // 2 + 1))
+        sp.io(mods, (v1, v2), sign)
+    with span("ntt.lift_limbs", "lift_limbs") as sp:
+        mask64 = (1 << 64) - 1
+        pos = add64(v0, add64(mullo64(v1, const64_like(p0)),
+                              mullo64(v2, const64_like((p0 * p1) & mask64))))
+        neg = sub64(pos, const64_like((p0 * p1 * p2) & mask64))
+        out = select64(sign, neg, pos)
+        sp.io((v0, v1, v2), sign, out)
+    return out

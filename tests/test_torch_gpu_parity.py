@@ -226,6 +226,38 @@ def test_plan_rows_carry_their_routes_launches():
         assert rows[name].launches == launches, name
 
 
+def test_the_plan52_cell_row_launches_both_routes():
+    """native64 Plan52 at the shape of the cell native64-plan52-n16384-b256,
+    in full and under --quick: K7a x2 and K7d, and native64 Plan32's five
+    launches for the comparison of every row."""
+    for quick in (False, True):
+        (row,) = [r for r in gp.rows(quick) if r.name.endswith("(the cell's shape)")]
+        assert row.name == "plan native64.Plan52 polymul n=16384 B=256 route K7 (the cell's shape)"
+        assert row.launches == {"fwd_multi64": 2, "pointwise_inv_multi64": 1,
+                                "fwd_wide_multi": 2, "pointwise_mont32": 1, "inv_multi": 1,
+                                "lift_u64_from5": 1}
+        assert [v for _, _, v in row.routes] == ["K7", "K5", "K5", "K5", "K1"]
+
+
+@pytest.mark.parametrize("quick", [True, False], ids=["quick", "full"])
+def test_the_plan52_cell_row_catches_a_wrong_word(quick, monkeypatch):
+    """The row's check at a small shape on the CPU: a sound run passes; one
+    word of one row flipped in Plan52's output fails."""
+    from concrete_ntt_tpu_torch import native64
+
+    ctx = gp.Ctx("cpu", quick, gp.SEED)
+    assert "all 3 rows == native64.Plan32" in gp.check_row(ctx, gp.plan52_cell_row(2048, 3))
+    sound = native64.Plan52.negacyclic_polymul
+
+    def flipped(self, lhs, rhs, rhs_binary=False):
+        out = sound(self, lhs, rhs, rhs_binary)
+        out[1].view(-1)[2 * 2048 + 7] ^= 1
+        return out
+    monkeypatch.setattr(native64.Plan52, "negacyclic_polymul", flipped)
+    with pytest.raises(gp.Mismatch, match=r"rows \[2\] differ from native64.Plan32"):
+        gp.check_row(ctx, gp.plan52_cell_row(2048, 3))
+
+
 def test_rows_hold_the_dispatcher_to_the_written_routes():
     """Every plan, route and fixture row names the routes it expects, from
     the gate's own table, and the dispatcher returns each of them; the

@@ -3,9 +3,9 @@
 Outside a profiler session a span is one shared object that does nothing: no
 record, no CUDA event, no profiler call, no allocation. Inside one, the
 plans' calls record their stage trees (marshal, transform, pointwise, lift;
-inside native128's lift its Garner digits and its limb arithmetic) in the
-order the work runs, with parents and roots, each name on the profiler's
-timeline, the same outputs as with tracing off, a bounded buffer, and each
+inside native128's and native64 Plan52's lifts their Garner digits and their
+limb arithmetic) in the order the work runs, with parents and roots, each
+name on the profiler's timeline, the same outputs as with tracing off, a bounded buffer, and each
 top-level call's kernel launches from the registered counters. The card tests (marked `cuda`) read each stage's device time.
 
 The file imports only the port (no JAX), so its card tests run on a GPU
@@ -59,6 +59,20 @@ def _native128(n: int, device="cpu"):
     return lambda: plan.negacyclic_polymul(lhs, rhs)
 
 
+def _plan52(n: int, device="cpu", inv: bool = False):
+    """A native64 Plan52 polymul of B = 2 planar operands (K7a x2, K7d and
+    the 50-bit Garner lift, `ops/crt.py::rec_from3_p50_u64`, with its two
+    stage spans); with `inv`, the plan's inverse of their forward (made
+    before the call)."""
+    plan = native64.Plan52.try_new(n, device=device)
+    lhs = tuple(_u32(15 + i, (2, n)).to(device) for i in range(2))
+    rhs = tuple(_u32(17 + i, (2, n)).to(device) for i in range(2))
+    if inv:
+        ntt = plan.fwd(lhs)
+        return lambda: plan.inv(ntt)
+    return lambda: plan.negacyclic_polymul(lhs, rhs)
+
+
 def _below_goldilocks(seed: int, shape) -> torch.Tensor:
     """u64 limb pairs [..., 2] of values below 2^64 - 2^32 + 1."""
     rng = np.random.default_rng(seed)
@@ -97,6 +111,13 @@ TREES = {
     "native128-k1": (lambda: _native128(2048), [
         (0, "ntt.native128.negacyclic_polymul"), (1, MARSHAL), (1, TRANSFORM),
         (1, TRANSFORM), (1, POINTWISE), (1, TRANSFORM),
+        (1, LIFT), (2, LIFT_DIGITS), (2, LIFT_LIMBS), (1, MARSHAL)]),
+    "native64-plan52-k7": (lambda: _plan52(2048), [
+        (0, "ntt.native64.negacyclic_polymul"), (1, MARSHAL), (1, TRANSFORM),
+        (1, TRANSFORM), (1, TRANSFORM), (1, LIFT), (2, LIFT_DIGITS), (2, LIFT_LIMBS),
+        (1, MARSHAL)]),
+    "native64-plan52-inv": (lambda: _plan52(2048, inv=True), [
+        (0, "ntt.native64.inv"), (1, MARSHAL), (1, TRANSFORM), *[(2, TRANSFORM)] * 3,
         (1, LIFT), (2, LIFT_DIGITS), (2, LIFT_LIMBS), (1, MARSHAL)]),
     "prime64-goldilocks": (_goldilocks, [
         (0, "ntt.prime64.fwd"), *[(1, s) for s in _STAGED],
@@ -212,6 +233,23 @@ def test_u128_lift_spans_hold_their_logical_bytes():
     assert digits["nbytes"] == 10 * bn * 8 + 5 * 2 * bn * 8 + bn
     assert limbs["nbytes"] == 5 * 2 * bn * 8 + bn + 4 * bn * 8
     assert lift["nbytes"] == 10 * bn * 4 + 4 * bn * 4  # residues in; four u32 planes out
+
+
+@pytest.mark.parametrize("inv", [False, True], ids=["polymul", "inv"])
+def test_plan52_lift_spans_hold_their_logical_bytes(inv):
+    """Inside `ntt.lift`, once each: the digits span counts the three int64
+    residue pairs in, the digits v1 and v2 (limb pairs) and the bool sign
+    out; the limbs span v0, v1, v2 and the sign in, the int64 pair out."""
+    _, _, records = _traced(_plan52(64, inv=inv))
+    lift, = (r for r in records if r["name"] == LIFT)
+    digits, = (r for r in records if r["name"] == LIFT_DIGITS)
+    limbs, = (r for r in records if r["name"] == LIFT_LIMBS)
+    assert digits["parent"] == limbs["parent"] == lift["index"]
+    assert (digits["stage"], limbs["stage"]) == ("lift_digits", "lift_limbs")
+    bn = 2 * 64
+    assert digits["nbytes"] == 3 * 2 * bn * 8 + 2 * 2 * bn * 8 + bn
+    assert limbs["nbytes"] == 3 * 2 * bn * 8 + bn + 2 * bn * 8
+    assert lift["nbytes"] == 2 * 3 * bn * 4 + 2 * bn * 4  # residue pairs in; (lo, hi) out
 
 
 def test_u128_lift_records_nothing_with_tracing_off(monkeypatch):
@@ -377,11 +415,13 @@ def cuda_device():
 
 CARD_CASES = {"native64-k1": lambda dev: _native(1 << 14, dev),
               "native128-k1": lambda dev: _native128(1 << 16, dev),
+              "native64-plan52-k7": lambda dev: _plan52(1 << 14, dev),
               "prime64-goldilocks": _goldilocks}
 # a root's launches: K1a x2, the pointwise product, K1b and native64's lift
-# kernel; K1a-W4 x2, the product, K1b and the two lift kernels; a K5 fwd or
-# inv, or none
-CARD_LAUNCHES = {"native64-k1": {5}, "native128-k1": {6}, "prime64-goldilocks": {1, 0}}
+# kernel; K1a-W4 x2, the product, K1b and the two lift kernels; K7a x2 and
+# K7d (Plan52's lift launches nothing); a K5 fwd or inv, or none
+CARD_LAUNCHES = {"native64-k1": {5}, "native128-k1": {6}, "native64-plan52-k7": {3},
+                 "prime64-goldilocks": {1, 0}}
 
 
 @pytest.mark.cuda

@@ -43,6 +43,10 @@ Each row is one check, printed as one PASS / FAIL line:
     plan's Bounded forwards, `mul_accumulate` and Accumulate inverse
     against the exact sum (sampled coefficients; under --quick on the card
     also every row against the CPU);
+  * native64 Plan52 also at the shape of the benchmark cell
+    native64-plan52-n16384-b256 (n = 2^14, B = 256, planar operands): the
+    first row against the exact product, every row against native64
+    Plan32 on the same operands;
   * a route row drives the dispatcher's channel functions
     (`try_fwd*_wide_all`, `try_pointwise_inv*_all`) on prime sets no plan
     holds and checks each channel's residues against the same oracle;
@@ -1481,6 +1485,51 @@ def native_row(n: int, module: str, tier: str, width: int, c: int) -> Row | None
                n=n, covers=((fn, value),), run=run, launches=launches, routes=routes)
 
 
+#: (n, B) of the cell native64-plan52-n16384-b256's polymul
+PLAN52_CELL = (1 << 14, 256)
+
+
+def _planar64(x: np.ndarray, device) -> tuple:
+    """uint64 numpy [B, n] -> the (lo, hi) uint32 planes on `device`."""
+    return tuple(torch.from_numpy(np.ascontiguousarray((x >> s).astype(np.uint32))).to(device)
+                 for s in (np.uint64(0), np.uint64(32)))
+
+
+def plan52_cell_row(n: int, b: int) -> Row:
+    """native64 Plan52's polymul at the benchmark cell's shape, on planar
+    full-range operands on the plan's device: the first row against the
+    exact product, every row against native64 Plan32 on the same operands
+    (another route, other primes, another lift; its own rows hold it to the
+    oracle)."""
+    from concrete_ntt_tpu_torch import native64
+    from concrete_ntt_tpu_torch.tables import PRIMES52
+
+    launches52, _, _, routes52 = native_launches("native64", "Plan52", 64, n, tuple(PRIMES52[:3]))
+    launches32, _, _, routes32 = native_launches("native64", "Plan32", 64, n, channel_primes(5, n))
+    fn, _, value = routes52[0]
+
+    def run(ctx, name):
+        rng = ctx.rng(name)
+        a1, b1 = ctx.first_rows(n, "u64", "u64")
+        lhs, rhs = (_planar64(np.array(_operand(rng, first, b, 1 << 64), dtype=np.uint64), ctx.dev)
+                    for first in (a1, b1))
+        dev = str(ctx.dev)
+        got = native64.Plan52.try_new(n, device=dev).negacyclic_polymul(lhs, rhs)
+        want = native64.Plan32.try_new(n, device=dev).negacyclic_polymul(lhs, rhs)
+        lo, hi = (t[0].cpu().numpy().astype(np.uint64) for t in got)
+        check_first_row(ctx, (hi << np.uint64(32) | lo).tolist(), n, "u64", "u64",
+                        lambda k, v: v & ((1 << 64) - 1))
+        if not same_bits(got, want):
+            bad = sorted({int(i) for g, w in zip(got, want)
+                          for i in (g.view(torch.int32) != w.view(torch.int32)).any(1).nonzero()})
+            raise Mismatch(f"rows {bad[:8]} differ from native64.Plan32's")
+        return f"first row vs the exact product, all {b} rows == native64.Plan32"
+
+    return Row(name=f"plan native64.Plan52 polymul n={n} B={b} route {value} (the cell's shape)",
+               kind="plan", n=n, covers=((fn, value),), run=run,
+               launches=_sum(launches52, launches32), routes=routes52 + routes32)
+
+
 def native_round_row(n: int, module: str, tier: str, width: int, c: int) -> Row | None:
     """inv(fwd(x)) of a native plan at n against n·x, wrapping (the plans'
     unnormalized inverse), where the plan exists."""
@@ -1871,6 +1920,8 @@ def rows(quick: bool = False) -> list:
         out += k4_rows(n) + lift_rows(n) + pointwise_rows(n)
         for spec in NATIVE:
             out += [row for row in (native_row(n, *spec), native_round_row(n, *spec)) if row]
+        if n == PLAN52_CELL[0]:
+            out.append(plan52_cell_row(*PLAN52_CELL))
         for i, (rname, p) in enumerate((*r["r32"].items(), ("small", r["small"]))):
             out += [prime32_row(n, rname, p, _batch(i)), prime_round_row(n, 32, rname, p)]
         for i, (rname, p) in enumerate(r["r64"].items()):
